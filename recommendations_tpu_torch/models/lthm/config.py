@@ -1,0 +1,229 @@
+"""LTHM model config as dataclasses.
+
+Port of ``recommendations_tpu/models/lthm/config.py``: the same field names
+and defaults, and ``from_dict`` takes the same nested dict the JAX config
+takes. ``features`` stays an untyped dict here.
+"""
+
+from __future__ import annotations
+
+import typing
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Tuple
+
+TABLE_OPT_SPARSE_FUSED_MIN_ROWS = 2_000_000
+TABLE_OPTIMIZERS = (
+    "auto", "rowwise_adam", "lazy_rowwise_adam", "sparse_fused_adam", "adamw", "frozen",
+)
+
+
+def _coerce(hint, value):
+    """pydantic's scalar coercion, which the JAX config gets for free: YAML
+    reads ``1e-4`` as a string."""
+    if hint is float and isinstance(value, (str, int)) and not isinstance(value, bool):
+        return float(value)
+    if hint is int and isinstance(value, str):
+        return int(value)
+    return value
+
+
+def _build(cls, value):
+    """A dataclass from a dict (nested dataclass fields already built), or
+    the value itself when it is already one. Unknown fields are an error."""
+    if value is None or isinstance(value, cls):
+        return value
+    if not isinstance(value, dict):
+        raise TypeError(f"{cls.__name__} expects a dict, got {type(value).__name__}")
+    hints = typing.get_type_hints(cls)
+    unknown = set(value) - set(hints)
+    if unknown:
+        raise TypeError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
+    return cls(**{k: _coerce(hints[k], v) for k, v in value.items()})
+
+
+@dataclass
+class CosineLSHSpec:
+    num_bins: int
+    num_proj: int
+
+
+@dataclass
+class LatentModelConfig:
+    vocab_size_latent: int = 2**20
+    num_shifts_latent: int = 8
+    normalize_embedding: bool = False
+
+
+@dataclass
+class ProductTowerConfig:
+    inp_emb_dim: int = 32
+    out_emb_dim: int = 512
+    product_emb_dim: int = 128
+    item_emb_dim: Optional[int] = None
+    detach_item_tower: bool = True
+    norm_threshold: float = 0.05
+    norm_bins: int = 20
+    cosine_lsh_config: List[CosineLSHSpec] = field(default_factory=list)
+    model_init_metadata: Optional[Any] = None
+    latent_model_config: LatentModelConfig = field(default_factory=LatentModelConfig)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ProductTowerConfig":
+        d = dict(d)
+        # the reference YAML calls it item_emb_dim; code reads product_emb_dim
+        if d.get("item_emb_dim") is not None and "product_emb_dim" not in d:
+            d["product_emb_dim"] = d["item_emb_dim"]
+        # "???" is hydra's missing-value sentinel
+        if d.get("model_init_metadata") in ("???", {}, ""):
+            d["model_init_metadata"] = None
+        d["cosine_lsh_config"] = [_build(CosineLSHSpec, s) for s in d.get("cosine_lsh_config", [])]
+        if "latent_model_config" in d:
+            d["latent_model_config"] = _build(LatentModelConfig, d["latent_model_config"])
+        return _build(cls, d)
+
+
+@dataclass
+class LogQConfig:
+    num_buckets: int = 2**24
+    hash_offsets: List[int] = field(default_factory=lambda: [0])
+    alpha: float = 0.05
+    p_init: float = 0.01
+    beta: float = 0.0
+
+
+@dataclass
+class PositionBiasConfig:
+    context_window: int
+
+
+@dataclass
+class SelfAttentionConfig:
+    attn_dropout: float = 0.1
+    bias: bool = True
+    dropout: float = 0.1
+    n_head: int = 12
+    n_embd: int = 768
+    pos_bias: Optional[PositionBiasConfig] = None
+    attn_type: str = "multi_head"  # 'multi_head' | 'multi_query'
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SelfAttentionConfig":
+        d = dict(d)
+        d["pos_bias"] = _build(PositionBiasConfig, d.get("pos_bias"))
+        return _build(cls, d)
+
+
+@dataclass
+class TransformerConfig:
+    rotator_config: Any  # {'ff_mult': f} | float | an MoE spec dict
+    attn_config: SelfAttentionConfig
+    is_causal: bool = False
+    max_block_size: Optional[int] = None
+    is_sparse_attn: bool = False
+    sparsity_factor: float = 0.5
+    enable_gradient_checkpointing: bool = False
+    remat_policy: str = "dots_no_batch"
+    use_flash_attention: bool = False
+    sequence_parallel: bool = False
+    dropout: float = 0.0
+    num_layers: int = 2
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TransformerConfig":
+        d = dict(d)
+        d["attn_config"] = SelfAttentionConfig.from_dict(d["attn_config"])
+        return _build(cls, d)
+
+    def rotator(self) -> float:
+        """The MLP hidden multiplier; the MoE rotator is not ported yet."""
+        rc = self.rotator_config
+        if isinstance(rc, (int, float)):
+            return float(rc)
+        if isinstance(rc, dict):
+            if "ff_mult" in rc:
+                return float(rc["ff_mult"])
+            if "num_experts" in rc.get("moe", rc):
+                raise NotImplementedError(
+                    "MoE rotator (MoELinear): ROADMAP, port queue 'Attention and transformer'"
+                )
+        return 4.0
+
+
+@dataclass
+class LTHMModelConfig:
+    transformer_config: TransformerConfig
+    features: dict = field(default_factory=dict)
+    kind: str = "lthm"
+    type: str = "lthm_seq"
+    name: str = "lthm"
+    version: str = "v1"
+    tasks: Optional[list] = None
+    sparse: bool = False
+    loss_type: str = "contrastive"
+    log_q_config: LogQConfig = field(default_factory=LogQConfig)
+    n_labels: int = 5
+    lookahead: List[int] = field(default_factory=lambda: [0, 5, 6, 12, 24, 30])
+    detach_input_for_loss_calc: bool = False
+    softmax_temperature: float = 0.05
+    metrics_k_all: List[int] = field(default_factory=lambda: [1, 5, 20, 50])
+    context_width: int = 150
+    lr: float = 6e-4
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.95)
+    train_mini_batch_size: int = -1
+    min_history_size: int = 1
+    product_tower: ProductTowerConfig = field(default_factory=ProductTowerConfig)
+    use_only_updated_data: bool = False
+    knn_eval: bool = False
+    compute_dtype: str = "bfloat16"
+    shard_embedding_rows: bool = False
+    embedding_lookup_schedule: str = "alltoall"
+    table_optimizer: str = "auto"
+    fused_ce: bool = False
+
+    def __post_init__(self):
+        if self.table_optimizer not in TABLE_OPTIMIZERS:
+            raise ValueError(f"table_optimizer {self.table_optimizer!r} not in {TABLE_OPTIMIZERS}")
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r} not in ('bfloat16', 'float32')")
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LTHMModelConfig":
+        d = dict(d)
+        d["transformer_config"] = TransformerConfig.from_dict(d["transformer_config"])
+        if "product_tower" in d:
+            d["product_tower"] = ProductTowerConfig.from_dict(d["product_tower"])
+        if "log_q_config" in d:
+            d["log_q_config"] = _build(LogQConfig, d["log_q_config"])
+        if "betas" in d:
+            d["betas"] = tuple(d["betas"])
+        return _build(cls, d)
+
+    @property
+    def emb_dim(self) -> int:
+        return self.transformer_config.attn_config.n_embd
+
+    @property
+    def export_tokens(self) -> int:
+        return len(self.lookahead)
+
+    def resolved_table_optimizer(self) -> str:
+        """'auto' resolved as the JAX package resolves it."""
+        t = self.table_optimizer
+        if t != "auto":
+            return t
+        pt = self.product_tower
+        if pt.detach_item_tower or pt.model_init_metadata is not None:
+            return "frozen"
+        if self.shard_embedding_rows:
+            return "rowwise_adam"
+        if pt.latent_model_config.vocab_size_latent >= TABLE_OPT_SPARSE_FUSED_MIN_ROWS:
+            return "sparse_fused_adam"
+        return "rowwise_adam"
+
+    def uses_fused_table(self) -> bool:
+        return (
+            self.resolved_table_optimizer() == "sparse_fused_adam"
+            and self.product_tower.model_init_metadata is None
+            and not self.shard_embedding_rows
+        )

@@ -1,0 +1,209 @@
+"""LTHM network: KShift product embedding -> ProductTower -> QueryTower.
+
+Port of ``recommendations_tpu/models/lthm/model.py`` with the fresh-table
+branch only. The dtypes follow the JAX package step by step: parameters are
+float32, matmuls run in ``compute_dtype``, and the residual stream is
+float32 from the position embedding on (a flax ``nn.Embed`` with no dtype
+returns float32, and each block adds its compute-dtype outputs to it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+from recommendations_tpu_torch.nn.attention import Dense
+from recommendations_tpu_torch.nn.embeddings import (
+    FlatEmbedding,
+    HistogramEmbedding,
+    KShiftEmbedding,
+    PatternFromTimelocal,
+    init_param,
+)
+from recommendations_tpu_torch.nn.functional import l2_normalize
+from recommendations_tpu_torch.nn.lsh import CosineVectorEmbedding
+from recommendations_tpu_torch.nn.transformer import TransformerStack
+
+
+def compute_dtype(cfg: LTHMModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+class ProductTower(nn.Module):
+    """Product embedding -> LSH direction + norm-histogram features, masked
+    rows zeroed, projected to the retrieval space."""
+
+    def __init__(self, cfg: LTHMModelConfig, generator: torch.Generator):
+        super().__init__()
+        tc = cfg.product_tower
+        self.tc = tc
+        self.dtype = compute_dtype(cfg)
+        self.emb_mapper = Dense(tc.inp_emb_dim, tc.out_emb_dim, generator, dtype=self.dtype)
+        for i, spec in enumerate(tc.cosine_lsh_config):
+            self.add_module(
+                f"direction_emb_{i}",
+                CosineVectorEmbedding(
+                    tc.inp_emb_dim, tc.out_emb_dim, generator,
+                    n_proj=spec.num_proj, num_bins=spec.num_bins,
+                ),
+            )
+        if tc.norm_bins > 1:
+            self.norm_emb = HistogramEmbedding(
+                0.0, 1.0, tc.norm_bins, tc.out_emb_dim, generator, compute_dtype=self.dtype
+            )
+        self.product_mapper = Dense(
+            tc.out_emb_dim, tc.product_emb_dim, generator, use_bias=False, dtype=self.dtype
+        )
+
+    def forward(self, ids: torch.Tensor, x: torch.Tensor):
+        tc = self.tc
+        x = x.float()
+        x_norm = torch.sqrt(torch.sum(x * x, dim=-1))
+        mask = (x_norm < tc.norm_threshold) | (ids == 0)
+        xn = l2_normalize(x)
+        emb = self.emb_mapper(xn.to(self.dtype)).float()
+        for i in range(len(tc.cosine_lsh_config)):
+            emb = emb + getattr(self, f"direction_emb_{i}")(xn)
+        if tc.norm_bins > 1:
+            emb = emb + self.norm_emb(x_norm)
+        emb = torch.where(mask[..., None], 0.0, emb)
+        prod_emb = self.product_mapper(emb.to(self.dtype)).float()
+        return emb, prod_emb, mask
+
+
+class PositionEmbedding(nn.Module):
+    """flax ``nn.Embed`` with no dtype: float32 rows, init variance 1/features."""
+
+    def __init__(self, num: int, features: int, generator: torch.Generator):
+        super().__init__()
+        self.embedding = init_param((num, features), 1.0 / math.sqrt(features), generator)
+
+    def forward(self, pos: torch.Tensor) -> torch.Tensor:
+        return self.embedding[pos]
+
+
+class QueryTower(nn.Module):
+    """Causal transformer over the left-padded interaction sequence, with one
+    linear head per lookahead horizon."""
+
+    def __init__(self, cfg: LTHMModelConfig, generator: torch.Generator):
+        super().__init__()
+        tcfg, acfg = cfg.transformer_config, cfg.transformer_config.attn_config
+        if tcfg.sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel (ring attention): ROADMAP, port queue 'Multi-device'"
+            )
+        self.cfg = cfg
+        d = cfg.emb_dim
+        dt = self.dtype = compute_dtype(cfg)
+        self.action_embedding = FlatEmbedding(4, d, generator, compute_dtype=dt)
+        self.time_hod = PatternFromTimelocal(3600, 24, d, generator, compute_dtype=dt)
+        self.time_how = PatternFromTimelocal(3600, 24 * 7, d, generator, compute_dtype=dt)
+        self.time_dow = PatternFromTimelocal(86400, 7, d, generator, compute_dtype=dt)
+        self.inp_proj = Dense(cfg.product_tower.out_emb_dim, d, generator, dtype=dt)
+        self.pad = init_param((1, 1, d), 1.0 / math.sqrt(d), generator)
+        self.wpe = PositionEmbedding(cfg.context_width + 1, d, generator)
+        self.transformer = TransformerStack(
+            tcfg.num_layers, d, acfg.n_head, generator,
+            remat=tcfg.enable_gradient_checkpointing,
+            attn_type=acfg.attn_type,
+            is_causal=tcfg.is_causal,
+            use_bias=acfg.bias,
+            pos_bias_window=acfg.pos_bias.context_window if acfg.pos_bias else None,
+            rotator=tcfg.rotator(),
+            is_sparse_attn=tcfg.is_sparse_attn,
+            use_flash=tcfg.use_flash_attention,
+            dtype=dt,
+        )
+        self.outcome_conditioning = FlatEmbedding(4, d, generator, compute_dtype=dt)
+        self.emb_heads = Dense(
+            d, cfg.export_tokens * cfg.product_tower.product_emb_dim, generator,
+            use_bias=False, dtype=dt,
+        )
+
+    def forward(self, inp, target, mask, labels, timestamp, ids) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        bsz, orig_s = mask.shape
+        cw = min(cfg.context_width, orig_s)
+        inp, target, mask, ids = inp[:, -cw:], target[:, -cw:], mask[:, -cw:], ids[:, -cw:]
+        labels = labels[:, -cw:].to(torch.int64)
+        timestamp = timestamp[:, -cw:].to(torch.int64)
+
+        x = (
+            self.inp_proj(inp.to(self.dtype))
+            + self.action_embedding(labels)
+            + self.time_hod(timestamp)
+            + self.time_how(timestamp)
+            + self.time_dow(timestamp)
+        ).to(self.dtype)
+        x = torch.where(mask[..., None], self.pad.to(x.dtype), x)
+
+        # CLS column + reverse positions (most recent event = position 0)
+        x = torch.cat([x.new_zeros((bsz, 1, x.shape[-1])), x], dim=1)
+        pos = cw - torch.arange(cw + 1, device=x.device)
+        x = x + self.wpe(pos)[None]  # float32 from here on
+
+        x = self.transformer(x)
+
+        # outcome conditioning over (labels ++ future outcome 0), (B, S+1)
+        outcomes = torch.cat([labels, labels.new_zeros((bsz, 1))], dim=-1)
+        x = x + self.outcome_conditioning(outcomes)
+
+        d_prod = cfg.product_tower.product_emb_dim
+        y = self.emb_heads(x.to(self.dtype)).float()
+        y = y.reshape(bsz, y.shape[1], cfg.export_tokens, d_prod)
+        return {
+            "current_token_emb": target,
+            "next_token_emb": y,
+            "current_token_mask": mask,
+            "current_token_ids": ids,
+        }
+
+
+class LTHMEncoder(nn.Module):
+    """Full LTHM forward with a fresh KShift product-embedding table."""
+
+    def __init__(
+        self,
+        cfg: LTHMModelConfig,
+        generator: torch.Generator,
+        ids_key: str = "product_ids",
+        labels_key: str = "labels",
+        timestamp_key: str = "timestamps",
+    ):
+        super().__init__()
+        tc = cfg.product_tower
+        if tc.model_init_metadata is not None:
+            raise NotImplementedError(
+                "pretrained product-embedding module: ROADMAP, port queue 'Pipeline extras'"
+            )
+        if cfg.shard_embedding_rows:
+            raise NotImplementedError(
+                "row-sharded product-embedding table: ROADMAP, port queue 'Multi-device'"
+            )
+        self.ids_key, self.labels_key, self.timestamp_key = ids_key, labels_key, timestamp_key
+        lm = tc.latent_model_config
+        self.product_emb_module = KShiftEmbedding(
+            lm.vocab_size_latent, tc.inp_emb_dim, generator,
+            num_shifts=lm.num_shifts_latent,
+            normalize_output=lm.normalize_embedding,
+            compute_dtype=compute_dtype(cfg),
+            fused_record=cfg.uses_fused_table(),
+        )
+        self.product_tower = ProductTower(cfg, generator)
+        self.query_tower = QueryTower(cfg, generator)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        ids = batch[self.ids_key]
+        embs = self.product_emb_module(ids)
+        inp, target, mask = self.product_tower(ids, embs)
+        # float timestamps and labels truncate to int64, as astype does
+        labels = batch[self.labels_key].to(torch.int64)
+        timestamp = batch[self.timestamp_key].to(torch.int64)
+        # flip to left padding (history arrives most-recent-first, right-padded)
+        flipped = [torch.flip(t, dims=(1,)) for t in (inp, target, mask, labels, timestamp, ids)]
+        return self.query_tower(*flipped)

@@ -1,0 +1,199 @@
+"""Attention layers: multi-query and multi-head, with relative position bias.
+
+Port of ``recommendations_tpu/nn/attention.py``. Dispatch follows the JAX
+package: without an additive mask or position bias, and at a length the
+fused path serves, attention runs the flash kernel
+(``ops/fused_attention``); otherwise it runs ``_sdpa``, whose softmax is
+normalized after the V product. The fused position-bias kernel and ring
+attention are not ported yet and raise rather than fall back to ``_sdpa``.
+
+This is the serving forward: dropout, active only in training, is not
+applied.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from recommendations_tpu_torch.ops import fused_attention as fa
+
+NEG_INF = -1e9  # additive-mask value
+
+
+class Dense(nn.Module):
+    """``flax.linen.Dense``: float32 parameters, matmul in ``dtype`` (or in
+    float32 when ``dtype`` is None). ``weight`` is (out, in)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        generator: torch.Generator,
+        use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        dev = generator.device
+        self.weight = nn.Parameter(
+            torch.randn((out_features, in_features), generator=generator, device=dev)
+            / math.sqrt(in_features)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_features, device=dev)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+def causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    """(1, 1, S, S) additive causal mask (0 keep / NEG_INF drop), float32."""
+    keep = torch.ones(seq_len, seq_len, dtype=torch.bool, device=device).tril()
+    return torch.where(keep, 0.0, NEG_INF).float()[None, None]
+
+
+class RelativePositionBias(nn.Module):
+    """Learned (nq+nk+1, nh) table indexed by q-k+nk, added to the logits."""
+
+    def __init__(self, nq: int, nk: int, nh: int, device=None):
+        super().__init__()
+        self.nq, self.nk = nq, nk
+        self.bias = nn.Parameter(torch.zeros((nq + nk + 1, nh), device=device))
+
+    def forward(self, qk: torch.Tensor) -> torch.Tensor:
+        nq, nk = qk.shape[-2], qk.shape[-1]
+        if nq > self.nq or nk > self.nk:
+            raise ValueError(f"({nq},{nk}) exceeds bias table ({self.nq},{self.nk})")
+        dev = qk.device
+        pos = torch.arange(nq, device=dev)[:, None] - torch.arange(nk, device=dev)[None, :] + nk
+        return qk + self.bias.t()[:, pos][None]  # (1, nh, nq, nk)
+
+
+def _sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    pos_bias: Optional[RelativePositionBias],
+) -> torch.Tensor:
+    """Scaled dot-product attention; q (B, H, S, hd), k/v (B, Hk, S, hd) with
+    Hk in {1, H}. Logits are stored in the compute dtype and the softmax runs
+    in float32, normalized after the V product, as in the JAX package."""
+    hd = q.shape[-1]
+    scale = np.float32(1.0) / np.sqrt(np.float32(hd))
+    q = (q.float() * float(scale)).to(q.dtype)
+    logits = q.float() @ k.float().transpose(-1, -2)  # Hk=1 broadcasts over H
+    logits = logits.to(q.dtype).float()  # stored in the compute dtype
+    if pos_bias is not None:
+        logits = pos_bias(logits)
+    if mask is not None:
+        logits = logits + mask
+    m = logits.amax(dim=-1, keepdim=True)
+    unnorm = torch.exp(logits - m)
+    denom = unnorm.sum(dim=-1, keepdim=True)
+    out = unnorm.to(v.dtype).float() @ v.float()
+    return (out / denom).to(v.dtype)
+
+
+class _AttentionBase(nn.Module):
+    def __init__(
+        self,
+        n_embd: int,
+        n_head: int,
+        generator: torch.Generator,
+        use_bias: bool = True,
+        pos_bias_window: Optional[int] = None,
+        use_flash: bool = False,
+        use_ring: bool = False,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if use_ring:
+            raise NotImplementedError(
+                "ring attention (parallel/ring_attention): ROADMAP, port queue "
+                "'Multi-device'"
+            )
+        self.n_embd, self.n_head = n_embd, n_head
+        self.head_dim = n_embd // n_head
+        self.pos_bias_window = pos_bias_window
+        self.use_flash = use_flash
+        self.dtype = dtype
+        self.pos_bias = (
+            RelativePositionBias(pos_bias_window, pos_bias_window, n_head, generator.device)
+            if pos_bias_window is not None
+            else None
+        )
+
+    def _flash_eligible(self, mask, seq_len: int) -> bool:
+        if not self.use_flash or mask is not None or self.pos_bias_window is not None:
+            return False
+        return fa.fused_flash_recommended(seq_len)
+
+    def _flash_bias_eligible(self, mask, seq_len: int) -> bool:
+        if not self.use_flash or mask is not None or self.pos_bias_window is None:
+            return False
+        if seq_len > self.pos_bias_window:
+            return False
+        return fa.fused_flash_bias_recommended(seq_len)
+
+    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool) -> torch.Tensor:
+        """q (B,T,H*hd), k/v (B,T,kv_heads*hd) -> (B,T,H*hd)."""
+        b, t, _ = x.shape
+        hd = self.head_dim
+        if self._flash_eligible(mask, t):
+            return fa.fused_flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), self.n_head, causal
+            )
+        if self._flash_bias_eligible(mask, t):
+            raise NotImplementedError(
+                "the fused relative-position-bias flash kernel "
+                "(_fwd_kernel_grid with bias_mode): ROADMAP, kernel queue item 6"
+            )
+        qh = q.reshape(b, t, self.n_head, hd).transpose(1, 2).to(x.dtype)
+        kh = k.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)
+        vh = v.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)
+        if causal and mask is None:
+            mask = causal_mask(t, x.device)
+        y = _sdpa(qh, kh, vh, mask, self.pos_bias)
+        return y.transpose(1, 2).reshape(b, t, self.n_embd)
+
+
+class MultiQueryAttention(_AttentionBase):
+    """H query heads sharing a single KV head."""
+
+    def __init__(self, n_embd: int, n_head: int, generator: torch.Generator, **kw):
+        super().__init__(n_embd, n_head, generator, **kw)
+        bias, dt = kw.get("use_bias", True), kw.get("dtype")
+        self.q_proj = Dense(n_embd, n_embd, generator, bias, dt)
+        self.kv_proj = Dense(n_embd, 2 * self.head_dim, generator, bias, dt)
+        self.out_proj = Dense(n_embd, n_embd, generator, bias, dt)
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, causal: bool = False
+    ) -> torch.Tensor:
+        q = self.q_proj(x)
+        k, v = self.kv_proj(x).split(self.head_dim, dim=-1)
+        return self.out_proj(self._attend(x, q, k, v, 1, mask, causal))
+
+
+class MultiHeadAttention(_AttentionBase):
+    """Fused-QKV multi-head attention."""
+
+    def __init__(self, n_embd: int, n_head: int, generator: torch.Generator, **kw):
+        super().__init__(n_embd, n_head, generator, **kw)
+        bias, dt = kw.get("use_bias", True), kw.get("dtype")
+        self.c_attn = Dense(n_embd, 3 * n_embd, generator, bias, dt)
+        self.c_proj = Dense(n_embd, n_embd, generator, bias, dt)
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, causal: bool = False
+    ) -> torch.Tensor:
+        q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
+        return self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal))

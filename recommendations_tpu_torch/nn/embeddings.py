@@ -1,0 +1,176 @@
+"""Hash-embedding layers.
+
+Port of ``recommendations_tpu/nn/embeddings.py``: FlatEmbedding,
+KShiftEmbedding (dense table), HistogramEmbedding and PatternFromTimelocal.
+
+Ids are int64 over the full range. The KShift hash uses an unsigned 64-bit
+rotation and an unsigned mod; PyTorch's uint64 support is partial, so both
+are emulated on int64 bit patterns and agree bit for bit with the reference.
+
+Small tables (the JAX package's one-hot matmul lookups, a TPU device) are
+plain indexing here: indexing ``table`` and rounding the rows to the compute
+dtype gives the same rows.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from recommendations_tpu_torch.nn.functional import l2_normalize
+
+# Tables up to this many rows return rows rounded to the compute dtype (the
+# reference's one-hot lookup); larger ones return exact rows.
+ONEHOT_LOOKUP_MAX_ROWS = 4096
+
+
+def init_param(shape, std: float, generator: torch.Generator) -> nn.Parameter:
+    """N(0, std^2) parameter on the generator's device."""
+    return nn.Parameter(
+        torch.randn(shape, generator=generator, device=generator.device) * std
+    )
+
+
+def _check_int(ids: torch.Tensor) -> None:
+    if ids.dtype.is_floating_point or ids.dtype.is_complex or ids.dtype == torch.bool:
+        raise TypeError(f"hash ids must be integers, got {ids.dtype}")
+
+
+def small_table_lookup(
+    table: torch.Tensor, idx: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    rows = table[idx]
+    if compute_dtype is not None and table.shape[0] <= ONEHOT_LOOKUP_MAX_ROWS:
+        rows = rows.to(compute_dtype).to(table.dtype)
+    return rows
+
+
+def kshift_row_indices(ids: torch.Tensor, num_embeddings: int, num_shifts: int) -> torch.Tensor:
+    """Row c of each id is rotl64(id, c) mod N, unsigned; shape ids.shape + (k,).
+
+    Emulated on int64: the logical right shift is an arithmetic shift and a
+    mask; ``u mod N`` of a negative x (u = x + 2**64) is
+    ``(x mod N + 2**64 mod N) mod N``.
+    """
+    _check_int(ids)
+    x = ids.to(torch.int64)
+    rots = [x]
+    for c in range(1, num_shifts):
+        low = (x >> (64 - c)) & ((1 << c) - 1)
+        rots.append((x << c) | low)
+    s = torch.stack(rots, dim=-1)
+    n = int(num_embeddings)
+    r = s.remainder(n)
+    return torch.where(s < 0, (r + (2**64 % n)).remainder(n), r)
+
+
+class FlatEmbedding(nn.Module):
+    """``table[id mod N]`` (floor mod, as ``jnp.mod``)."""
+
+    def __init__(
+        self,
+        num_embeddings: int,
+        features: int,
+        generator: torch.Generator,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.compute_dtype = compute_dtype
+        self.embedding = init_param((num_embeddings, features), 1.0, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        _check_int(ids)
+        idx = ids.to(torch.int64).remainder(self.num_embeddings)
+        return small_table_lookup(self.embedding, idx, self.compute_dtype)
+
+
+class KShiftEmbedding(nn.Module):
+    """k-shift parameter-shared embedding: each id sums k rotated-hash rows of
+    one table, scaled by 1/sqrt(k) or L2-normalized. Dense table only."""
+
+    def __init__(
+        self,
+        num_embeddings: int,
+        features: int,
+        generator: torch.Generator,
+        num_shifts: int = 8,
+        normalize_output: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
+        fused_record: bool = False,
+    ):
+        super().__init__()
+        if fused_record:
+            raise NotImplementedError(
+                "KShiftEmbedding(fused_record=True), the sparse fused-record "
+                "table: ROADMAP, port queue 'Trainable table'"
+            )
+        self.num_embeddings = num_embeddings
+        self.num_shifts = num_shifts
+        self.normalize_output = normalize_output
+        self.compute_dtype = compute_dtype
+        self.embedding = init_param((num_embeddings, features), 1.0, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        idx = kshift_row_indices(ids, self.num_embeddings, self.num_shifts)
+        rows = self.embedding[idx]  # (..., k, d)
+        if self.compute_dtype is not None:
+            # the reference sums the compute-dtype rows with f32 accumulation
+            # and one rounding back to the compute dtype
+            x = rows.to(self.compute_dtype).float().sum(dim=-2).to(self.compute_dtype).float()
+        else:
+            x = rows.sum(dim=-2)
+        if self.normalize_output:
+            return l2_normalize(x)
+        return x / math.sqrt(self.num_shifts)
+
+
+class HistogramEmbedding(nn.Module):
+    """Bucketized-scalar embedding over [lo, hi] with num_bins bins (values
+    clipped into range)."""
+
+    def __init__(
+        self,
+        lo: float,
+        hi: float,
+        num_bins: int,
+        features: int,
+        generator: torch.Generator,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.lo, self.hi, self.num_bins = lo, hi, num_bins
+        self.compute_dtype = compute_dtype
+        self.embedding = init_param((num_bins, features), 0.02, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        frac = (x.float() - self.lo) / (self.hi - self.lo)
+        idx = torch.floor(frac * self.num_bins).to(torch.int64).clamp(0, self.num_bins - 1)
+        return small_table_lookup(self.embedding, idx, self.compute_dtype)
+
+
+class PatternFromTimelocal(nn.Module):
+    """Periodic pattern embedding of an epoch timestamp: (t // div) % mod."""
+
+    def __init__(
+        self,
+        div: int,
+        mod: int,
+        features: int,
+        generator: torch.Generator,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.div, self.mod, self.features = div, mod, features
+        self.compute_dtype = compute_dtype
+        if features > 0:
+            self.embedding = init_param((mod, features), 1.0, generator)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        idx = torch.remainder(t.to(torch.int64) // self.div, self.mod)
+        if self.features <= 0:
+            return idx.to(torch.int32)
+        return small_table_lookup(self.embedding, idx, self.compute_dtype)

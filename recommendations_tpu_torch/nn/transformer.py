@@ -1,0 +1,135 @@
+"""Pre-LN transformer block and the residual stack.
+
+Port of ``recommendations_tpu/nn/transformer.py`` for the MLP rotator. As in
+the JAX package, the stack applies ``x = block(x)`` with standard pre-LN
+residual blocks, which fixes the reference's double residual
+(``x = x + block(x)`` around a block that already adds x, doubling the
+stream every layer).
+
+Not ported yet, and raising: the MoE rotator, the sparse-token keep-sets and
+per-block recomputation (remat), which serves training only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from recommendations_tpu_torch.nn.attention import (
+    Dense,
+    MultiHeadAttention,
+    MultiQueryAttention,
+    causal_mask,
+)
+from recommendations_tpu_torch.nn.functional import gelu_tanh
+from recommendations_tpu_torch.ops import fused_attention as fa
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm``: statistics and normalization in float32,
+    output in ``dtype`` (float32 when None)."""
+
+    def __init__(
+        self, features: int, device=None, eps: float = 1e-5, use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        return y.to(self.dtype or torch.float32)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN residual block: x + attn(ln_1(x)); then + mlp(ln_2(x))."""
+
+    def __init__(
+        self,
+        n_embd: int,
+        n_head: int,
+        generator: torch.Generator,
+        attn_type: str = "multi_head",
+        is_causal: bool = False,
+        use_bias: bool = True,
+        pos_bias_window: Optional[int] = None,
+        rotator: float = 4.0,
+        is_sparse_attn: bool = False,
+        use_flash: bool = False,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if not isinstance(rotator, (int, float)):
+            raise NotImplementedError(
+                "MoE rotator (MoELinear): ROADMAP, port queue 'Attention and transformer'"
+            )
+        if is_sparse_attn:
+            raise NotImplementedError(
+                "sparse-token keep-sets (is_sparse_attn): ROADMAP, port queue 'Attention and transformer'"
+            )
+        self.is_causal = is_causal
+        self.use_flash = use_flash
+        self.pos_bias_window = pos_bias_window
+        dev = generator.device
+        cls = MultiQueryAttention if attn_type == "multi_query" else MultiHeadAttention
+        self.ln_1 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
+        self.attn = cls(
+            n_embd, n_head, generator, use_bias=use_bias,
+            pos_bias_window=pos_bias_window, use_flash=use_flash, dtype=dtype,
+        )
+        self.ln_2 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
+        hidden = int(float(rotator) * n_embd)
+        self.c_fc = Dense(n_embd, hidden, generator, use_bias, dtype)
+        self.c_proj = Dense(hidden, n_embd, generator, use_bias, dtype)
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        t = x.shape[1]
+        # the flash path masks causally in-kernel; _sdpa takes the additive mask
+        flash_ok = (
+            self.use_flash
+            and attn_mask is None
+            and (
+                self.pos_bias_window is None
+                or (t <= self.pos_bias_window and fa.fused_flash_bias_recommended(t))
+            )
+        )
+        if self.is_causal and not flash_ok:
+            cm = causal_mask(t, x.device)
+            attn_mask = cm if attn_mask is None else attn_mask + cm
+        x = x + self.attn(self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok)
+        return x + self.c_proj(gelu_tanh(self.c_fc(self.ln_2(x))))
+
+
+class TransformerStack(nn.Module):
+    """N transformer blocks, named ``block_{i}`` as in the JAX package."""
+
+    def __init__(
+        self,
+        num_layers: int,
+        n_embd: int,
+        n_head: int,
+        generator: torch.Generator,
+        remat: bool = False,
+        **block_kw,
+    ):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "per-block remat (enable_gradient_checkpointing): ROADMAP, port queue "
+                "'Attention and transformer'"
+            )
+        self.num_layers = num_layers
+        for depth in range(num_layers):
+            self.add_module(
+                f"block_{depth}", TransformerBlock(n_embd, n_head, generator, **block_kw)
+            )
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for depth in range(self.num_layers):
+            x = getattr(self, f"block_{depth}")(x, attn_mask)
+        return x

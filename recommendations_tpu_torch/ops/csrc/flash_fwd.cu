@@ -1,0 +1,477 @@
+// Flash-attention forward over folded heads, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel recommendations_tpu/ops/fused_attention.py::_fwd_kernel
+// (launched by _fused_fwd_impl for T_pad <= 512) and computes what the no-bias
+// mode of _fwd_kernel_grid computes for longer sequences: K/V are walked in
+// 512-key chunks with an online softmax, so T is not capped by shared memory.
+//
+// Layout, as at the JAX call site: q and o are (B, T, H*hd) with the heads in
+// the last dimension; k and v are (B, T, hd) for multi-query attention or
+// (B, T, H*hd) for multi-head attention; lse is (B, T, H) float32.
+//
+// Arithmetic mirrors the TPU kernel: q is scaled by 1/sqrt(hd) in f32 and
+// rounded to the operand type; s = q.k accumulates in f32; each 512-key chunk
+// takes its row max first and then p = exp(s - m) and l = sum(p) in f32; the
+// PV product uses p rounded to v's type with f32 accumulation;
+// o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)). Keys past the
+// sequence end, and past the row under the causal mask, are skipped, which
+// is what the TPU kernel's -1e30 mask yields for every row that sees a key.
+//
+// Bound on an H100 SXM at the serving shape (B=64, T=257, H=32, hd=16, MQA,
+// bf16, causal, one call): the call moves about 37 MB (q, o, k, v, lse),
+// about 11 us at 3.35 TB/s; it does about 4.3 GFLOP, about 4.4 us at the
+// 989 TFLOP/s bf16 tensor-core peak; and it needs about 68 M exponentials.
+// So it is bound by bytes, and at hd=16 the exponentials may bind harder.
+//
+// Design: one block per (batch row, group of query rows), which stages its
+// batch row's K/V into shared memory once (at MQA, 257 x 16 bf16 each) for
+// every head of its rows. Two specializations, chosen from the inputs:
+// - mqa_mma_kernel (bf16, MQA, heads a multiple of 16, hd in {16, 32, 64},
+//   the serving path): a warp owns 16 heads of one query row. Those heads
+//   share K, V and the causal extent, so they are the 16 rows of an
+//   mma.sync m16n8k16 tile: S = QK^T and PV run on the tensor cores, and the
+//   S accumulator, exponentiated and rounded to bf16, is already laid out as
+//   the A operand of the PV product.
+// - fma_kernel (float32, MHA, any head count): a thread owns one (query row,
+//   head) pair, the heads of a row in neighbouring lanes, so a warp reads q
+//   and writes o as one contiguous run and its lanes share the causal extent.
+// No wgmma or TMA yet: a right and simple kernel first.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KV_CHUNK = 512;  // softmax chunk, the TPU kernel's KV_CHUNK
+constexpr float NEG_INF = -1e30f;
+constexpr int SMEM_BUDGET = 48 * 1024;  // K + V staging, bytes per block
+constexpr int THREADS = 256;            // target (row, head) pairs per block
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T: the TPU kernel's astype to the operand type.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// HD elements from a 16-byte aligned address, as float.
+template <typename T, int HD>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, float (&out)[HD]) {
+  constexpr int PER = 16 / sizeof(T);
+  static_assert(HD % PER == 0, "a head must be a whole number of 16-byte words");
+#pragma unroll
+  for (int i = 0; i < HD / PER; ++i) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) out[i * PER + j] = to_f(e[j]);
+  }
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ float dot(const float (&q)[HD], const T* __restrict__ kr) {
+  float kf[HD];
+  load_row<T, HD>(kr, kf);
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < HD; ++d) s = fmaf(q[d], kf[d], s);
+  return s;
+}
+
+// Block-wide copy of n_elems contiguous elements (a multiple of 16 bytes).
+template <typename T>
+__device__ __forceinline__ void stage(T* __restrict__ dst, const T* __restrict__ src, int n_elems) {
+  const int n_vec = n_elems * (int)sizeof(T) / 16;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d[i] = s[i];
+}
+
+template <typename T, int HD>
+__global__ void fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                           int seq_len, int n_head, int kvh, int rows_per_block, int tile_rows,
+                           int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int width = kvh * HD;  // K/V row width in elements
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + (size_t)tile_rows * width;
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int r_local = threadIdx.x / n_head;
+  const int h = threadIdx.x - r_local * n_head;
+  const int row = row0 + r_local;
+  const bool active = r_local < rows_per_block && row < seq_len;
+  const int kv_col = (kvh == 1 ? 0 : h) * HD;
+
+  // keys any row of this block attends to (block-uniform), and this row's
+  const int last_row = min(row0 + rows_per_block, seq_len) - 1;
+  const int block_keys = causal ? last_row + 1 : seq_len;
+  const int my_keys = active ? (causal ? row + 1 : seq_len) : 0;
+
+  const size_t q_off = ((size_t)b * seq_len + row) * (size_t)n_head * HD + (size_t)h * HD;
+  const T* kb = k + (size_t)b * seq_len * width;
+  const T* vb = v + (size_t)b * seq_len * width;
+
+  float qv[HD], acc[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) {
+    qv[d] = 0.f;
+    acc[d] = 0.f;
+  }
+  if (active) {
+    load_row<T, HD>(q + q_off, qv);
+#pragma unroll
+    for (int d = 0; d < HD; ++d) qv[d] = round_to<T>(qv[d] * scale);
+  }
+  float m = NEG_INF, l = 0.f;
+
+  int staged = -1;  // first key of the tile held in shared memory (block-uniform)
+  for (int c0 = 0; c0 < block_keys; c0 += KV_CHUNK) {
+    const int c1 = min(c0 + KV_CHUNK, block_keys);
+
+    // pass 1: the running max over this chunk
+    float m_new = m;
+    for (int t0 = c0; t0 < c1; t0 += tile_rows) {
+      const int t1 = min(t0 + tile_rows, c1);
+      if (staged != t0) {
+        __syncthreads();
+        stage(ks, kb + (size_t)t0 * width, (t1 - t0) * width);
+        stage(vs, vb + (size_t)t0 * width, (t1 - t0) * width);
+        __syncthreads();
+        staged = t0;
+      }
+      const int j1 = min(t1, my_keys);
+      for (int j = t0; j < j1; ++j)
+        m_new = fmaxf(m_new, dot<T, HD>(qv, ks + (size_t)(j - t0) * width + kv_col));
+    }
+
+    // pass 2: rescale what earlier chunks summed, then add this chunk
+    const float corr = expf(m - m_new);
+    l *= corr;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc[d] *= corr;
+    for (int t0 = c0; t0 < c1; t0 += tile_rows) {
+      const int t1 = min(t0 + tile_rows, c1);
+      if (staged != t0) {
+        __syncthreads();
+        stage(ks, kb + (size_t)t0 * width, (t1 - t0) * width);
+        stage(vs, vb + (size_t)t0 * width, (t1 - t0) * width);
+        __syncthreads();
+        staged = t0;
+      }
+      const int j1 = min(t1, my_keys);
+      for (int j = t0; j < j1; ++j) {
+        const size_t off = (size_t)(j - t0) * width + kv_col;
+        const float p = expf(dot<T, HD>(qv, ks + off) - m_new);
+        l += p;
+        const float pr = round_to<T>(p);
+        float vf[HD];
+        load_row<T, HD>(vs + off, vf);
+#pragma unroll
+        for (int d = 0; d < HD; ++d) acc[d] = fmaf(pr, vf[d], acc[d]);
+      }
+    }
+    m = m_new;
+  }
+
+  if (active) {
+    const float den = fmaxf(l, 1e-30f);
+    alignas(16) T out[HD];
+#pragma unroll
+    for (int d = 0; d < HD; ++d) out[d] = from_f<T>(acc[d] / den);
+#pragma unroll
+    for (int i = 0; i < HD * (int)sizeof(T) / 16; ++i)
+      reinterpret_cast<uint4*>(o + q_off)[i] = reinterpret_cast<const uint4*>(out)[i];
+    lse[((size_t)b * seq_len + row) * n_head + h] = m + logf(den);
+  }
+}
+
+template <typename T, int HD>
+int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+               int seq_len, int n_head, int kvh, int causal, cudaStream_t stream) {
+  const size_t row_bytes = (size_t)kvh * HD * sizeof(T);
+  int rows = THREADS / n_head;
+  if (rows < 1) rows = 1;
+  // staging tile: the largest power of two <= KV_CHUNK whose K and V fit the
+  // budget, and no longer than the sequence needs
+  int tile = KV_CHUNK;
+  while (tile > 1 && 2 * row_bytes * tile > (size_t)SMEM_BUDGET) tile >>= 1;
+  if (2 * row_bytes * tile > (size_t)SMEM_BUDGET) return -1;
+  int need = 1;
+  while (need < seq_len) need <<= 1;
+  if (tile > need) tile = need;
+  const size_t smem = 2 * row_bytes * tile;
+  const dim3 grid((seq_len + rows - 1) / rows, batch);
+  const dim3 block(rows * n_head);
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  fma_kernel<T, HD><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), seq_len, n_head, kvh, rows, tile, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- tensor-core specialization: bf16, MQA, 16 heads of one row per warp ----
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a.b for a 16x16 bf16 A (row-major) and a 16x8 bf16 B (column-major).
+// Fragments (g = lane / 4, c = lane % 4): a[0] = A[g][2c..2c+1],
+// a[1] = A[g+8][2c..], a[2] = A[g][2c+8..], a[3] = A[g+8][2c+8..];
+// b0 = B[2c..2c+1][g], b1 = B[2c+8..2c+9][g]; d[0..1] = D[g][2c..2c+1],
+// d[2..3] = D[g+8][2c..2c+1].
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// S for 16 heads x 8 keys: keys n0..n0+7 of the staged K tile (row-major).
+template <int HD>
+__device__ __forceinline__ void qk_tile(float (&s)[4], const uint32_t (&qa)[HD / 16][4],
+                                        const bf16* ks, int n0, int g, int c) {
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+  const bf16* kr = ks + (size_t)(n0 + g) * HD + 2 * c;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma_16816(s, qa[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
+              *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
+}
+
+// Stages keys [t0, t1): K row-major, V transposed (so a B fragment of the PV
+// product is one 32-bit load); rows past t1 up to a multiple of 16 are zeros.
+template <int HD>
+__device__ __forceinline__ void stage_kv_t(bf16* ks, bf16* vt, int vstride, const bf16* kb,
+                                           const bf16* vb, int t0, int t1) {
+  const int n = t1 - t0, n16 = (n + 15) & ~15;
+  const bf16 zero = __float2bfloat16(0.f);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n16 * HD; i += blockDim.x) {
+    const int j = i / HD, d = i - j * HD;
+    const bool in = j < n;
+    ks[i] = in ? kb[(size_t)t0 * HD + i] : zero;
+    vt[d * vstride + j] = in ? vb[(size_t)t0 * HD + i] : zero;
+  }
+  __syncthreads();
+}
+
+template <int HD>
+__global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, bf16* __restrict__ o,
+                               float* __restrict__ lse, int seq_len, int n_head,
+                               int rows_per_block, int tile_rows, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int vstride = tile_rows + 8;  // padded V^T rows: conflict-free B loads
+  bf16* ks = reinterpret_cast<bf16*>(smem);   // [tile_rows][HD]
+  bf16* vt = ks + (size_t)tile_rows * HD;     // [HD][vstride]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int groups = n_head >> 4;  // 16-head groups per query row
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int row = row0 + warp / groups;
+  const int h0 = (warp % groups) * 16;
+  const bool active = row < seq_len;
+
+  const int last_row = min(row0 + rows_per_block, seq_len) - 1;
+  const int block_keys = causal ? last_row + 1 : seq_len;  // block-uniform
+  const int my_keys = active ? (causal ? row + 1 : seq_len) : 0;  // warp-uniform
+
+  const size_t q_row = ((size_t)b * seq_len + row) * (size_t)n_head * HD;
+  const bf16* kb = k + (size_t)b * seq_len * HD;
+  const bf16* vb = v + (size_t)b * seq_len * HD;
+
+  // A operand: heads h0+g and h0+g+8 of this row, scaled in f32 and rounded
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int hh = h0 + g + (r & 1) * 8;
+      const int d = kk * 16 + 2 * c + (r >> 1) * 8;
+      float x0 = 0.f, x1 = 0.f;
+      if (active) {
+        const __nv_bfloat162 pair =
+            *reinterpret_cast<const __nv_bfloat162*>(q + q_row + (size_t)hh * HD + d);
+        x0 = __bfloat162float(pair.x) * scale;
+        x1 = __bfloat162float(pair.y) * scale;
+      }
+      qa[kk][r] = pack_bf16(x0, x1);
+    }
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // rows g and g+8 (heads h0+g, h0+g+8)
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+
+  int staged = -1;  // first key of the tile in shared memory (block-uniform)
+  for (int c0 = 0; c0 < block_keys; c0 += KV_CHUNK) {
+    const int c1 = min(c0 + KV_CHUNK, block_keys);
+
+    // pass 1: the running max over this chunk
+    float mx[2] = {m[0], m[1]};
+    for (int t0 = c0; t0 < c1; t0 += tile_rows) {
+      const int t1 = min(t0 + tile_rows, c1);
+      if (staged != t0) {
+        stage_kv_t<HD>(ks, vt, vstride, kb, vb, t0, t1);
+        staged = t0;
+      }
+      const int j1 = min(t1, my_keys);
+      for (int j0 = t0; j0 < j1; j0 += 8) {
+        float s[4];
+        qk_tile<HD>(s, qa, ks, j0 - t0, g, c);
+        const int j = j0 + 2 * c;
+        if (j < my_keys) mx[0] = fmaxf(mx[0], s[0]), mx[1] = fmaxf(mx[1], s[2]);
+        if (j + 1 < my_keys) mx[0] = fmaxf(mx[0], s[1]), mx[1] = fmaxf(mx[1], s[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+
+    // pass 2: rescale what earlier chunks summed, then add this chunk
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float corr = expf(m[r] - mx[r]);
+      l[r] *= corr;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) acc[nt][2 * r] *= corr, acc[nt][2 * r + 1] *= corr;
+      m[r] = mx[r];
+    }
+    for (int t0 = c0; t0 < c1; t0 += tile_rows) {
+      const int t1 = min(t0 + tile_rows, c1);
+      if (staged != t0) {
+        stage_kv_t<HD>(ks, vt, vstride, kb, vb, t0, t1);
+        staged = t0;
+      }
+      const int j1 = min(t1, my_keys);
+      for (int j0 = t0; j0 < j1; j0 += 16) {
+        float s0[4], s1[4], p0[4], p1[4];
+        qk_tile<HD>(s0, qa, ks, j0 - t0, g, c);
+        qk_tile<HD>(s1, qa, ks, j0 - t0 + 8, g, c);
+        const int j = j0 + 2 * c;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int je = j + (e & 1);
+          p0[e] = je < my_keys ? expf(s0[e] - m[e >> 1]) : 0.f;
+          p1[e] = je + 8 < my_keys ? expf(s1[e] - m[e >> 1]) : 0.f;
+        }
+        l[0] += (p0[0] + p0[1]) + (p1[0] + p1[1]);
+        l[1] += (p0[2] + p0[3]) + (p1[2] + p1[3]);
+        // the S accumulators are the PV product's A fragment; p rounds to bf16
+        const uint32_t pa[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
+                                pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+        const bf16* vr = vt + (size_t)g * vstride + (j0 - t0) + 2 * c;
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt)
+          mma_16816(acc[nt], pa, *reinterpret_cast<const uint32_t*>(vr + nt * 8 * vstride),
+                    *reinterpret_cast<const uint32_t*>(vr + nt * 8 * vstride + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (active) {
+    const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
+    bf16* orow = o + q_row;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      *reinterpret_cast<uint32_t*>(orow + (size_t)(h0 + g) * HD + d) =
+          pack_bf16(acc[nt][0] / den0, acc[nt][1] / den0);
+      *reinterpret_cast<uint32_t*>(orow + (size_t)(h0 + g + 8) * HD + d) =
+          pack_bf16(acc[nt][2] / den1, acc[nt][3] / den1);
+    }
+    if (c == 0) {
+      float* lrow = lse + ((size_t)b * seq_len + row) * n_head;
+      lrow[h0 + g] = m[0] + logf(den0);
+      lrow[h0 + g + 8] = m[1] + logf(den1);
+    }
+  }
+}
+
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+               int seq_len, int n_head, int causal, cudaStream_t stream) {
+  const int groups = n_head / 16;
+  int rows = 16 / groups;  // up to 16 warps per block
+  if (rows < 1) rows = 1;
+  if (rows * groups * 32 > 1024) return -1;
+  auto smem_of = [](int tile) { return (size_t)2 * HD * (2 * tile + 8); };
+  int tile = KV_CHUNK;
+  while (tile > 16 && smem_of(tile) > (size_t)SMEM_BUDGET) tile >>= 1;
+  int need = 16;
+  while (need < seq_len) need <<= 1;
+  if (tile > need) tile = need;
+  const dim3 grid((seq_len + rows - 1) / rows, batch);
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  mqa_mma_kernel<HD><<<grid, rows * groups * 32, smem_of(tile), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), seq_len, n_head, rows, tile, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+             int seq_len, int n_head, int kvh, int head_dim, int causal, cudaStream_t stream) {
+  switch (head_dim) {
+    case 8: return launch_fma<T, 8>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
+    case 16: return launch_fma<T, 16>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
+    case 32: return launch_fma<T, 32>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
+    case 64: return launch_fma<T, 64>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+// Returns 0 on success, cudaGetLastError() after a refused launch, or -1 for
+// a shape the kernel does not take (head_dim, n_head > 1024, or a K/V row
+// too wide to stage).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int batch, int seq_len, int n_head, int kvh, int head_dim,
+                         int causal, int is_bf16, void* stream) {
+  if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
+    switch (head_dim) {
+      case 16: return launch_mma<16>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
+      case 32: return launch_mma<32>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
+      case 64: return launch_mma<64>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
+      default: break;  // other head dims take the FMA kernel
+    }
+  }
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim,
+                                   causal, s);
+  return dispatch<float>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim, causal, s);
+}

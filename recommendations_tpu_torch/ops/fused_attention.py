@@ -1,0 +1,121 @@
+"""Folded-head flash-attention forward: a CUDA kernel and its plain version.
+
+Port of ``recommendations_tpu/ops/fused_attention.py``'s forward. The kernel,
+``csrc/flash_fwd.cu``, replaces the TPU kernel ``_fwd_kernel`` and also
+covers the sequences the no-bias ``_fwd_kernel_grid`` takes (T > 512): it
+walks K/V in 512-key chunks with an online softmax.
+
+Layout as at the JAX call site: q (B, T, H*hd) with the heads folded in the
+last dimension; k and v (B, T, hd) for multi-query or (B, T, H*hd) for
+multi-head attention. The forward returns o (B, T, H*hd) in q's dtype and the
+per-head logsumexp (B, T, H) in float32, which a backward reads.
+
+A wrapper takes the plain version only for tensors on the CPU. For a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from recommendations_tpu_torch.ops.cuda_build import CudaKernel
+
+NEG_INF = -1e30
+
+# Dispatch knobs carried over from the JAX package (measured there on a TPU,
+# not on this card): the fused path serves sequences up to this length...
+RECOMMENDED_MAX_SEQ = 4096
+# ...and the fused relative-position-bias kernel from this length up.
+BIAS_MIN_SEQ = 768
+
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+FLASH_FWD = CudaKernel(
+    "flash_fwd.cu",
+    "flash_fwd",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+)
+
+
+def fused_flash_recommended(seq_len: int) -> bool:
+    return seq_len <= RECOMMENDED_MAX_SEQ
+
+
+def fused_flash_bias_recommended(seq_len: int) -> bool:
+    return BIAS_MIN_SEQ <= seq_len <= RECOMMENDED_MAX_SEQ
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int):
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"expected q (B,T,H*hd), k = v (B,T,C); got {q.shape}, {k.shape}, {v.shape}")
+    b, t, qc = q.shape
+    if qc % n_head:
+        raise ValueError(f"q width {qc} is not a multiple of n_head {n_head}")
+    hd = qc // n_head
+    if k.shape[:2] != (b, t) or k.shape[-1] not in (hd, qc):
+        raise ValueError(f"k/v {tuple(k.shape)} must be (B, T, {hd}) or (B, T, {qc})")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"q/k/v must share a dtype in {SUPPORTED_DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    return b, t, qc, hd, k.shape[-1] // hd
+
+
+def fused_flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int, causal: bool = True
+):
+    """Plain PyTorch version of the kernel, with the TPU kernel's arithmetic
+    over the whole key range as one chunk. Returns (o, lse)."""
+    b, t, qc, hd, kvh = _check(q, k, v, n_head)
+    scale = float(np.float32(1.0 / math.sqrt(hd)))
+    qh = (q.float() * scale).to(q.dtype).float().reshape(b, t, n_head, hd).transpose(1, 2)
+    kh = k.float().reshape(b, t, kvh, hd).transpose(1, 2)
+    vh = v.float().reshape(b, t, kvh, hd).transpose(1, 2)
+    s = qh @ kh.transpose(-1, -2)  # (B, H, T, T) f32; kvh=1 broadcasts over H
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = p.to(v.dtype).float() @ vh
+    o = (acc / den).to(q.dtype).transpose(1, 2).reshape(b, t, qc)
+    lse = (m + torch.log(den)).squeeze(-1).transpose(1, 2).contiguous()
+    return o, lse
+
+
+def fused_flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int, causal: bool = True
+):
+    """Flash forward: (o, lse). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    b, t, qc, hd, kvh = _check(q, k, v, n_head)
+    if q.device.type == "cpu":
+        return fused_flash_attention_reference(q, k, v, n_head, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    o = torch.empty_like(q)
+    lse = torch.empty((b, t, n_head), dtype=torch.float32, device=q.device)
+    FLASH_FWD.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, t, n_head, kvh, hd, int(causal), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return o, lse
+
+
+def fused_flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int, causal: bool = True
+) -> torch.Tensor:
+    """Folded-head flash attention forward; returns o (B, T, H*hd)."""
+    return fused_flash_attention_fwd(q, k, v, n_head, causal)[0]

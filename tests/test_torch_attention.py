@@ -1,0 +1,204 @@
+"""Port attention (recommendations_tpu_torch.nn.attention, .nn.transformer,
+.ops.fused_attention) against the JAX package's, on the CPU.
+
+The flash kernel's plain version is held to the Pallas kernel run in
+interpret mode (o and the logsumexp), at the JAX kernel tests' float32
+tolerance; the layers are held to their JAX counterparts with the same
+weights on both the flash and the ``_sdpa`` paths."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recommendations_tpu.nn import attention as jatt
+from recommendations_tpu.nn import transformer as jtr
+from recommendations_tpu.ops import fused_attention as jfa
+from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
+from recommendations_tpu_torch.nn import attention as tatt
+from recommendations_tpu_torch.nn import transformer as ttr
+from recommendations_tpu_torch.ops import fused_attention as tfa
+
+torch.set_num_threads(1)
+
+F32_TOL = 2e-5  # as tests/test_fused_attention.py's forward checks
+
+
+def _gen(seed=0):
+    return torch.Generator().manual_seed(seed)
+
+
+def _load(module, variables):
+    module.load_state_dict(
+        state_dict_from_jax(jax.tree_util.tree_map(np.asarray, variables), module)
+    )
+    return module
+
+
+def _qkv(b, t, n_head, hd, kvh, seed):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(b, t, n_head * hd).astype(np.float32)
+    k = rs.randn(b, t, kvh * hd).astype(np.float32)
+    v = rs.randn(b, t, kvh * hd).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize(
+    "t,tile,n_head,kvh,causal",
+    [
+        (96, 32, 4, 1, True),
+        (96, 32, 4, 1, False),
+        (96, 32, 4, 4, True),
+        (96, 32, 4, 4, False),
+        (70, 32, 2, 1, True),
+        (70, 32, 4, 4, True),
+        (70, None, 4, 1, False),
+    ],
+)
+def test_flash_plain_version_matches_pallas_kernel(t, tile, n_head, kvh, causal):
+    b, hd = 2, 16
+    q, k, v = _qkv(b, t, n_head, hd, kvh, seed=t + n_head + kvh)
+    o_pad, lse_pad, _ = jfa._fused_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_head, causal, tile, True
+    )
+    want_o = np.asarray(o_pad)[:, :t, : n_head * hd]
+    want_lse = np.asarray(lse_pad)[:, :t, :n_head]
+    got_o, got_lse = tfa.fused_flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), n_head, causal
+    )
+    assert got_o.dtype == torch.float32 and got_lse.shape == (b, t, n_head)
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=F32_TOL, atol=F32_TOL)
+    # the public entry point agrees with the dense oracle of the JAX tests
+    got = tfa.fused_flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), n_head, causal
+    )
+    want = jfa.fused_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_head, causal, tile, True
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_flash_plain_version_bf16_operands():
+    """bf16 operands: q rounds after scaling, p rounds before the PV product;
+    the output is bf16, so the two agree to a bf16 ulp."""
+    b, t, n_head, hd = 2, 40, 4, 16
+    q, k, v = _qkv(b, t, n_head, hd, 1, seed=9)
+    qb, kb, vb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    o_pad, lse_pad, _ = jfa._fused_fwd_impl(qb, kb, vb, n_head, True, None, True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got_o, got_lse = tfa.fused_flash_attention_fwd(tq, tk, tv, n_head, True)
+    assert got_o.dtype == torch.bfloat16
+    want_o = np.asarray(o_pad)[:, :t, : n_head * hd].astype(np.float32)
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=2**-8, atol=2**-8)
+    np.testing.assert_allclose(
+        got_lse.numpy(), np.asarray(lse_pad)[:, :t, :n_head], rtol=F32_TOL, atol=F32_TOL
+    )
+
+
+def test_flash_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 16, 1, seed=1))
+    before = tfa.FLASH_FWD.launches
+    tfa.fused_flash_attention(q, k, v, 2, True)
+    assert tfa.FLASH_FWD.launches == before  # the plain version launched nothing
+    with pytest.raises(TypeError):
+        tfa.fused_flash_attention(q.double(), k.double(), v.double(), 2, True)
+    with pytest.raises(TypeError):
+        tfa.fused_flash_attention(q.half(), k.half(), v.half(), 2, True)
+    with pytest.raises(ValueError):
+        tfa.fused_flash_attention(q, k[:, :4], v[:, :4], 2, True)
+    with pytest.raises(ValueError):
+        tfa.fused_flash_attention(q, k[..., :8], v[..., :8], 2, True)
+
+
+def _attn_pair(kind, n_embd, n_head, use_flash, pos_bias_window, dtype, x, causal):
+    jcls = jatt.MultiQueryAttention if kind == "mqa" else jatt.MultiHeadAttention
+    tcls = tatt.MultiQueryAttention if kind == "mqa" else tatt.MultiHeadAttention
+    jdt = None if dtype is None else jnp.bfloat16
+    tdt = None if dtype is None else torch.bfloat16
+    jm = jcls(n_embd=n_embd, n_head=n_head, use_bias=True, use_flash=use_flash,
+              pos_bias_window=pos_bias_window, dtype=jdt)
+    vs = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x), causal=causal))
+    if pos_bias_window is not None:  # a nonzero bias table, so the bias counts
+        table = vs["params"]["pos_bias"]["bias"]
+        vs["params"]["pos_bias"]["bias"] = np.random.RandomState(1).randn(*table.shape).astype(np.float32)
+    tm = _load(tcls(n_embd, n_head, _gen(), use_bias=True, use_flash=use_flash,
+                    pos_bias_window=pos_bias_window, dtype=tdt), vs)
+    want = jm.apply(vs, jnp.asarray(x), deterministic=True, causal=causal)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), causal=causal)
+    return np.asarray(want).astype(np.float32), got.float().numpy()
+
+
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_layers_f32(kind, use_flash, causal):
+    x = np.random.RandomState(3).randn(2, 37, 32).astype(np.float32)
+    want, got = _attn_pair(kind, 32, 4, use_flash, None, None, x, causal)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_attention_position_bias_sdpa_path(kind):
+    """pos_bias below BIAS_MIN_SEQ: both packages take _sdpa with the bias."""
+    x = np.random.RandomState(4).randn(2, 21, 32).astype(np.float32)
+    want, got = _attn_pair(kind, 32, 4, True, 24, None, x, True)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_attention_layer_bf16(use_flash):
+    """bf16 compute: projections and outputs round to bf16 in both packages
+    (at possibly different points of a fused op), so they agree to a few
+    bf16 ulps of the output's scale."""
+    x = np.random.RandomState(5).randn(2, 37, 64).astype(np.float32)
+    want, got = _attn_pair("mqa", 64, 4, use_flash, None, "bf16", x, True)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=4 * 2**-8 * scale)
+
+
+def test_fused_bias_kernel_and_ring_raise():
+    x = torch.zeros(1, 768, 32)
+    m = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=True, pos_bias_window=800)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
+        m(x, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tatt.MultiQueryAttention(32, 4, _gen(), use_ring=True)
+
+
+def test_causal_mask_and_dispatch_knobs():
+    np.testing.assert_array_equal(tatt.causal_mask(5).numpy(), np.asarray(jatt.causal_mask(5)))
+    assert tfa.RECOMMENDED_MAX_SEQ == jfa.RECOMMENDED_MAX_SEQ
+    assert tfa.BIAS_MIN_SEQ == jfa.BIAS_MIN_SEQ
+    for t in (257, 767, 768, 4096, 4097):
+        assert tfa.fused_flash_recommended(t) == jfa.fused_flash_recommended(t)
+        assert tfa.fused_flash_bias_recommended(t) == jfa.fused_flash_bias_recommended(t)
+
+
+@pytest.mark.parametrize("attn_type", ["multi_query", "multi_head"])
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_transformer_stack_f32(attn_type, use_flash):
+    x = np.random.RandomState(6).randn(2, 33, 32).astype(np.float32)
+    kw = dict(attn_type=attn_type, is_causal=True, use_bias=False, rotator=4.0, use_flash=use_flash)
+    jm = jtr.TransformerStack(num_layers=2, n_embd=32, n_head=4, **kw)
+    vs = jm.init(jax.random.PRNGKey(7), jnp.asarray(x))
+    # non-trivial LayerNorm scales, so a swapped weight would show
+    vs = jax.tree_util.tree_map(
+        lambda a: a * 1.5 if a.ndim == 1 else a, jax.tree_util.tree_map(np.asarray, vs)
+    )
+    want = np.asarray(jm.apply(vs, jnp.asarray(x)))
+    tm = _load(ttr.TransformerStack(2, 32, 4, _gen(), **kw), vs)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_transformer_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        ttr.TransformerStack(1, 32, 4, _gen(), remat=True)
+    with pytest.raises(NotImplementedError):
+        ttr.TransformerBlock(32, 4, _gen(), is_sparse_attn=True)
+    with pytest.raises(NotImplementedError):
+        ttr.TransformerBlock(32, 4, _gen(), rotator=object())

@@ -1,0 +1,78 @@
+"""Where the time of an LTHM user-encoder request goes on the card.
+
+    python3 tools/profile_torch_serving.py [--requests 4] [--out traces/serving_trace.json]
+
+Builds the LTHM-base model of ``chip_smoke.py`` (random weights from a seed)
+on the GPU, warms it up, and traces ``--requests`` requests of 64 users with
+``torch.profiler``. Prints the host time per request, the device's busy share
+of that window (kernel time over wall time; one stream, so kernels do not
+overlap), and the kernels that take the most device time. Writes the Chrome
+trace to ``--out``. Needs a card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--out", default=os.path.join("traces", "serving_trace.json"))
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_serving: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import bench_config, request_batch
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+
+    wrapper = LTHMModelWrapper(LTHMModelConfig.from_dict(bench_config()), device="cuda", seed=0)
+    encode = wrapper.inference_models()["user_encoder"]
+    batches = [request_batch(seed) for seed in range(1, args.requests + 1)]
+    for b in batches[:2]:
+        encode(b)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            encode(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    prof.export_chrome_trace(args.out)
+
+    with open(args.out) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    busy_us = 0.0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy_us += e["dur"]
+            by_name[e["name"]][0] += e["dur"]
+            by_name[e["name"]][1] += 1
+    n = args.requests
+    print(f"{n} requests: {wall_us / n / 1e3:.3f} ms per request (host clock), "
+          f"device busy {busy_us / n / 1e3:.3f} ms per request = "
+          f"{100 * busy_us / wall_us:.1f}% of the window")
+    print("device time per request by kernel (ms, launches per request, share of busy):")
+    for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {us / n / 1e3:9.4f}  {cnt // n:4d}  {100 * us / busy_us:5.1f}%  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
