@@ -1,4 +1,4 @@
-"""JAX variables -> the port's ``state_dict``.
+"""JAX state -> the port's: variables, the training aux state, AdamW moments.
 
 Takes flax variables as nested dicts of numpy arrays (``params`` and
 ``constants``; the caller converts device arrays with ``np.asarray``, so
@@ -7,6 +7,11 @@ dots; leaf names map as flax ``Dense``/``LayerNorm`` to PyTorch:
 ``kernel`` (in, out) -> ``weight`` (out, in), ``scale`` -> ``weight``.
 Every other leaf keeps its name. Any key the module lacks, any key it has
 that the variables do not fill, and any shape that differs is an error.
+
+The same mapping carries optax AdamW's ``mu`` and ``nu`` (trees shaped like
+``params``) and ``count`` into a ``torch.optim.AdamW``'s state, and the LTHM
+aux state (logQ ``b``, ``a``, ``hash_offsets`` and ``batch_idx``) into the
+port's ``LTHMAuxState``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ def _flatten(tree, prefix: Tuple[str, ...], out: Dict[Tuple[str, ...], np.ndarra
         path = prefix + (str(key),)
         if isinstance(val, dict):
             _flatten(val, path, out)
+        elif isinstance(val, tuple) and not val:
+            continue  # optax's MaskedNode: a parameter outside the optimizer group
         else:
             if path in out:
                 raise KeyError(f"{'/'.join(path)} appears in two collections")
@@ -37,8 +44,12 @@ def state_dict_from_jax(variables: dict, module: nn.Module) -> Dict[str, torch.T
     flat: Dict[Tuple[str, ...], np.ndarray] = {}
     for collection in variables.values():
         _flatten(collection, (), flat)
+    return _convert(flat, module.state_dict())
 
-    expected = module.state_dict()
+
+def _convert(
+    flat: Dict[Tuple[str, ...], np.ndarray], expected: Dict[str, torch.Tensor]
+) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         leaf = path[-1]
@@ -58,3 +69,47 @@ def state_dict_from_jax(variables: dict, module: nn.Module) -> Dict[str, torch.T
     if missing:
         raise KeyError(f"module entries the JAX variables do not fill: {missing}")
     return out
+
+
+def adamw_state_from_jax(mu: dict, nu: dict, count, module: nn.Module, optimizer) -> None:
+    """Load optax ``ScaleByAdamState`` moments (``mu``, ``nu``: trees shaped
+    like ``params``, masked entries dropped) and ``count`` into the state of
+    ``optimizer`` (a ``torch.optim.AdamW`` over parameters of ``module``).
+    Strict: every parameter the optimizer holds is filled, and every entry
+    given fills one."""
+    params = {
+        name: p for name, p in module.named_parameters()
+        if any(p is q for g in optimizer.param_groups for q in g["params"])
+    }
+    expected = {name: p.detach() for name, p in params.items()}
+    moments = []
+    for tree in (mu, nu):
+        flat: Dict[Tuple[str, ...], np.ndarray] = {}
+        _flatten(tree, (), flat)
+        moments.append(_convert(flat, expected))
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    for name, p in params.items():
+        optimizer.state[p] = {
+            "step": step.clone(),
+            "exp_avg": moments[0][name].to(p.device),
+            "exp_avg_sq": moments[1][name].to(p.device),
+        }
+
+
+def aux_state_from_jax(aux, device=None):
+    """The JAX ``LTHMAuxState`` (as numpy arrays, e.g. through
+    ``jax.tree_util.tree_map(np.asarray, aux)``) -> the port's."""
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMAuxState
+    from recommendations_tpu_torch.nn.logq import LogQState
+
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    lq = aux.logq
+    return LTHMAuxState(
+        logq=LogQState(
+            b=t(lq.b, torch.float32), a=t(lq.a, torch.float32),
+            hash_offsets=t(lq.hash_offsets, torch.int64),
+        ),
+        batch_idx=t(aux.batch_idx, torch.float32),
+    )

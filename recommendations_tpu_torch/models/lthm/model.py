@@ -1,7 +1,10 @@
 """LTHM network: KShift product embedding -> ProductTower -> QueryTower.
 
 Port of ``recommendations_tpu/models/lthm/model.py`` with the fresh-table
-branch only. The dtypes follow the JAX package step by step: parameters are
+branch only. ``forward(batch, training=...)`` serves (the default) or runs
+the training forward, whose only difference here is the dropout guard.
+
+The dtypes follow the JAX package step by step: parameters are
 float32, matmuls run in ``compute_dtype``, and the residual stream is
 float32 from the position embedding on (a flax ``nn.Embed`` with no dtype
 returns float32, and each block adds its compute-dtype outputs to it).
@@ -35,7 +38,9 @@ def compute_dtype(cfg: LTHMModelConfig) -> torch.dtype:
 
 class ProductTower(nn.Module):
     """Product embedding -> LSH direction + norm-histogram features, masked
-    rows zeroed, projected to the retrieval space."""
+    rows zeroed, projected to the retrieval space. With
+    ``detach_item_tower`` (the default) no gradient reaches the embedding
+    table, as ``jax.lax.stop_gradient`` gives in the JAX package."""
 
     def __init__(self, cfg: LTHMModelConfig, generator: torch.Generator):
         super().__init__()
@@ -61,6 +66,8 @@ class ProductTower(nn.Module):
 
     def forward(self, ids: torch.Tensor, x: torch.Tensor):
         tc = self.tc
+        if tc.detach_item_tower:
+            x = x.detach()
         x = x.float()
         x_norm = torch.sqrt(torch.sum(x * x, dim=-1))
         mask = (x_norm < tc.norm_threshold) | (ids == 0)
@@ -118,6 +125,8 @@ class QueryTower(nn.Module):
             is_sparse_attn=tcfg.is_sparse_attn,
             use_flash=tcfg.use_flash_attention,
             dtype=dt,
+            dropout=acfg.dropout,
+            attn_dropout=acfg.attn_dropout,
         )
         self.outcome_conditioning = FlatEmbedding(4, d, generator, compute_dtype=dt)
         self.emb_heads = Dense(
@@ -125,7 +134,9 @@ class QueryTower(nn.Module):
             use_bias=False, dtype=dt,
         )
 
-    def forward(self, inp, target, mask, labels, timestamp, ids) -> Dict[str, torch.Tensor]:
+    def forward(
+        self, inp, target, mask, labels, timestamp, ids, training: bool = False
+    ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         bsz, orig_s = mask.shape
         cw = min(cfg.context_width, orig_s)
@@ -147,7 +158,7 @@ class QueryTower(nn.Module):
         pos = cw - torch.arange(cw + 1, device=x.device)
         x = x + self.wpe(pos)[None]  # float32 from here on
 
-        x = self.transformer(x)
+        x = self.transformer(x, training=training)
 
         # outcome conditioning over (labels ++ future outcome 0), (B, S+1)
         outcomes = torch.cat([labels, labels.new_zeros((bsz, 1))], dim=-1)
@@ -197,7 +208,9 @@ class LTHMEncoder(nn.Module):
         self.product_tower = ProductTower(cfg, generator)
         self.query_tower = QueryTower(cfg, generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(
+        self, batch: Dict[str, torch.Tensor], training: bool = False
+    ) -> Dict[str, torch.Tensor]:
         ids = batch[self.ids_key]
         embs = self.product_emb_module(ids)
         inp, target, mask = self.product_tower(ids, embs)
@@ -206,4 +219,4 @@ class LTHMEncoder(nn.Module):
         timestamp = batch[self.timestamp_key].to(torch.int64)
         # flip to left padding (history arrives most-recent-first, right-padded)
         flipped = [torch.flip(t, dims=(1,)) for t in (inp, target, mask, labels, timestamp, ids)]
-        return self.query_tower(*flipped)
+        return self.query_tower(*flipped, training=training)

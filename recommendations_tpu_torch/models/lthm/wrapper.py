@@ -1,22 +1,38 @@
-"""LTHM model wrapper: builds the encoder on a device and serves it.
+"""LTHM model wrapper: builds the encoder on a device, serves it, and gives
+the training step its loss and optimizer groups.
 
-Port of the serving half of ``recommendations_tpu/models/lthm/wrapper.py``:
-``format_inputs``, ``forward`` and ``inference_models``. Weights come from a
-seeded ``torch.Generator`` or, through ``load_jax_variables``, from the JAX
+Port of ``recommendations_tpu/models/lthm/wrapper.py``: ``format_inputs``,
+``forward`` and ``inference_models`` (serving); ``init_aux_state``,
+``loss_and_metrics``, ``param_labels`` and ``optimizers_for_param_groups``
+(training, with a frozen product-embedding table). Weights come from a seeded
+``torch.Generator`` or, through ``load_jax_variables``, from the JAX
 package's variables.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from recommendations_tpu_torch import resolve_device
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
+from recommendations_tpu_torch.models.lthm.loss import Metrics, contrastive_step
 from recommendations_tpu_torch.models.lthm.model import LTHMEncoder
 from recommendations_tpu_torch.nn.functional import l2_normalize
+from recommendations_tpu_torch.nn.logq import LogQState, init_logq_state
+
+TABLE_GROUP = "EMB_TABLE"
+MAIN_GROUP = "USE_OPTIM"
+
+
+class LTHMAuxState(NamedTuple):
+    logq: LogQState
+    batch_idx: torch.Tensor  # float32 scalar batch counter
+
+
 
 
 class LTHMModelWrapper:
@@ -47,6 +63,81 @@ class LTHMModelWrapper:
     @torch.no_grad()
     def forward(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         return self.module(self.format_inputs(batch))
+
+    # ----- training ----------------------------------------------------------
+
+    def init_aux_state(self) -> LTHMAuxState:
+        lq = self.config.log_q_config
+        return LTHMAuxState(
+            logq=init_logq_state(lq.num_buckets, lq.hash_offsets, lq.p_init, self.device),
+            batch_idx=torch.zeros((), dtype=torch.float32, device=self.device),
+        )
+
+    def loss_and_metrics(
+        self,
+        batch: Mapping[str, Any],
+        aux_state: LTHMAuxState,
+        training: bool,
+        offsets=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Metrics, LTHMAuxState]:
+        """Forward (with autograd) and the contrastive loss: (loss, metrics
+        under the JAX package's keys, new aux state). ``offsets`` overrides
+        the draw of the lookahead offsets from ``generator``."""
+        cfg = self.config
+        if cfg.fused_ce:
+            raise NotImplementedError(
+                "fused_ce=True (the Pallas contrastive-CE kernels of ops/fused_ce.py): "
+                "ROADMAP, port slice 3; fused_ce=False runs the same loss"
+            )
+        with record_function("lthm/forward"):
+            output = self.module(self.format_inputs(batch), training=training)
+        with record_function("lthm/loss"):
+            loss, metrics, new_logq = contrastive_step(
+                output,
+                aux_state.logq,
+                aux_state.batch_idx,
+                lookahead=list(cfg.lookahead),
+                temperature=cfg.softmax_temperature,
+                beta=cfg.log_q_config.beta,
+                alpha=cfg.log_q_config.alpha,
+                metrics_k_all=list(cfg.metrics_k_all),
+                train_mini_batch_size=cfg.train_mini_batch_size,
+                training=training,
+                offsets=offsets,
+                generator=generator,
+            )
+        new_aux = LTHMAuxState(
+            logq=new_logq, batch_idx=aux_state.batch_idx + (1.0 if training else 0.0)
+        )
+        return loss, metrics, new_aux
+
+    def param_labels(self) -> Dict[str, str]:
+        """Parameter name -> optimizer group: the product-embedding table is
+        its own group, everything else the main AdamW group."""
+        return {
+            name: TABLE_GROUP if name.split(".")[0] == "product_emb_module" else MAIN_GROUP
+            for name, _ in self.module.named_parameters()
+        }
+
+    def optimizers_for_param_groups(self) -> Dict[str, Optional[dict]]:
+        """Group -> AdamW settings, or None for a group that does not train.
+        The frozen table takes ``requires_grad=False`` (the JAX package's
+        ``optax.set_to_zero``); other table optimizers raise."""
+        cfg = self.config
+        t = cfg.resolved_table_optimizer()
+        if t != "frozen":
+            raise NotImplementedError(
+                f"table_optimizer {t!r}: ROADMAP, port queue items 4 (rowwise_adam) and 8 "
+                "(lazy and sparse tables); the port trains with table_optimizer 'frozen'"
+            )
+        self.module.product_emb_module.embedding.requires_grad_(False)
+        return {
+            MAIN_GROUP: dict(
+                lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8, weight_decay=cfg.weight_decay
+            ),
+            TABLE_GROUP: None,
+        }
 
     def inference_models(self) -> Dict[str, Callable]:
         """Serving entry points:

@@ -4,11 +4,14 @@ Port of ``recommendations_tpu/nn/attention.py``. Dispatch follows the JAX
 package: without an additive mask or position bias, and at a length the
 fused path serves, attention runs the flash kernel
 (``ops/fused_attention``); otherwise it runs ``_sdpa``, whose softmax is
-normalized after the V product. The fused position-bias kernel and ring
-attention are not ported yet and raise rather than fall back to ``_sdpa``.
+normalized after the V product. The flash path is differentiable through
+``ops.fused_attention.FlashAttention`` (its backward is a kernel too);
+``_sdpa`` differentiates through autograd. The fused position-bias kernel and
+ring attention are not ported yet and raise rather than fall back to
+``_sdpa``.
 
-This is the serving forward: dropout, active only in training, is not
-applied.
+Dropout is not ported yet: a training forward with a nonzero rate raises,
+and a rate of 0.0 (the LTHM configs' value) trains.
 """
 
 from __future__ import annotations
@@ -113,6 +116,8 @@ class _AttentionBase(nn.Module):
         use_flash: bool = False,
         use_ring: bool = False,
         dtype: Optional[torch.dtype] = None,
+        dropout: float = 0.0,
+        attn_dropout: float = 0.0,
     ):
         super().__init__()
         if use_ring:
@@ -125,6 +130,7 @@ class _AttentionBase(nn.Module):
         self.pos_bias_window = pos_bias_window
         self.use_flash = use_flash
         self.dtype = dtype
+        self.dropout, self.attn_dropout = dropout, attn_dropout
         self.pos_bias = (
             RelativePositionBias(pos_bias_window, pos_bias_window, n_head, generator.device)
             if pos_bias_window is not None
@@ -143,8 +149,15 @@ class _AttentionBase(nn.Module):
             return False
         return fa.fused_flash_bias_recommended(seq_len)
 
-    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool) -> torch.Tensor:
+    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool, training: bool) -> torch.Tensor:
         """q (B,T,H*hd), k/v (B,T,kv_heads*hd) -> (B,T,H*hd)."""
+        if training and (self.dropout or self.attn_dropout):
+            raise NotImplementedError(
+                f"dropout in training (dropout={self.dropout}, attn_dropout="
+                f"{self.attn_dropout}): ROADMAP, port queue item 1 (token dropout "
+                "nn/attention.py:87-90,295-316, residual dropout nn/transformer.py:210,355); "
+                "set the rates to 0.0"
+            )
         b, t, _ = x.shape
         hd = self.head_dim
         if self._flash_eligible(mask, t):
@@ -176,11 +189,15 @@ class MultiQueryAttention(_AttentionBase):
         self.out_proj = Dense(n_embd, n_embd, generator, bias, dt)
 
     def forward(
-        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, causal: bool = False
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        causal: bool = False,
+        training: bool = False,
     ) -> torch.Tensor:
         q = self.q_proj(x)
         k, v = self.kv_proj(x).split(self.head_dim, dim=-1)
-        return self.out_proj(self._attend(x, q, k, v, 1, mask, causal))
+        return self.out_proj(self._attend(x, q, k, v, 1, mask, causal, training))
 
 
 class MultiHeadAttention(_AttentionBase):
@@ -193,7 +210,11 @@ class MultiHeadAttention(_AttentionBase):
         self.c_proj = Dense(n_embd, n_embd, generator, bias, dt)
 
     def forward(
-        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, causal: bool = False
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        causal: bool = False,
+        training: bool = False,
     ) -> torch.Tensor:
         q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
-        return self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal))
+        return self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, training))

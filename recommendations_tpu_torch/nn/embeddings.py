@@ -7,9 +7,12 @@ Ids are int64 over the full range. The KShift hash uses an unsigned 64-bit
 rotation and an unsigned mod; PyTorch's uint64 support is partial, so both
 are emulated on int64 bit patterns and agree bit for bit with the reference.
 
-Small tables (the JAX package's one-hot matmul lookups, a TPU device) are
-plain indexing here: indexing ``table`` and rounding the rows to the compute
-dtype gives the same rows.
+Small tables return their rows rounded to the compute dtype, as the JAX
+package's one-hot matmul lookup does. When a gradient is taken the lookup is
+that one-hot matmul, whose backward is a matmul too (the backward of
+indexing serializes the many repeated rows of a small table, a 4-row table
+read 16k times per batch); otherwise it is indexing, which gives the same
+rows in fewer launches.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ from torch import nn
 
 from recommendations_tpu_torch.nn.functional import l2_normalize
 
-# Tables up to this many rows return rows rounded to the compute dtype (the
-# reference's one-hot lookup); larger ones return exact rows.
+# Tables up to this many rows are looked up by a one-hot matmul; larger ones
+# by indexing (exact rows).
 ONEHOT_LOOKUP_MAX_ROWS = 4096
 
 
@@ -42,10 +45,17 @@ def _check_int(ids: torch.Tensor) -> None:
 def small_table_lookup(
     table: torch.Tensor, idx: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
 ) -> torch.Tensor:
-    rows = table[idx]
-    if compute_dtype is not None and table.shape[0] <= ONEHOT_LOOKUP_MAX_ROWS:
-        rows = rows.to(compute_dtype).to(table.dtype)
-    return rows
+    """``table[idx]``; up to ONEHOT_LOOKUP_MAX_ROWS rows, rounded to
+    ``compute_dtype`` (the table's dtype when None), and as a one-hot matmul
+    in that dtype when the table's gradient is taken."""
+    n = table.shape[0]
+    if n > ONEHOT_LOOKUP_MAX_ROWS:
+        return table[idx]
+    ct = compute_dtype or table.dtype
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return table[idx].to(ct).to(table.dtype)
+    onehot = (idx[..., None] == torch.arange(n, device=idx.device)).to(ct)
+    return (onehot @ table.to(ct)).to(table.dtype)
 
 
 def kshift_row_indices(ids: torch.Tensor, num_embeddings: int, num_shifts: int) -> torch.Tensor:

@@ -6,8 +6,10 @@ residual blocks, which fixes the reference's double residual
 (``x = x + block(x)`` around a block that already adds x, doubling the
 stream every layer).
 
-Not ported yet, and raising: the MoE rotator, the sparse-token keep-sets and
-per-block recomputation (remat), which serves training only.
+Not ported yet, and raising: the MoE rotator, the sparse-token keep-sets,
+per-block recomputation (remat) and dropout in training (a rate of 0.0
+trains). The rates reach every block's attention, whose guard covers the
+stack's input, attention and residual dropouts.
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ class TransformerBlock(nn.Module):
         is_sparse_attn: bool = False,
         use_flash: bool = False,
         dtype: Optional[torch.dtype] = None,
+        dropout: float = 0.0,
+        attn_dropout: float = 0.0,
     ):
         super().__init__()
         if not isinstance(rotator, (int, float)):
@@ -81,13 +85,16 @@ class TransformerBlock(nn.Module):
         self.attn = cls(
             n_embd, n_head, generator, use_bias=use_bias,
             pos_bias_window=pos_bias_window, use_flash=use_flash, dtype=dtype,
+            dropout=dropout, attn_dropout=attn_dropout,
         )
         self.ln_2 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
         hidden = int(float(rotator) * n_embd)
         self.c_fc = Dense(n_embd, hidden, generator, use_bias, dtype)
         self.c_proj = Dense(hidden, n_embd, generator, use_bias, dtype)
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None, training: bool = False
+    ) -> torch.Tensor:
         t = x.shape[1]
         # the flash path masks causally in-kernel; _sdpa takes the additive mask
         flash_ok = (
@@ -101,7 +108,9 @@ class TransformerBlock(nn.Module):
         if self.is_causal and not flash_ok:
             cm = causal_mask(t, x.device)
             attn_mask = cm if attn_mask is None else attn_mask + cm
-        x = x + self.attn(self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok)
+        x = x + self.attn(
+            self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok, training=training
+        )
         return x + self.c_proj(gelu_tanh(self.c_fc(self.ln_2(x))))
 
 
@@ -129,7 +138,9 @@ class TransformerStack(nn.Module):
                 f"block_{depth}", TransformerBlock(n_embd, n_head, generator, **block_kw)
             )
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None, training: bool = False
+    ) -> torch.Tensor:
         for depth in range(self.num_layers):
-            x = getattr(self, f"block_{depth}")(x, attn_mask)
+            x = getattr(self, f"block_{depth}")(x, attn_mask, training)
         return x

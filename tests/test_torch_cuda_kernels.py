@@ -14,6 +14,8 @@ import torch
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
 from recommendations_tpu_torch.ops import fused_attention as fa
+from recommendations_tpu_torch.train.step import train_step
+from recommendations_tpu_torch.train.train_state import TrainState
 
 pytestmark = pytest.mark.cuda
 
@@ -90,14 +92,93 @@ def test_flash_fwd_raises_instead_of_falling_back(cuda):
     assert fa.FLASH_FWD.launches == before
 
 
-def test_serving_forward_on_card_matches_cpu(cuda):
-    """f32 compute: the card (kernel, cuBLAS) against the CPU (plain
-    version) with the same weights."""
-    d = dict(
+def bwd_tolerance(dtype, ref):
+    """f32: the JAX kernel tests' gradient tolerance, 2e-4 absolute and
+    relative. bf16: ds and p are rounded before the products and the outputs
+    once at the end, so a sum taken in another order may land on the
+    neighbouring bf16 value: 2**-8 of the largest output."""
+    if dtype == torch.float32:
+        return 2e-4 + 2e-4 * ref.float().abs()
+    return 2**-8 * max(1.0, ref.float().abs().max().item())
+
+
+BWD_SHAPES = [
+    (64, 257, 32, 16, 1, torch.bfloat16, True),  # the LTHM-base training shape
+    (2, 70, 32, 16, 1, torch.bfloat16, True),
+    (2, 450, 32, 16, 1, torch.bfloat16, True),   # the JAX two-kernel regime
+    (2, 1100, 32, 16, 1, torch.bfloat16, True),  # the JAX grid regime
+    (4, 257, 32, 16, 32, torch.bfloat16, True),  # MHA
+    (4, 257, 32, 16, 1, torch.float32, True),
+    (4, 257, 32, 16, 1, torch.bfloat16, False),
+    (2, 300, 16, 32, 1, torch.bfloat16, True),
+    (2, 300, 16, 64, 1, torch.bfloat16, False),
+    (2, 1100, 4, 16, 4, torch.float32, False),
+    (2, 96, 4, 8, 1, torch.float32, True),
+    (2, 96, 2, 64, 2, torch.float32, True),
+    (2, 96, 4, 16, 1, torch.bfloat16, True),     # MQA with 4 heads: FMA path
+]
+
+
+@pytest.mark.parametrize("b,t,n_head,hd,kvh,dtype,causal", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain_version(cuda, b, t, n_head, hd, kvh, dtype, causal):
+    q, k, v = _qkv(b, t, n_head, hd, kvh, dtype)
+    o, lse = fa.fused_flash_attention_fwd(q, k, v, n_head, causal)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    before = fa.FLASH_BWD.launches
+    got = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, n_head, causal)
+    torch.cuda.synchronize()
+    assert fa.FLASH_BWD.launches == before + 1
+    want = fa.fused_flash_attention_bwd_reference(q, k, v, o, lse, do, n_head, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= bwd_tolerance(dtype, w)).all()), f"{name}: max err {err.max().item()}"
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    q, k, v = _qkv(8, 257, 32, 16, 1, torch.bfloat16)
+    o, lse = fa.fused_flash_attention_fwd(q, k, v, 32, True)
+    do = torch.randn_like(q)
+    a = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, 32, True)
+    b = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, 32, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_raises_instead_of_falling_back(cuda):
+    q, k, v = _qkv(1, 16, 2, 16, 1, torch.bfloat16)
+    o, lse = fa.fused_flash_attention_fwd(q, k, v, 2)
+    before = fa.FLASH_BWD.launches
+    strided = torch.cat([q, q], dim=-1)[..., : q.shape[-1]]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_flash_attention_bwd(strided, k, v, o, lse, q, 2)
+    q12, k12, v12 = _qkv(1, 16, 2, 12, 1, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.fused_flash_attention_bwd(q12, k12, v12, q12, lse, q12, 2)
+    with pytest.raises(ValueError, match="lse"):
+        fa.fused_flash_attention_bwd(q, k, v, o, lse[:, :8], q, 2)
+    assert fa.FLASH_BWD.launches == before
+
+
+def test_flash_attention_autograd_launches_both_kernels(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(2, 70, 32, 16, 1, torch.bfloat16))
+    fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
+    o = fa.fused_flash_attention(q, k, v, 32, True)
+    assert isinstance(o.grad_fn, fa.FlashAttention._backward_cls)
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == (fwd + 1, bwd + 1)
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad.float()).all()) for x in (q, k, v))
+
+
+def _small_config():
+    return dict(
         compute_dtype="float32",
         transformer_config=dict(
             rotator_config={"ff_mult": 4}, is_causal=True, num_layers=2, use_flash_attention=True,
-            attn_config=dict(n_head=4, n_embd=64, attn_type="multi_query", bias=False),
+            attn_config=dict(n_head=4, n_embd=64, attn_type="multi_query", bias=False,
+                             dropout=0.0, attn_dropout=0.0),
         ),
         product_tower=dict(
             inp_emb_dim=16, out_emb_dim=64, product_emb_dim=32, norm_bins=8,
@@ -106,18 +187,34 @@ def test_serving_forward_on_card_matches_cpu(cuda):
                                  "normalize_embedding": True},
         ),
         lookahead=[0, 2, 4], context_width=48, table_optimizer="frozen",
+        log_q_config={"num_buckets": 4096, "hash_offsets": [0, 7]}, train_mini_batch_size=3,
     )
-    gpu = LTHMModelWrapper(LTHMModelConfig.from_dict(d))
-    cpu = LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cpu")
-    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()})
-    g = torch.Generator().manual_seed(5)
+
+
+def _small_batch(seed=5):
+    g = torch.Generator().manual_seed(seed)
     ids = torch.randint(-(2**62), 2**62, (4, 56), generator=g)
     ids[:, -5:] = 0
-    batch = {
+    return {
         "product_ids": ids,
         "labels": torch.randint(0, 4, (4, 56), generator=g).float(),
         "timestamps": torch.randint(1_600_000_000, 1_700_000_000, (4, 56), generator=g).float(),
     }
+
+
+def _pair_on_card_and_cpu():
+    d = _small_config()
+    gpu = LTHMModelWrapper(LTHMModelConfig.from_dict(d))
+    cpu = LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()})
+    return gpu, cpu
+
+
+def test_serving_forward_on_card_matches_cpu(cuda):
+    """f32 compute: the card (kernel, cuBLAS) against the CPU (plain
+    version) with the same weights."""
+    gpu, cpu = _pair_on_card_and_cpu()
+    batch = _small_batch()
     before = fa.FLASH_FWD.launches
     got = gpu.inference_models()["user_encoder"](batch)["user_emb"]
     torch.cuda.synchronize()
@@ -125,3 +222,40 @@ def test_serving_forward_on_card_matches_cpu(cuda):
     want = cpu.inference_models()["user_encoder"](batch)["user_emb"]
     assert got.is_cuda and got.shape == (4, 32)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_training_step_on_card_matches_cpu(cuda):
+    """One f32 training step with the same weights, batch and offsets: the
+    card (kernels, cuBLAS) against the CPU (plain versions). Held as the CPU
+    parity tests hold the port to the JAX package: the loss at 1e-4, each
+    gradient at 2e-4 norm-relative (the cosine-LSH tables, a bf16 product in
+    a float32 model, at one bf16 ulp), and the updated parameters at 2e-4
+    norm-relative. (AdamW's first step is about lr * sign(g) per element, so
+    steps of elements whose gradient is near eps are not compared alone.)"""
+    gpu, cpu = _pair_on_card_and_cpu()
+    batch, offsets = _small_batch(7), [0, 1, 3]
+    launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+    results = []
+    for w in (gpu, cpu):
+        state = TrainState.create(w)
+        state.optimizer.zero_grad()
+        loss, _, _ = w.loss_and_metrics(batch, state.aux, True, offsets=offsets)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in w.module.named_parameters() if p.grad is not None}
+        state.optimizer.step()
+        params = {n: p.detach().cpu() for n, p in w.module.named_parameters()}
+        results.append((loss.item(), grads, params))
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == (launches[0] + 2, launches[1] + 2)
+    (lg, gg, pg), (lc, gc, pc) = results
+    assert abs(lg - lc) <= 1e-4
+    assert set(gg) == set(gc)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    for name in gc:
+        tol = 2**-8 if ".direction_emb_" in name else 2e-4
+        assert rel(gg[name], gc[name]) <= tol, name
+    for name in pc:
+        assert rel(pg[name], pc[name]) <= 2e-4, name

@@ -1,0 +1,109 @@
+"""Where the time of an LTHM training step goes on the card.
+
+    python3 tools/profile_torch_training.py [--steps 3] [--out traces/training_trace.json]
+
+Builds the LTHM-base model of ``chip_smoke.py`` (random weights from a seed,
+``fused_ce`` off, frozen table) on the GPU, takes two warm-up steps on one
+batch of 64 users, and traces ``--steps`` more with ``torch.profiler``.
+Prints the host time per step, the device's busy share of that window
+(kernel time over wall time; one stream, so kernels do not overlap), the
+device time of each phase of the step (the innermost ``lthm/...`` range of
+``torch.profiler.record_function`` that launched each kernel: forward,
+loss, backward, ce_backward, optimizer), and the kernels that take the most
+device time, each with its launches per step. Writes the Chrome trace to
+``--out``. Needs a card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=30)
+    ap.add_argument("--out", default=os.path.join("traces", "training_trace.json"))
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_training: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import bench_config, request_batch
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    cfg = LTHMModelConfig.from_dict(bench_config())
+    state = TrainState.create(LTHMModelWrapper(cfg, device="cuda", seed=0), seed=1)
+    batch = request_batch(1000)
+    offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    for _ in range(2):
+        train_step(state, batch, offsets=offsets)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            train_step(state, batch, offsets=offsets)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    prof.export_chrome_trace(args.out)
+
+    with open(args.out) as f:
+        events = json.load(f)["traceEvents"]
+    # launch time of each correlation id, and the lthm/... ranges
+    launched = {
+        e["args"]["correlation"]: e["ts"] for e in events
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+    }
+    ranges = [
+        (e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("lthm/")
+    ]
+
+    def phase(kernel) -> str:
+        t = launched.get(kernel.get("args", {}).get("correlation"))
+        inside = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+        return min(inside, key=lambda r: r[1] - r[0])[2] if inside else "other"
+
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    by_phase = collections.defaultdict(lambda: [0.0, 0])
+    busy_us = 0.0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy_us += e["dur"]
+            by_name[e["name"]][0] += e["dur"]
+            by_name[e["name"]][1] += 1
+            by_phase[phase(e)][0] += e["dur"]
+            by_phase[phase(e)][1] += 1
+    n = args.steps
+    print(f"{n} training steps of 64 users: {wall_us / n / 1e3:.3f} ms per step (host clock), "
+          f"device busy {busy_us / n / 1e3:.3f} ms per step = "
+          f"{100 * busy_us / wall_us:.1f}% of the window, "
+          f"{sum(c for _, c in by_name.values()) // n} device operations per step")
+    print("device time per step by phase (ms, operations per step, share of busy):")
+    for name, (us, cnt) in sorted(by_phase.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / n / 1e3:9.4f}  {cnt // n:4d}  {100 * us / busy_us:5.1f}%  {name}")
+    print("device time per step by kernel (ms, launches per step, share of busy):")
+    for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
+        print(f"  {us / n / 1e3:9.4f}  {cnt // n:4d}  {100 * us / busy_us:5.1f}%  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
