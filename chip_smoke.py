@@ -4,28 +4,33 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
-  1. device and build: the card, its power limit, and the flash-attention
-     kernels (forward and backward) built by nvcc from the repo's sources,
-     one nvcc per source, started together;
+  1. device and build: the card, its power limit, and the kernels built by
+     nvcc from the repo's sources (flash-attention forward and backward, the
+     four fused contrastive-CE kernels), one nvcc per source, started
+     together;
   2. each kernel against its plain PyTorch version on the card, at the
      serving and training shapes and at edge shapes, beside the stated
-     tolerance;
+     tolerance; the CE kernels also run twice for the same bits;
   3. the serving path: the LTHM user encoder at the LTHM-base width
      (6 layers, d=512, MQA 32x16, context 256, a fresh 1M-row KShift table,
      random weights from a seed) answers 8 requests of 64 users; the launch
      counts show the path went through the kernel, the outputs are finite
      unit vectors, the kernel path agrees with the plain-attention path, and
      a small float32 model on the card agrees with the same weights on the CPU;
-  4. the training path: the LTHM-base training step (fused_ce off, frozen
-     table) takes a warm-up step and 8 timed steps on one batch of 64 users
-     with fixed lookahead offsets; the launch counts show 6 flash_fwd and 6
-     flash_bwd launches per step, the loss and gradient norm stay finite, no
-     parameter turns NaN, the table stays as it was and the loss falls; one
-     step's gradients on the kernel path agree with the plain-attention path,
-     and a small float32 model's step on the card agrees with the CPU's;
+  4. the training path as bench.py configures it (fused_ce on, frozen
+     table): a warm-up step and 8 timed steps on one batch of 64 users with
+     fixed lookahead offsets; the launch counts show 6 flash_fwd, 6 flash_bwd
+     and 12 of each CE kernel per step, the loss and gradient norm stay
+     finite, no parameter turns NaN, the table stays as it was and the loss
+     falls; one step's gradients on the kernel path agree with the
+     plain-attention path, with the plain CE path, and with the eager
+     (fused_ce off) CE; the eager step then takes a warm-up and 4 timed
+     steps (6 flash_fwd and 6 flash_bwd, no CE kernel); a small float32
+     model's step on the card agrees with the CPU's, with either CE;
   5. timing with CUDA events: each kernel, its plain version, one PyTorch
-     library call for the same function as a yardstick, the request and the
-     training step.
+     library call for the same function as a yardstick where there is one,
+     the eager CE on the CE kernels' problem, the request and both training
+     steps.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -34,7 +39,10 @@ card, and without the repo beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -50,10 +58,13 @@ F32_FLOPS_PER_S = 67e12    # outside the tensor cores
 BATCH, EVENTS, CONTEXT = 64, 264, 256
 REQUESTS = 8
 TRAIN_STEPS = 8
+EAGER_STEPS = 4
+INV_T = 20.0  # 1 / softmax_temperature
 
 
 def bench_config() -> dict:
-    """The LTHM-base shape bench.py builds for one chip."""
+    """The LTHM-base shape and training settings bench.py builds for one
+    chip (fused_ce=on_tpu: on an accelerator, the fused CE)."""
     d = 512
     return dict(
         features={"defaults": {}},
@@ -82,6 +93,7 @@ def bench_config() -> dict:
         context_width=CONTEXT,
         softmax_temperature=0.05,
         train_mini_batch_size=32,
+        fused_ce=True,
         table_optimizer="frozen",
     )
 
@@ -218,6 +230,114 @@ def compare_flash_bwd(fa, b, t, n_head, hd, kvh, dtype, causal, seed=0):
     return max(errs), (tol if dtype != torch.float32 else None)
 
 
+def bf16_ulp(ref) -> float:
+    """One bf16 ulp of the largest element of ref: 2**(e - 7) for the
+    largest magnitude in [2**e, 2**(e+1))."""
+    top = ref.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+CE_TOL = 2e-5    # ce, lse and diag: f32, absolute plus relative (the JAX kernel tests')
+TIE_EPS = 1e-4   # logits this close to the positive's may rank either way
+
+
+def ce_inputs(n, s, d, pattern, seed=0):
+    """Unit bf16 rows, validity and logQ as the loss makes them. pattern:
+    'roll' the last 4 slots of every user invalid (the padding of a request,
+    rolled by offset 0); 'random' 10% invalid; 'invalid_user' as random with
+    user 2 all invalid; 'one_user' only user 1 valid but for one slot, so
+    every other row has no valid column and that slot's row is fully masked
+    (ce = -inf)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    unit = lambda: torch.nn.functional.normalize(  # noqa: E731
+        torch.randn(n, d, generator=g, device="cuda"), dim=-1).bfloat16()
+    q, c = unit(), unit()
+    slot = torch.arange(n, device="cuda") % s
+    if pattern == "roll":
+        v = slot < s - 4
+    else:
+        v = torch.rand(n, generator=g, device="cuda") >= 0.1
+    if pattern == "invalid_user":
+        v[2 * s: 3 * s] = False
+    if pattern == "one_user":
+        v[:] = False
+        v[s: 2 * s - 1] = True
+    lq = -torch.log(torch.rand(n, generator=g, device="cuda") * 1e4 + 1.0)  # logQ-sized, in [-9.2, 0]
+    dce = torch.rand(n, generator=g, device="cuda") * v  # zero weight on invalid rows, as the loss
+    return q, c, v, lq, dce
+
+
+def compare_ce(fc, n, s, d, beta, pattern):
+    """Each CE kernel against its plain version on one input; returns the
+    errors of the four kernels and their tolerances."""
+    q, c, v, lq, dce = ce_inputs(n, s, d, pattern, seed=n + d)
+    ce, rank, lse = fc.ce_forward(q, c, v, lq, s, INV_T, beta)
+    dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
+    torch.cuda.synchronize()
+    again = fc.ce_forward(q, c, v, lq, s, INV_T, beta) + fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
+    same_bits = all(torch.equal(a, b) for a, b in zip((ce, rank, lse, dq, dc), again))
+    diag_k = torch.empty_like(ce)
+    fc.CE_ROW_DIAG.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), diag_k.data_ptr(), n, d, INV_T,
+                          torch.cuda.current_stream().cuda_stream)
+    diag = fc.row_diag_reference(q, c, v, INV_T)
+    rce, rrank, rlse = fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta)
+    rdq = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "q")
+    rdc = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "c")
+
+    def f32_err(got, want):
+        fin = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), fin) or not torch.equal(got[~fin], want[~fin]):
+            return float("inf")
+        return ((got - want).abs() / (1.0 + want.abs()))[fin].max().item() if fin.any() else 0.0
+
+    errs = {"ce_row_diag": f32_err(diag_k, diag), "ce_fwd": max(f32_err(ce, rce), f32_err(lse, rlse))}
+    # rank: equal but where an off-diagonal live logit lies within TIE_EPS of diag
+    logits, _, eye = fc._masked_plane(q, c, v, lq, s, INV_T, beta)
+    near = (((logits - diag[:, None]).abs() <= TIE_EPS) & ~eye & (logits > -1e8)).any(-1)
+    differ = rank != rrank
+    unexplained = int((differ & ~near).sum())
+    del logits, eye
+    ok = errs["ce_row_diag"] <= CE_TOL and errs["ce_fwd"] <= CE_TOL and unexplained == 0
+    tols = {"ce_row_diag": CE_TOL, "ce_fwd": CE_TOL}
+    for name, got, want in (("ce_dq", dq, rdq), ("ce_dc", dc, rdc)):
+        err = (got.float() - want.float()).abs().max().item()
+        # one bf16 ulp of the largest; where the gradient vanishes (rows whose
+        # only live column is their own: p_ii = 1 up to the rounding of lse)
+        # both hold that rounding times dce * inv_t, a floor of 2**-16 * inv_t
+        tols[name] = max(bf16_ulp(want), 2**-16 * INV_T)
+        errs[name] = err
+        ok &= bool(torch.isfinite(got.float()).all()) and err <= tols[name]
+    ok &= same_bits
+    print(
+        f"  fused CE N={n} s={s} D={d} beta={beta} {pattern}: diag {errs['ce_row_diag']:.2e}, "
+        f"ce/lse {errs['ce_fwd']:.2e} (tol {CE_TOL:.0e} abs + rel); rank differs on "
+        f"{int(differ.sum())} rows, {int(near.sum())} rows have a logit within {TIE_EPS:.0e} of "
+        f"the positive's, {unexplained} differ otherwise; dq {errs['ce_dq']:.3e} "
+        f"(tol {tols['ce_dq']:.3e}), dc {errs['ce_dc']:.3e} (tol {tols['ce_dc']:.3e}); "
+        f"{int((~torch.isfinite(ce)).sum())} rows -inf; same bits twice {same_bits} "
+        f"-> {'ok' if ok else 'FAIL'}",
+        flush=True,
+    )
+    if not ok:
+        raise AssertionError("a fused CE kernel disagrees with its plain version")
+    return errs, tols
+
+
+def ce_bound(kernel, n, d):
+    """Least time for one call at (N, D), bf16 rows: its inputs read and
+    outputs written once over HBM rate, or its products at the peak rate
+    (the row dot on the f32 units, the tiles' products on the tensor cores)."""
+    rows = 2 * n * d * 2 + n  # q, c, v
+    if kernel == "ce_row_diag":
+        nbytes, flops, peak = rows + 4 * n, 2 * n * d, F32_FLOPS_PER_S
+    elif kernel == "ce_fwd":
+        nbytes, flops, peak = rows + 2 * 4 * n + 4 + 3 * 4 * n, 2 * n * n * d, BF16_FLOPS_PER_S
+    else:  # ce_dq, ce_dc: S and the gradient product
+        nbytes, flops, peak = rows + 3 * 4 * n + n * d * 2, 4 * n * n * d, BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def grads_of(wrapper, batch, aux, offsets):
     """One forward and backward of the training loss; (loss, {name: grad})."""
     wrapper.module.zero_grad(set_to_none=True)
@@ -239,7 +359,9 @@ def main() -> int:
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.models.lthm import loss as lthm_loss
     from recommendations_tpu_torch.ops import fused_attention as fa
+    from recommendations_tpu_torch.ops import fused_ce as fc
     from recommendations_tpu_torch.train.step import train_step
     from recommendations_tpu_torch.train.train_state import TrainState
 
@@ -254,15 +376,21 @@ def main() -> int:
     print(f"[1] device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
-    kernels = (fa.FLASH_FWD, fa.FLASH_BWD)
-    with ThreadPoolExecutor(len(kernels)) as pool:
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD, *fc.KERNELS)
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda kern: kern.build(), kernels))
-    print(f"[1] built {', '.join(kern.source.name for kern in kernels)} in "
+    sources = {kern.source: kern for kern in kernels}
+    print(f"[1] built {', '.join(src.name for src in sources)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for kern in kernels:
+    for src, kern in sources.items():
+        entry = ""
         for line in kern.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {kern.name}: " + line.strip(), flush=True)
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                base = re.search(r"[a-z_]*kernel[a-z_]*", mangled)
+                entry = (base.group(0) if base else mangled) + "<" + ",".join(re.findall(r"Li(\d+)E", mangled)) + ">"
+            elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                print(f"    {src.name} {entry}: " + line.split(":", 1)[-1].strip(), flush=True)
 
     # -- 2. kernel against its plain version -----------------------------------
     print("[2] flash_fwd against its plain version:", flush=True)
@@ -294,6 +422,18 @@ def main() -> int:
         (2, 1100, 4, 16, 4, torch.float32, False),
     ):
         compare_flash_bwd(fa, *shape)
+    print("[2] fused CE kernels against their plain versions:", flush=True)
+    n_ce, d_ce = (BATCH // 2) * CONTEXT, 128  # one 32-user loss chunk of LTHM-base
+    ce_errs, ce_tols = compare_ce(fc, n_ce, CONTEXT, d_ce, 0.0, "roll")
+    for shape in (
+        (100, 10, 16, 1.0, "random"),            # N not a multiple of any tile
+        (32 * 264, 264, 128, 0.0, "roll"),       # N = 8448, a 264-token context
+        (2048, 64, 64, 1.0, "invalid_user"),     # a user with every slot invalid
+        (1024, 32, 32, 0.5, "random"),
+        (512, 32, 16, 1.0, "one_user"),          # fully masked rows: ce = -inf
+        (256, 256, 128, 1.0, "random"),          # one user: every off-diagonal masked
+    ):
+        compare_ce(fc, *shape)
 
     # -- 3. the serving path ---------------------------------------------------
     cfg = LTHMModelConfig.from_dict(bench_config())
@@ -390,27 +530,36 @@ def main() -> int:
     table_before = table.detach().clone()
     train_batch = request_batch(1000)
     offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    heads, chunks = len(cfg.lookahead), BATCH // cfg.train_mini_batch_size
+
+    def timed_steps(steps):
+        """Steps on the training batch with every launch count set to 0 just
+        before and read just after: (ms, losses, grad norms, NaN flags,
+        {kernel: launches}, peak MiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        ms, ls, gn, nan = [], [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss, metrics = train_step(state, train_batch, offsets=offsets)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ls.append(loss.item())
+            gn.append(metrics["grad_norm"].item())
+            nan.append(metrics["params_nan"].item())
+        counts = {kern.name: kern.launches for kern in kernels}
+        return ms, ls, gn, nan, counts, torch.cuda.max_memory_allocated() / 2**20
+
     first_loss, _ = train_step(state, train_batch, offsets=offsets)  # warm-up, step 1
     first_loss = first_loss.item()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.FLASH_FWD.launches = fa.FLASH_BWD.launches = 0
-    step_ms, losses, grad_norms, nans = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        loss, metrics = train_step(state, train_batch, offsets=offsets)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss.item())
-        grad_norms.append(metrics["grad_norm"].item())
-        nans.append(metrics["params_nan"].item())
-    train_fwd, train_bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
-    train_peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    print(f"[4] {TRAIN_STEPS} training steps of {BATCH} users (offsets {offsets.tolist()}): "
-          f"flash_fwd launches {train_fwd}, flash_bwd launches {train_bwd} "
-          f"(expected {layers} each per step)", flush=True)
-    if train_fwd != layers * TRAIN_STEPS or train_bwd != layers * TRAIN_STEPS:
-        raise AssertionError("the training step did not launch 6 flash_fwd and 6 flash_bwd per step")
+    step_ms, losses, grad_norms, nans, train_counts, train_peak_mib = timed_steps(TRAIN_STEPS)
+    want = {"flash_fwd": layers, "flash_bwd": layers, **{k.name: heads * chunks for k in fc.KERNELS}}
+    print(f"[4] {TRAIN_STEPS} training steps of {BATCH} users, fused_ce on (offsets "
+          f"{offsets.tolist()}): launches {train_counts} (expected per step {want})", flush=True)
+    if train_counts != {k: n * TRAIN_STEPS for k, n in want.items()}:
+        raise AssertionError("the training step did not launch each kernel of its path as expected")
     print(f"[4] loss: step 1 {first_loss:.5f}, steps 2-9 {[round(x, 5) for x in losses]}; "
           f"grad_norm {[round(x, 4) for x in grad_norms]}; params_nan {nans}", flush=True)
     if not all(np.isfinite(losses + grad_norms + [first_loss])) or any(nans):
@@ -420,66 +569,106 @@ def main() -> int:
     if not losses[-1] < first_loss:
         raise AssertionError("the loss did not fall over 8 steps on one batch")
 
-    # one step's gradients: the kernel path against the plain-attention path
+    def held_to(label, other, grads_k, loss_k, grad_tol, loss_tol, why):
+        loss_o, grads_o = other
+        if set(grads_k) != set(grads_o) or "product_emb_module.embedding" in grads_k:
+            raise AssertionError(f"{label}: the two paths gave gradients for different parameters")
+        worst = max((rel_err(grads_k[n], grads_o[n]), n) for n in grads_o)
+        ok = worst[0] <= grad_tol and abs(loss_k - loss_o) <= loss_tol
+        print(f"[4] one step's gradients, {label}: loss {loss_k:.6f} vs {loss_o:.6f} (tol "
+              f"{loss_tol:.2e}); worst parameter {worst[1]} at norm-relative {worst[0]:.3e} "
+              f"(tol {grad_tol:.3e}) over {len(grads_o)} parameters; {why} "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: gradients disagree")
+
+    # one step's gradients on the kernel path, against the same step with the
+    # plain attention, with the plain CE, and with the eager CE
     loss_k, grads_k = grads_of(wrapper, train_batch, state.aux, offsets)
+    before = {kern.name: kern.launches for kern in kernels}
     with mock.patch.object(fa, "fused_flash_attention_fwd", fa.fused_flash_attention_reference), \
             mock.patch.object(fa, "fused_flash_attention_bwd", fa.fused_flash_attention_bwd_reference):
-        before = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
-        loss_p, grads_p = grads_of(wrapper, train_batch, state.aux, offsets)
-        if (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) != before:
-            raise AssertionError("the plain-attention run launched a kernel")
-    if set(grads_k) != set(grads_p) or "product_emb_module.embedding" in grads_k:
-        raise AssertionError("the two paths gave gradients for different parameters")
-    worst = max((rel_err(grads_k[n], grads_p[n]), n) for n in grads_p)
-    # bf16 carries 8 significant bits; one-ulp flips in o, dq, dk and dv
-    # travel through the 6 layers' bf16 products: each parameter's gradient
-    # held at 2**-5 norm-relative (four ulps), the loss at 2**-8 relative
-    grad_tol, loss_tol = 2**-5, 2**-8 * abs(loss_p)
-    ok = worst[0] <= grad_tol and abs(loss_k - loss_p) <= loss_tol
-    print(f"[4] one step's gradients, kernel vs plain attention: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f} (tol {loss_tol:.2e}); worst parameter {worst[1]} at norm-relative "
-          f"{worst[0]:.3e} (tol {grad_tol:.3e}) over {len(grads_p)} parameters "
-          f"-> {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("kernel path and plain-attention path gradients disagree")
-    del grads_k, grads_p
+        plain_attention = grads_of(wrapper, train_batch, state.aux, offsets)
+    if (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) != (before["flash_fwd"], before["flash_bwd"]):
+        raise AssertionError("the plain-attention run launched a flash kernel")
+    held_to("kernel vs plain attention", plain_attention, grads_k, loss_k, 2**-5, 2**-8 * abs(loss_k),
+            "one-ulp flips in o, dq, dk, dv travel through 6 layers of bf16 products: "
+            "2**-5 (four ulps), the loss 2**-8 relative")
+    del plain_attention
+    before = {kern.name: kern.launches for kern in kernels}
+    with mock.patch.object(fc, "ce_forward", fc.ce_forward_reference), \
+            mock.patch.object(fc, "ce_backward", fc.ce_backward_reference):
+        plain_ce = grads_of(wrapper, train_batch, state.aux, offsets)
+    if any(k.launches != before[k.name] for k in fc.KERNELS):
+        raise AssertionError("the plain-CE run launched a CE kernel")
+    held_to("kernel vs plain CE", plain_ce, grads_k, loss_k, 2**-7, 1e-5 * abs(loss_k),
+            "the two differ by f32 sum order and exp's last bits, which can move one bf16 "
+            "rounding of g or of dq, dc: one ulp, 2**-7 relative at most")
+    del plain_ce
+    eager_cfg = dataclasses.replace(cfg, fused_ce=False)
+    wrapper.config = eager_cfg
+    eager = grads_of(wrapper, train_batch, state.aux, offsets)
+    wrapper.config = cfg
+    held_to("fused vs eager CE", eager, grads_k, loss_k, 2**-3, heads * 2**-4,
+            "the eager CE stores its logits in bf16, each within half a quantum (2**-5 at "
+            "|logit| <= 20), so each row's lse and diagonal move by at most 2**-5 (ce by "
+            "2**-4 a head) and each p by at most 6.5%")
+    del grads_k, eager
 
-    # a small float32 model: one step on the card against one on the CPU
-    train_small = dict(small, log_q_config={"num_buckets": 4096, "hash_offsets": [0, 7]},
-                       train_mini_batch_size=3)
-    small_cfg = LTHMModelConfig.from_dict(train_small)
-    on_card = LTHMModelWrapper(small_cfg, device="cuda", seed=2)
-    on_cpu = LTHMModelWrapper(small_cfg, device="cpu")
-    on_cpu.module.load_state_dict({k: v.cpu() for k, v in on_card.module.state_dict().items()})
-    sb = request_batch(98, batch=4, events=56)
-    small_offsets = sample_offsets(torch.Generator().manual_seed(3), small_cfg.lookahead)
-    results = []
-    for w in (on_card, on_cpu):
-        st = TrainState.create(w, seed=1)
-        st.optimizer.zero_grad()
-        loss_s, _, _ = w.loss_and_metrics(sb, st.aux, True, offsets=small_offsets)
-        loss_s.backward()
-        grads = {n: p.grad.detach().cpu().clone() for n, p in w.module.named_parameters() if p.grad is not None}
-        st.optimizer.step()
-        after = {n: p.detach().cpu() for n, p in w.module.named_parameters()}
-        results.append((loss_s.item(), grads, after))
-    (lc, gc, pc), (lp, gp, pp) = results
-    # as the CPU parity tests hold the port to the JAX package: loss 1e-4,
-    # gradients 2e-4 norm-relative, the cosine-LSH tables' gradient (a bf16
-    # product in a float32 model) one bf16 ulp; the updated parameters 2e-4
-    # norm-relative. (AdamW's first step is about lr * sign(g) per element,
-    # so elements whose gradient is near eps carry the gradient's tiny
-    # absolute difference into a full-size step difference: the steps
-    # themselves are not compared element by element.)
-    worst_g = max((rel_err(gc[n], gp[n]) / (2**-8 if ".direction_emb_" in n else 2e-4), n) for n in gp)
-    worst_p = max((rel_err(pc[n], pp[n]) / 2e-4, n) for n in pp)
-    ok = abs(lc - lp) <= 1e-4 and set(gc) == set(gp) and worst_g[0] <= 1 and worst_p[0] <= 1
-    print(f"[4] small f32 model, one training step, card vs CPU: loss {lc:.6f} vs {lp:.6f}; "
-          f"worst gradient {worst_g[1]} at {worst_g[0]:.3f} of its tolerance, worst updated "
-          f"parameter {worst_p[1]} at {worst_p[0]:.3f} of its tolerance -> {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise AssertionError("the card and the CPU disagree on the small model's training step")
+    # the eager CE's step (fused_ce off) on the same state
+    wrapper.config = eager_cfg
+    train_step(state, train_batch, offsets=offsets)  # warm-up
+    eager_ms, eager_losses, eager_gn, eager_nans, eager_counts, eager_peak_mib = timed_steps(EAGER_STEPS)
+    wrapper.config = cfg
+    want_eager = {k.name: (layers if k in (fa.FLASH_FWD, fa.FLASH_BWD) else 0) for k in kernels}
+    print(f"[4] {EAGER_STEPS} training steps, fused_ce off: launches {eager_counts} (expected per "
+          f"step {want_eager}); loss {[round(x, 5) for x in eager_losses]}", flush=True)
+    if eager_counts != {k: n * EAGER_STEPS for k, n in want_eager.items()}:
+        raise AssertionError("the eager-CE step did not launch each kernel of its path as expected")
+    if not all(np.isfinite(eager_losses + eager_gn)) or any(eager_nans):
+        raise AssertionError("an eager-CE step gave a non-finite loss or gradient, or NaN parameters")
+
+    # a small float32 model: one step on the card against one on the CPU,
+    # with either CE
+    for fused in (True, False):
+        train_small = dict(small, log_q_config={"num_buckets": 4096, "hash_offsets": [0, 7]},
+                           train_mini_batch_size=3, fused_ce=fused)
+        small_cfg = LTHMModelConfig.from_dict(train_small)
+        on_card = LTHMModelWrapper(small_cfg, device="cuda", seed=2)
+        on_cpu = LTHMModelWrapper(small_cfg, device="cpu")
+        on_cpu.module.load_state_dict({k: v.cpu() for k, v in on_card.module.state_dict().items()})
+        sb = request_batch(98, batch=4, events=56)
+        small_offsets = sample_offsets(torch.Generator().manual_seed(3), small_cfg.lookahead)
+        results = []
+        before = fc.CE_FWD.launches
+        for w in (on_card, on_cpu):
+            st = TrainState.create(w, seed=1)
+            st.optimizer.zero_grad()
+            loss_s, _, _ = w.loss_and_metrics(sb, st.aux, True, offsets=small_offsets)
+            loss_s.backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in w.module.named_parameters() if p.grad is not None}
+            st.optimizer.step()
+            after = {n: p.detach().cpu() for n, p in w.module.named_parameters()}
+            results.append((loss_s.item(), grads, after))
+        if (fc.CE_FWD.launches > before) != fused:
+            raise AssertionError("the small model's card step did not take the CE it was given")
+        (lc, gc, pc), (lp, gp, pp) = results
+        # as the CPU parity tests hold the port to the JAX package: loss 1e-4,
+        # gradients 2e-4 norm-relative, the cosine-LSH tables' gradient (a bf16
+        # product in a float32 model) one bf16 ulp; the updated parameters 2e-4
+        # norm-relative. (AdamW's first step is about lr * sign(g) per element,
+        # so elements whose gradient is near eps carry the gradient's tiny
+        # absolute difference into a full-size step difference: the steps
+        # themselves are not compared element by element.)
+        worst_g = max((rel_err(gc[n], gp[n]) / (2**-8 if ".direction_emb_" in n else 2e-4), n) for n in gp)
+        worst_p = max((rel_err(pc[n], pp[n]) / 2e-4, n) for n in pp)
+        ok = abs(lc - lp) <= 1e-4 and set(gc) == set(gp) and worst_g[0] <= 1 and worst_p[0] <= 1
+        print(f"[4] small f32 model, fused_ce {'on' if fused else 'off'}, one training step, card vs "
+              f"CPU: loss {lc:.6f} vs {lp:.6f}; worst gradient {worst_g[1]} at {worst_g[0]:.3f} of its "
+              f"tolerance, worst updated parameter {worst_p[1]} at {worst_p[0]:.3f} of its tolerance "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the card and the CPU disagree on the small model's training step")
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -499,70 +688,156 @@ def main() -> int:
           f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {flops} flop)", flush=True)
 
     # the backward kernel alone (D given, as the bound counts it), its plain
-    # version, and the backward of scaled_dot_product_attention on expanded K/V
-    q, k, v, o, lse, do = bwd_inputs(fa, b, t, h, hd, kvh, dt, causal, seed=8)
-    dcol = fa._rowsum_do_o(do, o, h).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def bwd_kernel():
-        fa.FLASH_BWD.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dcol.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, kvh, hd, int(causal), 1, stream,
-        )
-
-    bwd_ms = cuda_ms(bwd_kernel, 50)
-    bwd_plain_ms = cuda_ms(lambda: fa.fused_flash_attention_bwd_reference(q, k, v, o, lse, do, h, causal), 5)
-    qh = q.view(b, t, h, hd).transpose(1, 2).detach().requires_grad_()
-    kh = k.view(b, t, 1, hd).transpose(1, 2).detach().requires_grad_()
-    vh = v.view(b, t, 1, hd).transpose(1, 2).detach().requires_grad_()
-    doh = do.view(b, t, h, hd).transpose(1, 2)
+    # version, and the backward of scaled_dot_product_attention on expanded
+    # K/V: at the training shape, and in the JAX package's two-kernel
+    # (384 < T <= 512) and grid (T > 512) regimes
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            sdpa(qh, kh.expand(b, h, t, hd), vh.expand(b, h, t, hd), is_causal=True)
+    def time_flash_bwd(b, t, seed, plain_iters):
+        q, k, v, o, lse, do = bwd_inputs(fa, b, t, h, hd, kvh, dt, causal, seed=seed)
+        dcol = fa._rowsum_do_o(do, o, h).contiguous()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream().cuda_stream
 
-    def sdpa_fwd_bwd():
-        out = sdpa(qh, kh.expand(b, h, t, hd), vh.expand(b, h, t, hd), is_causal=True)
-        torch.autograd.grad(out, (qh, kh, vh), doh)
+        def bwd_kernel():
+            fa.FLASH_BWD.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dcol.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, t, h, kvh, hd, int(causal), 1, stream,
+            )
 
-    bwd_library_ms = cuda_ms(sdpa_fwd_bwd, 30) - cuda_ms(sdpa_fwd, 30)
-    bwd_bound_ms, bwd_bound_by, bwd_bytes, bwd_flops = flash_bwd_bound(b, t, h, hd, kvh, dt, causal)
-    print(f"[5] flash_bwd at B={b} T={t} MQA {h}x{hd} bf16 causal: kernel {bwd_ms:.4f} ms, "
-          f"plain {bwd_plain_ms:.4f} ms, scaled_dot_product_attention backward "
-          f"{bwd_library_ms:.4f} ms, bound {bwd_bound_ms:.4f} ms ({bwd_bound_by}: {bwd_bytes} "
-          f"bytes, {bwd_flops} flop)", flush=True)
+        ms = cuda_ms(bwd_kernel, 30)
+        plain = cuda_ms(lambda: fa.fused_flash_attention_bwd_reference(q, k, v, o, lse, do, h, causal),
+                        plain_iters, warmup=1)
+        qh = q.view(b, t, h, hd).transpose(1, 2).detach().requires_grad_()
+        kh = k.view(b, t, 1, hd).transpose(1, 2).detach().requires_grad_()
+        vh = v.view(b, t, 1, hd).transpose(1, 2).detach().requires_grad_()
+        doh = do.view(b, t, h, hd).transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                sdpa(qh, kh.expand(b, h, t, hd), vh.expand(b, h, t, hd), is_causal=True)
+
+        def sdpa_fwd_bwd():
+            out = sdpa(qh, kh.expand(b, h, t, hd), vh.expand(b, h, t, hd), is_causal=True)
+            torch.autograd.grad(out, (qh, kh, vh), doh)
+
+        library = cuda_ms(sdpa_fwd_bwd, 20) - cuda_ms(sdpa_fwd, 20)
+        bound, by, nbytes, flops = flash_bwd_bound(b, t, h, hd, kvh, dt, causal)
+        print(f"[5] flash_bwd at B={b} T={t} MQA {h}x{hd} bf16 causal: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, scaled_dot_product_attention backward {library:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}: {nbytes} bytes, {flops} flop)", flush=True)
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": library}
+
+    bwd_times = time_flash_bwd(b, t, 8, 5)
+    bwd_t450 = time_flash_bwd(32, 450, 10, 3)
+    bwd_t1025 = time_flash_bwd(16, 1025, 11, 2)
 
     # the forward at T > 512 (the no-bias _fwd_kernel_grid's lengths)
     lb, lt = 16, 1025
     q, k, v = randn_qkv(lb, lt, h, hd, 1, dt, seed=9)
     long_ms = cuda_ms(lambda: fa.fused_flash_attention_fwd(q, k, v, h, True), 20)
+    long_plain_ms = cuda_ms(lambda: fa.fused_flash_attention_reference(q, k, v, h, True), 2, warmup=1)
     qh = q.view(lb, lt, h, hd).transpose(1, 2)
     kh = k.view(lb, lt, 1, hd).transpose(1, 2).expand(lb, h, lt, hd)
     vh = v.view(lb, lt, 1, hd).transpose(1, 2).expand(lb, h, lt, hd)
     long_library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True), 20)
     long_bound_ms, long_bound_by, _, _ = flash_bound(lb, lt, h, hd, 1, dt, True)
     print(f"[5] flash_fwd at B={lb} T={lt} MQA {h}x{hd} bf16 causal: kernel {long_ms:.4f} ms, "
-          f"scaled_dot_product_attention {long_library_ms:.4f} ms, bound {long_bound_ms:.4f} ms "
-          f"({long_bound_by})", flush=True)
+          f"plain {long_plain_ms:.4f} ms, scaled_dot_product_attention {long_library_ms:.4f} ms, "
+          f"bound {long_bound_ms:.4f} ms ({long_bound_by})", flush=True)
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+
+    # the CE kernels at the path's shape (one 32-user chunk, beta as
+    # LTHM-base's), each alone with its inputs ready, and its plain version;
+    # no single PyTorch call computes this function. The eager CECore on the
+    # same problem is the comparison users choose between.
+    beta = cfg.log_q_config.beta
+    q, c, v, lq, dce = ce_inputs(n_ce, CONTEXT, d_ce, "roll", seed=12)
+    stream = torch.cuda.current_stream().cuda_stream
+    m = fc.logsumexp_shift(lq, INV_T, beta)
+    diag = fc.row_diag_reference(q, c, v, INV_T)
+    ce, rank, lse = (torch.empty_like(diag), torch.empty(n_ce, dtype=torch.int32, device="cuda"),
+                     torch.empty_like(diag))
+    grad = torch.empty_like(q)
+    ptrs = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
+    ce_launch = {
+        "ce_row_diag": lambda: fc.CE_ROW_DIAG.launch(
+            q.data_ptr(), c.data_ptr(), v.data_ptr(), diag.data_ptr(), n_ce, d_ce, INV_T, stream),
+        "ce_fwd": lambda: fc.CE_FWD.launch(
+            *ptrs, m.data_ptr(), diag.data_ptr(), ce.data_ptr(), lse.data_ptr(), rank.data_ptr(),
+            n_ce, d_ce, CONTEXT, INV_T, beta, stream),
+        "ce_dq": lambda: fc.CE_DQ.launch(
+            *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n_ce, d_ce, CONTEXT, INV_T, beta, stream),
+        "ce_dc": lambda: fc.CE_DC.launch(
+            *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n_ce, d_ce, CONTEXT, INV_T, beta, stream),
+    }
+    ce_plain = {
+        "ce_row_diag": lambda: fc.row_diag_reference(q, c, v, INV_T),
+        "ce_fwd": lambda: fc.ce_fwd_reference(q, c, v, lq, diag, CONTEXT, INV_T, beta),
+        "ce_dq": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta, "q"),
+        "ce_dc": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta, "c"),
+    }
+    ce_launch["ce_row_diag"]()
+    ce_launch["ce_fwd"]()
+    ce_times = {}
+    for name in ce_launch:
+        bound, by = ce_bound(name, n_ce, d_ce)
+        ce_times[name] = {"ms": cuda_ms(ce_launch[name], 50), "plain_ms": cuda_ms(ce_plain[name], 5),
+                          "bound_ms": bound, "bound_by": by}
+        print(f"[5] {name} at N={n_ce} D={d_ce} s={CONTEXT} beta={beta}: kernel "
+              f"{ce_times[name]['ms']:.4f} ms, plain {ce_times[name]['plain_ms']:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}); library none", flush=True)
+    fused_fwd_ms = cuda_ms(lambda: fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta), 30)
+    fused_bwd_ms = cuda_ms(lambda: fc.ce_backward(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta), 30)
+    qg, cg = q.detach().requires_grad_(), c.detach().requires_grad_()
+
+    def eager_fwd():
+        with torch.no_grad():
+            lthm_loss.CECore.apply(q, c, v, lq, CONTEXT, INV_T, beta)
+
+    def eager_fwd_bwd():
+        ce_e, _ = lthm_loss.CECore.apply(qg, cg, v, lq, CONTEXT, INV_T, beta)
+        torch.autograd.grad(ce_e, (qg, cg), dce)
+
+    eager_fwd_ms = cuda_ms(eager_fwd, 10)
+    eager_bwd_ms = cuda_ms(eager_fwd_bwd, 10) - eager_fwd_ms
+    print(f"[5] the CE on one (N={n_ce}, D={d_ce}) chunk: fused forward {fused_fwd_ms:.4f} ms "
+          f"(shift, ce_row_diag, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); eager "
+          f"CECore forward {eager_fwd_ms:.4f} ms, backward {eager_bwd_ms:.4f} ms", flush=True)
+    del q, c, v, lq, dce, qg, cg, diag, ce, rank, lse, grad
 
     print(f"[5] user_encoder request ({BATCH} users): median {med:.3f} ms, "
           f"min {min(request_ms):.3f} ms, max {max(request_ms):.3f} ms; "
           f"{BATCH / (med / 1e3):.1f} users/s; peak device memory {peak_mib:.1f} MiB", flush=True)
-    step_med = float(np.median(step_ms))
-    print(f"[5] training step ({BATCH} users): median {step_med:.3f} ms, min {min(step_ms):.3f} ms, "
-          f"max {max(step_ms):.3f} ms; {BATCH / (step_med / 1e3):.1f} examples/s; "
-          f"peak device memory {train_peak_mib:.1f} MiB", flush=True)
+    for label, ms_list, peak in (("fused_ce on", step_ms, train_peak_mib),
+                                 ("fused_ce off", eager_ms, eager_peak_mib)):
+        step_med = float(np.median(ms_list))
+        print(f"[5] training step ({BATCH} users, {label}): median {step_med:.3f} ms, min "
+              f"{min(ms_list):.3f} ms, max {max(ms_list):.3f} ms over {len(ms_list)} steps; "
+              f"{BATCH / (step_med / 1e3):.1f} examples/s; peak device memory {peak:.1f} MiB", flush=True)
 
+    ce_replaces = {"ce_row_diag": 82, "ce_fwd": 102, "ce_dq": 135, "ce_dc": 168}
+    ce_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": "recommendations_tpu_torch/ops/csrc/fused_ce.cu",
+        "replaces": f"recommendations_tpu/ops/fused_ce.py:{line}",
+        "launches": train_counts[name],
+        "launches_per_step": train_counts[name] // TRAIN_STEPS,
+        "max_abs_err": ce_errs[name],
+        "tolerance": ce_tols[name],
+        **ce_times[name],
+        "library_ms": None,
+    } for name, line in ce_replaces.items()]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "recommendations_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "recommendations_tpu/ops/fused_attention.py:193",
-        "launches": train_fwd,
-        "launches_per_step": train_fwd // TRAIN_STEPS,
+        "launches": train_counts["flash_fwd"],
+        "launches_per_step": train_counts["flash_fwd"] // TRAIN_STEPS,
         "launches_serving": launches,
         "launches_per_request": launches // REQUESTS,
         "max_abs_err": slice_err,
@@ -573,23 +848,21 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-        "t1025": {"ms": long_ms, "bound_ms": long_bound_ms, "bound_by": long_bound_by,
-                  "library_ms": long_library_ms},
+        "t1025": {"ms": long_ms, "plain_ms": long_plain_ms, "bound_ms": long_bound_ms,
+                  "bound_by": long_bound_by, "library_ms": long_library_ms},
     }, {
         "name": "flash_bwd",
         "route": "cuda",
         "source": "recommendations_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "recommendations_tpu/ops/fused_attention.py:442",
-        "launches": train_bwd,
-        "launches_per_step": train_bwd // TRAIN_STEPS,
+        "launches": train_counts["flash_bwd"],
+        "launches_per_step": train_counts["flash_bwd"] // TRAIN_STEPS,
         "max_abs_err": bwd_err,
         "tolerance": bwd_tol,
-        "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
-        "bound_ms": bwd_bound_ms,
-        "bound_by": bwd_bound_by,
-        "library_ms": bwd_library_ms,
-    }]}))
+        **bwd_times,
+        "t450": bwd_t450,
+        "t1025": bwd_t1025,
+    }, *ce_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,9 +1,12 @@
 """Multi-horizon in-batch contrastive loss with streaming logQ correction.
 
-Port of ``recommendations_tpu/models/lthm/loss.py`` with the CE of
-``fused_ce=False``: ``_ce_core`` and its hand-written backward, plain (N, N)
-products that the JAX package leaves to XLA outside any Pallas kernel. The
-fused CE kernels (``fused_ce=True``) are not ported yet and raise.
+Port of ``recommendations_tpu/models/lthm/loss.py``, with both of its CEs:
+``fused_ce=False`` runs ``_ce_core`` and its hand-written backward, plain
+(N, N) products that the JAX package leaves to XLA outside any Pallas kernel
+(``CECore`` here); ``fused_ce=True`` runs the fused CE kernels of
+``ops/fused_ce.py``, which never store the (N, N) plane. The two agree on ce
+up to the bf16 storage of ``_ce_core``'s logits, and on rank semantics: the
+positive's own column is never counted.
 
 One fixed (N, N) logits tile per head and mini-batch chunk, N = chunk * S:
 the candidate of flattened slot (b, j) is input token (b, j + offset) and
@@ -27,6 +30,7 @@ from torch.profiler import record_function
 
 from recommendations_tpu_torch.nn.functional import l2_normalize_f32acc
 from recommendations_tpu_torch.nn.logq import LogQState, logq_correction, logq_update
+from recommendations_tpu_torch.ops.fused_ce import fused_contrastive_ce
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -107,11 +111,10 @@ class CECore(torch.autograd.Function):
 
 
 def _ce_rows(q16, c16, v, lq, s: int, temperature: float, beta: float, fused_ce: bool = False):
+    """Per-row (ce, rank): the fused CE kernels, or ``CECore``'s plain
+    products with bf16-stored logits."""
     if fused_ce:
-        raise NotImplementedError(
-            "the fused contrastive CE (ops/fused_ce.py, fused_ce=True): ROADMAP, "
-            "port slice 3; fused_ce=False runs the same loss"
-        )
+        return fused_contrastive_ce(q16, c16, v, lq, s, float(1.0 / temperature), float(beta))
     return CECore.apply(q16, c16, v, lq, s, float(1.0 / temperature), float(beta))
 
 

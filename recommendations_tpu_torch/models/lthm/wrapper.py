@@ -85,11 +85,6 @@ class LTHMModelWrapper:
         under the JAX package's keys, new aux state). ``offsets`` overrides
         the draw of the lookahead offsets from ``generator``."""
         cfg = self.config
-        if cfg.fused_ce:
-            raise NotImplementedError(
-                "fused_ce=True (the Pallas contrastive-CE kernels of ops/fused_ce.py): "
-                "ROADMAP, port slice 3; fused_ce=False runs the same loss"
-            )
         with record_function("lthm/forward"):
             output = self.module(self.format_inputs(batch), training=training)
         with record_function("lthm/loss"):
@@ -104,6 +99,7 @@ class LTHMModelWrapper:
                 metrics_k_all=list(cfg.metrics_k_all),
                 train_mini_batch_size=cfg.train_mini_batch_size,
                 training=training,
+                fused_ce=cfg.fused_ce,
                 offsets=offsets,
                 generator=generator,
             )

@@ -3,8 +3,9 @@
 Each source has a plain C entry point (no PyTorch headers), so ``nvcc``
 builds it in seconds. The library lands in ``ops/_build/`` inside the
 package, named by a hash of the source, so an edited source is never served
-by a stale library. Nothing is built when a module is imported: the CPU
-tests import every module on machines without ``nvcc``.
+by a stale library. Kernels that share a source share its one build. Nothing
+is built when a module is imported: the CPU tests import every module on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -27,6 +29,11 @@ NVCC_FLAGS = (
 )
 
 
+_LIBRARIES: Dict[Path, Tuple[ctypes.CDLL, str]] = {}
+_SOURCE_LOCKS: Dict[Path, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
 def find_nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -35,6 +42,36 @@ def find_nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+
+
+def build_library(source: Path) -> Tuple[ctypes.CDLL, str]:
+    """Compile ``source`` (unless its library exists) and load it, once per
+    process; returns the library and nvcc's output. Sources build in
+    parallel, each at most once."""
+    with _LOCKS_GUARD:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if source in _LIBRARIES:
+            return _LIBRARIES[source]
+        lib, log = library_path(source), ""
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                capture_output=True, text=True,
+            )
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n{log}")
+            os.replace(tmp, lib)
+        _LIBRARIES[source] = (ctypes.CDLL(str(lib)), log)
+        return _LIBRARIES[source]
 
 
 class CudaKernel:
@@ -55,34 +92,15 @@ class CudaKernel:
 
     @property
     def name(self) -> str:
-        return self.source.stem
-
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return self.symbol
 
     def build(self):
-        """Compile (unless this source's library exists) and load; returns
-        the C function."""
+        """Compile the source (unless its library exists) and load it;
+        returns the C function."""
         if self._fn is not None:
             return self._fn
-        lib = self.library_path()
-        if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {self.source} (rc {proc.returncode}):\n{self.build_log}"
-                )
-            os.replace(tmp, lib)
-        fn = getattr(ctypes.CDLL(str(lib)), self.symbol)
+        lib, self.build_log = build_library(self.source)
+        fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn

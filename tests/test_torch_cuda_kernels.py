@@ -8,12 +8,15 @@ These tests need an NVIDIA GPU and skip without one. On the card:
 machine with the card do without.)
 """
 
+import math
+
 import pytest
 import torch
 
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
 from recommendations_tpu_torch.ops import fused_attention as fa
+from recommendations_tpu_torch.ops import fused_ce as fc
 from recommendations_tpu_torch.train.step import train_step
 from recommendations_tpu_torch.train.train_state import TrainState
 
@@ -259,3 +262,118 @@ def test_training_step_on_card_matches_cpu(cuda):
         assert rel(gg[name], gc[name]) <= tol, name
     for name in pc:
         assert rel(pg[name], pc[name]) <= 2e-4, name
+
+
+# -- the fused contrastive CE ------------------------------------------------
+
+CE_TOL = 2e-5  # ce, lse, diag: f32, absolute plus relative
+
+
+def _ce_inputs(n, s, d, invalid_user=False, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def unit():
+        return torch.nn.functional.normalize(torch.randn(n, d, generator=g, device="cuda"), dim=-1).bfloat16()
+
+    q, c = unit(), unit()
+    v = torch.rand(n, generator=g, device="cuda") >= 0.1
+    if invalid_user:
+        v[s : 2 * s] = False
+    lq = -torch.log(torch.rand(n, generator=g, device="cuda") * 1e4 + 1.0)
+    dce = torch.rand(n, generator=g, device="cuda") * v
+    return q, c, v, lq, dce
+
+
+def _bf16_ulp(ref):
+    top = ref.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize(
+    "n,s,d,beta,invalid_user",
+    [
+        (8192, 256, 128, 0.0, False),  # one 32-user chunk of LTHM-base
+        (100, 10, 16, 1.0, False),
+        (2048, 64, 64, 1.0, True),
+        (1024, 32, 32, 0.5, False),
+        (256, 256, 128, 1.0, False),   # one user: every off-diagonal masked
+    ],
+)
+def test_fused_ce_kernels_match_plain_versions(cuda, n, s, d, beta, invalid_user):
+    """ce and lse within 2e-5 (f32 sums in another order); rank equal but on
+    rows where a live logit lies within 1e-4 of the positive's (the kernel's
+    tensor-core sums and the plain f32 GEMM order 128 products differently);
+    dq and dc within one bf16 ulp of the largest element, with a floor of
+    2**-16 * inv_t where the gradient vanishes (rows whose only live column
+    is their own)."""
+    q, c, v, lq, dce = _ce_inputs(n, s, d, invalid_user, seed=n)
+    before = [k.launches for k in fc.KERNELS]
+    ce, rank, lse = fc.ce_forward(q, c, v, lq, s, 20.0, beta)
+    dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, s, 20.0, beta)
+    torch.cuda.synchronize()
+    assert [k.launches for k in fc.KERNELS] == [b + 1 for b in before]
+    rce, rrank, rlse = fc.ce_forward_reference(q, c, v, lq, s, 20.0, beta)
+    fin = torch.isfinite(rce)
+    assert torch.equal(torch.isfinite(ce), fin)
+    for got, want in ((ce, rce), (lse, rlse)):
+        assert ((got - want).abs()[fin] <= CE_TOL * (1 + want.abs()[fin])).all()
+    logits, _, eye = fc._masked_plane(q, c, v, lq, s, 20.0, beta)
+    diag = fc.row_diag_reference(q, c, v, 20.0)
+    near = (((logits - diag[:, None]).abs() <= 1e-4) & ~eye & (logits > -1e8)).any(-1)
+    assert not bool(((rank != rrank) & ~near).any())
+    for got, want in zip((dq, dc), fc.ce_backward_reference(q, c, v, lq, rlse, dce, s, 20.0, beta)):
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+        tol = max(_bf16_ulp(want), 2**-16 * 20.0)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_fused_ce_is_deterministic(cuda):
+    q, c, v, lq, dce = _ce_inputs(4096, 128, 128)
+    a = fc.ce_forward(q, c, v, lq, 128, 20.0, 1.0)
+    b = fc.ce_forward(q, c, v, lq, 128, 20.0, 1.0)
+    ga = fc.ce_backward(q, c, v, lq, a[2], dce, 128, 20.0, 1.0)
+    gb = fc.ce_backward(q, c, v, lq, a[2], dce, 128, 20.0, 1.0)
+    for x, y in zip(a + ga, b + gb):
+        assert torch.equal(x, y)
+
+
+def test_fused_ce_raises_instead_of_falling_back(cuda):
+    q, c, v, lq, _ = _ce_inputs(64, 8, 16)
+    before = [k.launches for k in fc.KERNELS]
+    strided = torch.cat([q, q], dim=-1)[:, :16]
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_contrastive_ce(strided, c, v, lq, 8, 20.0, 0.0)
+    q48, c48, v48, lq48, _ = _ce_inputs(64, 8, 48)
+    with pytest.raises(ValueError, match="width"):
+        fc.fused_contrastive_ce(q48, c48, v48, lq48, 8, 20.0, 0.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc.fused_contrastive_ce(q.float(), c.float(), v, lq, 8, 20.0, 0.0)
+    with pytest.raises(ValueError, match="one device"):
+        fc.fused_contrastive_ce(q, c.cpu(), v, lq, 8, 20.0, 0.0)
+    assert [k.launches for k in fc.KERNELS] == before
+
+
+def test_fused_training_step_on_card_matches_cpu(cuda):
+    """One f32 training step with fused_ce on: the card (the CE kernels)
+    against the CPU (their plain versions), held as the eager-CE step above."""
+    d = dict(_small_config(), fused_ce=True)
+    gpu = LTHMModelWrapper(LTHMModelConfig.from_dict(d))
+    cpu = LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in gpu.module.state_dict().items()})
+    batch, offsets = _small_batch(7), [0, 1, 3]
+    before = [k.launches for k in fc.KERNELS]
+    results = []
+    for w in (gpu, cpu):
+        w.module.zero_grad(set_to_none=True)
+        loss, _, _ = w.loss_and_metrics(batch, w.init_aux_state(), True, offsets=offsets)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in w.module.named_parameters() if p.grad is not None}))
+    torch.cuda.synchronize()
+    chunks = 2 * 3  # two loss chunks (4 users, 3 a chunk) for each of 3 heads
+    assert [k.launches for k in fc.KERNELS] == [b + chunks for b in before]
+    (lg, gg), (lc, gc) = results
+    assert abs(lg - lc) <= 1e-4
+    assert set(gg) == set(gc)
+    for name in gc:
+        tol = 2**-8 if ".direction_emb_" in name else 2e-4
+        assert ((gg[name] - gc[name]).norm() / gc[name].norm().clamp_min(1e-30)).item() <= tol, name

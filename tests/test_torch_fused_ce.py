@@ -1,0 +1,248 @@
+"""The port's fused contrastive CE (recommendations_tpu_torch.ops.fused_ce)
+against the JAX package's (recommendations_tpu.ops.fused_ce, interpret mode),
+on the CPU, on the same numpy inputs: the module (ce, rank, dq, dc), the
+loss step with ``fused_ce=True``, and one training step through the wrapper.
+
+On the CPU the port runs the kernels' plain versions; the card holds the
+kernels to those (tests/test_torch_cuda_kernels.py, chip_smoke.py).
+
+Rank: the port counts the columns j != i whose logit exceeds the positive's,
+as the JAX package's unfused ``_ce_core`` does, and equals it on f32-upcast
+operands. The JAX fused kernel also counts column i where its tile product
+q_i.c_i exceeds its separately summed diagonal, so its rank is the port's or
+one more; the tests hold that one-sided difference and print how many rows
+it touches."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recommendations_tpu.models.lthm import loss as jloss
+from recommendations_tpu.nn import logq as jlogq
+from recommendations_tpu.ops.fused_ce import fused_contrastive_ce as jax_fused_ce
+from recommendations_tpu_torch.models.lthm import loss as tloss
+from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+from recommendations_tpu_torch.nn import logq as tlogq
+from recommendations_tpu_torch.ops import fused_ce as tfc
+from tests.test_torch_loss import _output
+from tests.test_torch_train import (
+    TOL,
+    _check_grads,
+    _grads_by_name,
+    _offsets,
+    _pair,
+    small_batch,
+    small_config,
+)
+
+torch.set_num_threads(1)
+
+CE_TOL = 2e-5  # f32 ce, absolute and relative: tests/test_fused_ce.py's
+INV_T = 20.0
+
+
+def _inputs(n, s, d, seed, invalid=0.2, all_invalid_user=False):
+    """Unit rows rounded to bf16 (as float32 numpy), validity, logQ and a
+    weight per row that is 0 where the row is invalid."""
+    rs = np.random.RandomState(seed)
+
+    def unit(x):
+        x = x / np.linalg.norm(x, axis=-1, keepdims=True)
+        return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+    q, c = unit(rs.randn(n, d)), unit(rs.randn(n, d))
+    v = rs.rand(n) >= invalid
+    if all_invalid_user:
+        v[s : 2 * s] = False
+    lq = (-np.abs(rs.randn(n)) * 3.0).astype(np.float32)
+    w = (rs.uniform(size=n) * v).astype(np.float32)
+    return q, c, v, lq, w
+
+
+def _jax(q, c, v, lq):
+    return tuple(jnp.asarray(x, dt) for x, dt in ((q, jnp.bfloat16), (c, jnp.bfloat16), (v, bool), (lq, jnp.float32)))
+
+
+def _torch(q, c, v, lq):
+    return torch.tensor(q).bfloat16(), torch.tensor(c).bfloat16(), torch.tensor(v), torch.tensor(lq)
+
+
+# (n, s, d, beta, invalid fraction, one user all invalid)
+CASES = [
+    (64, 8, 16, 1.0, 0.2, False),     # tests/test_fused_ce.py's shapes
+    (96, 12, 16, 1.0, 0.2, False),
+    (100, 10, 16, 1.0, 0.2, False),   # n not a multiple of the TPU's tiles
+    (100, 10, 16, 0.0, 0.2, False),
+    (32, 32, 16, 0.5, 0.0, False),    # one user: every off-diagonal column masked
+    (96, 12, 16, 1.0, 0.2, True),     # a user with every slot invalid
+    (512, 32, 128, 0.0, 0.1, False),  # the path's width
+    (512, 32, 128, 1.0, 0.1, False),
+]
+
+
+@pytest.mark.parametrize("n,s,d,beta,invalid,all_invalid_user", CASES)
+def test_fused_ce_forward_matches_jax(n, s, d, beta, invalid, all_invalid_user):
+    q, c, v, lq, _ = _inputs(n, s, d, seed=n + d, invalid=invalid, all_invalid_user=all_invalid_user)
+    jce, jrank = (np.asarray(x) for x in jax_fused_ce(*_jax(q, c, v, lq), s, INV_T, beta, None, None, True))
+    _, core_rank = jloss._ce_core(jnp.asarray(q), jnp.asarray(c), jnp.asarray(v), jnp.asarray(lq), s, INV_T, beta)
+    tce, trank = tfc.fused_contrastive_ce(*_torch(q, c, v, lq), s, INV_T, beta)
+    tce, trank = tce.numpy(), trank.numpy()
+    assert tce.dtype == np.float32 and trank.dtype == np.int32
+
+    # every valid row, and the huge but finite ce of invalid rows; a fully
+    # masked row is -inf on both sides
+    fin = np.isfinite(jce)
+    np.testing.assert_array_equal(np.isfinite(tce), fin)
+    np.testing.assert_array_equal(tce[~fin], jce[~fin])
+    np.testing.assert_allclose(tce[fin], jce[fin], rtol=CE_TOL, atol=CE_TOL)
+    if invalid:
+        assert (tce[~v & fin] > 1e8).all()
+
+    np.testing.assert_array_equal(trank, np.asarray(core_rank))
+    extra = jrank - trank
+    assert set(np.unique(extra)) <= {0, 1}
+    print(f"n={n} d={d} beta={beta}: JAX fused rank one higher on {int(extra.sum())} of {n} rows")
+
+
+@pytest.mark.parametrize("n,s,d,beta,invalid,all_invalid_user", CASES)
+def test_fused_ce_grads_match_jax(n, s, d, beta, invalid, all_invalid_user):
+    """dq and dc of sum(ce * w): both round g to bf16 at the same place and
+    each gradient once after an f32 sum, so they differ by f32 sum order and
+    the exp's last bits, which can move an output to its neighbouring bf16
+    value: one bf16 ulp of the largest element. Where the gradient vanishes
+    (one user: every off-diagonal column is masked, so p_ii = 1 up to the
+    rounding of lse, an f32 ulp of about 2**-19 at |lse| ~ 20), both sides
+    hold that rounding times dce * inv_t: an absolute floor of 2**-16 * inv_t."""
+    q, c, v, lq, w = _inputs(n, s, d, seed=7 * n + d, invalid=invalid, all_invalid_user=all_invalid_user)
+    jq, jc, jv, jlq = _jax(q, c, v, lq)
+
+    def jloss_fn(q16, c16):
+        ce, _ = jax_fused_ce(q16, c16, jv, jlq, s, INV_T, beta, None, None, True)
+        return jnp.sum(jnp.where(jnp.isfinite(ce), ce, 0.0) * w)
+
+    want = jax.grad(jloss_fn, argnums=(0, 1))(jq, jc)
+    tq, tc, tv, tlq = _torch(q, c, v, lq)
+    tq.requires_grad_(), tc.requires_grad_()
+    ce, _ = tfc.fused_contrastive_ce(tq, tc, tv, tlq, s, INV_T, beta)
+    (torch.where(torch.isfinite(ce), ce, 0.0) * torch.from_numpy(w)).sum().backward()
+    for name, got, ref in (("dq", tq.grad, want[0]), ("dc", tc.grad, want[1])):
+        ref = np.asarray(ref, np.float32)
+        assert got.dtype == torch.bfloat16, name
+        got = got.float().numpy()
+        assert np.isfinite(got).all(), name
+        atol = max(2**-8 * np.abs(ref).max(), 2**-16 * INV_T)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=atol, err_msg=name)
+
+
+def test_fused_ce_on_cpu_runs_the_plain_version():
+    q, c, v, lq, _ = _inputs(64, 8, 16, seed=1)
+    before = [k.launches for k in tfc.KERNELS]
+    args = _torch(q, c, v, lq)
+    ce, rank, lse = tfc.ce_forward(*args, 8, INV_T, 1.0)
+    np.testing.assert_array_equal(
+        ce.numpy(), tfc.ce_forward_reference(*args, 8, INV_T, 1.0)[0].numpy()
+    )
+    tfc.ce_backward(*args, lse, torch.ones(64), 8, INV_T, 1.0)
+    assert [k.launches for k in tfc.KERNELS] == before
+    with pytest.raises(ValueError, match="expected q, c"):
+        tfc.fused_contrastive_ce(args[0], args[1][:10], *args[2:], 8, INV_T, 1.0)
+    with pytest.raises(TypeError, match="bool"):
+        tfc.fused_contrastive_ce(*args[:2], args[2].float(), args[3], 8, INV_T, 1.0)
+
+
+# -- the slice: the loss step and the training step ----------------------------
+
+
+def _rank_key(key):
+    return "hit_" in key  # average/median hit position and hit_rate_at_k
+
+
+def _check_one_sided(tm, jm):
+    """Metrics not derived from rank at 1e-4; the rank-derived ones hold the
+    JAX fused kernel's one-sided difference: its hit positions are never
+    below the port's and its hit rates never above."""
+    assert set(tm) >= set(jm)
+    shifted = 0
+    for key in jm:
+        got, want = float(tm[key]), float(jm[key])
+        if not _rank_key(key):
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOL, err_msg=key)
+        elif "hit_rate" in key:
+            assert want <= got + TOL, key
+            shifted += want < got - TOL
+        else:
+            assert (np.isnan(got) and np.isnan(want)) or want >= got - TOL, key
+            shifted += want > got + TOL
+    print(f"{shifted} rank-derived metrics moved by the JAX kernel's self-count")
+
+
+@pytest.mark.parametrize(
+    "beta,mini_batch,training",
+    [(0.0, -1, True), (1.0, -1, True), (0.5, 2, True), (0.5, 2, False)],
+)
+def test_contrastive_step_fused_matches_jax(beta, mini_batch, training):
+    b, s, lookahead, d = 4, 24, [0, 2, 5], 16
+    out = _output(b, s, len(lookahead), d, seed=11)
+    rng = jax.random.PRNGKey(5)
+    offsets = np.asarray(jloss.sample_offsets(jax.random.split(rng)[1], lookahead))
+    kw = dict(
+        lookahead=lookahead, temperature=0.05, beta=beta, alpha=0.05, metrics_k_all=[1, 5, 20],
+        train_mini_batch_size=mini_batch, training=training, fused_ce=True,
+    )
+    jl, jm, jst = jloss.contrastive_step(
+        {k: jnp.asarray(v) for k, v in out.items()}, jlogq.init_logq_state(64, [0, 7], 0.01),
+        jnp.float32(3), jax.random.split(rng)[1], **kw,
+    )
+    tl, tm, tst = tloss.contrastive_step(
+        {k: torch.from_numpy(v) for k, v in out.items()}, tlogq.init_logq_state(64, [0, 7], 0.01),
+        torch.tensor(3.0), offsets=offsets, **kw,
+    )
+    assert set(tm) == set(jm)
+    assert abs(float(tl) - float(jl)) <= TOL
+    _check_one_sided(tm, jm)
+    np.testing.assert_array_equal(tst.b.numpy(), np.asarray(jst.b))
+    np.testing.assert_array_equal(tst.a.numpy(), np.asarray(jst.a))
+
+
+@pytest.mark.parametrize("beta,mini_batch", [(0.0, -1), (0.5, 3)])
+def test_fused_training_step_matches_jax(beta, mini_batch):
+    """One step through ``loss_and_metrics`` with ``fused_ce=True`` on the
+    small float32 model with converted weights: loss and metrics as above,
+    every gradient within test_torch_train.py's tolerances."""
+    d = small_config(True, "float32", beta, mini_batch, fused_ce=True)
+    jw, vs, tw = _pair(d)
+    assert tw.config.fused_ce
+    batch = small_batch()
+    rng = jax.random.PRNGKey(3)
+    aux = jw.init_aux_state()
+
+    def loss_fn(p):
+        return jw.loss_and_metrics(p, vs["constants"], aux, {k: jnp.asarray(v) for k, v in batch.items()}, rng, True)
+
+    (jl, (jm, jaux)), jg = jax.value_and_grad(loss_fn, has_aux=True)(vs["params"])
+    before = [k.launches for k in tfc.KERNELS]
+    tl, tm, taux = tw.loss_and_metrics(batch, tw.init_aux_state(), True, offsets=_offsets(rng, d["lookahead"]))
+    tl.backward()
+    assert [k.launches for k in tfc.KERNELS] == before  # CPU: the plain versions
+    assert abs(tl.item() - float(jl)) <= TOL
+    _check_one_sided(tm, jm)
+    _check_grads(tw, _grads_by_name(tw, jg, vs))
+    np.testing.assert_array_equal(taux.logq.b.numpy(), np.asarray(jaux.logq.b))
+
+
+def test_fused_and_unfused_ce_train_the_same_loss():
+    """The port's two CE paths on one model: they differ only by the bf16
+    storage of the unfused path's logits (a quantum of 2**-8 relative at
+    |logit| <= 20), which moves the loss by far less than 1e-2 here."""
+    losses = []
+    for fused in (False, True):
+        tw = LTHMModelWrapper(
+            LTHMModelConfig.from_dict(small_config(True, "float32", 0.5, 3, fused_ce=fused)), device="cpu", seed=4
+        )
+        loss, metrics, _ = tw.loss_and_metrics(small_batch(seed=2), tw.init_aux_state(), True, offsets=[0, 1, 3])
+        losses.append(loss.item())
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 1e-2

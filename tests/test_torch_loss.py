@@ -193,8 +193,3 @@ def test_sample_offsets_distribution():
     assert set(draws[:, 1]) == {1, 2, 3, 4, 5}  # U(1, 5), both ends included
     assert tloss.sample_offsets(g, [0, 1, 1]).tolist() == [0, 1, 2]  # empty range: its low end
 
-
-def test_fused_ce_raises():
-    q, c, v, lq, _ = _ce_inputs(2, 8, 16, seed=1)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tloss._ce_rows(*(torch.from_numpy(x) for x in (q, c, v, lq)), 8, 0.05, 0.0, fused_ce=True)

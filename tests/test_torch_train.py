@@ -341,7 +341,6 @@ def test_zero_dropout_trains():
 @pytest.mark.parametrize(
     "change,match",
     [
-        ({"fused_ce": True}, "slice 3"),
         ({"table_optimizer": "rowwise_adam"}, "items 4"),
         ({"table_optimizer": "lazy_rowwise_adam"}, "items 4"),
         ({"table_optimizer": "adamw"}, "items 4"),

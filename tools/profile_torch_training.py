@@ -2,16 +2,20 @@
 
     python3 tools/profile_torch_training.py [--steps 3] [--out traces/training_trace.json]
 
-Builds the LTHM-base model of ``chip_smoke.py`` (random weights from a seed,
-``fused_ce`` off, frozen table) on the GPU, takes two warm-up steps on one
-batch of 64 users, and traces ``--steps`` more with ``torch.profiler``.
+Builds the LTHM-base model and training config that ``chip_smoke.py`` trains
+(``bench.py``'s: random weights from a seed, ``fused_ce`` on, frozen table)
+on the GPU, takes two warm-up steps on one batch of 64 users, and traces
+``--steps`` more with ``torch.profiler``; ``--eager-ce`` profiles the step
+with ``fused_ce`` off instead.
 Prints the host time per step, the device's busy share of that window
 (kernel time over wall time; one stream, so kernels do not overlap), the
 device time of each phase of the step (the innermost ``lthm/...`` range of
 ``torch.profiler.record_function`` that launched each kernel: forward,
 loss, backward, ce_backward, optimizer), and the kernels that take the most
-device time, each with its launches per step. Writes the Chrome trace to
-``--out``. Needs a card; imports nothing of JAX.
+device time, each with its launches per step (the fused CE's are
+``ce_row_diag``, ``ce_fwd_kernel``, ``ce_dq_kernel`` and ``ce_dc_kernel``),
+and the port's own launch count of each of its kernels per step. Writes the
+Chrome trace to ``--out``. Needs a card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=30)
     ap.add_argument("--out", default=os.path.join("traces", "training_trace.json"))
+    ap.add_argument("--eager-ce", action="store_true", help="profile the step with fused_ce off")
     args = ap.parse_args()
 
     import torch
@@ -44,10 +49,12 @@ def main() -> int:
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.ops import fused_attention as fa
+    from recommendations_tpu_torch.ops import fused_ce as fc
     from recommendations_tpu_torch.train.step import train_step
     from recommendations_tpu_torch.train.train_state import TrainState
 
-    cfg = LTHMModelConfig.from_dict(bench_config())
+    cfg = LTHMModelConfig.from_dict(dict(bench_config(), fused_ce=not args.eager_ce))
     state = TrainState.create(LTHMModelWrapper(cfg, device="cuda", seed=0), seed=1)
     batch = request_batch(1000)
     offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
@@ -55,6 +62,9 @@ def main() -> int:
         train_step(state, batch, offsets=offsets)
     torch.cuda.synchronize()
 
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD, *fc.KERNELS)
+    for kern in kernels:
+        kern.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -92,6 +102,8 @@ def main() -> int:
             by_phase[phase(e)][0] += e["dur"]
             by_phase[phase(e)][1] += 1
     n = args.steps
+    print(f"fused_ce {'off' if args.eager_ce else 'on'}; the port's launches per step: "
+          + ", ".join(f"{kern.name} {kern.launches // n}" for kern in kernels))
     print(f"{n} training steps of 64 users: {wall_us / n / 1e3:.3f} ms per step (host clock), "
           f"device busy {busy_us / n / 1e3:.3f} ms per step = "
           f"{100 * busy_us / wall_us:.1f}% of the window, "
