@@ -117,6 +117,7 @@ class QueryTower(nn.Module):
         self.transformer = TransformerStack(
             tcfg.num_layers, d, acfg.n_head, generator,
             remat=tcfg.enable_gradient_checkpointing,
+            remat_policy=tcfg.remat_policy,
             attn_type=acfg.attn_type,
             is_causal=tcfg.is_causal,
             use_bias=acfg.bias,

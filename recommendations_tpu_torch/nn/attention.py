@@ -3,12 +3,14 @@
 Port of ``recommendations_tpu/nn/attention.py``. Dispatch follows the JAX
 package: without an additive mask or position bias, and at a length the
 fused path serves, attention runs the flash kernel
-(``ops/fused_attention``); otherwise it runs ``_sdpa``, whose softmax is
-normalized after the V product. The flash path is differentiable through
-``ops.fused_attention.FlashAttention`` (its backward is a kernel too);
-``_sdpa`` differentiates through autograd. The fused position-bias kernel and
-ring attention are not ported yet and raise rather than fall back to
-``_sdpa``.
+(``ops/fused_attention``); with the position bias, a window that covers the
+sequence and a length in ``BIAS_MIN_SEQ <= T <= RECOMMENDED_MAX_SEQ``, it
+runs the flash kernel with the bias applied inside
+(``fused_flash_attention_bias``, given the raw table); otherwise it runs
+``_sdpa``, whose softmax is normalized after the V product. The flash paths
+are differentiable through their backward kernels (the bias path also with
+respect to the table); ``_sdpa`` differentiates through autograd. Ring
+attention is not ported yet and raises rather than fall back to ``_sdpa``.
 
 Dropout is not ported yet: a training forward with a nonzero rate raises,
 and a rate of 0.0 (the LTHM configs' value) trains.
@@ -149,6 +151,14 @@ class _AttentionBase(nn.Module):
             return False
         return fa.fused_flash_bias_recommended(seq_len)
 
+    def _fused_flash_bias(self, q, k, v, causal: bool) -> torch.Tensor:
+        """Folded-layout flash attention with the raw (2w+1, H) bias table
+        applied inside the kernel, nk = w (the JAX layer's ``_fused_flash_bias``)."""
+        return fa.fused_flash_attention_bias(
+            q.contiguous(), k.contiguous(), v.contiguous(), self.pos_bias.bias,
+            self.n_head, self.pos_bias_window, causal,
+        )
+
     def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool, training: bool) -> torch.Tensor:
         """q (B,T,H*hd), k/v (B,T,kv_heads*hd) -> (B,T,H*hd)."""
         if training and (self.dropout or self.attn_dropout):
@@ -165,10 +175,7 @@ class _AttentionBase(nn.Module):
                 q.contiguous(), k.contiguous(), v.contiguous(), self.n_head, causal
             )
         if self._flash_bias_eligible(mask, t):
-            raise NotImplementedError(
-                "the fused relative-position-bias flash kernel "
-                "(_fwd_kernel_grid with bias_mode): ROADMAP, kernel queue item 6"
-            )
+            return self._fused_flash_bias(q, k, v, causal)
         qh = q.reshape(b, t, self.n_head, hd).transpose(1, 2).to(x.dtype)
         kh = k.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)
         vh = v.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)

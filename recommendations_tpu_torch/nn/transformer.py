@@ -6,19 +6,30 @@ residual blocks, which fixes the reference's double residual
 (``x = x + block(x)`` around a block that already adds x, doubling the
 stream every layer).
 
-Not ported yet, and raising: the MoE rotator, the sparse-token keep-sets,
-per-block recomputation (remat) and dropout in training (a rate of 0.0
-trains). The rates reach every block's attention, whose guard covers the
-stack's input, attention and residual dropouts.
+Per-block recomputation (remat, the JAX stack's ``nn.remat`` per block) runs
+each block under ``torch.utils.checkpoint`` when a gradient is taken; serving
+runs the blocks plainly. ``remat_policy`` as in the JAX package: ``full``
+keeps only the block input; ``dots_no_batch`` keeps the outputs of the
+projection and MLP matrix products (``aten.mm``/``addmm``), ``dots`` also the
+batched ones (``aten.bmm``, the ``_sdpa`` logits), and both keep the outputs
+(o, lse) of the flash forward, without and with the position bias, so the
+backward does not launch it again.
+
+Not ported yet, and raising: the MoE rotator, the sparse-token keep-sets and
+dropout in training (a rate of 0.0 trains). The rates reach every block's
+attention, whose guard covers the stack's input, attention and residual
+dropouts.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from recommendations_tpu_torch.nn.attention import (
     Dense,
@@ -114,8 +125,27 @@ class TransformerBlock(nn.Module):
         return x + self.c_proj(gelu_tanh(self.c_fc(self.ln_2(x))))
 
 
+_aten = torch.ops.aten
+# the operators whose outputs each policy keeps (``full`` keeps none)
+REMAT_SAVED = {
+    "full": frozenset(),
+    "dots_no_batch": frozenset({_aten.mm.default, _aten.addmm.default, fa.FLASH_OP, fa.FLASH_BIAS_OP}),
+    "dots": frozenset(
+        {_aten.mm.default, _aten.addmm.default, _aten.bmm.default, fa.FLASH_OP, fa.FLASH_BIAS_OP}
+    ),
+}
+
+
+def _remat_context(saved: frozenset):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 class TransformerStack(nn.Module):
-    """N transformer blocks, named ``block_{i}`` as in the JAX package."""
+    """N transformer blocks, named ``block_{i}`` as in the JAX package; with
+    ``remat``, each block recomputed in the backward under ``remat_policy``."""
 
     def __init__(
         self,
@@ -124,14 +154,13 @@ class TransformerStack(nn.Module):
         n_head: int,
         generator: torch.Generator,
         remat: bool = False,
+        remat_policy: str = "dots_no_batch",
         **block_kw,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "per-block remat (enable_gradient_checkpointing): ROADMAP, port queue "
-                "'Attention and transformer'"
-            )
+        if remat_policy not in REMAT_SAVED:
+            raise ValueError(f"remat_policy {remat_policy!r} not in {sorted(REMAT_SAVED)}")
+        self.remat, self.remat_policy = remat, remat_policy
         self.num_layers = num_layers
         for depth in range(num_layers):
             self.add_module(
@@ -141,6 +170,12 @@ class TransformerStack(nn.Module):
     def forward(
         self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None, training: bool = False
     ) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
+        context_fn = functools.partial(_remat_context, REMAT_SAVED[self.remat_policy])
         for depth in range(self.num_layers):
-            x = getattr(self, f"block_{depth}")(x, attn_mask, training)
+            block = getattr(self, f"block_{depth}")
+            if remat:
+                x = checkpoint(block, x, attn_mask, training, use_reentrant=False, context_fn=context_fn)
+            else:
+                x = block(x, attn_mask, training)
         return x

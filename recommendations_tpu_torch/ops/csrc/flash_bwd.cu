@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bias.cuh"
+
 namespace {
 
 constexpr int SMEM_BUDGET = 48 * 1024;  // dynamic shared memory per block
@@ -104,12 +106,13 @@ __device__ __forceinline__ void store_row(T* __restrict__ p, const float (&x)[HD
 // ---- FMA kernels: any type, MQA or MHA ---------------------------------------
 
 // One thread per (query row, head): dq = round(ds).k * scale over the live keys.
-template <typename T, int HD>
+template <typename T, int HD, bool BIAS>
 __global__ void fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ dcol,
                               T* __restrict__ dq, int seq_len, int n_head, int kvh,
-                              int rows_per_block, int causal, float scale) {
+                              int rows_per_block, int causal, float scale,
+                              const float* __restrict__ table, int nk) {
   const int b = blockIdx.y;
   const int r_local = threadIdx.x / n_head;
   const int h = threadIdx.x - r_local * n_head;
@@ -126,7 +129,7 @@ __global__ void fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_row<T, HD>(dout + q_off, dov);
 #pragma unroll
   for (int d = 0; d < HD; ++d) {
-    qs[d] = round_to<T>(qs[d] * scale);
+    if constexpr (!BIAS) qs[d] = round_to<T>(qs[d] * scale);
     acc[d] = 0.f;
   }
   const float l = lse[r_off], dd = dcol[r_off];
@@ -141,6 +144,7 @@ __global__ void fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = fmaf(qs[d], kf[d], s);
       dp = fmaf(dov[d], vf[d], dp);
     }
+    if constexpr (BIAS) s = s * scale + bias_at(table, row - j + nk, n_head, h);
     const float ds = round_to<T>(expf(s - l) * (dp - dd));
 #pragma unroll
     for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, kf[d], acc[d]);
@@ -150,12 +154,13 @@ __global__ void fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // One thread per (key, kv head): dk and dv over the live query rows and every
 // head that reads this kv head (all H at MQA, one at MHA).
-template <typename T, int HD>
+template <typename T, int HD, bool BIAS>
 __global__ void fma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ dcol,
                                T* __restrict__ dk, T* __restrict__ dv, int seq_len, int n_head,
-                               int kvh, int keys_per_block, int causal, float scale) {
+                               int kvh, int keys_per_block, int causal, float scale,
+                               const float* __restrict__ table, int nk) {
   const int b = blockIdx.y;
   const int j_local = threadIdx.x / kvh;
   const int kh = threadIdx.x - j_local * kvh;
@@ -183,9 +188,10 @@ __global__ void fma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) {
-        s = fmaf(round_to<T>(qv[d] * scale), kf[d], s);
+        s = fmaf(BIAS ? qv[d] : round_to<T>(qv[d] * scale), kf[d], s);
         dp = fmaf(dov[d], vf[d], dp);
       }
+      if constexpr (BIAS) s = s * scale + bias_at(table, i - key + nk, n_head, h);
       const float p = expf(s - lse[r_off]);
       const float ds = round_to<T>(p * (dp - dcol[r_off]));
       const float pr = round_to<T>(p);
@@ -200,39 +206,88 @@ __global__ void fma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_row<T, HD>(dv + kv_off, dva, 1.f);
 }
 
+// The table gradient without tensor cores: one thread per table entry (l, h),
+// which walks every batch row and every live pair on its diagonal
+// d = q - k = l - nk and sums the unrounded ds = p * (dp - D) in f32. It owns
+// its output, so two runs give the same bits.
 template <typename T, int HD>
-int launch_fma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* dcol, void* dq, void* dk, void* dv, int batch, int seq_len,
-               int n_head, int kvh, int causal, cudaStream_t stream) {
+__global__ void fma_dtable_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, const T* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ dcol,
+                                  const float* __restrict__ table, float* __restrict__ dtable,
+                                  int batch, int seq_len, int n_head, int kvh, int n_table, int nk,
+                                  int causal, float scale) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_table * n_head) return;
+  const int l = idx / n_head, h = idx - l * n_head, diag = l - nk;
+  float acc = 0.f;
+  if (!(causal && diag < 0)) {
+    const float bias = bias_at(table, l, n_head, h);
+    const int width = kvh * HD, kcol = (kvh == 1 ? 0 : h) * HD;
+    const int i0 = max(0, diag), i1 = min(seq_len, seq_len + diag);
+    for (int b = 0; b < batch; ++b) {
+      for (int i = i0; i < i1; ++i) {
+        const size_t q_off = ((size_t)b * seq_len + i) * (size_t)n_head * HD + (size_t)h * HD;
+        const size_t kv_off = ((size_t)b * seq_len + (i - diag)) * width + kcol;
+        const size_t r_off = ((size_t)b * seq_len + i) * n_head + h;
+        float qv[HD], dov[HD], kf[HD], vf[HD];
+        load_row<T, HD>(q + q_off, qv);
+        load_row<T, HD>(dout + q_off, dov);
+        load_row<T, HD>(k + kv_off, kf);
+        load_row<T, HD>(v + kv_off, vf);
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) {
+          s = fmaf(qv[d], kf[d], s);
+          dp = fmaf(dov[d], vf[d], dp);
+        }
+        acc += expf(s * scale + bias - lse[r_off]) * (dp - dcol[r_off]);
+      }
+    }
+  }
+  dtable[idx] = acc;
+}
+
+template <typename T, int HD, bool BIAS>
+int launch_fma_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* dcol, void* dk, void* dv, int batch, int seq_len, int n_head,
+                   int kvh, int causal, Bias bias, cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)HD));
   const int keys = kvh >= THREADS ? 1 : THREADS / kvh;
-  fma_dkv_kernel<T, HD><<<dim3((seq_len + keys - 1) / keys, batch), keys * kvh, 0, stream>>>(
+  fma_dkv_kernel<T, HD, BIAS><<<dim3((seq_len + keys - 1) / keys, batch), keys * kvh, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dcol), static_cast<T*>(dk), static_cast<T*>(dv), seq_len,
-      n_head, kvh, keys, causal, scale);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  const int rows = n_head >= THREADS ? 1 : THREADS / n_head;
-  fma_dq_kernel<T, HD><<<dim3((seq_len + rows - 1) / rows, batch), rows * n_head, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dcol), static_cast<T*>(dq), seq_len, n_head, kvh, rows, causal,
-      scale);
+      n_head, kvh, keys, causal, scale, bias.table, bias.nk);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_fma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* dcol, void* dq, void* dk, void* dv, int batch, int seq_len,
-                 int n_head, int kvh, int head_dim, int causal, cudaStream_t s) {
-  switch (head_dim) {
-    case 8: return launch_fma<T, 8>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, kvh, causal, s);
-    case 16: return launch_fma<T, 16>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, kvh, causal, s);
-    case 32: return launch_fma<T, 32>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, kvh, causal, s);
-    case 64: return launch_fma<T, 64>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, kvh, causal, s);
-    default: return -1;
-  }
+template <typename T, int HD, bool BIAS>
+int launch_fma_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* dcol, void* dq, int batch, int seq_len, int n_head, int kvh,
+                  int causal, Bias bias, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  const int rows = n_head >= THREADS ? 1 : THREADS / n_head;
+  fma_dq_kernel<T, HD, BIAS><<<dim3((seq_len + rows - 1) / rows, batch), rows * n_head, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dcol), static_cast<T*>(dq), seq_len, n_head, kvh, rows, causal,
+      scale, bias.table, bias.nk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_fma_dtable(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* dcol, void* dtable, int batch, int seq_len,
+                      int n_head, int kvh, int causal, Bias bias, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  const int n = bias.n_table * n_head;
+  fma_dtable_kernel<T, HD><<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dcol), bias.table, static_cast<float*>(dtable), batch, seq_len,
+      n_head, kvh, bias.n_table, bias.nk, causal, scale);
+  return (int)cudaGetLastError();
 }
 
 // ---- tensor-core specialization: bf16, MQA, heads a multiple of 16 ------------
@@ -299,17 +354,22 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const bf16* ba
 }
 
 // dQ: a warp owns 16 heads of one query row and walks the row's live keys.
-template <int HD>
+// With the bias (the grid kernel's arithmetic), q enters unscaled, the product
+// is scaled in f32 and the staged bias added.
+template <int HD, bool BIAS>
 __global__ void mqa_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                   const float* __restrict__ lse, const float* __restrict__ dcol,
                                   bf16* __restrict__ dq, int seq_len, int n_head,
-                                  int rows_per_block, int tile_rows, int causal, float scale) {
+                                  int rows_per_block, int tile_rows, int causal, float scale,
+                                  const float* __restrict__ table, int n_table, int nk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kstride = tile_rows + 8;           // padded K^T rows
   bf16* ks = reinterpret_cast<bf16*>(smem);    // [tile_rows][HD]
   bf16* vs = ks + (size_t)tile_rows * HD;      // [tile_rows][HD]
   bf16* kt = vs + (size_t)tile_rows * HD;      // [HD][kstride]
+  const int ustride = bias_ustride(rows_per_block, tile_rows);
+  bf16* bs = kt + (size_t)HD * kstride;        // [n_head][ustride] (BIAS)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -330,7 +390,7 @@ __global__ void mqa_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __rest
 
   // A operands: heads h0+g and h0+g+8 of this row; q scaled in f32 and rounded
   uint32_t qa[HD / 16][4], da[HD / 16][4];
-  load_a<HD>(qa, q + q_row, HD, active ? 16 : 0, g, c, scale);
+  load_a<HD>(qa, q + q_row, HD, active ? 16 : 0, g, c, BIAS ? 1.f : scale);
   load_a<HD>(da, dout + q_row, HD, active ? 16 : 0, g, c, 1.f);
   float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};
   if (active) {
@@ -356,12 +416,28 @@ __global__ void mqa_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __rest
       kt[d * kstride + j] = kv;
       vs[i] = in ? vb[(size_t)t0 * HD + i] : zero;
     }
+    if constexpr (BIAS)
+      stage_bias(bs, ustride, table, n_table, n_head, nk, row0, rows_per_block, t0, t1);
     __syncthreads();
     const int j1 = min(t1, my_keys);
     for (int j0 = t0; j0 < j1; j0 += 16) {
       float s0[4], s1[4], dp0[4], dp1[4];
       head_key_tile<HD>(s0, qa, ks, j0 - t0, g, c);
       head_key_tile<HD>(s1, qa, ks, j0 - t0 + 8, g, c);
+      if constexpr (BIAS) {
+        // fragment row r is head h0 + g + 8r; s0[e] is key j0 + 2c + (e & 1), s1 8 keys on
+        const int u = (row - row0) + (t1 - 1 - j0 - 2 * c);
+        const bf16* b0 = bs + (size_t)(h0 + g) * ustride + u;
+        const bf16* b1 = b0 + (size_t)8 * ustride;
+        s0[0] = s0[0] * scale + __bfloat162float(b0[0]);
+        s0[1] = s0[1] * scale + __bfloat162float(b0[-1]);
+        s0[2] = s0[2] * scale + __bfloat162float(b1[0]);
+        s0[3] = s0[3] * scale + __bfloat162float(b1[-1]);
+        s1[0] = s1[0] * scale + __bfloat162float(b0[-8]);
+        s1[1] = s1[1] * scale + __bfloat162float(b0[-9]);
+        s1[2] = s1[2] * scale + __bfloat162float(b1[-8]);
+        s1[3] = s1[3] * scale + __bfloat162float(b1[-9]);
+      }
       head_key_tile<HD>(dp0, da, vs, j0 - t0, g, c);
       head_key_tile<HD>(dp1, da, vs, j0 - t0 + 8, g, c);
       const int j = j0 + 2 * c;
@@ -397,212 +473,406 @@ __global__ void mqa_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __rest
   }
 }
 
+// Shared memory of the dK/dV kernel, in bytes: the staged rows (q, round(q *
+// scale) but with the bias, dO, lse, D), at least the final reduction's
+// buffer; with the bias also the bias of a stage and the per-warp table
+// gradient sums.
+struct DkvSmem {
+  size_t stage, bias, dbw, total;
+};
+__host__ __device__ __forceinline__ int dkv_bias_stride(int n_head) { return n_head + 2; }
+__host__ __device__ __forceinline__ int dkv_dbw_stride(int n_head) { return n_head + 4; }
+__host__ __device__ __forceinline__ DkvSmem dkv_smem(int rows, int n_head, int hd, bool bias) {
+  DkvSmem m;
+  const size_t row_bytes = (size_t)(bias ? 2 : 3) * n_head * hd * sizeof(bf16) + (size_t)2 * n_head * 4;
+  const size_t red_bytes = (size_t)2 * DKV_KEY_TILES * 16 * hd * sizeof(float);
+  m.stage = rows * row_bytes > red_bytes ? rows * row_bytes : red_bytes;
+  m.bias = bias ? (size_t)(rows + 16 * DKV_KEY_TILES - 1) * dkv_bias_stride(n_head) * sizeof(bf16) : 0;
+  m.dbw = bias ? (size_t)DKV_KEY_TILES * DKV_ROW_SPLIT * (rows + 15) * dkv_dbw_stride(n_head) * 4 : 0;
+  m.total = m.stage + m.bias + m.dbw;
+  return m;
+}
+
 // dK/dV: a warp owns 16 keys and a quarter of the block's query rows; the block
-// stages its rows' qs, q, dO, lse and D in shared memory.
-template <int HD>
+// stages its rows' q (qs), dO, lse and D in shared memory.
+//
+// With the bias (BIAS), the logits take the grid kernel's arithmetic and the
+// block also sums the table gradient: ds (unrounded, f32) of the pair (row i,
+// key j, head h) belongs to table row i - j + nk. A block walks
+// batch_per_block batch rows, and for each the rows of its keys in stages of
+// R; per stage each warp adds its ds into its own buffer by diagonal (a
+// warp's lanes hold distinct (diagonal, head) pairs for a row, and a
+// __syncwarp orders its rows), then the block adds the warps' buffers in a
+// fixed order into its own (n_table, H) slice of dtable_part. No two blocks
+// write one slice and nothing is added atomically, so two runs give the same
+// bits; the caller sums the slices. Under the causal mask a block also takes
+// two key blocks, i and n - 1 - i (paired), so that every block walks about
+// the same number of rows: unpaired, the first key block walks all T rows
+// and the last one 32.
+template <int HD, bool BIAS>
 __global__ void mqa_mma_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                    const float* __restrict__ lse, const float* __restrict__ dcol,
-                                   bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len,
-                                   int n_head, int rows_per_stage, int causal, float scale) {
+                                   bf16* __restrict__ dk, bf16* __restrict__ dv, int batch,
+                                   int batch_per_block, int paired, int seq_len, int n_head,
+                                   int rows_per_stage, int causal, float scale,
+                                   const float* __restrict__ table, int n_table, int nk,
+                                   float* __restrict__ dtable_part) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KEYS = 16 * DKV_KEY_TILES;  // keys of a block
   const int width = n_head * HD;
-  bf16* qs_s = reinterpret_cast<bf16*>(smem);                      // [R][width] round(q*scale)
-  bf16* q_s = qs_s + (size_t)rows_per_stage * width;               // [R][width] q
-  bf16* do_s = q_s + (size_t)rows_per_stage * width;               // [R][width] dO
-  float* lse_s = reinterpret_cast<float*>(do_s + (size_t)rows_per_stage * width);  // [R][H]
-  float* d_s = lse_s + (size_t)rows_per_stage * n_head;                            // [R][H]
+  const int R = rows_per_stage;
+  const DkvSmem lay = dkv_smem(R, n_head, HD, BIAS);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                       // [R][width] q
+  bf16* qs_s = BIAS ? q_s : q_s + (size_t)R * width;               // [R][width] round(q*scale)
+  bf16* do_s = qs_s + (size_t)R * width;                           // [R][width] dO
+  float* lse_s = reinterpret_cast<float*>(do_s + (size_t)R * width);  // [R][H]
+  float* d_s = lse_s + (size_t)R * n_head;                            // [R][H]
+  const int bstride = dkv_bias_stride(n_head), wstride = dkv_dbw_stride(n_head);
+  bf16* bias_s = reinterpret_cast<bf16*>(smem + lay.stage);            // [R + KEYS - 1][bstride]
+  float* dbw_all = reinterpret_cast<float*>(smem + lay.stage + lay.bias);  // [warps][R + 15][wstride]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int tile = warp % DKV_KEY_TILES, part = warp / DKV_KEY_TILES;
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.x * 16 * DKV_KEY_TILES;  // block's first key
-  const int kw0 = k0 + 16 * tile;                  // warp's first key
+  const int n_kb = (seq_len + KEYS - 1) / KEYS;  // key blocks
+  const int dbw_size = (R + 15) * wstride;
+  float* dbw = dbw_all + (size_t)warp * dbw_size;
+  float* part_out = nullptr;
+  if constexpr (BIAS) {
+    part_out = dtable_part + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * n_table * n_head;
+    for (int i = threadIdx.x; i < DKV_KEY_TILES * DKV_ROW_SPLIT * dbw_size; i += blockDim.x)
+      dbw_all[i] = 0.f;
+  }
+  const int b_lo = blockIdx.y * batch_per_block, b_hi = min(batch, b_lo + batch_per_block);
+  const int kb_second = paired ? n_kb - 1 - (int)blockIdx.x : (int)blockIdx.x;
 
-  // A operands: keys kw0+g and kw0+g+8 of K and V, held for the whole walk
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  const size_t kv_base = ((size_t)b * seq_len + kw0) * HD;
-  load_a<HD>(ka, k + kv_base, HD, seq_len - kw0, g, c, 1.f);
-  load_a<HD>(va, v + kv_base, HD, seq_len - kw0, g, c, 1.f);
+  for (int kbi = blockIdx.x;; kbi = kb_second) {
+    const int k0 = kbi * KEYS;      // the key block's first key
+    const int kw0 = k0 + 16 * tile;  // warp's first key
+    for (int b = b_lo; b < b_hi; ++b) {
+      // A operands: keys kw0+g and kw0+g+8 of K and V, held for the whole walk
+      uint32_t ka[HD / 16][4], va[HD / 16][4];
+      const size_t kv_base = ((size_t)b * seq_len + kw0) * HD;
+      load_a<HD>(ka, k + kv_base, HD, seq_len - kw0, g, c, 1.f);
+      load_a<HD>(va, v + kv_base, HD, seq_len - kw0, g, c, 1.f);
 
-  float dka[HD / 8][4], dva[HD / 8][4];
+      float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+      for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
 
-  const size_t qbase = (size_t)b * seq_len * width;
-  const size_t rbase = (size_t)b * seq_len * n_head;
-  for (int r0 = causal ? k0 : 0; r0 < seq_len; r0 += rows_per_stage) {
-    const int nr = min(rows_per_stage, seq_len - r0);
-    __syncthreads();
-    const __nv_bfloat162* qsrc = reinterpret_cast<const __nv_bfloat162*>(q + qbase + (size_t)r0 * width);
-    const __nv_bfloat162* dsrc = reinterpret_cast<const __nv_bfloat162*>(dout + qbase + (size_t)r0 * width);
-    for (int i = threadIdx.x; i < nr * width / 2; i += blockDim.x) {
-      const __nv_bfloat162 qp = qsrc[i];
-      reinterpret_cast<__nv_bfloat162*>(q_s)[i] = qp;
-      reinterpret_cast<uint32_t*>(qs_s)[i] =
-          pack_bf16(__bfloat162float(qp.x) * scale, __bfloat162float(qp.y) * scale);
-      reinterpret_cast<__nv_bfloat162*>(do_s)[i] = dsrc[i];
-    }
-    for (int i = threadIdx.x; i < nr * n_head; i += blockDim.x) {
-      lse_s[i] = lse[rbase + (size_t)r0 * n_head + i];
-      d_s[i] = dcol[rbase + (size_t)r0 * n_head + i];
-    }
-    __syncthreads();
-
-    for (int i = r0 + part; i < r0 + nr; i += DKV_ROW_SPLIT) {
-      if (causal && i < kw0) continue;  // warp-uniform: every key of the warp is after row i
-      const int r = i - r0;
-      const bf16* qrow = qs_s + (size_t)r * width;
-      const bf16* qraw = q_s + (size_t)r * width;
-      const bf16* drow = do_s + (size_t)r * width;
-      const float* lrow = lse_s + (size_t)r * n_head;
-      const float* dd = d_s + (size_t)r * n_head;
-      for (int h0 = 0; h0 < n_head; h0 += 16) {
-        // S^T and dP^T: 16 keys x 8 heads, two tiles for the 16 heads
-        float st[2][4], dpt[2][4];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          st[t][0] = st[t][1] = st[t][2] = st[t][3] = 0.f;
-          dpt[t][0] = dpt[t][1] = dpt[t][2] = dpt[t][3] = 0.f;
-          const bf16* qh = qrow + (size_t)(h0 + 8 * t + g) * HD + 2 * c;
-          const bf16* dh = drow + (size_t)(h0 + 8 * t + g) * HD + 2 * c;
-#pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk) {
-            mma_16816(st[t], ka[kk], ld32(qh + kk * 16), ld32(qh + kk * 16 + 8));
-            mma_16816(dpt[t], va[kk], ld32(dh + kk * 16), ld32(dh + kk * 16 + 8));
+      const size_t qbase = (size_t)b * seq_len * width;
+      const size_t rbase = (size_t)b * seq_len * n_head;
+      for (int r0 = causal ? k0 : 0; r0 < seq_len; r0 += R) {
+        const int nr = min(R, seq_len - r0);
+        __syncthreads();
+        const __nv_bfloat162* qsrc = reinterpret_cast<const __nv_bfloat162*>(q + qbase + (size_t)r0 * width);
+        const __nv_bfloat162* dsrc = reinterpret_cast<const __nv_bfloat162*>(dout + qbase + (size_t)r0 * width);
+        for (int i = threadIdx.x; i < nr * width / 2; i += blockDim.x) {
+          const __nv_bfloat162 qp = qsrc[i];
+          reinterpret_cast<__nv_bfloat162*>(q_s)[i] = qp;
+          if constexpr (!BIAS)
+            reinterpret_cast<uint32_t*>(qs_s)[i] =
+                pack_bf16(__bfloat162float(qp.x) * scale, __bfloat162float(qp.y) * scale);
+          reinterpret_cast<__nv_bfloat162*>(do_s)[i] = dsrc[i];
+        }
+        for (int i = threadIdx.x; i < nr * n_head; i += blockDim.x) {
+          lse_s[i] = lse[rbase + (size_t)r0 * n_head + i];
+          d_s[i] = dcol[rbase + (size_t)r0 * n_head + i];
+        }
+        // the bias of this stage: (row i, key j) at u = (i - r0) - (j - k0) + KEYS - 1,
+        // table row l = nk + r0 - k0 - (KEYS - 1) + u
+        const int l0 = nk + r0 - k0 - (KEYS - 1);
+        if constexpr (BIAS) {
+          for (int i = threadIdx.x; i < (nr + KEYS - 1) * n_head; i += blockDim.x) {
+            const int u = i / n_head, h = i - u * n_head, l = l0 + u;
+            const float x = (l >= 0 && l < n_table) ? table[(size_t)l * n_head + h] : 0.f;
+            bias_s[u * bstride + h] = __float2bfloat16_rn(x);
           }
         }
-        float p[2][4], ds[2][4];
+        __syncthreads();
+
+        for (int i = r0 + part; i < r0 + nr; i += DKV_ROW_SPLIT) {
+          if (causal && i < kw0) continue;  // warp-uniform: every key of the warp is after row i
+          const int r = i - r0;
+          const bf16* qrow = qs_s + (size_t)r * width;
+          const bf16* qraw = q_s + (size_t)r * width;
+          const bf16* drow = do_s + (size_t)r * width;
+          const float* lrow = lse_s + (size_t)r * n_head;
+          const float* dd = d_s + (size_t)r * n_head;
+          for (int h0 = 0; h0 < n_head; h0 += 16) {
+            // S^T and dP^T: 16 keys x 8 heads, two tiles for the 16 heads
+            float st[2][4], dpt[2][4];
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
+            for (int t = 0; t < 2; ++t) {
+              st[t][0] = st[t][1] = st[t][2] = st[t][3] = 0.f;
+              dpt[t][0] = dpt[t][1] = dpt[t][2] = dpt[t][3] = 0.f;
+              const bf16* qh = qrow + (size_t)(h0 + 8 * t + g) * HD + 2 * c;
+              const bf16* dh = drow + (size_t)(h0 + 8 * t + g) * HD + 2 * c;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kw0 + g + (e >> 1) * 8;
-            const int hh = h0 + 8 * t + 2 * c + (e & 1);
-            const bool live = key < seq_len && (!causal || key <= i);
-            const float pv = live ? expf(st[t][e] - lrow[hh]) : 0.f;
-            p[t][e] = pv;
-            ds[t][e] = pv * (dpt[t][e] - dd[hh]);
+              for (int kk = 0; kk < HD / 16; ++kk) {
+                mma_16816(st[t], ka[kk], ld32(qh + kk * 16), ld32(qh + kk * 16 + 8));
+                mma_16816(dpt[t], va[kk], ld32(dh + kk * 16), ld32(dh + kk * 16 + 8));
+              }
+            }
+            float p[2][4], ds[2][4];
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int kl = g + (e >> 1) * 8;  // key kw0 + kl
+                const int key = kw0 + kl;
+                const int hh = h0 + 8 * t + 2 * c + (e & 1);
+                const bool live = key < seq_len && (!causal || key <= i);
+                float sv = st[t][e];
+                if constexpr (BIAS)
+                  sv = sv * scale + __bfloat162float(bias_s[(r - 16 * tile - kl + KEYS - 1) * bstride + hh]);
+                const float pv = live ? expf(sv - lrow[hh]) : 0.f;
+                p[t][e] = pv;
+                ds[t][e] = pv * (dpt[t][e] - dd[hh]);
+                if constexpr (BIAS) dbw[(r - kl + 15) * wstride + hh] += ds[t][e];
+              }
+            }
+            // P^T and dS^T (16 keys x 16 heads) rounded to bf16 are A fragments
+            const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                    pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+            const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                     pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+            // B operands: dO and q of the 16 heads (k = head, n = dim)
+            const bf16* dcolp = drow + (size_t)(h0 + 2 * c) * HD + g;
+            const bf16* qcolp = qraw + (size_t)(h0 + 2 * c) * HD + g;
+#pragma unroll
+            for (int nt = 0; nt < HD / 8; ++nt) {
+              const bf16* dp_ = dcolp + nt * 8;
+              const bf16* qp_ = qcolp + nt * 8;
+              mma_16816(dva[nt], pa, pack_raw(dp_[0], dp_[HD]), pack_raw(dp_[8 * HD], dp_[9 * HD]));
+              mma_16816(dka[nt], dsa, pack_raw(qp_[0], qp_[HD]), pack_raw(qp_[8 * HD], qp_[9 * HD]));
+            }
+          }
+          if constexpr (BIAS) __syncwarp();  // the next row's lanes may add where this row's did
+        }
+
+        if constexpr (BIAS) {
+          // the warps' sums of this stage, in a fixed order, into the block's slice
+          __syncthreads();
+          for (int i = threadIdx.x; i < (nr + KEYS - 1) * n_head; i += blockDim.x) {
+            const int u = i / n_head, h = i - u * n_head;
+            float sum = 0.f;
+            for (int w = 0; w < DKV_KEY_TILES * DKV_ROW_SPLIT; ++w) {
+              const int sw = u + 16 * (w % DKV_KEY_TILES) - (KEYS - 16);  // the warp's own index
+              if (sw < 0 || sw >= R + 15) continue;
+              float* cell = dbw_all + (size_t)w * dbw_size + sw * wstride + h;
+              sum += *cell;
+              *cell = 0.f;
+            }
+            const int l = l0 + u;
+            if (l >= 0 && l < n_table) part_out[(size_t)l * n_head + h] += sum;
           }
         }
-        // P^T and dS^T (16 keys x 16 heads) rounded to bf16 are A fragments
-        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                                pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-        const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                                 pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-        // B operands: dO and q of the 16 heads (k = head, n = dim)
-        const bf16* dcolp = drow + (size_t)(h0 + 2 * c) * HD + g;
-        const bf16* qcolp = qraw + (size_t)(h0 + 2 * c) * HD + g;
+      }
+
+      // the row parts of each key tile add up in a fixed order: part 0 takes the
+      // others' sums one at a time through shared memory
+      float* red = reinterpret_cast<float*>(smem);  // [2][DKV_KEY_TILES][16][HD]
+      float* red_k = red + (size_t)tile * 16 * HD;
+      float* red_v = red + (size_t)(DKV_KEY_TILES + tile) * 16 * HD;
+      for (int src = 1; src < DKV_ROW_SPLIT; ++src) {
+        __syncthreads();
+        if (part == src) {
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt) {
+            const int d = nt * 8 + 2 * c;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int at = (g + (e >> 1) * 8) * HD + d + (e & 1);
+              red_k[at] = dka[nt][e];
+              red_v[at] = dva[nt][e];
+            }
+          }
+        }
+        __syncthreads();
+        if (part == 0) {
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt) {
+            const int d = nt * 8 + 2 * c;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int at = (g + (e >> 1) * 8) * HD + d + (e & 1);
+              dka[nt][e] += red_k[at];
+              dva[nt][e] += red_v[at];
+            }
+          }
+        }
+      }
+      if (part == 0) {
 #pragma unroll
         for (int nt = 0; nt < HD / 8; ++nt) {
-          const bf16* dp_ = dcolp + nt * 8;
-          const bf16* qp_ = qcolp + nt * 8;
-          mma_16816(dva[nt], pa, pack_raw(dp_[0], dp_[HD]), pack_raw(dp_[8 * HD], dp_[9 * HD]));
-          mma_16816(dka[nt], dsa, pack_raw(qp_[0], qp_[HD]), pack_raw(qp_[8 * HD], qp_[9 * HD]));
+          const int d = nt * 8 + 2 * c;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int key = kw0 + g + half * 8;
+            if (key >= seq_len) continue;
+            const size_t at = ((size_t)b * seq_len + key) * HD + d;
+            *reinterpret_cast<uint32_t*>(dk + at) =
+                pack_bf16(dka[nt][2 * half] * scale, dka[nt][2 * half + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[nt][2 * half], dva[nt][2 * half + 1]);
+          }
         }
       }
     }
-  }
-
-  // the row parts of each key tile add up in a fixed order: part 0 takes the
-  // others' sums one at a time through shared memory
-  float* red = reinterpret_cast<float*>(smem);  // [2][DKV_KEY_TILES][16][HD]
-  float* red_k = red + (size_t)tile * 16 * HD;
-  float* red_v = red + (size_t)(DKV_KEY_TILES + tile) * 16 * HD;
-  for (int src = 1; src < DKV_ROW_SPLIT; ++src) {
-    __syncthreads();
-    if (part == src) {
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const int d = nt * 8 + 2 * c;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int at = (g + (e >> 1) * 8) * HD + d + (e & 1);
-          red_k[at] = dka[nt][e];
-          red_v[at] = dva[nt][e];
-        }
-      }
-    }
-    __syncthreads();
-    if (part == 0) {
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const int d = nt * 8 + 2 * c;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int at = (g + (e >> 1) * 8) * HD + d + (e & 1);
-          dka[nt][e] += red_k[at];
-          dva[nt][e] += red_v[at];
-        }
-      }
-    }
-  }
-  if (part != 0) return;
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    const int d = nt * 8 + 2 * c;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int key = kw0 + g + half * 8;
-      if (key >= seq_len) continue;
-      const size_t at = ((size_t)b * seq_len + key) * HD + d;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack_bf16(dka[nt][2 * half] * scale, dka[nt][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[nt][2 * half], dva[nt][2 * half + 1]);
-    }
+    if (kbi == kb_second) break;
   }
 }
 
-// rows staged at a time by the dK/dV kernel, or 0 when one row does not fit
-__host__ int dkv_rows_per_stage(int n_head, int head_dim) {
-  const size_t row_bytes = (size_t)3 * n_head * head_dim * sizeof(bf16) + (size_t)2 * n_head * 4;
-  const size_t fit = SMEM_BUDGET / row_bytes;
-  return (int)(fit < DKV_MAX_ROWS ? fit : DKV_MAX_ROWS);
+// rows staged at a time by the dK/dV kernel, or 0 when fewer than its row
+// split fit the budget
+__host__ int dkv_rows_per_stage(int n_head, int head_dim, bool bias) {
+  for (int rows = DKV_MAX_ROWS; rows >= DKV_ROW_SPLIT; --rows)
+    if (dkv_smem(rows, n_head, head_dim, bias).total <= (size_t)SMEM_BUDGET) return rows;
+  return 0;
 }
 
-template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* dcol, void* dq, void* dk, void* dv, int batch, int seq_len,
-               int n_head, int causal, cudaStream_t stream) {
+// the tensor-core kernels take bf16, MQA, 16-head groups and hd in {16, 32, 64}
+bool mma_ok(int kvh, int n_head, int head_dim, int is_bf16, bool bias) {
+  return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512 &&
+         (head_dim == 16 || head_dim == 32 || head_dim == 64) &&
+         dkv_rows_per_stage(n_head, head_dim, bias) >= DKV_ROW_SPLIT;
+}
+
+// The bias dK/dV grid: x over key blocks (pairs of them under the causal
+// mask), y over groups of batch rows, the group as small as lets every block
+// be resident at once (the occupancy the card reports), so that the blocks,
+// of about equal work, fill one wave. The table-gradient slices are x * y.
+struct DkvGrid {
+  int x, y, batch_per_block, paired;
+};
+
+DkvGrid dkv_grid(int batch, int seq_len, int causal, bool bias, int resident_blocks) {
+  const int n_kb = (seq_len + 16 * DKV_KEY_TILES - 1) / (16 * DKV_KEY_TILES);
+  if (!bias) return DkvGrid{n_kb, batch, 1, 0};
+  DkvGrid g{causal ? (n_kb + 1) / 2 : n_kb, 0, 1, causal ? 1 : 0};
+  const int slots = resident_blocks > 0 ? resident_blocks : 1;
+  g.batch_per_block = (g.x * batch + slots - 1) / slots;
+  if (g.batch_per_block < 1) g.batch_per_block = 1;
+  g.y = (batch + g.batch_per_block - 1) / g.batch_per_block;
+  return g;
+}
+
+constexpr int DKV_THREADS = 32 * DKV_KEY_TILES * DKV_ROW_SPLIT;
+
+// blocks of the dK/dV kernel the card holds at once (SMs x blocks per SM)
+template <int HD, bool BIAS>
+int dkv_resident_blocks(int n_head) {
+  const size_t smem = dkv_smem(dkv_rows_per_stage(n_head, HD, BIAS), n_head, HD, BIAS).total;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mqa_mma_dkv_kernel<HD, BIAS>, DKV_THREADS, smem);
+  return sms * per_sm;
+}
+
+template <int HD, bool BIAS>
+DkvGrid dkv_grid_of(int batch, int seq_len, int n_head, int causal) {
+  return dkv_grid(batch, seq_len, causal, BIAS, BIAS ? dkv_resident_blocks<HD, BIAS>(n_head) : 0);
+}
+
+template <int HD, bool BIAS>
+int launch_mma_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* dcol, void* dk, void* dv, void* dtable_part, int batch,
+                   int seq_len, int n_head, int causal, Bias bias, cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)HD));
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* db = static_cast<const bf16*>(dout);
-  const float* lb = static_cast<const float*>(lse);
-  const float* cb = static_cast<const float*>(dcol);
+  const int rows = dkv_rows_per_stage(n_head, HD, BIAS);
+  const size_t smem = dkv_smem(rows, n_head, HD, BIAS).total;
+  const DkvGrid g = dkv_grid_of<HD, BIAS>(batch, seq_len, n_head, causal);
+  mqa_mma_dkv_kernel<HD, BIAS><<<dim3(g.x, g.y), DKV_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dcol), static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch,
+      g.batch_per_block, g.paired, seq_len, n_head, rows, causal, scale, bias.table, bias.n_table,
+      bias.nk, static_cast<float*>(dtable_part));
+  return (int)cudaGetLastError();
+}
 
-  // dK/dV
-  const int rows = dkv_rows_per_stage(n_head, HD);
-  const size_t row_bytes = (size_t)3 * n_head * HD * sizeof(bf16) + (size_t)2 * n_head * 4;
-  size_t smem = rows * row_bytes;
-  const size_t red_bytes = (size_t)2 * DKV_KEY_TILES * 16 * HD * sizeof(float);
-  if (smem < red_bytes) smem = red_bytes;
-  const int key_block = 16 * DKV_KEY_TILES;
-  mqa_mma_dkv_kernel<HD><<<dim3((seq_len + key_block - 1) / key_block, batch),
-                           32 * DKV_KEY_TILES * DKV_ROW_SPLIT, smem, stream>>>(
-      qb, kb, vb, db, lb, cb, static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, n_head,
-      rows, causal, scale);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-
-  // dQ
+template <int HD, bool BIAS>
+int launch_mma_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* dcol, void* dq, int batch, int seq_len, int n_head, int causal,
+                  Bias bias, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)HD));
   const int groups = n_head / 16;
   int qrows = 16 / groups;  // up to 16 warps per block
   if (qrows < 1) qrows = 1;
-  auto smem_of = [](int t) { return (size_t)2 * HD * (3 * t + 8); };
+  auto smem_of = [&](int t) {
+    return (size_t)2 * HD * (3 * t + 8) +
+           (BIAS ? (size_t)2 * n_head * bias_ustride(qrows, t) : 0);
+  };
   int tile = KV_TILE;
   while (tile > 16 && smem_of(tile) > (size_t)SMEM_BUDGET) tile >>= 1;
+  if (smem_of(tile) > (size_t)SMEM_BUDGET) return -1;
   int need = 16;
   while (need < seq_len) need <<= 1;
   if (tile > need) tile = need;
-  mqa_mma_dq_kernel<HD><<<dim3((seq_len + qrows - 1) / qrows, batch), qrows * groups * 32,
-                          smem_of(tile), stream>>>(qb, kb, vb, db, lb, cb, static_cast<bf16*>(dq),
-                                                   seq_len, n_head, qrows, tile, causal, scale);
+  mqa_mma_dq_kernel<HD, BIAS><<<dim3((seq_len + qrows - 1) / qrows, batch), qrows * groups * 32,
+                                smem_of(tile), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dcol), static_cast<bf16*>(dq), seq_len, n_head, qrows, tile,
+      causal, scale, bias.table, bias.n_table, bias.nk);
   return (int)cudaGetLastError();
+}
+
+// One backward half for the call's types: which = 0 dK/dV (and, with the bias,
+// the table gradient into dtable_part), 1 dQ.
+template <bool BIAS>
+int backward(int which, const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* dcol, void* dq, void* dk, void* dv, void* dtable_part,
+             int batch, int seq_len, int n_head, int kvh, int head_dim, int causal, int is_bf16,
+             Bias bias, cudaStream_t s) {
+  if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
+  if (mma_ok(kvh, n_head, head_dim, is_bf16, BIAS)) {
+#define MMA_CASE(HD)                                                                              \
+  case HD:                                                                                        \
+    return which == 0 ? launch_mma_dkv<HD, BIAS>(q, k, v, dout, lse, dcol, dk, dv, dtable_part,   \
+                                                 batch, seq_len, n_head, causal, bias, s)         \
+                      : launch_mma_dq<HD, BIAS>(q, k, v, dout, lse, dcol, dq, batch, seq_len,     \
+                                                n_head, causal, bias, s);
+    switch (head_dim) {
+      MMA_CASE(16)
+      MMA_CASE(32)
+      MMA_CASE(64)
+      default: return -1;
+    }
+#undef MMA_CASE
+  }
+#define FMA_CASE(T, HD)                                                                           \
+  case HD: {                                                                                      \
+    if (which == 1)                                                                               \
+      return launch_fma_dq<T, HD, BIAS>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head,     \
+                                        kvh, causal, bias, s);                                    \
+    int rc = launch_fma_dkv<T, HD, BIAS>(q, k, v, dout, lse, dcol, dk, dv, batch, seq_len,        \
+                                         n_head, kvh, causal, bias, s);                           \
+    if (rc || !BIAS) return rc;                                                                   \
+    return launch_fma_dtable<T, HD>(q, k, v, dout, lse, dcol, dtable_part, batch, seq_len,        \
+                                    n_head, kvh, causal, bias, s);                                \
+  }
+  if (is_bf16) {
+    switch (head_dim) {
+      FMA_CASE(bf16, 8)
+      FMA_CASE(bf16, 16)
+      FMA_CASE(bf16, 32)
+      FMA_CASE(bf16, 64)
+      default: return -1;
+    }
+  }
+  switch (head_dim) {
+    FMA_CASE(float, 8)
+    FMA_CASE(float, 16)
+    FMA_CASE(float, 32)
+    FMA_CASE(float, 64)
+    default: return -1;
+  }
+#undef FMA_CASE
 }
 
 }  // namespace
@@ -613,20 +883,71 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const void* lse, const void* dcol, void* dq, void* dk, void* dv,
                          int batch, int seq_len, int n_head, int kvh, int head_dim, int causal,
                          int is_bf16, void* stream) {
-  if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512 &&
-      dkv_rows_per_stage(n_head, head_dim) >= DKV_ROW_SPLIT) {
-    switch (head_dim) {
-      case 16: return launch_mma<16>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, causal, s);
-      case 32: return launch_mma<32>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, causal, s);
-      case 64: return launch_mma<64>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, causal, s);
-      default: break;  // other head dims take the FMA kernels
-    }
+  const Bias none{nullptr, 0, 0};
+  int rc = backward<false>(0, q, k, v, dout, lse, dcol, dq, dk, dv, nullptr, batch, seq_len,
+                           n_head, kvh, head_dim, causal, is_bf16, none, s);
+  if (rc) return rc;
+  return backward<false>(1, q, k, v, dout, lse, dcol, dq, dk, dv, nullptr, batch, seq_len, n_head,
+                         kvh, head_dim, causal, is_bf16, none, s);
+}
+
+// The backward with the relative-position bias table (n_table, n_head) float32,
+// in two entries, one per kernel: dq, and dk, dv with the table gradient. The
+// caller checks the table covers every live pair (as for flash_bias_fwd).
+extern "C" int flash_bias_dq(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* dcol, const void* table, void* dq,
+                             int batch, int seq_len, int n_head, int kvh, int head_dim,
+                             int n_table, int nk, int causal, int is_bf16, void* stream) {
+  if (n_table < 1 || nk < 0) return -1;
+  return backward<true>(1, q, k, v, dout, lse, dcol, dq, nullptr, nullptr, nullptr, batch,
+                        seq_len, n_head, kvh, head_dim, causal, is_bf16,
+                        Bias{static_cast<const float*>(table), n_table, nk},
+                        static_cast<cudaStream_t>(stream));
+}
+
+// dtable_part: flash_bias_dkv_slices(...) zeroed (n_table, n_head) float32
+// slices, each written by one block; their sum is the table gradient.
+extern "C" int flash_bias_dkv(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* dcol, const void* table, void* dk,
+                              void* dv, void* dtable_part, int batch, int seq_len, int n_head,
+                              int kvh, int head_dim, int n_table, int nk, int causal,
+                              int is_bf16, void* stream) {
+  if (n_table < 1 || nk < 0) return -1;
+  return backward<true>(0, q, k, v, dout, lse, dcol, nullptr, dk, dv, dtable_part, batch,
+                        seq_len, n_head, kvh, head_dim, causal, is_bf16,
+                        Bias{static_cast<const float*>(table), n_table, nk},
+                        static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// the grid flash_bias_dkv launches for this shape on the current device (one
+// block and one slice when the FMA kernels take the call)
+DkvGrid bias_dkv_grid(int batch, int seq_len, int n_head, int kvh, int head_dim, int causal,
+                      int is_bf16) {
+  if (!mma_ok(kvh, n_head, head_dim, is_bf16, true)) return DkvGrid{1, 1, 1, 0};
+  switch (head_dim) {
+    case 16: return dkv_grid_of<16, true>(batch, seq_len, n_head, causal);
+    case 32: return dkv_grid_of<32, true>(batch, seq_len, n_head, causal);
+    case 64: return dkv_grid_of<64, true>(batch, seq_len, n_head, causal);
+    default: return DkvGrid{-1, 1, 1, 0};
   }
-  if (is_bf16)
-    return dispatch_fma<bf16>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, kvh,
-                              head_dim, causal, s);
-  return dispatch_fma<float>(q, k, v, dout, lse, dcol, dq, dk, dv, batch, seq_len, n_head, kvh,
-                             head_dim, causal, s);
+}
+
+}  // namespace
+
+// The number of table-gradient slices flash_bias_dkv writes for this shape on
+// the current device.
+extern "C" int flash_bias_dkv_slices(int batch, int seq_len, int n_head, int kvh, int head_dim,
+                                     int causal, int is_bf16) {
+  const DkvGrid g = bias_dkv_grid(batch, seq_len, n_head, kvh, head_dim, causal, is_bf16);
+  return g.x * g.y;
+}
+
+// The batch rows one block of flash_bias_dkv walks for this shape on the
+// current device.
+extern "C" int flash_bias_dkv_batch_per_block(int batch, int seq_len, int n_head, int kvh,
+                                              int head_dim, int causal, int is_bf16) {
+  return bias_dkv_grid(batch, seq_len, n_head, kvh, head_dim, causal, is_bf16).batch_per_block;
 }

@@ -36,11 +36,24 @@
 //   head) pair, the heads of a row in neighbouring lanes, so a warp reads q
 //   and writes o as one contiguous run and its lanes share the causal extent.
 // No wgmma or TMA yet: a right and simple kernel first.
+//
+// The relative-position-bias case (entry flash_bias_fwd) replaces the
+// bias_mode forward of _fwd_kernel_grid (launched by _fused_bias_fwd_impl).
+// Both kernels take it as a template case, with the grid kernel's
+// arithmetic: s = (q.k) * scale in f32 with q unrounded, plus the table entry
+// table[q - k + nk, h] rounded to bf16 (the TPU kernel expands the table in
+// bf16 for any operand type), before the mask. The table is (L, H) float32.
+// In the tensor-core kernel a block stages, per key tile, the bias its rows
+// need: for the rows [row0, row0 + R) and keys [t0, t1) that is the run
+// table[row0 - (t1 - 1) + nk .. row0 + R - 1 - t0 + nk] of every head, one
+// contiguous, reversed run per head; the tile is then also the softmax chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_bias.cuh"
 
 namespace {
 
@@ -96,11 +109,11 @@ __device__ __forceinline__ void stage(T* __restrict__ dst, const T* __restrict__
   for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d[i] = s[i];
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool BIAS>
 __global__ void fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                            int seq_len, int n_head, int kvh, int rows_per_block, int tile_rows,
-                           int causal, float scale) {
+                           int causal, float scale, const float* __restrict__ table, int nk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int width = kvh * HD;  // K/V row width in elements
   T* ks = reinterpret_cast<T*>(smem);
@@ -131,9 +144,17 @@ __global__ void fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (active) {
     load_row<T, HD>(q + q_off, qv);
+    if constexpr (!BIAS) {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qv[d] = round_to<T>(qv[d] * scale);
+      for (int d = 0; d < HD; ++d) qv[d] = round_to<T>(qv[d] * scale);
+    }
   }
+  // the logit of key j: qs.k (no bias), or (q.k) * scale + bias (the grid kernel)
+  auto logit = [&](int j, const T* kr) {
+    const float dk = dot<T, HD>(qv, kr);
+    if constexpr (BIAS) return dk * scale + bias_at(table, row - j + nk, n_head, h);
+    return dk;
+  };
   float m = NEG_INF, l = 0.f;
 
   int staged = -1;  // first key of the tile held in shared memory (block-uniform)
@@ -153,7 +174,7 @@ __global__ void fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       const int j1 = min(t1, my_keys);
       for (int j = t0; j < j1; ++j)
-        m_new = fmaxf(m_new, dot<T, HD>(qv, ks + (size_t)(j - t0) * width + kv_col));
+        m_new = fmaxf(m_new, logit(j, ks + (size_t)(j - t0) * width + kv_col));
     }
 
     // pass 2: rescale what earlier chunks summed, then add this chunk
@@ -173,7 +194,7 @@ __global__ void fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j1 = min(t1, my_keys);
       for (int j = t0; j < j1; ++j) {
         const size_t off = (size_t)(j - t0) * width + kv_col;
-        const float p = expf(dot<T, HD>(qv, ks + off) - m_new);
+        const float p = expf(logit(j, ks + off) - m_new);
         l += p;
         const float pr = round_to<T>(p);
         float vf[HD];
@@ -197,9 +218,10 @@ __global__ void fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool BIAS>
 int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-               int seq_len, int n_head, int kvh, int causal, cudaStream_t stream) {
+               int seq_len, int n_head, int kvh, int causal, const float* table, int nk,
+               cudaStream_t stream) {
   const size_t row_bytes = (size_t)kvh * HD * sizeof(T);
   int rows = THREADS / n_head;
   if (rows < 1) rows = 1;
@@ -215,10 +237,10 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, 
   const dim3 grid((seq_len + rows - 1) / rows, batch);
   const dim3 block(rows * n_head);
   const float scale = (float)(1.0 / sqrt((double)HD));
-  fma_kernel<T, HD><<<grid, block, smem, stream>>>(
+  fma_kernel<T, HD, BIAS><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), seq_len, n_head, kvh, rows, tile, causal,
-      scale);
+      scale, table, nk);
   return (int)cudaGetLastError();
 }
 
@@ -264,25 +286,28 @@ __device__ __forceinline__ void stage_kv_t(bf16* ks, bf16* vt, int vstride, cons
                                            const bf16* vb, int t0, int t1) {
   const int n = t1 - t0, n16 = (n + 15) & ~15;
   const bf16 zero = __float2bfloat16(0.f);
-  __syncthreads();
   for (int i = threadIdx.x; i < n16 * HD; i += blockDim.x) {
     const int j = i / HD, d = i - j * HD;
     const bool in = j < n;
     ks[i] = in ? kb[(size_t)t0 * HD + i] : zero;
     vt[d * vstride + j] = in ? vb[(size_t)t0 * HD + i] : zero;
   }
-  __syncthreads();
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 __global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                const bf16* __restrict__ v, bf16* __restrict__ o,
                                float* __restrict__ lse, int seq_len, int n_head,
-                               int rows_per_block, int tile_rows, int causal, float scale) {
+                               int rows_per_block, int tile_rows, int causal, float scale,
+                               const float* __restrict__ table, int n_table, int nk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vstride = tile_rows + 8;  // padded V^T rows: conflict-free B loads
   bf16* ks = reinterpret_cast<bf16*>(smem);   // [tile_rows][HD]
   bf16* vt = ks + (size_t)tile_rows * HD;     // [HD][vstride]
+  const int ustride = bias_ustride(rows_per_block, tile_rows);
+  bf16* bs = vt + (size_t)HD * vstride;       // [n_head][ustride] (BIAS)
+  // the softmax chunk: the TPU kernel's KV_CHUNK, or with the bias one staged tile
+  const int chunk = BIAS ? tile_rows : KV_CHUNK;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -302,6 +327,8 @@ __global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   const bf16* vb = v + (size_t)b * seq_len * HD;
 
   // A operand: heads h0+g and h0+g+8 of this row, scaled in f32 and rounded
+  // (with the bias, as the grid kernel: unscaled, the product scaled after)
+  const float qmul = BIAS ? 1.f : scale;
   uint32_t qa[HD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
@@ -313,8 +340,8 @@ __global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
       if (active) {
         const __nv_bfloat162 pair =
             *reinterpret_cast<const __nv_bfloat162*>(q + q_row + (size_t)hh * HD + d);
-        x0 = __bfloat162float(pair.x) * scale;
-        x1 = __bfloat162float(pair.y) * scale;
+        x0 = __bfloat162float(pair.x) * qmul;
+        x1 = __bfloat162float(pair.y) * qmul;
       }
       qa[kk][r] = pack_bf16(x0, x1);
     }
@@ -326,22 +353,45 @@ __global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   float m[2] = {NEG_INF, NEG_INF};  // rows g and g+8 (heads h0+g, h0+g+8)
   float l[2] = {0.f, 0.f};          // this lane's share of the row sums
 
+  // S for 16 heads x 8 keys from key j0 of the tile [t0, t1); with the bias,
+  // (q.k) * scale + bias (row r of the fragment is head h0 + g + 8r)
+  const int r_local = row - row0;
+  auto logits = [&](float (&s)[4], int j0, int t0, int t1) {
+    qk_tile<HD>(s, qa, ks, j0 - t0, g, c);
+    if constexpr (BIAS) {
+      const int u = r_local + (t1 - 1 - j0 - 2 * c);
+      const bf16* b0 = bs + (size_t)(h0 + g) * ustride + u;
+      const bf16* b1 = b0 + (size_t)8 * ustride;
+      s[0] = s[0] * scale + __bfloat162float(b0[0]);
+      s[1] = s[1] * scale + __bfloat162float(b0[-1]);
+      s[2] = s[2] * scale + __bfloat162float(b1[0]);
+      s[3] = s[3] * scale + __bfloat162float(b1[-1]);
+    }
+  };
+  auto stage = [&](int t0, int t1) {
+    __syncthreads();
+    stage_kv_t<HD>(ks, vt, vstride, kb, vb, t0, t1);
+    if constexpr (BIAS)
+      stage_bias(bs, ustride, table, n_table, n_head, nk, row0, rows_per_block, t0, t1);
+    __syncthreads();
+  };
+
   int staged = -1;  // first key of the tile in shared memory (block-uniform)
-  for (int c0 = 0; c0 < block_keys; c0 += KV_CHUNK) {
-    const int c1 = min(c0 + KV_CHUNK, block_keys);
+  for (int c0 = 0; c0 < block_keys; c0 += chunk) {
+    const int c1 = min(c0 + chunk, block_keys);
 
     // pass 1: the running max over this chunk
     float mx[2] = {m[0], m[1]};
     for (int t0 = c0; t0 < c1; t0 += tile_rows) {
       const int t1 = min(t0 + tile_rows, c1);
       if (staged != t0) {
-        stage_kv_t<HD>(ks, vt, vstride, kb, vb, t0, t1);
+        stage(t0, t1);
         staged = t0;
       }
       const int j1 = min(t1, my_keys);
       for (int j0 = t0; j0 < j1; j0 += 8) {
         float s[4];
-        qk_tile<HD>(s, qa, ks, j0 - t0, g, c);
+        logits(s, j0, t0, t1);
         const int j = j0 + 2 * c;
         if (j < my_keys) mx[0] = fmaxf(mx[0], s[0]), mx[1] = fmaxf(mx[1], s[2]);
         if (j + 1 < my_keys) mx[0] = fmaxf(mx[0], s[1]), mx[1] = fmaxf(mx[1], s[3]);
@@ -365,14 +415,14 @@ __global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
     for (int t0 = c0; t0 < c1; t0 += tile_rows) {
       const int t1 = min(t0 + tile_rows, c1);
       if (staged != t0) {
-        stage_kv_t<HD>(ks, vt, vstride, kb, vb, t0, t1);
+        stage(t0, t1);
         staged = t0;
       }
       const int j1 = min(t1, my_keys);
       for (int j0 = t0; j0 < j1; j0 += 16) {
         float s0[4], s1[4], p0[4], p1[4];
-        qk_tile<HD>(s0, qa, ks, j0 - t0, g, c);
-        qk_tile<HD>(s1, qa, ks, j0 - t0 + 8, g, c);
+        logits(s0, j0, t0, t1);
+        logits(s1, j0 + 8, t0, t1);
         const int j = j0 + 2 * c;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -418,38 +468,64 @@ __global__ void mqa_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   }
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-               int seq_len, int n_head, int causal, cudaStream_t stream) {
+               int seq_len, int n_head, int causal, Bias bias, cudaStream_t stream) {
   const int groups = n_head / 16;
   int rows = 16 / groups;  // up to 16 warps per block
   if (rows < 1) rows = 1;
   if (rows * groups * 32 > 1024) return -1;
-  auto smem_of = [](int tile) { return (size_t)2 * HD * (2 * tile + 8); };
+  auto smem_of = [&](int tile) {
+    return (size_t)2 * HD * (2 * tile + 8) +
+           (BIAS ? (size_t)2 * n_head * bias_ustride(rows, tile) : 0);
+  };
   int tile = KV_CHUNK;
   while (tile > 16 && smem_of(tile) > (size_t)SMEM_BUDGET) tile >>= 1;
+  if (smem_of(tile) > (size_t)SMEM_BUDGET) return -1;
   int need = 16;
   while (need < seq_len) need <<= 1;
   if (tile > need) tile = need;
   const dim3 grid((seq_len + rows - 1) / rows, batch);
   const float scale = (float)(1.0 / sqrt((double)HD));
-  mqa_mma_kernel<HD><<<grid, rows * groups * 32, smem_of(tile), stream>>>(
+  mqa_mma_kernel<HD, BIAS><<<grid, rows * groups * 32, smem_of(tile), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), seq_len, n_head, rows, tile, causal,
-      scale);
+      scale, bias.table, bias.n_table, bias.nk);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool BIAS>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-             int seq_len, int n_head, int kvh, int head_dim, int causal, cudaStream_t stream) {
+             int seq_len, int n_head, int kvh, int head_dim, int causal, Bias bias,
+             cudaStream_t s) {
   switch (head_dim) {
-    case 8: return launch_fma<T, 8>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
-    case 16: return launch_fma<T, 16>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
-    case 32: return launch_fma<T, 32>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
-    case 64: return launch_fma<T, 64>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, stream);
+    case 8: return launch_fma<T, 8, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, bias.table, bias.nk, s);
+    case 16: return launch_fma<T, 16, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, bias.table, bias.nk, s);
+    case 32: return launch_fma<T, 32, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, bias.table, bias.nk, s);
+    case 64: return launch_fma<T, 64, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, kvh, causal, bias.table, bias.nk, s);
     default: return -1;
   }
+}
+
+template <bool BIAS>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+            int seq_len, int n_head, int kvh, int head_dim, int causal, int is_bf16, Bias bias,
+            void* stream) {
+  if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
+    switch (head_dim) {
+      case 16: return launch_mma<16, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
+      case 32: return launch_mma<32, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
+      case 64: return launch_mma<64, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
+      default: break;  // other head dims take the FMA kernel
+    }
+  }
+  if (is_bf16)
+    return dispatch<__nv_bfloat16, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim,
+                                         causal, bias, s);
+  return dispatch<float, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim, causal,
+                               bias, s);
 }
 
 }  // namespace
@@ -460,18 +536,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int batch, int seq_len, int n_head, int kvh, int head_dim,
                          int causal, int is_bf16, void* stream) {
-  if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
-    switch (head_dim) {
-      case 16: return launch_mma<16>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
-      case 32: return launch_mma<32>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
-      case 64: return launch_mma<64>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
-      default: break;  // other head dims take the FMA kernel
-    }
-  }
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim,
-                                   causal, s);
-  return dispatch<float>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim, causal, s);
+  return forward<false>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim, causal, is_bf16,
+                        Bias{nullptr, 0, 0}, stream);
+}
+
+// The same with the relative-position bias table (n_table, n_head) float32;
+// the caller checks that seq_len - 1 + nk < n_table (and, without the causal
+// mask, nk >= seq_len - 1), so every live pair reads inside the table.
+extern "C" int flash_bias_fwd(const void* q, const void* k, const void* v, const void* table,
+                              void* o, void* lse, int batch, int seq_len, int n_head, int kvh,
+                              int head_dim, int n_table, int nk, int causal, int is_bf16,
+                              void* stream) {
+  if (n_table < 1 || nk < 0) return -1;
+  return forward<true>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim, causal, is_bf16,
+                       Bias{static_cast<const float*>(table), n_table, nk}, stream);
 }

@@ -2,10 +2,10 @@
 
 Each source has a plain C entry point (no PyTorch headers), so ``nvcc``
 builds it in seconds. The library lands in ``ops/_build/`` inside the
-package, named by a hash of the source, so an edited source is never served
-by a stale library. Kernels that share a source share its one build. Nothing
-is built when a module is imported: the CPU tests import every module on
-machines without ``nvcc``.
+package, named by a hash of the source and of the headers beside it, so an
+edited source or header is never served by a stale library. Kernels that
+share a source share its one build. Nothing is built when a module is
+imported: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -45,7 +45,10 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``source``, named by a hash of the source, the headers
+    of ``csrc/`` (which any source may include) and the flags."""
+    key = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 

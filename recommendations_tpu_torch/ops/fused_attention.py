@@ -1,12 +1,17 @@
-"""Folded-head flash attention, forward and backward: CUDA kernels and their
-plain versions, joined by a ``torch.autograd.Function``.
+"""Folded-head flash attention, forward and backward, without and with a
+learned relative-position bias: CUDA kernels and their plain versions.
 
-Port of ``recommendations_tpu/ops/fused_attention.py`` without the position
-bias. ``csrc/flash_fwd.cu`` replaces the TPU kernel ``_fwd_kernel`` and also
-covers the sequences the no-bias ``_fwd_kernel_grid`` takes (T > 512): it
-walks K/V in 512-key chunks with an online softmax. ``csrc/flash_bwd.cu``
-replaces the backward kernels ``_fused_vjp_bwd`` launches at every length
-(``_bwd_fused_kernel``, ``_dq_kernel``/``_dkv_kernel`` and their grid forms).
+Port of ``recommendations_tpu/ops/fused_attention.py``. ``csrc/flash_fwd.cu``
+replaces the TPU kernel ``_fwd_kernel`` and also covers the sequences the
+no-bias ``_fwd_kernel_grid`` takes (T > 512): it walks K/V in 512-key chunks
+with an online softmax. ``csrc/flash_bwd.cu`` replaces the backward kernels
+``_fused_vjp_bwd`` launches at every length (``_bwd_fused_kernel``,
+``_dq_kernel``/``_dkv_kernel`` and their grid forms). The bias variant
+(``fused_flash_attention_bias``, the JAX entry of the same name) runs the
+bias cases of the same kernels: ``flash_bias_fwd`` for ``_fwd_kernel_grid``
+with ``bias_mode``, ``flash_bias_dq`` for ``_dq_kernel_grid`` with its
+in-kernel table gradient, and ``flash_bias_dkv`` for ``_dkv_kernel_grid``;
+here the dK/dV kernel sums the table gradient.
 
 Layout as at the JAX call site: q (B, T, H*hd) with the heads folded in the
 last dimension; k and v (B, T, hd) for multi-query or (B, T, H*hd) for
@@ -15,6 +20,12 @@ per-head logsumexp (B, T, H) in float32, which the backward reads.
 
 A wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises.
+
+Both forwards, without and with the bias, are ``torch.library`` custom ops
+with their backwards registered, so that a selective-recompute policy
+(``nn/transformer.py``) can keep their outputs (o, lse) instead of running
+them again, as the JAX package names them saveable (``flash_out``,
+``flash_lse``).
 """
 
 from __future__ import annotations
@@ -48,6 +59,26 @@ FLASH_BWD = CudaKernel(
     "flash_bwd",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
+FLASH_BIAS_FWD = CudaKernel(
+    "flash_fwd.cu",
+    "flash_bias_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+FLASH_BIAS_DQ = CudaKernel(
+    "flash_bwd.cu",
+    "flash_bias_dq",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+FLASH_BIAS_DKV = CudaKernel(
+    "flash_bwd.cu",
+    "flash_bias_dkv",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+# the number of table-gradient slices flash_bias_dkv writes, and the batch
+# rows one of its blocks walks (queries of its grid, not kernels)
+_BIAS_DKV_SLICES = CudaKernel("flash_bwd.cu", "flash_bias_dkv_slices", [ctypes.c_int] * 7)
+_BIAS_DKV_BATCH_PER_BLOCK = CudaKernel("flash_bwd.cu", "flash_bias_dkv_batch_per_block", [ctypes.c_int] * 7)
+KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_BIAS_FWD, FLASH_BIAS_DQ, FLASH_BIAS_DKV)
 
 
 def fused_flash_recommended(seq_len: int) -> bool:
@@ -198,23 +229,34 @@ def fused_flash_attention_bwd(
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """(q, k, v) -> (o, lse), with the flash backward. On the CPU both
+@torch.library.custom_op(
+    "recommendations_tpu_torch::flash_attention",
+    mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int n_head, bool causal) -> (Tensor, Tensor)",
+)
+def flash_attention_op(q, k, v, n_head, causal):
+    """(q, k, v) -> (o, lse), with the flash backward: the forward as an
+    operator that a recompute policy can name (``FLASH_OP``). On the CPU both
     directions run the plain versions; on the card, the kernels."""
+    return fused_flash_attention_fwd(q, k, v, n_head, causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, n_head: int, causal: bool):
-        o, lse = fused_flash_attention_fwd(q, k, v, n_head, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.n_head, ctx.causal = n_head, causal
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = fused_flash_attention_bwd(q, k, v, o, lse, do, ctx.n_head, ctx.causal)
-        return dq, dk, dv, None, None
+def _setup_context(ctx, inputs, output):
+    q, k, v, n_head, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.n_head, ctx.causal = n_head, causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = fused_flash_attention_bwd(q, k, v, o, lse, do, ctx.n_head, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+FLASH_OP = torch.ops.recommendations_tpu_torch.flash_attention.default
 
 
 def fused_flash_attention(
@@ -222,7 +264,223 @@ def fused_flash_attention(
 ) -> torch.Tensor:
     """Folded-head flash attention; returns o (B, T, H*hd), differentiable
     with respect to q, k and v. Without a gradient to take (serving) the
-    forward runs alone, without the autograd Function's bookkeeping."""
+    forward runs alone, outside the operator's autograd bookkeeping."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, n_head, causal)[0]
+        return flash_attention_op(q, k, v, n_head, causal)[0]
     return fused_flash_attention_fwd(q, k, v, n_head, causal)[0]
+
+
+# -- with the relative-position bias -------------------------------------------
+
+
+def _check_table(table: torch.Tensor, q: torch.Tensor, t: int, n_head: int, nk: int, causal: bool):
+    """The table is (L, n_head) float32 on q's device, and covers every live
+    pair: T - 1 + nk < L, and without the causal mask nk >= T - 1 (the
+    bounds ``RelativePositionBias`` checks, in the kernel's terms)."""
+    if table.dim() != 2 or table.shape[1] != n_head or table.dtype != torch.float32:
+        raise ValueError(f"bias table must be (L, {n_head}) float32; got {tuple(table.shape)} {table.dtype}")
+    if table.device != q.device:
+        raise ValueError("the bias table must lie on q's device")
+    n_table = table.shape[0]
+    if t - 1 + nk >= n_table or nk < 0 or (not causal and nk < t - 1):
+        raise ValueError(f"sequence {t} with nk={nk} exceeds bias table of {n_table} rows")
+    return n_table
+
+
+def _bias_plane(table: torch.Tensor, t: int, nk: int) -> torch.Tensor:
+    """(H, T, T) float32: table[q - k + nk, h] rounded to bf16, as the TPU
+    kernel's bf16 expansion of the table (indices of masked pairs clamped)."""
+    dev = table.device
+    pos = torch.arange(t, device=dev)[:, None] - torch.arange(t, device=dev)[None, :] + nk
+    pos = pos.clamp(0, table.shape[0] - 1)
+    return table.to(torch.bfloat16).float().t()[:, pos]
+
+
+def _bias_logits(q, k, table, n_head, nk, causal):
+    """s = (q.k) * scale + bias in float32, (B, H, T, T), and the keep mask:
+    the grid kernel's logits (q unrounded, the scale after the product)."""
+    b, t, qc, hd, kvh = _check(q, k, k, n_head)
+    scale = float(np.float32(1.0 / math.sqrt(hd)))
+    qh = q.float().reshape(b, t, n_head, hd).transpose(1, 2)
+    kh = k.float().reshape(b, t, kvh, hd).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2)) * scale + _bias_plane(table, t, nk)[None]
+    keep = None
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    return s, keep, scale
+
+
+def fused_flash_attention_bias_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, n_head: int,
+    nk: int, causal: bool = True,
+):
+    """Plain PyTorch version of the bias forward, with ``_fwd_kernel_grid``'s
+    arithmetic over the whole key range as one chunk: s = (q.k) * scale +
+    bf16(table[q - k + nk, h]) in f32, masked; p = exp(s - m); the PV product
+    with p rounded to v's type; o = acc / max(l, 1e-30), lse = m + log(l).
+    Returns (o, lse)."""
+    b, t, qc, hd, kvh = _check(q, k, v, n_head)
+    _check_table(table, q, t, n_head, nk, causal)
+    s, keep, _ = _bias_logits(q, k, table, n_head, nk, causal)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    vh = v.float().reshape(b, t, kvh, hd).transpose(1, 2)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = p.to(v.dtype).float() @ vh
+    o = (acc / den).to(q.dtype).transpose(1, 2).reshape(b, t, qc)
+    lse = (m + torch.log(den)).squeeze(-1).transpose(1, 2).contiguous()
+    return o, lse
+
+
+def fused_flash_attention_bias_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, n_head: int, nk: int, causal: bool = True,
+):
+    """Plain PyTorch version of the bias backward, with the grid kernels'
+    arithmetic: the cotangent rounded to q's type and D = rowsum(dO * O) in
+    f32; s as the forward's; p = exp(s - lse), masked; ds = p * (dp - D);
+    dq = round(ds).k * scale and dk = round(ds)^T.q * scale, each scaled once
+    at the end; dv = round(p)^T.dO; at MQA dK and dV summed over heads in f32
+    before the one rounding. The table gradient is the unrounded f32 ds summed
+    over each diagonal (straight through the bf16 rounding of the table), as
+    ``_dtable_from_diag``. Returns (dq, dk, dv, dtable)."""
+    b, t, qc, hd, kvh = _check(q, k, v, n_head)
+    n_table = _check_table(table, q, t, n_head, nk, causal)
+    dt = q.dtype
+    do = do.to(dt)
+    dcol = _rowsum_do_o(do, o, n_head).transpose(1, 2)[..., None]  # (B, H, T, 1)
+    s, keep, scale = _bias_logits(q, k, table, n_head, nk, causal)
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    heads = lambda x, nh: x.float().reshape(b, t, nh, hd).transpose(1, 2)  # noqa: E731
+    qh, doh, kh, vh = heads(q, n_head), heads(do, n_head), heads(k, kvh), heads(v, kvh)
+    dp = doh @ vh.transpose(-1, -2)
+    ds = p * (dp - dcol)
+    dsr = ds.to(dt).float()
+    dq = (dsr @ kh) * scale
+    dv = p.to(dt).float().transpose(-1, -2) @ doh
+    dk = (dsr.transpose(-1, -2) @ qh) * scale
+    if kvh == 1:
+        dk, dv = dk.sum(1, keepdim=True), dv.sum(1, keepdim=True)
+    fold = lambda x: x.to(dt).transpose(1, 2).reshape(b, t, -1)  # noqa: E731
+    pos = torch.arange(t, device=q.device)[:, None] - torch.arange(t, device=q.device)[None, :] + nk
+    live = (pos >= 0) & (pos < n_table)
+    per_pair = ds.sum(0).permute(1, 2, 0)[live]  # (pairs, H)
+    dtable = torch.zeros((n_table, n_head), dtype=torch.float32, device=q.device)
+    dtable.index_add_(0, pos[live], per_pair)
+    return fold(dq), fold(dk), fold(dv), dtable
+
+
+def fused_flash_attention_bias_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, n_head: int,
+    nk: int, causal: bool = True,
+):
+    """Flash forward with the position bias: (o, lse). CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    b, t, qc, hd, kvh = _check(q, k, v, n_head)
+    n_table = _check_table(table, q, t, n_head, nk, causal)
+    if q.device.type == "cpu":
+        return fused_flash_attention_bias_reference(q, k, v, table, n_head, nk, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    _check_launch(hd, q=q, k=k, v=v, table=table)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, t, n_head), dtype=torch.float32, device=q.device)
+    FLASH_BIAS_FWD.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, t, n_head, kvh, hd, n_table, nk, int(causal), int(q.dtype == torch.bfloat16), _stream(q),
+    )
+    return o, lse
+
+
+def bias_dkv_batch_per_block(q: torch.Tensor, k: torch.Tensor, n_head: int, causal: bool = True) -> int:
+    """The batch rows one block of ``flash_bias_dkv`` walks for CUDA tensors
+    q and k on the current device (1 where the FMA kernels take the call)."""
+    b, t, qc, hd, kvh = _check(q, k, k, n_head)
+    return _BIAS_DKV_BATCH_PER_BLOCK.build()(b, t, n_head, kvh, hd, int(causal), int(q.dtype == torch.bfloat16))
+
+
+def fused_flash_attention_bias_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, n_head: int, nk: int, causal: bool = True,
+):
+    """Flash backward with the position bias: (dq, dk, dv, dtable). CPU
+    tensors take the plain version; CUDA tensors launch the dQ kernel and the
+    dK/dV kernel, which writes the table gradient in slices that no two blocks
+    share; their sum (in a fixed order) is dtable."""
+    b, t, qc, hd, kvh = _check(q, k, v, n_head)
+    n_table = _check_table(table, q, t, n_head, nk, causal)
+    if q.device.type == "cpu":
+        return fused_flash_attention_bias_bwd_reference(q, k, v, table, o, lse, do, n_head, nk, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    do = do.to(q.dtype).contiguous()
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, t, n_head):
+        raise ValueError(f"o, dO must be {tuple(q.shape)} and lse {(b, t, n_head)}")
+    dcol = _rowsum_do_o(do, o, n_head).contiguous()
+    lse = lse.float().contiguous()
+    _check_launch(hd, q=q, k=k, v=v, do=do, table=table)
+    bf16 = int(q.dtype == torch.bfloat16)
+    slices = _BIAS_DKV_SLICES.build()(b, t, n_head, kvh, hd, int(causal), bf16)
+    if slices < 1:
+        raise ValueError(f"flash_bias_dkv does not take head dim {hd}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = torch.zeros((slices, n_table, n_head), dtype=torch.float32, device=q.device)
+    common = (b, t, n_head, kvh, hd, n_table, nk, int(causal), bf16, _stream(q))
+    FLASH_BIAS_DQ.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dcol.data_ptr(),
+        table.data_ptr(), dq.data_ptr(), *common,
+    )
+    FLASH_BIAS_DKV.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dcol.data_ptr(),
+        table.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(), *common,
+    )
+    return dq, dk, dv, part.sum(0)
+
+
+@torch.library.custom_op(
+    "recommendations_tpu_torch::flash_attention_bias",
+    mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor table, int n_head, int nk, bool causal) -> (Tensor, Tensor)",
+)
+def flash_attention_bias_op(q, k, v, table, n_head, nk, causal):
+    """(q, k, v, table) -> (o, lse): the bias forward as an operator that a
+    recompute policy can name (``FLASH_BIAS_OP``)."""
+    return fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)
+
+
+def _bias_setup_context(ctx, inputs, output):
+    q, k, v, table, n_head, nk, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, table, o, lse)
+    ctx.n_head, ctx.nk, ctx.causal = n_head, nk, causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _bias_backward(ctx, do, _dlse):
+    q, k, v, table, o, lse = ctx.saved_tensors
+    dq, dk, dv, dtable = fused_flash_attention_bias_bwd(
+        q, k, v, table, o, lse, do, ctx.n_head, ctx.nk, ctx.causal
+    )
+    return dq, dk, dv, dtable, None, None, None
+
+
+flash_attention_bias_op.register_autograd(_bias_backward, setup_context=_bias_setup_context)
+FLASH_BIAS_OP = torch.ops.recommendations_tpu_torch.flash_attention_bias.default
+
+
+def fused_flash_attention_bias(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, n_head: int,
+    nk: int, causal: bool = True,
+) -> torch.Tensor:
+    """Folded-head flash attention with the relative-position bias
+    table[q - k + nk, h] (``table`` (L, n_head) float32, applied at bf16
+    precision); returns o (B, T, H*hd), differentiable with respect to q, k,
+    v and the table. Without a gradient to take (serving) the forward runs
+    alone."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, table)):
+        return flash_attention_bias_op(q, k, v, table, n_head, nk, causal)[0]
+    return fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)[0]

@@ -159,11 +159,25 @@ def test_attention_layer_bf16(use_flash):
     np.testing.assert_allclose(got, want, rtol=0, atol=4 * 2**-8 * scale)
 
 
-def test_fused_bias_kernel_and_ring_raise():
-    x = torch.zeros(1, 768, 32)
-    m = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=True, pos_bias_window=800)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(x, causal=True)
+def test_fused_bias_kernel_and_ring_raise(monkeypatch):
+    """The fused bias path (T = 768 = the window) is taken and agrees with
+    _sdpa on the same weights at a bf16-representable table (the kernel
+    applies the table at bf16); ring attention still raises. (At T below the
+    window the two paths read different table rows, in the JAX package as
+    here: _sdpa indexes q - k + T, the fused path q - k + window.)"""
+    x = torch.from_numpy(np.random.RandomState(8).randn(1, 768, 32).astype(np.float32))
+    m = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=True, pos_bias_window=768)
+    with torch.no_grad():
+        m.pos_bias.bias.copy_(torch.randn(m.pos_bias.bias.shape, generator=_gen(2)).bfloat16().float())
+    sdpa_path = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=False, pos_bias_window=768)
+    sdpa_path.load_state_dict(m.state_dict())
+    calls = []
+    monkeypatch.setattr(tfa, "fused_flash_attention_bias",
+                        lambda *a, **kw: calls.append(1) or tfa.fused_flash_attention_bias_fwd(*a, **kw)[0])
+    with torch.no_grad():
+        got, want = m(x, causal=True), sdpa_path(x, causal=True)
+    assert len(calls) == 1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tatt.MultiQueryAttention(32, 4, _gen(), use_ring=True)
 
@@ -196,8 +210,8 @@ def test_transformer_stack_f32(attn_type, use_flash):
 
 
 def test_transformer_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ttr.TransformerStack(1, 32, 4, _gen(), remat=True)
+    with pytest.raises(ValueError, match="remat_policy"):
+        ttr.TransformerStack(1, 32, 4, _gen(), remat=True, remat_policy="everything")
     with pytest.raises(NotImplementedError):
         ttr.TransformerBlock(32, 4, _gen(), is_sparse_attn=True)
     with pytest.raises(NotImplementedError):

@@ -13,6 +13,7 @@ import math
 import pytest
 import torch
 
+from chip_smoke import bias_reference
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
 from recommendations_tpu_torch.ops import fused_attention as fa
@@ -168,7 +169,7 @@ def test_flash_attention_autograd_launches_both_kernels(cuda):
     q, k, v = (x.requires_grad_() for x in _qkv(2, 70, 32, 16, 1, torch.bfloat16))
     fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
     o = fa.fused_flash_attention(q, k, v, 32, True)
-    assert isinstance(o.grad_fn, fa.FlashAttention._backward_cls)
+    assert "flash_attention_default" in o.grad_fn.name()
     o.float().square().sum().backward()
     torch.cuda.synchronize()
     assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == (fwd + 1, bwd + 1)
@@ -377,3 +378,116 @@ def test_fused_training_step_on_card_matches_cpu(cuda):
     for name in gc:
         tol = 2**-8 if ".direction_emb_" in name else 2e-4
         assert ((gg[name] - gc[name]).norm() / gc[name].norm().clamp_min(1e-30)).item() <= tol, name
+
+
+# -- flash attention with the relative-position bias --------------------------
+
+BIAS_SHAPES = [
+    (4, 1025, 32, 16, 1, torch.bfloat16, True, 1025),  # the production path, 4 of 64 users
+    (2, 768, 32, 16, 1, torch.bfloat16, True, 768),    # BIAS_MIN_SEQ
+    (2, 1000, 32, 16, 1, torch.bfloat16, True, 1000),  # no tile multiple
+    (2, 900, 32, 16, 1, torch.bfloat16, True, 1200),   # nk > T
+    (3, 300, 32, 16, 1, torch.bfloat16, False, 300),   # non-causal; batch not a multiple of 4
+    (2, 300, 32, 16, 32, torch.bfloat16, True, 300),   # MHA: FMA kernels
+    (2, 300, 4, 16, 1, torch.float32, True, 300),      # float32: FMA kernels
+    (2, 70, 4, 16, 4, torch.float32, False, 70),
+    (2, 300, 16, 32, 1, torch.bfloat16, True, 300),    # tensor cores at hd 32 and 64
+    (2, 200, 16, 64, 1, torch.bfloat16, False, 200),
+]
+
+
+def _bias_inputs(b, t, n_head, hd, kvh, dtype, nk, seed=0):
+    """q, k, v, a table whose entries are not bf16 values (so the kernel's
+    rounding shows), and a cotangent."""
+    q, k, v = _qkv(b, t, n_head, hd, kvh, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    table = torch.randn(2 * nk + 1, n_head, generator=g, device="cuda")
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    return q, k, v, table, do
+
+
+@pytest.mark.parametrize("b,t,n_head,hd,kvh,dtype,causal,nk", BIAS_SHAPES)
+def test_flash_bias_kernels_match_plain_versions(cuda, b, t, n_head, hd, kvh, dtype, causal, nk):
+    """o and lse at the flash tolerances; dq, dk, dv in f32 at 2e-4 abs + rel,
+    in bf16 within one bf16 ulp of the largest element (a sum in another order
+    may land on the neighbouring bf16 value); the table gradient (f32 sums of
+    the unrounded ds in another order) within 2e-4 of its largest entry."""
+    _check_bias_kernels(b, t, n_head, hd, kvh, dtype, causal, nk)
+
+
+@pytest.mark.parametrize(
+    "b,t,causal,nk",
+    [
+        (64, 1025, True, 1025),   # the production path: 64 users
+        (45, 768, True, 768),     # a last block of fewer batch rows
+        (20, 1025, False, 1024),  # non-causal
+    ],
+)
+def test_flash_bias_dkv_blocks_of_several_batch_rows(cuda, b, t, causal, nk):
+    """Where the batch exceeds what one wave of dK/dV blocks holds, a block
+    walks several batch rows (reloading K/V, restarting dK/dV, adding each
+    row's table gradient into its one slice): held to the plain versions,
+    taken over 4 batch rows at a time, as above."""
+    q, k, _ = _qkv(b, t, 32, 16, 1, torch.bfloat16)
+    assert fa.bias_dkv_batch_per_block(q, k, 32, causal) > 1
+    _check_bias_kernels(b, t, 32, 16, 1, torch.bfloat16, causal, nk)
+
+
+def _check_bias_kernels(b, t, n_head, hd, kvh, dtype, causal, nk):
+    q, k, v, table, do = _bias_inputs(b, t, n_head, hd, kvh, dtype, nk)
+    before = [kern.launches for kern in (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)]
+    o, lse = fa.fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)
+    got = fa.fused_flash_attention_bias_bwd(q, k, v, table, o, lse, do, n_head, nk, causal)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)] == [
+        x + 1 for x in before
+    ]
+    ro, rl, want = bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, 4)
+    assert o.dtype == dtype and (o.float() - ro.float()).abs().max().item() <= o_tolerance(dtype, ro)
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    for name, g_, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert g_.dtype == dtype and g_.shape == w.shape, name
+        err = (g_.float() - w.float()).abs()
+        tol = _bf16_ulp(w) if dtype == torch.bfloat16 else bwd_tolerance(dtype, w)
+        assert bool((err <= tol).all()), f"{name}: max err {err.max().item()}"
+    dtable, wtable = got[3], want[3]
+    assert dtable.shape == table.shape and dtable.dtype == torch.float32
+    assert (dtable - wtable).abs().max().item() <= 2e-4 * max(1.0, wtable.abs().max().item())
+
+
+def test_flash_bias_is_deterministic(cuda):
+    q, k, v, table, do = _bias_inputs(8, 1025, 32, 16, 1, torch.bfloat16, 1025, seed=3)
+    a = fa.fused_flash_attention_bias_fwd(q, k, v, table, 32, 1025, True)
+    b = fa.fused_flash_attention_bias_fwd(q, k, v, table, 32, 1025, True)
+    ga = fa.fused_flash_attention_bias_bwd(q, k, v, table, *a, do, 32, 1025, True)
+    gb = fa.fused_flash_attention_bias_bwd(q, k, v, table, *a, do, 32, 1025, True)
+    for x, y in zip(a + ga, b + gb):
+        assert torch.equal(x, y)
+
+
+def test_flash_bias_raises_instead_of_falling_back(cuda):
+    q, k, v, table, do = _bias_inputs(1, 16, 2, 16, 1, torch.bfloat16, 16)
+    kernels = (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)
+    before = [kern.launches for kern in kernels]
+    with pytest.raises(ValueError, match="exceeds bias table"):
+        fa.fused_flash_attention_bias(q, k, v, table[:20], 2, 16, True)
+    with pytest.raises(ValueError, match="float32"):
+        fa.fused_flash_attention_bias(q, k, v, table.bfloat16(), 2, 16, True)
+    with pytest.raises(ValueError, match="device"):
+        fa.fused_flash_attention_bias(q, k, v, table.cpu(), 2, 16, True)
+    strided = torch.cat([q, q], dim=-1)[..., : q.shape[-1]]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_flash_attention_bias(strided, k, v, table, 2, 16, True)
+    assert [kern.launches for kern in kernels] == before
+
+
+def test_flash_bias_autograd_launches_each_kernel_once(cuda):
+    q, k, v, table, do = _bias_inputs(2, 800, 32, 16, 1, torch.bfloat16, 800)
+    q, k, v, table = (x.requires_grad_() for x in (q, k, v, table))
+    kernels = (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV, fa.FLASH_FWD, fa.FLASH_BWD)
+    before = [kern.launches for kern in kernels]
+    o = fa.fused_flash_attention_bias(q, k, v, table, 32, 800, True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in kernels] == [x + d for x, d in zip(before, (1, 1, 1, 0, 0))]
+    assert all(bool(torch.isfinite(x.grad.float()).all()) for x in (q, k, v, table))

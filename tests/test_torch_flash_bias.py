@@ -1,0 +1,155 @@
+"""The port's flash attention with the relative-position bias
+(recommendations_tpu_torch.ops.fused_attention.fused_flash_attention_bias)
+against the JAX package's, on the CPU.
+
+On the CPU the port runs the kernels' plain versions; the JAX side runs its
+Pallas kernels (``_fwd_kernel_grid``, ``_dq_kernel_grid``,
+``_dkv_kernel_grid`` with ``bias_mode``) in interpret mode, as
+tests/test_fused_attention_bias.py does, with a small tile so that a short
+sequence spans several tiles. The tables are not bf16 values, so both sides'
+rounding of the table to bf16 shows. Tolerances are the JAX tests' own:
+2e-5 for the forward, 3e-4 for the gradients, 5e-4 over several tiles
+(tests/test_fused_attention_bias.py:93,129,159)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recommendations_tpu.nn import attention as jatt
+from recommendations_tpu.ops import fused_attention as jfa
+from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
+from recommendations_tpu_torch.nn import attention as tatt
+from recommendations_tpu_torch.ops import fused_attention as tfa
+
+torch.set_num_threads(1)
+
+
+def _inputs(b, t, n_head, hd, kvh, nk, seed):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(b, t, n_head * hd).astype(np.float32)
+    k = rs.randn(b, t, kvh * hd).astype(np.float32)
+    v = rs.randn(b, t, kvh * hd).astype(np.float32)
+    table = rs.randn(2 * nk + 1, n_head).astype(np.float32)
+    do = rs.randn(b, t, n_head * hd).astype(np.float32)
+    return q, k, v, table, do
+
+
+@pytest.mark.parametrize(
+    "t,n_head,kvh,causal,tile",
+    [
+        (96, 4, 1, True, 32),
+        (96, 4, 4, False, 32),
+        (70, 2, 1, False, 32),  # T not a tile multiple
+    ],
+)
+def test_bias_forward_matches_pallas_kernel(t, n_head, kvh, causal, tile):
+    b, hd, nk = 2, 16, t
+    q, k, v, table, _ = _inputs(b, t, n_head, hd, kvh, nk, seed=t + kvh)
+    o, res = jfa._bias_fwd_shared(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table), n_head, nk, causal, tile, True
+    )
+    want_lse = np.asarray(res[4])[:, :t, :n_head]
+    got_o, got_lse = tfa.fused_flash_attention_bias_fwd(
+        *(torch.from_numpy(x) for x in (q, k, v, table)), n_head, nk, causal
+    )
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(o), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
+
+
+def test_bias_forward_bf16_operands():
+    """bf16 operands: p rounds before the PV product and o to bf16 in both,
+    so they agree to a bf16 ulp."""
+    b, t, n_head, hd, nk = 2, 64, 4, 16, 64
+    q, k, v, table, _ = _inputs(b, t, n_head, hd, 1, nk, seed=5)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = jfa.fused_flash_attention_bias(jq, jk, jv, jnp.asarray(table), n_head, nk, True, 32, True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = tfa.fused_flash_attention_bias(tq, tk, tv, torch.from_numpy(table), n_head, nk, True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want).astype(np.float32), rtol=2**-8, atol=2**-8
+    )
+
+
+@pytest.mark.parametrize(
+    "t,n_head,kvh,causal,tile,tol",
+    [
+        (70, 4, 1, True, 32, 3e-4),
+        (70, 4, 4, False, 32, 3e-4),
+        (200, 2, 1, True, 64, 5e-4),  # several tiles, T not a multiple, nk = T as in production
+    ],
+)
+def test_bias_grads_match_pallas_kernels(t, n_head, kvh, causal, tile, tol):
+    """dq, dk, dv and the table gradient through the port's autograd (the
+    custom op's registered backward) against JAX's custom VJP."""
+    b, hd, nk = 2, 16, t
+    q, k, v, table, do = _inputs(b, t, n_head, hd, kvh, nk, seed=t + 3 * kvh)
+
+    def jax_fn(q_, k_, v_, tab):
+        return jfa.fused_flash_attention_bias(q_, k_, v_, tab, n_head, nk, causal, tile, True)
+
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v, table)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, ttab = (torch.from_numpy(x).requires_grad_() for x in (q, k, v, table))
+    out = tfa.fused_flash_attention_bias(tq, tk, tv, ttab, n_head, nk, causal)
+    out.backward(torch.from_numpy(do))
+    for name, got, w in zip(("q", "k", "v", "table"), (tq, tk, tv, ttab), want):
+        np.testing.assert_allclose(
+            got.grad.numpy(), np.asarray(w), rtol=tol, atol=tol, err_msg=f"grad of {name}"
+        )
+
+
+def test_bias_entry_checks_the_table_and_launches_nothing_on_cpu():
+    q, k, v, table, _ = (torch.from_numpy(x) for x in _inputs(1, 16, 2, 16, 1, 16, seed=1))
+    kernels = (tfa.FLASH_BIAS_FWD, tfa.FLASH_BIAS_DQ, tfa.FLASH_BIAS_DKV)
+    before = [kern.launches for kern in kernels]
+    tq = q.clone().requires_grad_()
+    tfa.fused_flash_attention_bias(tq, k, v, table, 2, 16, True).sum().backward()
+    assert [kern.launches for kern in kernels] == before  # the plain versions launched nothing
+    with pytest.raises(ValueError, match="exceeds bias table"):
+        tfa.fused_flash_attention_bias(q, k, v, table[:16], 2, 16, True)  # T - 1 + nk >= L
+    with pytest.raises(ValueError, match="exceeds bias table"):
+        tfa.fused_flash_attention_bias(q, k, v, table, 2, 8, False)  # nk < T - 1 without the mask
+    with pytest.raises(ValueError, match="float32"):
+        tfa.fused_flash_attention_bias(q, k, v, table.double(), 2, 16, True)
+
+
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_dispatch_matches_jax_at_513_and_768(monkeypatch, kind):
+    """lthm.yaml's own context (T = 513, window 513) takes _sdpa with the
+    bias in both packages; T = 768 (BIAS_MIN_SEQ) under a window that covers
+    it takes the fused bias path in both."""
+    calls = {"jax_fused": 0, "jax_sdpa": 0, "torch_fused": 0, "torch_sdpa": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+
+        return wrapped
+
+    def jax_fused_stand_in(q2, k2, v2, table, n_head, nk, causal):
+        calls["jax_fused"] += 1
+        return jnp.zeros_like(q2)
+
+    monkeypatch.setattr(jfa, "fused_flash_attention_bias", jax_fused_stand_in)
+    monkeypatch.setattr(jatt, "_sdpa", counting("jax_sdpa", jatt._sdpa))
+    monkeypatch.setattr(tfa, "fused_flash_attention_bias", counting("torch_fused", tfa.fused_flash_attention_bias))
+    monkeypatch.setattr(tatt, "_sdpa", counting("torch_sdpa", tatt._sdpa))
+    for t, window, path in ((513, 513, "sdpa"), (768, 768, "fused")):
+        x = np.random.RandomState(t).randn(1, t, 16).astype(np.float32)
+        jcls = jatt.MultiQueryAttention if kind == "mqa" else jatt.MultiHeadAttention
+        tcls = tatt.MultiQueryAttention if kind == "mqa" else tatt.MultiHeadAttention
+        jm = jcls(n_embd=16, n_head=2, use_bias=False, use_flash=True, pos_bias_window=window)
+        vs = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:, :8]), causal=True))
+        for key in calls:
+            calls[key] = 0
+        jm.apply(vs, jnp.asarray(x), causal=True)
+        tm = tcls(16, 2, torch.Generator().manual_seed(0), use_bias=False, use_flash=True, pos_bias_window=window)
+        tm.load_state_dict(state_dict_from_jax(vs, tm))
+        with torch.no_grad():
+            tm(torch.from_numpy(x), causal=True)
+        assert calls[f"jax_{path}"] == calls[f"torch_{path}"] == 1, (t, calls)
+        assert sum(calls.values()) == 2, (t, calls)

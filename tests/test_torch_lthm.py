@@ -266,7 +266,8 @@ def test_format_inputs_rejects_float_ids():
         {"product_tower.model_init_metadata": {"embedding_module_path": "x"}},
         {"transformer_config.sequence_parallel": True},
         {"transformer_config.is_sparse_attn": True},
-        {"transformer_config.enable_gradient_checkpointing": True},
+        # (remat, enable_gradient_checkpointing, is ported: tests/test_torch_production.py)
+        {"transformer_config.rotator_config": {"moe": {"num_experts": 2, "proj_features": 8, "ff_mult_factor": 1.0}}},
         {"transformer_config.rotator_config": {"num_experts": 2, "proj_features": 8, "ff_mult_factor": 1.0}},
     ],
 )

@@ -1,10 +1,12 @@
 """Where the time of an LTHM user-encoder request goes on the card.
 
-    python3 tools/profile_torch_serving.py [--requests 4] [--out traces/serving_trace.json]
+    python3 tools/profile_torch_serving.py [--requests 4] [--out traces/serving_trace.json] [--production]
 
 Builds the LTHM-base model of ``chip_smoke.py`` (random weights from a seed)
-on the GPU, warms it up, and traces ``--requests`` requests of 64 users with
-``torch.profiler``. Prints the host time per request, the device's busy share
+on the GPU, or with ``--production`` the production LTHM of
+``configs/model/lthm.yaml`` at context 1024 (``chip_smoke.production_config``)
+with requests of 1032 events, warms it up, and traces ``--requests`` requests
+of 64 users with ``torch.profiler``. Prints the host time per request, the device's busy share
 of that window (kernel time over wall time; one stream, so kernels do not
 overlap), and the kernels that take the most device time. Writes the Chrome
 trace to ``--out``. Needs a card; imports nothing of JAX.
@@ -27,6 +29,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--out", default=os.path.join("traces", "serving_trace.json"))
+    ap.add_argument("--production", action="store_true", help="profile the production LTHM at context 1024")
     args = ap.parse_args()
 
     import torch
@@ -35,13 +38,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import bench_config, request_batch
+    from chip_smoke import BATCH, PROD_CONTEXT, bench_config, production_config, request_batch
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
 
-    wrapper = LTHMModelWrapper(LTHMModelConfig.from_dict(bench_config()), device="cuda", seed=0)
+    base = production_config() if args.production else bench_config()
+    wrapper = LTHMModelWrapper(LTHMModelConfig.from_dict(base), device="cuda", seed=0)
     encode = wrapper.inference_models()["user_encoder"]
-    batches = [request_batch(seed) for seed in range(1, args.requests + 1)]
+    events = PROD_CONTEXT + 8 if args.production else None
+    batches = [request_batch(seed, BATCH, events) if events else request_batch(seed)
+               for seed in range(1, args.requests + 1)]
     for b in batches[:2]:
         encode(b)
     torch.cuda.synchronize()
