@@ -9,9 +9,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
      with its position-bias case, and the four fused contrastive-CE kernels),
      one nvcc per source, started together;
   2. each kernel against its plain PyTorch version on the card, at the
-     serving and training shapes and at edge shapes, beside the stated
-     tolerance; the bias kernels (and the table gradient) and the CE kernels
-     also run twice for the same bits;
+     serving and training shapes, the long-history shapes (B=16, T=1025;
+     B=32, T=450: a block walks several tiles or items) and edge shapes
+     (ragged last tiles, T=1), beside the stated tolerance, the plain
+     versions over 4 batch rows at a time and the forward's at the kernel's
+     own softmax chunk; every backward kernel (flash, bias, CE) also runs
+     twice for the same bits;
   3. the serving path: the LTHM user encoder at the LTHM-base width
      (6 layers, d=512, MQA 32x16, context 256, a fresh 1M-row KShift table,
      random weights from a seed) answers 8 requests of 64 users; the launch
@@ -36,12 +39,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      each bias kernel and 12 of each CE kernel a step, remat keeping the bias
      forward's outputs), its gradients (the position-bias tables' included)
      agree with the plain bias attention, and remat on and off give the same
-     bits;
+     bits; then the long-history path of tools/bench_longseq.py (LTHM-base
+     widths, remat, no position bias, context 1024, 16 users) answers 4
+     requests (6 flash_fwd each) and trains a warm-up and 3 timed steps (6
+     flash_fwd and 6 flash_bwd a step), with launch counts;
   5. timing with CUDA events: each kernel, its plain version, one PyTorch
-     library call for the same function as a yardstick where there is one,
+     library call for the same function as a yardstick where there is one
+     (the SDPA backward as profiler device time, beside its event time),
      the eager CE on the CE kernels' problem, one attention layer on _sdpa
      with the bias against the fused bias path at T=513 and T=1025, the
-     requests and the training steps.
+     requests and the training steps of every path.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -180,6 +187,20 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time per call: the kernels' time under torch.profiler, summed,
+    over iters calls after one warm-up (the host's launch gaps excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()) / 1e3 / iters
+
+
 def flash_bound(b, t, n_head, hd, kvh, dtype, causal):
     """Least time for the call: bytes each read or written once over HBM
     rate, or the products' operations over the peak rate for their type."""
@@ -214,17 +235,26 @@ def randn_qkv(b, t, n_head, hd, kvh, dtype, seed):
 
 
 def compare_flash(fa, b, t, n_head, hd, kvh, dtype, causal, seed=0):
+    """The forward kernel against its plain version at the kernel's own
+    softmax arithmetic (``kernel_softmax``), the plain version over 4 batch
+    rows at a time; prints the K/V tiles the heaviest block walks."""
     q, k, v = randn_qkv(b, t, n_head, hd, kvh, dtype, seed)
     o, lse = fa.fused_flash_attention_fwd(q, k, v, n_head, causal)
     torch.cuda.synchronize()
-    ro, rl = fa.fused_flash_attention_reference(q, k, v, n_head, causal)
+    arith = fa.kernel_softmax(q, k, n_head)
+    parts = [fa.fused_flash_attention_reference(q[i:i + 4], k[i:i + 4], v[i:i + 4], n_head, causal, **arith)
+             for i in range(0, b, 4)]
+    ro, rl = torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
     err = (o.float() - ro.float()).abs().max().item()
     lerr = (lse - rl).abs().max().item()
     tol = o_tolerance(dtype, ro)
     ok = bool(torch.isfinite(o.float()).all()) and err <= tol and lerr <= LSE_TOL
+    tiles = fa.block_walk(q, k, n_head)[0]
+    walk = f"tensor cores, a block walks up to {tiles} K/V tiles" if tiles else "FMA kernel"
     print(
         f"  flash_fwd B={b} T={t} H={n_head} hd={hd} kv_heads={kvh} {str(dtype)[6:]} "
-        f"causal={causal}: o max|err| {err:.3e} (tol {tol:.3e}), "
+        f"causal={causal} ({walk}; plain at softmax chunk {arith['chunk']}, "
+        f"{'exp2' if arith['exp2'] else 'exp'}): o max|err| {err:.3e} (tol {tol:.3e}), "
         f"lse max|err| {lerr:.3e} (tol {LSE_TOL:.0e}) -> {'ok' if ok else 'FAIL'}",
         flush=True,
     )
@@ -243,21 +273,31 @@ def bwd_inputs(fa, b, t, n_head, hd, kvh, dtype, causal, seed):
 
 
 def compare_flash_bwd(fa, b, t, n_head, hd, kvh, dtype, causal, seed=0):
+    """The backward kernels against their plain version (over 4 batch rows at
+    a time, exp2 where the tensor-core kernels take it), run twice for the
+    same bits; prints the items a dK/dV block walks."""
     q, k, v, o, lse, do = bwd_inputs(fa, b, t, n_head, hd, kvh, dtype, causal, seed)
     got = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, n_head, causal)
+    again = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, n_head, causal)
     torch.cuda.synchronize()
-    want = fa.fused_flash_attention_bwd_reference(q, k, v, o, lse, do, n_head, causal)
-    errs, ok = [], True
+    same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
+    exp2 = fa.kernel_softmax(q, k, n_head)["exp2"]
+    parts = [fa.fused_flash_attention_bwd_reference(q[i:i + 4], k[i:i + 4], v[i:i + 4], o[i:i + 4], lse[i:i + 4],
+                                                    do[i:i + 4], n_head, causal, exp2=exp2) for i in range(0, b, 4)]
+    want = [torch.cat([x[j] for x in parts]) for j in range(3)]
+    errs, ok = [], same_bits
     for g, w in zip(got, want):
         err = (g.float() - w.float()).abs()
         tol = bwd_tolerance(dtype, w)
         ok &= bool(torch.isfinite(g.float()).all()) and bool((err <= tol).all())
         errs.append(err.max().item())
     tol_txt = "2e-4 abs + 2e-4 rel" if dtype == torch.float32 else f"{tol:.3e}"
+    items = fa.block_walk(q, k, n_head)[1]
+    walk = f"tensor cores, a dK/dV block walks up to {items} items" if items else "FMA kernels"
     print(
         f"  flash_bwd B={b} T={t} H={n_head} hd={hd} kv_heads={kvh} {str(dtype)[6:]} "
-        f"causal={causal}: max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
-        f"(tol {tol_txt}) -> {'ok' if ok else 'FAIL'}",
+        f"causal={causal} ({walk}): max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+        f"(tol {tol_txt}); same bits twice {same_bits} -> {'ok' if ok else 'FAIL'}",
         flush=True,
     )
     if not ok:
@@ -650,6 +690,137 @@ def serve_production(fa, kernels):
                      "max_err": max_err, "max_tol": max_tol}
 
 
+LONG_CONTEXT, LONG_BATCH = 1024, 16  # tools/bench_longseq.py's seq and batch
+LONG_REQUESTS, LONG_STEPS = 4, 3
+
+
+def longseq_config() -> dict:
+    """tools/bench_longseq.py's configuration in the port: LTHM-base widths
+    (6 layers, d=512, MQA 32x16, FFN x4, no biases, no position bias) with
+    remat at context 1024, its product tower (three cosine-LSH embeddings),
+    logQ, lookahead and 8-user loss chunks; fused_ce and the table optimizer
+    at their defaults (the eager CE; "auto", which resolves to a frozen
+    table), as that script leaves them."""
+    d = 512
+    return dict(
+        features={"defaults": {}},
+        transformer_config=dict(
+            rotator_config={"ff_mult": 4}, is_causal=True, num_layers=6,
+            enable_gradient_checkpointing=True, use_flash_attention=True,
+            attn_config=dict(n_head=d // 16, n_embd=d, attn_type="multi_query",
+                             dropout=0.0, attn_dropout=0.0, bias=False),
+        ),
+        product_tower=dict(
+            inp_emb_dim=32, out_emb_dim=d, product_emb_dim=128, norm_bins=20,
+            cosine_lsh_config=[{"num_bins": nb, "num_proj": 32} for nb in (4, 8, 16)],
+            latent_model_config={"vocab_size_latent": 1_000_000, "num_shifts_latent": 8,
+                                 "normalize_embedding": True},
+        ),
+        log_q_config={"num_buckets": 2**22, "hash_offsets": [0, 34144]},
+        lookahead=[0, 5, 12, 30],
+        context_width=LONG_CONTEXT,
+        softmax_temperature=0.05,
+        train_mini_batch_size=8,
+    )
+
+
+def long_history(fa, kernels):
+    """Phases [3] and [4] on the long-history path (``longseq_config``, 16
+    users, T = 1025 with the CLS column): a warm-up and LONG_REQUESTS
+    requests, then a warm-up step and LONG_STEPS timed steps on one batch
+    with fixed lookahead offsets, every launch count set to 0 just before the
+    requests and the steps and read just after (6 flash_fwd a request; 6
+    flash_fwd and 6 flash_bwd a step under remat, which keeps the flash
+    forward's outputs); finite unit user vectors, finite losses and
+    gradients, the table as it was, the loss falling. Returns numbers for
+    phase [5]."""
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    cfg = LTHMModelConfig.from_dict(longseq_config())
+    layers = cfg.transformer_config.num_layers
+    wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    events = LONG_CONTEXT + 8
+    models = wrapper.inference_models()
+    seen_t = []
+    fwd = fa.fused_flash_attention_fwd
+
+    def recording_fwd(q, *args, **kw):
+        seen_t.append(q.shape[1])
+        return fwd(q, *args, **kw)
+
+    with mock.patch.object(fa, "fused_flash_attention_fwd", recording_fwd):
+        models["user_encoder"](request_batch(300, LONG_BATCH, events))  # warm-up
+    print(f"[3] long-history LTHM (tools/bench_longseq.py: {layers} layers, remat "
+          f"{cfg.transformer_config.remat_policy}, no position bias, context {cfg.context_width}, "
+          f"fused_ce {cfg.fused_ce}, table {cfg.resolved_table_optimizer()}): attention at T = {sorted(set(seen_t))}",
+          flush=True)
+    if set(seen_t) != {LONG_CONTEXT + 1}:
+        raise AssertionError("the long-history path did not attend over T = context + 1")
+    requests = [request_batch(seed, LONG_BATCH, events) for seed in range(301, 301 + LONG_REQUESTS)]
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0
+    request_ms, outs = [], []
+    for batch in requests:
+        t0 = time.perf_counter()
+        outs.append(models["user_encoder"](batch)["user_emb"])
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    serve_counts = {kern.name: kern.launches for kern in kernels}
+    want = {kern.name: (layers * LONG_REQUESTS if kern is fa.FLASH_FWD else 0) for kern in kernels}
+    print(f"[3] {LONG_REQUESTS} long-history requests of {LONG_BATCH} users ({events} events): launches "
+          f"{serve_counts} (expected {want})", flush=True)
+    if serve_counts != want:
+        raise AssertionError("the long-history requests did not launch flash_fwd once a layer")
+    for emb in outs:
+        if tuple(emb.shape) != (LONG_BATCH, cfg.product_tower.product_emb_dim) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"long-history user_emb: shape {tuple(emb.shape)} or not finite")
+        if (emb.norm(dim=-1) - 1).abs().max().item() > 1e-4:
+            raise AssertionError("long-history user_emb is not unit-norm")
+    del models, outs
+
+    state = TrainState.create(wrapper, seed=1)
+    table = wrapper.module.product_emb_module.embedding
+    table_before = table.detach().clone()
+    batch = request_batch(3000, LONG_BATCH, events)
+    offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    first_loss = train_step(state, batch, offsets=offsets)[0].item()  # warm-up, step 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    step_ms, losses, grad_norms, nans = [], [], [], []
+    for _ in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        loss, metrics = train_step(state, batch, offsets=offsets)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        grad_norms.append(metrics["grad_norm"].item())
+        nans.append(metrics["params_nan"].item())
+    counts = {kern.name: kern.launches for kern in kernels}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    want = {kern.name: (layers if kern in (fa.FLASH_FWD, fa.FLASH_BWD) else 0) for kern in kernels}
+    print(f"[4] {LONG_STEPS} long-history training steps of {LONG_BATCH} users: launches {counts} "
+          f"(expected per step {want}); loss: step 1 {first_loss:.5f}, then {[round(x, 5) for x in losses]}; "
+          f"grad_norm {[round(x, 4) for x in grad_norms]}; params_nan {nans}", flush=True)
+    if counts != {k: n * LONG_STEPS for k, n in want.items()}:
+        raise AssertionError("the long-history step did not launch each kernel of its path as expected")
+    if not all(np.isfinite(losses + grad_norms + [first_loss])) or any(nans):
+        raise AssertionError("a long-history step gave a non-finite loss or gradient, or NaN parameters")
+    if not torch.equal(table, table_before):
+        raise AssertionError("the frozen product-embedding table changed")
+    if not losses[-1] < first_loss:
+        raise AssertionError(f"the long-history loss did not fall over {LONG_STEPS + 1} steps on one batch")
+    return {"request_ms": request_ms, "step_ms": step_ms, "peak_mib": peak_mib,
+            "launches_per_request": serve_counts["flash_fwd"] // LONG_REQUESTS,
+            "launches_per_step": {k: counts[k] // LONG_STEPS for k in ("flash_fwd", "flash_bwd")}}
+
+
 PLAIN_BATCH = 16  # the plain bias versions store (B, H, T, T) f32 planes: timed at 16 users
 
 
@@ -825,6 +996,11 @@ def main() -> int:
         (2, 600, 16, 32, 1, torch.bfloat16, True),     # tensor-core path, hd 32 and 64:
         (2, 300, 16, 64, 1, torch.bfloat16, False),    # K/V restaged within a chunk
         (2, 96, 4, 16, 1, torch.bfloat16, True),       # MQA with 4 heads: FMA path
+        (16, 1025, 32, 16, 1, torch.bfloat16, True),   # the long-history shape: 17 tiles a block
+        (32, 450, 32, 16, 1, torch.bfloat16, True),
+        (2, 1025, 32, 16, 1, torch.bfloat16, True),    # ragged last tiles
+        (2, 1026, 32, 16, 1, torch.bfloat16, False),
+        (2, 1, 32, 16, 1, torch.bfloat16, True),       # one row
     ):
         compare_flash(fa, *shape)
     print("[2] flash_bwd against its plain version:", flush=True)
@@ -839,6 +1015,11 @@ def main() -> int:
         (2, 300, 16, 32, 1, torch.bfloat16, True),     # tensor-core path, hd 32 and 64
         (2, 300, 16, 64, 1, torch.bfloat16, False),
         (2, 1100, 4, 16, 4, torch.float32, False),
+        (16, 1025, 32, 16, 1, torch.bfloat16, True),   # the long-history shape: several items a block
+        (32, 450, 32, 16, 1, torch.bfloat16, True),
+        (2, 1025, 32, 16, 1, torch.bfloat16, True),    # ragged last key block
+        (2, 1026, 32, 16, 1, torch.bfloat16, False),
+        (2, 1, 32, 16, 1, torch.bfloat16, True),       # one row
     ):
         compare_flash_bwd(fa, *shape)
     print("[2] flash attention with the position bias (forward, dQ, dK/dV and the table gradient) "
@@ -1102,6 +1283,8 @@ def main() -> int:
     prod_training = train_production(fa, fc, kernels, prod)
     del prod
     torch.cuda.empty_cache()
+    long_path = long_history(fa, kernels)
+    torch.cuda.empty_cache()
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -1155,12 +1338,17 @@ def main() -> int:
             out = sdpa(qh, kh.expand(b, h, t, hd), vh.expand(b, h, t, hd), is_causal=True)
             torch.autograd.grad(out, (qh, kh, vh), doh)
 
-        library = cuda_ms(sdpa_fwd_bwd, 20) - cuda_ms(sdpa_fwd, 20)
+        # the library's backward: device time (profiler) of forward + backward
+        # less the forward's, and the same on CUDA events (host gaps included)
+        library = device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd)
+        library_events = cuda_ms(sdpa_fwd_bwd, 20) - cuda_ms(sdpa_fwd, 20)
         bound, by, nbytes, flops = flash_bwd_bound(b, t, h, hd, kvh, dt, causal)
         print(f"[5] flash_bwd at B={b} T={t} MQA {h}x{hd} bf16 causal: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, scaled_dot_product_attention backward {library:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}: {nbytes} bytes, {flops} flop)", flush=True)
-        return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": library}
+              f"plain {plain:.4f} ms, scaled_dot_product_attention backward {library:.4f} ms of device "
+              f"time ({library_events:.4f} ms on events), bound {bound:.4f} ms ({by}: {nbytes} bytes, "
+              f"{flops} flop)", flush=True)
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": library,
+                "library_event_ms": library_events}
 
     bwd_times = time_flash_bwd(b, t, 8, 5)
     bwd_t450 = time_flash_bwd(32, 450, 10, 3)
@@ -1251,6 +1439,18 @@ def main() -> int:
               f"{min(ms_list):.3f} ms, max {max(ms_list):.3f} ms over {len(ms_list)} steps; "
               f"{BATCH / (step_med / 1e3):.1f} examples/s; peak device memory {peak:.1f} MiB", flush=True)
 
+    for label, ms_list, unit in (("request", long_path["request_ms"], "users"),
+                                 ("training step (eager CE, remat)", long_path["step_ms"], "examples")):
+        med_l = float(np.median(ms_list))
+        print(f"[5] long-history {label} ({LONG_BATCH} users, T={LONG_CONTEXT + 1}): median {med_l:.3f} ms, "
+              f"min {min(ms_list):.3f} ms, max {max(ms_list):.3f} ms over {len(ms_list)}; "
+              f"{LONG_BATCH / (med_l / 1e3):.1f} {unit}/s", flush=True)
+    print(f"[5] long-history peak device memory (training) {long_path['peak_mib']:.1f} MiB", flush=True)
+    long_json = {"request_median_ms": float(np.median(long_path["request_ms"])),
+                 "step_median_ms": float(np.median(long_path["step_ms"])),
+                 "launches_per_request": long_path["launches_per_request"],
+                 "launches_per_step": long_path["launches_per_step"]}
+
     bias_times, crossover = time_production(fa, prod_serving, prod_training)
     bias_kernels = {  # name: (source, the TPU kernel's def in recommendations_tpu/ops/fused_attention.py)
         "flash_bias_fwd": ("flash_fwd.cu", 578), "flash_bias_dq": ("flash_bwd.cu", 668),
@@ -1306,7 +1506,10 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "t1025": {"ms": long_ms, "plain_ms": long_plain_ms, "bound_ms": long_bound_ms,
-                  "bound_by": long_bound_by, "library_ms": long_library_ms},
+                  "bound_by": long_bound_by, "library_ms": long_library_ms,
+                  "launches_per_request": long_json["launches_per_request"],
+                  "launches_per_step": long_json["launches_per_step"]["flash_fwd"]},
+        "long_history": long_json,
     }, {
         "name": "flash_bwd",
         "route": "cuda",
@@ -1318,7 +1521,7 @@ def main() -> int:
         "tolerance": bwd_tol,
         **bwd_times,
         "t450": bwd_t450,
-        "t1025": bwd_t1025,
+        "t1025": {**bwd_t1025, "launches_per_step": long_json["launches_per_step"]["flash_bwd"]},
     }, *bias_entries, *ce_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

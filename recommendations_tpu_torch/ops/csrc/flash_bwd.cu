@@ -19,34 +19,51 @@
 // product accumulates in f32, and for multi-query attention dK and dV are
 // summed over the heads in f32 before the one rounding to the output type.
 //
-// Bound on an H100 SXM at the LTHM-base training shape (B=64, T=257, H=32,
-// hd=16, MQA, bf16, causal, one call): it moves about 57 MB (q, dO, dq at
-// 16.8 MB each; k, v, dk, dv; lse and D), about 17 us at 3.35 TB/s, and does
-// five products over the live pairs, about 10.9 GFLOP or 11 us at the 989
-// TFLOP/s bf16 tensor-core peak. So it is bound by bytes.
+// Bound on an H100 SXM (MQA 32x16, bf16, causal, one call): at the LTHM-base
+// training shape (B=64, T=257) it moves 56.8 MB (q, dO, dq at 16.8 MB each;
+// k, v, dk, dv; lse and D), 17 us at 3.35 TB/s, and does five products over
+// the live pairs, 10.9 GFLOP or 11 us at the 989 TFLOP/s tensor-core peak:
+// bound by bytes. At B=16, T=1025 the products take 43.6 us (operations).
+// The exponentials bind harder: p is recomputed in both kernels, two per
+// live (row, head, key), 538 M at T=1025, 129 us at 16 a clock per SM.
 //
 // Design: two kernels, FA2-style, so that no output is written by two blocks
 // and no float atomics are used (two runs give the same bits):
-// - a dK/dV kernel over (batch row, key tile), which walks every causally
-//   live query row and every head of it and accumulates its keys' dK and dV;
+// - a dK/dV kernel over (key block, batch row) items, which walks every
+//   causally live query row and every head of it and accumulates its keys'
+//   dK and dV;
 // - a dQ kernel over (batch row, query rows), which walks the live keys.
-// Both recompute s and p from lse. Two specializations of each, chosen from
-// the inputs:
-// - tensor cores (bf16, MQA, heads a multiple of 16, hd in {16, 32, 64}, the
-//   training path). At MQA the 16 heads of one query row share K, V and the
-//   causal extent. In the dQ kernel they are the 16 rows of an
-//   mma.sync m16n8k16 tile, as in the forward: S = qs.K^T, dP = dO.V^T and
-//   dq += round(dS).K run on the tensor cores, and the dS accumulator,
-//   rounded, is already the A operand of the dq product. In the dK/dV kernel
-//   a warp owns 16 keys and the roles turn over: S^T = K.qs^T and
-//   dP^T = V.dO^T take the warp's K and V as A operands held in registers,
-//   and dV += round(P^T).dO, dK += round(dS^T).q contract over the 16 heads of
-//   a row. The query rows a block needs are staged in shared memory (qs, q,
-//   dO, lse, D); four warps split each key tile's rows and add their sums in
-//   a fixed order at the end.
+// Both recompute s and p from lse. Three specializations of each, chosen
+// from the inputs:
+// - mqa_tc_dkv_kernel / mqa_tc_dq_kernel (bf16, MQA, 16 to 128 heads in
+//   groups of 16, hd in {16, 32, 64}, no bias: the training path of LTHM).
+//   At MQA the 16 heads of one query row share K, V and the causal extent.
+//   In the dQ kernel they are the 16 rows of an mma.sync m16n8k16 tile, a
+//   warp owns 32 / hd such rows, and K and V tiles arrive by cp.async, two
+//   in flight; ldmatrix reads K both ways (as B of S = qs.K^T and,
+//   transposed, as B of dq += round(dS).K), so no transposed copy is staged.
+//   In the dK/dV kernel a warp owns 16 keys and the roles turn over:
+//   S^T = K.qs^T and dP^T = V.dO^T take the warp's K and V as A operands held
+//   in registers, and dV += round(P^T).dO, dK += round(dS^T).q contract over
+//   the 16 heads of a row, their B operands read by ldmatrix.trans. Query
+//   rows (q, dO, lse, D) arrive in stages of up to 32 rows by cp.async, two
+//   stages in flight, in more than 48 KB of shared memory (q and dO
+//   swizzled so the 8 heads an ldmatrix reads lie in 8 bank groups); qs =
+//   round(q * scale) is formed from the fragment. A block of 16 warps owns 64
+//   keys (4 tiles x 4 warps that split the rows, summed in a fixed order at
+//   the end), so each staged row serves 64 keys: at 32 keys the copy from L2
+//   would outrun the exponentials. The grid is persistent, one block per SM,
+//   and deals the items heaviest first in a serpentine (see the kernel), so
+//   the SMs' rows add up to about the same. Both kernels take exp as exp2 on
+//   the special-function unit and mask only the diagonal and ragged tiles,
+//   and add each stage's (tile's) tensor-core sums into the f32 totals
+//   apart, so that rounding does not build up over long rows.
+// - mqa_mma_dkv_kernel / mqa_mma_dq_kernel (the position-bias case, entries
+//   flash_bias_dq and flash_bias_dkv): a warp owns 16 keys (dK/dV, 2 key
+//   tiles x 4 row parts, rows staged 8 at a time) or 16 heads of one row
+//   (dQ); key blocks i and n - 1 - i paired under the causal mask.
 // - FMA (float32, MHA, other head counts and dims): one thread per (query
 //   row, head) for dQ and per (key, kv head) for dK/dV.
-// No wgmma or TMA yet: a right and simple kernel first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +71,7 @@
 #include <stdint.h>
 
 #include "flash_bias.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -749,9 +767,8 @@ struct DkvGrid {
   int x, y, batch_per_block, paired;
 };
 
-DkvGrid dkv_grid(int batch, int seq_len, int causal, bool bias, int resident_blocks) {
+DkvGrid dkv_grid(int batch, int seq_len, int causal, int resident_blocks) {
   const int n_kb = (seq_len + 16 * DKV_KEY_TILES - 1) / (16 * DKV_KEY_TILES);
-  if (!bias) return DkvGrid{n_kb, batch, 1, 0};
   DkvGrid g{causal ? (n_kb + 1) / 2 : n_kb, 0, 1, causal ? 1 : 0};
   const int slots = resident_blocks > 0 ? resident_blocks : 1;
   g.batch_per_block = (g.x * batch + slots - 1) / slots;
@@ -775,7 +792,7 @@ int dkv_resident_blocks(int n_head) {
 
 template <int HD, bool BIAS>
 DkvGrid dkv_grid_of(int batch, int seq_len, int n_head, int causal) {
-  return dkv_grid(batch, seq_len, causal, BIAS, BIAS ? dkv_resident_blocks<HD, BIAS>(n_head) : 0);
+  return dkv_grid(batch, seq_len, causal, dkv_resident_blocks<HD, BIAS>(n_head));
 }
 
 template <int HD, bool BIAS>
@@ -822,6 +839,481 @@ int launch_mma_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---- the no-bias tensor-core backward: async staging, balanced grids ---------
+
+constexpr int TC_WARPS = 8;      // warps per dQ block
+constexpr int TC_KEY_TILE = 64;  // keys per staged K/V tile of the dQ kernel (two in flight)
+constexpr int TDKV_KEY_TILES = 4;         // 16-key tiles per dK/dV block
+constexpr int TDKV_ROW_SPLIT = 4;         // warps that split a key tile's query rows
+constexpr int TDKV_MAX_ROWS = 32;         // query rows per stage (two stages in flight)
+constexpr int TDKV_SMEM = 200 * 1024;     // budget: one dK/dV block per SM
+constexpr int TDKV_THREADS = 32 * TDKV_KEY_TILES * TDKV_ROW_SPLIT;
+
+// A dQ warp owns 32 / HD query rows (at least one) of one 16-head group.
+template <int HD> __host__ __device__ constexpr int tc_dq_rows_per_warp() { return HD >= 32 ? 1 : 32 / HD; }
+
+// dQ: as the forward, a warp walks the live keys of its rows; K and V tiles
+// arrive by cp.async behind the work on the tile before, and ldmatrix reads K
+// both ways (as B of S = qs.K^T, and transposed as B of dq += dS.K), so no
+// transposed copy is staged.
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+    mqa_tc_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ dcol,
+                     bf16* __restrict__ dq, int batch, int seq_len, int n_head, int rows_per_block,
+                     int n_qb, int causal, float scale) {
+  static_assert(!BIAS, "the position bias takes mqa_mma_dq_kernel");
+  constexpr int RPW = tc_dq_rows_per_warp<HD>();
+  constexpr int KT = TC_KEY_TILE;
+  constexpr int KS = HD + 8;  // padded row: the 8 rows of an ldmatrix hit 8 bank groups
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][KT][KS]
+  bf16* vs = ks + 2 * KT * KS;               // [2][KT][KS]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int groups = n_head >> 4;
+  const int qb = causal ? n_qb - 1 - (int)blockIdx.x / batch : (int)blockIdx.x / batch;  // heavy first
+  const int b = blockIdx.x % batch;
+  const int row0 = qb * rows_per_block;
+  const int wrow = row0 + (warp / groups) * RPW;
+  const int h0 = (warp % groups) * 16;
+  const int block_keys = causal ? min(row0 + rows_per_block, seq_len) : seq_len;
+  const int warp_keys = wrow >= seq_len ? 0 : causal ? min(wrow + RPW, seq_len) : seq_len;
+  const int n_tiles = (block_keys + KT - 1) / KT;
+  const bf16* kb = k + (size_t)b * seq_len * HD;
+  const bf16* vb = v + (size_t)b * seq_len * HD;
+
+  auto stage = [&](int tile) {
+    const int t0 = tile * KT;
+    bf16* kd = ks + (tile & 1) * KT * KS;
+    bf16* vd = vs + (tile & 1) * KT * KS;
+    for (int i = threadIdx.x; i < KT * (HD / 8); i += blockDim.x) {
+      const int j = i / (HD / 8), d = (i % (HD / 8)) * 8;
+      const bool in = t0 + j < seq_len;  // keys past the end are zeros
+      const size_t src = (size_t)(in ? t0 + j : 0) * HD + d;
+      cp_async16(kd + j * KS + d, kb + src, in);
+      cp_async16(vd + j * KS + d, vb + src, in);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) stage(0);
+
+  // A operands: qs = round(q * scale) and dO of each row's 16 heads
+  uint32_t qa[RPW][HD / 16][4], da[RPW][HD / 16][4];
+  float lr[RPW][2], dd[RPW][2], acc[RPW][HD / 8][4];
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+    const size_t q_row = ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+    const bool active = row < seq_len;
+    load_a<HD>(qa[rt], q + q_row, HD, active ? 16 : 0, g, c, scale);
+    load_a<HD>(da[rt], dout + q_row, HD, active ? 16 : 0, g, c, 1.f);
+    lr[rt][0] = lr[rt][1] = dd[rt][0] = dd[rt][1] = 0.f;
+    if (active) {
+      const size_t r_off = ((size_t)b * seq_len + row) * n_head + h0 + g;
+      lr[rt][0] = lse[r_off], lr[rt][1] = lse[r_off + 8];
+      dd[rt][0] = dcol[r_off], dd[rt][1] = dcol[r_off + 8];
+    }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) acc[rt][nt][0] = acc[rt][nt][1] = acc[rt][nt][2] = acc[rt][nt][3] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    // this tile's sums, added to the rows' in f32 after it (as the dK/dV stages)
+    float tacc[RPW][HD / 8][4];
+#pragma unroll
+    for (int rt = 0; rt < RPW; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) tacc[rt][nt][0] = tacc[rt][nt][1] = tacc[rt][nt][2] = tacc[rt][nt][3] = 0.f;
+    if (tile + 1 < n_tiles) stage(tile + 1);  // overlaps this tile's work
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int t0 = tile * KT;
+    const bf16* kt = ks + (tile & 1) * KT * KS;
+    const bf16* vt = vs + (tile & 1) * KT * KS;
+    const int j_end = min(t0 + KT, warp_keys);
+    for (int j0 = t0; j0 < j_end; j0 += 16) {
+      // keys j0..j0+15: K and V as B of S and dP, K transposed as B of dq
+      uint32_t kf[HD / 16][4], vf[HD / 16][4], ktf[HD / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int at = (j0 - t0 + ldsm_row(lane)) * KS + kk * 16 + ldsm_col(lane);
+        ldsm_x4(kf[kk], kt + at);
+        ldsm_x4(vf[kk], vt + at);
+        ldsm_x4_t(ktf[kk], kt + (j0 - t0 + ldsm_row_t(lane)) * KS + kk * 16 + ldsm_col_t(lane));
+      }
+#pragma unroll
+      for (int rt = 0; rt < RPW; ++rt) {
+        const int row = wrow + rt;
+        if (row >= seq_len || (causal && j0 > row)) continue;  // warp-uniform
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            mma_16816(s[nt], qa[rt][kk], kf[kk][2 * nt], kf[kk][2 * nt + 1]);
+            mma_16816(dp[nt], da[rt][kk], vf[kk][2 * nt], vf[kk][2 * nt + 1]);
+          }
+        }
+        const bool edge = (causal && j0 + 15 > row) || j0 + 16 > seq_len;  // the mask's tiles
+        float ds[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, key = j0 + nt * 8 + 2 * c + (e & 1);
+            float p = ex2(fmaf(s[nt][e], LOG2E, -lr[rt][r] * LOG2E));
+            if (edge && (key >= seq_len || (causal && key > row))) p = 0.f;
+            ds[nt][e] = p * (dp[nt][e] - dd[rt][r]);
+          }
+        // the dS accumulators are the dq product's A fragment; dS rounds to bf16
+        const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                 pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          mma_16816(tacc[rt][2 * kk], dsa, ktf[kk][0], ktf[kk][1]);
+          mma_16816(tacc[rt][2 * kk + 1], dsa, ktf[kk][2], ktf[kk][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rt = 0; rt < RPW; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rt][nt][e] += tacc[rt][nt][e];
+    __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+    if (row >= seq_len) continue;
+    bf16* orow = dq + ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      *reinterpret_cast<uint32_t*>(orow + (size_t)g * HD + d) =
+          pack_bf16(acc[rt][nt][0] * scale, acc[rt][nt][1] * scale);
+      *reinterpret_cast<uint32_t*>(orow + (size_t)(g + 8) * HD + d) =
+          pack_bf16(acc[rt][nt][2] * scale, acc[rt][nt][3] * scale);
+    }
+  }
+}
+
+// Shared memory of a dK/dV stage of `rows` query rows: q and dO (swizzled),
+// lse and D; and of the whole block: two stages and the final reduction's buffer.
+__host__ __device__ __forceinline__ size_t tdkv_stage_bytes(int rows, int n_head, int hd) {
+  return (size_t)rows * n_head * (2 * hd * sizeof(bf16) + 2 * sizeof(float));
+}
+__host__ __device__ __forceinline__ size_t tdkv_smem(int rows, int n_head, int hd) {
+  return 2 * tdkv_stage_bytes(rows, n_head, hd) + (size_t)2 * TDKV_KEY_TILES * 16 * hd * sizeof(float);
+}
+
+// rows per stage of the dK/dV kernel, or 0 when fewer than its row split fit
+int tdkv_rows(int n_head, int head_dim) {
+  for (int rows = TDKV_MAX_ROWS; rows >= TDKV_ROW_SPLIT; --rows)
+    if (tdkv_smem(rows, n_head, head_dim) <= (size_t)TDKV_SMEM) return rows;
+  return 0;
+}
+
+// Element offset, in a staged row, of the 16-byte word w of head h: the word
+// index is XORed with bits of h so that the 8 heads one ldmatrix reads (at
+// one word) lie in 8 different bank groups.
+template <int HD>
+__device__ __forceinline__ int swz(int h, int w) {
+  constexpr int NW = HD / 8;  // words a head
+  return h * HD + ((w ^ ((h * NW / 8) % NW)) << 3);
+}
+
+// 4 bytes from global to shared memory, asynchronously
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// dK/dV: a warp owns 16 keys (K and V as A operands in registers) and a
+// quarter of each stage's query rows. Stages of R rows (q, dO, lse, D) arrive
+// by cp.async, two in flight, so the copy of the next overlaps the products
+// on this one; ldmatrix gives q and dO both ways (as B of S^T = K.qs^T and
+// dP^T = V.dO^T, and transposed as B of dV += P^T.dO and dK += dS^T.q), and
+// qs = round(q * scale) is formed from the fragment.
+//
+// Balance: the grid is persistent, one block per resident slot (one per SM:
+// a block's registers fill more than half of one), and the work items
+// (key block, batch row) are ordered heaviest first (under the causal mask
+// key block i walks T - 64 i rows) and dealt out in a serpentine: item r of
+// round k goes to block r - kG in even rounds and G - 1 - (r - kG) in odd
+// ones. Each block then holds a heavy and a light item in turn, so that the
+// blocks' rows add up to about the same. Each item's dK and dV are written by
+// its one block, in a fixed order of sums.
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(TDKV_THREADS, 1)
+    mqa_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ dcol,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int batch, int seq_len,
+                      int n_head, int rows_per_stage, int causal, float scale) {
+  static_assert(!BIAS, "the position bias takes mqa_mma_dkv_kernel");
+  constexpr int KEYS = 16 * TDKV_KEY_TILES;  // keys of a key block
+  const int width = n_head * HD;
+  const int R = rows_per_stage;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t sb = tdkv_stage_bytes(R, n_head, HD);
+  float* red = reinterpret_cast<float*>(smem + 2 * sb);  // [2][KEY_TILES][16][HD]
+  auto q_of = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * sb); };  // [R][width]
+  auto do_of = [&](int buf) { return q_of(buf) + (size_t)R * width; };              // [R][width]
+  auto lse_of = [&](int buf) { return reinterpret_cast<float*>(do_of(buf) + (size_t)R * width); };  // [R][H]
+  auto d_of = [&](int buf) { return lse_of(buf) + (size_t)R * n_head; };                            // [R][H]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int tile = warp % TDKV_KEY_TILES, part = warp / TDKV_KEY_TILES;
+  const int n_items = (seq_len + KEYS - 1) / KEYS * batch;
+
+  for (int round = 0;; ++round) {
+    const int item = round * gridDim.x + ((round & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+    if (item >= n_items) break;
+    const int kbi = item / batch, b = item % batch;
+    const int k0 = kbi * KEYS;       // the key block's first key
+    const int kw0 = k0 + 16 * tile;  // the warp's first key
+    {
+      const size_t qbase = (size_t)b * seq_len * width;
+      const size_t rbase = (size_t)b * seq_len * n_head;
+      const int r_begin = causal ? k0 : 0;
+      const int n_stages = (seq_len - r_begin + R - 1) / R;
+      auto stage = [&](int st) {
+        const int r0 = r_begin + st * R, nr = min(R, seq_len - r0), buf = st & 1;
+        bf16* qd = q_of(buf);
+        bf16* dd = do_of(buf);
+        const bf16* qsrc = q + qbase + (size_t)r0 * width;
+        const bf16* dsrc = dout + qbase + (size_t)r0 * width;
+        const int words = width / 8;  // 16-byte words a row
+        for (int i = threadIdx.x; i < nr * words; i += blockDim.x) {
+          const int r = i / words, w = i - r * words, h = w / (HD / 8);
+          const int at = r * width + swz<HD>(h, w - h * (HD / 8));
+          cp_async16(qd + at, qsrc + (size_t)i * 8, true);
+          cp_async16(dd + at, dsrc + (size_t)i * 8, true);
+        }
+        float* ld = lse_of(buf);
+        float* dl = d_of(buf);
+        for (int i = threadIdx.x; i < nr * n_head; i += blockDim.x) {
+          cp_async4(ld + i, lse + rbase + (size_t)r0 * n_head + i);
+          cp_async4(dl + i, dcol + rbase + (size_t)r0 * n_head + i);
+        }
+        cp_async_commit();
+      };
+      stage(0);
+
+      // A operands: keys kw0+g and kw0+g+8 of K and V, held for the whole walk
+      uint32_t ka[HD / 16][4], va[HD / 16][4];
+      const size_t kv_base = ((size_t)b * seq_len + kw0) * HD;
+      load_a<HD>(ka, k + kv_base, HD, seq_len - kw0, g, c, 1.f);
+      load_a<HD>(va, v + kv_base, HD, seq_len - kw0, g, c, 1.f);
+      float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+
+      for (int st = 0; st < n_stages; ++st) {
+        // this stage's sums, added to the item's in f32 after it: a sum of a few
+        // tensor-core accumulations at a time, so rounding does not build up
+        float sdk[HD / 8][4], sdv[HD / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sdk[nt][e] = sdv[nt][e] = 0.f;
+        if (st + 1 < n_stages) stage(st + 1);  // overlaps this stage's work
+        else cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const int r0 = r_begin + st * R, nr = min(R, seq_len - r0), buf = st & 1;
+        for (int r = part; r < nr; r += TDKV_ROW_SPLIT) {
+          const int i = r0 + r;
+          if (causal && i < kw0) continue;  // warp-uniform: every key of the warp is after row i
+          const bool edge = (causal && i < kw0 + 15) || kw0 + 16 > seq_len;  // the mask's rows
+          const bf16* qrow = q_of(buf) + (size_t)r * width;
+          const bf16* drow = do_of(buf) + (size_t)r * width;
+          const float* lrow = lse_of(buf) + (size_t)r * n_head;
+          const float* drw = d_of(buf) + (size_t)r * n_head;
+          for (int h0 = 0; h0 < n_head; h0 += 16) {
+            // B fragments of the 16 heads: qs and dO with k = dim, q and dO with k = head
+            uint32_t qf[HD / 16][4], df[HD / 16][4], qt[HD / 16][4], dt[HD / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+              const int at = swz<HD>(h0 + ldsm_row(lane), 2 * kk + (ldsm_col(lane) >> 3));
+              const int at_t = swz<HD>(h0 + ldsm_row_t(lane), 2 * kk + (ldsm_col_t(lane) >> 3));
+              ldsm_x4(qf[kk], qrow + at);
+              ldsm_x4(df[kk], drow + at);
+              ldsm_x4_t(qt[kk], qrow + at_t);
+              ldsm_x4_t(dt[kk], drow + at_t);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)  // qs = round(q * scale)
+                qf[kk][j] = pack_bf16(bf_lo(qf[kk][j]) * scale, bf_hi(qf[kk][j]) * scale);
+            }
+            // S^T and dP^T: 16 keys x 8 heads, two tiles for the 16 heads
+            float st_[2][4], dpt[2][4];
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              st_[t][0] = st_[t][1] = st_[t][2] = st_[t][3] = 0.f;
+              dpt[t][0] = dpt[t][1] = dpt[t][2] = dpt[t][3] = 0.f;
+#pragma unroll
+              for (int kk = 0; kk < HD / 16; ++kk) {
+                mma_16816(st_[t], ka[kk], qf[kk][2 * t], qf[kk][2 * t + 1]);
+                mma_16816(dpt[t], va[kk], df[kk][2 * t], df[kk][2 * t + 1]);
+              }
+            }
+            float p[2][4], ds[2][4];
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              const int hh = h0 + 8 * t + 2 * c;  // this lane's heads hh, hh + 1
+              const float2 l2 = *reinterpret_cast<const float2*>(lrow + hh);
+              const float2 d2 = *reinterpret_cast<const float2*>(drw + hh);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float lv = (e & 1) ? l2.y : l2.x, dv_ = (e & 1) ? d2.y : d2.x;
+                const int key = kw0 + g + (e >> 1) * 8;
+                float pv = ex2(fmaf(st_[t][e], LOG2E, -lv * LOG2E));
+                if (edge && (key >= seq_len || (causal && key > i))) pv = 0.f;
+                p[t][e] = pv;
+                ds[t][e] = pv * (dpt[t][e] - dv_);
+              }
+            }
+            // P^T and dS^T (16 keys x 16 heads) rounded to bf16 are A fragments
+            const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                    pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+            const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                     pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+              mma_16816(sdv[2 * kk], pa, dt[kk][0], dt[kk][1]);
+              mma_16816(sdv[2 * kk + 1], pa, dt[kk][2], dt[kk][3]);
+              mma_16816(sdk[2 * kk], dsa, qt[kk][0], qt[kk][1]);
+              mma_16816(sdk[2 * kk + 1], dsa, qt[kk][2], qt[kk][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dka[nt][e] += sdk[nt][e], dva[nt][e] += sdv[nt][e];
+        __syncthreads();  // the next iteration's copy overwrites this buffer
+      }
+
+      // the row parts of each key tile add up in a fixed order: part 0 takes the
+      // others' sums one at a time through shared memory
+      float* red_k = red + (size_t)tile * 16 * HD;
+      float* red_v = red + (size_t)(TDKV_KEY_TILES + tile) * 16 * HD;
+      for (int src = 1; src < TDKV_ROW_SPLIT; ++src) {
+        if (part == src) {
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int at = (g + (e >> 1) * 8) * HD + nt * 8 + 2 * c + (e & 1);
+              red_k[at] = dka[nt][e];
+              red_v[at] = dva[nt][e];
+            }
+        }
+        __syncthreads();
+        if (part == 0) {
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int at = (g + (e >> 1) * 8) * HD + nt * 8 + 2 * c + (e & 1);
+              dka[nt][e] += red_k[at];
+              dva[nt][e] += red_v[at];
+            }
+        }
+        __syncthreads();
+      }
+      if (part == 0) {
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          const int d = nt * 8 + 2 * c;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int key = kw0 + g + half * 8;
+            if (key >= seq_len) continue;
+            const size_t at = ((size_t)b * seq_len + key) * HD + d;
+            *reinterpret_cast<uint32_t*>(dk + at) =
+                pack_bf16(dka[nt][2 * half] * scale, dka[nt][2 * half + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[nt][2 * half], dva[nt][2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// the tensor-core backward takes bf16, MQA, 1 to TC_WARPS groups of 16 heads,
+// hd in {16, 32, 64}, and at least TDKV_ROW_SPLIT rows a dK/dV stage
+bool tc_bwd_ok(int kvh, int n_head, int head_dim, int is_bf16) {
+  return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head / 16 <= TC_WARPS &&
+         (head_dim == 16 || head_dim == 32 || head_dim == 64) &&
+         tdkv_rows(n_head, head_dim) >= TDKV_ROW_SPLIT;
+}
+
+template <int HD>
+int launch_tc_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* dcol, void* dq, int batch, int seq_len, int n_head, int causal,
+                 cudaStream_t stream) {
+  const int groups = n_head / 16;
+  const int slices = TC_WARPS / groups;  // row slices of a block
+  const int rows = slices * tc_dq_rows_per_warp<HD>();
+  const int n_qb = (seq_len + rows - 1) / rows;
+  if ((long long)n_qb * batch > 0x7fffffffLL) return -1;
+  const size_t smem = (size_t)2 * 2 * TC_KEY_TILE * (HD + 8) * sizeof(bf16);
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  mqa_tc_dq_kernel<HD, false><<<n_qb * batch, slices * groups * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dcol), static_cast<bf16*>(dq), batch, seq_len, n_head, rows, n_qb,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// the dK/dV kernel's shared memory for this shape, opted in above 48 KB, and
+// the blocks the card holds at once (SMs x blocks per SM)
+template <int HD>
+int tdkv_prepare(int n_head, size_t* smem, int* resident) {
+  *smem = tdkv_smem(tdkv_rows(n_head, HD), n_head, HD);
+  int rc = (int)cudaFuncSetAttribute(mqa_tc_dkv_kernel<HD, false>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (rc) return rc;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mqa_tc_dkv_kernel<HD, false>,
+                                                          TDKV_THREADS, *smem);
+  *resident = sms * per_sm;
+  return rc;
+}
+
+template <int HD>
+int launch_tc_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* dcol, void* dk, void* dv, int batch, int seq_len, int n_head,
+                  int causal, cudaStream_t stream) {
+  size_t smem = 0;
+  int resident = 0;
+  const int rc = tdkv_prepare<HD>(n_head, &smem, &resident);
+  if (rc) return rc;
+  const int items = (seq_len + 16 * TDKV_KEY_TILES - 1) / (16 * TDKV_KEY_TILES) * batch;
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  mqa_tc_dkv_kernel<HD, false><<<min(items, resident), TDKV_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dcol), static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch,
+      seq_len, n_head, tdkv_rows(n_head, HD), causal, scale);
+  return (int)cudaGetLastError();
+}
+
 // One backward half for the call's types: which = 0 dK/dV (and, with the bias,
 // the table gradient into dtable_part), 1 dQ.
 template <bool BIAS>
@@ -830,7 +1322,23 @@ int backward(int which, const void* q, const void* k, const void* v, const void*
              int batch, int seq_len, int n_head, int kvh, int head_dim, int causal, int is_bf16,
              Bias bias, cudaStream_t s) {
   if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
-  if (mma_ok(kvh, n_head, head_dim, is_bf16, BIAS)) {
+  if constexpr (!BIAS) {
+    if (tc_bwd_ok(kvh, n_head, head_dim, is_bf16)) {
+#define TC_CASE(HD)                                                                               \
+  case HD:                                                                                        \
+    return which == 0 ? launch_tc_dkv<HD>(q, k, v, dout, lse, dcol, dk, dv, batch, seq_len,       \
+                                          n_head, causal, s)                                      \
+                      : launch_tc_dq<HD>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head,    \
+                                         causal, s);
+      switch (head_dim) {
+        TC_CASE(16)
+        TC_CASE(32)
+        TC_CASE(64)
+        default: return -1;
+      }
+#undef TC_CASE
+    }
+  } else if (mma_ok(kvh, n_head, head_dim, is_bf16, BIAS)) {
 #define MMA_CASE(HD)                                                                              \
   case HD:                                                                                        \
     return which == 0 ? launch_mma_dkv<HD, BIAS>(q, k, v, dout, lse, dcol, dk, dv, dtable_part,   \
@@ -950,4 +1458,23 @@ extern "C" int flash_bias_dkv_slices(int batch, int seq_len, int n_head, int kvh
 extern "C" int flash_bias_dkv_batch_per_block(int batch, int seq_len, int n_head, int kvh,
                                               int head_dim, int causal, int is_bf16) {
   return bias_dkv_grid(batch, seq_len, n_head, kvh, head_dim, causal, is_bf16).batch_per_block;
+}
+
+// The (key block, batch row) items one block of the no-bias dK/dV kernel
+// walks for this shape on the current device (at most), or 0 where the FMA
+// kernels take the call.
+extern "C" int flash_dkv_items_per_block(int batch, int seq_len, int n_head, int kvh,
+                                         int head_dim, int is_bf16) {
+  if (!tc_bwd_ok(kvh, n_head, head_dim, is_bf16)) return 0;
+  size_t smem = 0;
+  int resident = 0, rc = 0;
+  switch (head_dim) {
+    case 16: rc = tdkv_prepare<16>(n_head, &smem, &resident); break;
+    case 32: rc = tdkv_prepare<32>(n_head, &smem, &resident); break;
+    default: rc = tdkv_prepare<64>(n_head, &smem, &resident); break;
+  }
+  if (rc || resident < 1) return -1;
+  const int items = (seq_len + 16 * TDKV_KEY_TILES - 1) / (16 * TDKV_KEY_TILES) * batch;
+  const int grid = items < resident ? items : resident;
+  return (items + grid - 1) / grid;
 }

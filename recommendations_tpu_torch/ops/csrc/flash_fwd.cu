@@ -2,51 +2,74 @@
 //
 // Replaces the TPU kernel recommendations_tpu/ops/fused_attention.py::_fwd_kernel
 // (launched by _fused_fwd_impl for T_pad <= 512) and computes what the no-bias
-// mode of _fwd_kernel_grid computes for longer sequences: K/V are walked in
-// 512-key chunks with an online softmax, so T is not capped by shared memory.
+// mode of _fwd_kernel_grid computes for longer sequences (an online softmax
+// over key chunks), so T is not capped by shared memory.
 //
 // Layout, as at the JAX call site: q and o are (B, T, H*hd) with the heads in
 // the last dimension; k and v are (B, T, hd) for multi-query attention or
 // (B, T, H*hd) for multi-head attention; lse is (B, T, H) float32.
 //
 // Arithmetic mirrors the TPU kernel: q is scaled by 1/sqrt(hd) in f32 and
-// rounded to the operand type; s = q.k accumulates in f32; each 512-key chunk
-// takes its row max first and then p = exp(s - m) and l = sum(p) in f32; the
-// PV product uses p rounded to v's type with f32 accumulation;
-// o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)). Keys past the
-// sequence end, and past the row under the causal mask, are skipped, which
-// is what the TPU kernel's -1e30 mask yields for every row that sees a key.
+// rounded to the operand type; s = q.k accumulates in f32; an online softmax
+// over key chunks: per chunk the running max m rises to the chunk's, what
+// earlier chunks summed is rescaled by exp(m_old - m), p = exp(s - m) and
+// l = sum(p) in f32, and the PV product uses p rounded to v's type with f32
+// accumulation; o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)).
+// Keys past the sequence end, and past the row under the causal mask, add
+// nothing, which is what the TPU kernel's -1e30 mask yields for every row
+// that sees a key. The chunk is the TPU kernel's 512 keys in the FMA kernel,
+// and 16 keys (its tile) in the tensor-core kernel, which also takes each
+// exponential as 2^(s log2(e) - m log2(e)) on the special-function unit.
 //
-// Bound on an H100 SXM at the serving shape (B=64, T=257, H=32, hd=16, MQA,
-// bf16, causal, one call): the call moves about 37 MB (q, o, k, v, lse),
-// about 11 us at 3.35 TB/s; it does about 4.3 GFLOP, about 4.4 us at the
-// 989 TFLOP/s bf16 tensor-core peak; and it needs about 68 M exponentials.
-// So it is bound by bytes, and at hd=16 the exponentials may bind harder.
+// Bound on an H100 SXM (MQA 32x16, bf16, causal, one call): at B=64, T=257
+// the call moves 36.8 MB (q, o, k, v, lse), 11.0 us at 3.35 TB/s, and does
+// 4.3 GFLOP, 4.4 us at the 989 TFLOP/s tensor-core peak; at B=16, T=1025,
+// 36.7 MB and 17.2 GFLOP, 17.4 us. Either way the exponentials bind
+// harder: one per live (row, head, key), B H T (T+1) / 2 = 269 M at T=1025,
+// 64 us at 16 a clock per SM (132 SMs, 1.98 GHz); at hd=16 the softmax work
+// around the products, not the products, sets the pace.
 //
-// Design: one block per (batch row, group of query rows), which stages its
-// batch row's K/V into shared memory once (at MQA, 257 x 16 bf16 each) for
-// every head of its rows. Two specializations, chosen from the inputs:
-// - mqa_mma_kernel (bf16, MQA, heads a multiple of 16, hd in {16, 32, 64},
-//   the serving path): a warp owns 16 heads of one query row. Those heads
+// Three kernels, chosen from the inputs:
+// - mqa_tc_fwd_kernel (bf16, MQA, 16 to 128 heads in groups of 16, hd in
+//   {16, 32, 64}; the no-bias path of LTHM). The 16 heads of one query row
 //   share K, V and the causal extent, so they are the 16 rows of an
-//   mma.sync m16n8k16 tile: S = QK^T and PV run on the tensor cores, and the
-//   S accumulator, exponentiated and rounded to bf16, is already laid out as
-//   the A operand of the PV product.
-// - fma_kernel (float32, MHA, any head count): a thread owns one (query row,
-//   head) pair, the heads of a row in neighbouring lanes, so a warp reads q
-//   and writes o as one contiguous run and its lanes share the causal extent.
-// No wgmma or TMA yet: a right and simple kernel first.
+//   mma.sync m16n8k16 tile, and a warp owns 64 / hd such rows: one K/V
+//   fragment load (ldmatrix from shared memory; V transposed by
+//   ldmatrix.trans) serves them all. Against the softmax work:
+//   * one pass: S = qs.K^T is computed once per 16-key tile, and the online
+//     softmax rescales acc and l when the tile raises a row's max (the S
+//     accumulator, exponentiated and rounded to bf16, is the PV product's A
+//     fragment);
+//   * exp2 on the special-function unit (ex2.approx, one FFMA for the
+//     argument), and the mask compare only on a row's diagonal tile and the
+//     ragged last tile;
+//   * K and V tiles of 64 keys arrive by 16-byte cp.async, two in flight, so
+//     the copy of the next tile overlaps the work on this one;
+//   * heavy first: under the causal mask the query blocks with the longest
+//     extent take the first block indices, so the scheduler starts the long
+//     blocks first and the short ones fill in behind.
+//   mma.sync and not wgmma: at hd=16 the products are a quarter of the
+//   exponential floor (above), so the tensor-core route is not what bounds
+//   the kernel; wgmma's 64-row tiles would also mix 4 query rows of
+//   different causal extents in one tile.
+// - mqa_mma_kernel (the position-bias case, entry flash_bias_fwd): a warp owns
+//   16 heads of one query row; two passes per staged tile (max, then the
+//   exponentials), as the tile is the softmax chunk.
+// - fma_kernel (float32, MHA, other head counts): a thread owns one (query
+//   row, head) pair, the heads of a row in neighbouring lanes, so a warp reads
+//   q and writes o as one contiguous run and its lanes share the causal extent.
 //
 // The relative-position-bias case (entry flash_bias_fwd) replaces the
 // bias_mode forward of _fwd_kernel_grid (launched by _fused_bias_fwd_impl).
-// Both kernels take it as a template case, with the grid kernel's
-// arithmetic: s = (q.k) * scale in f32 with q unrounded, plus the table entry
-// table[q - k + nk, h] rounded to bf16 (the TPU kernel expands the table in
-// bf16 for any operand type), before the mask. The table is (L, H) float32.
-// In the tensor-core kernel a block stages, per key tile, the bias its rows
-// need: for the rows [row0, row0 + R) and keys [t0, t1) that is the run
-// table[row0 - (t1 - 1) + nk .. row0 + R - 1 - t0 + nk] of every head, one
-// contiguous, reversed run per head; the tile is then also the softmax chunk.
+// mqa_mma_kernel and fma_kernel take it as a template case, with the grid
+// kernel's arithmetic: s = (q.k) * scale in f32 with q unrounded, plus the
+// table entry table[q - k + nk, h] rounded to bf16 (the TPU kernel expands the
+// table in bf16 for any operand type), before the mask. The table is (L, H)
+// float32. In the tensor-core kernel a block stages, per key tile, the bias
+// its rows need: for the rows [row0, row0 + R) and keys [t0, t1) that is the
+// run table[row0 - (t1 - 1) + nk .. row0 + R - 1 - t0 + nk] of every head,
+// one contiguous, reversed run per head; the tile is then also the softmax
+// chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +77,7 @@
 #include <stdint.h>
 
 #include "flash_bias.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -494,6 +518,210 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse, 
   return (int)cudaGetLastError();
 }
 
+// ---- the no-bias tensor-core forward: one pass, async staging, heavy first ----
+
+constexpr int TC_WARPS = 8;       // warps per block
+constexpr int TC_KEY_TILE = 64;   // keys per staged K/V tile (two tiles in flight)
+
+// A warp owns 64 / HD query rows of one 16-head group: each row is an m16
+// tile (its 16 heads), and one K/V fragment load serves them all.
+template <int HD> __host__ __device__ constexpr int tc_rows_per_warp() { return 64 / HD; }
+
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+    mqa_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                      int batch, int seq_len, int n_head, int rows_per_block, int n_qb, int causal,
+                      float scale) {
+  static_assert(!BIAS, "the position bias takes mqa_mma_kernel");
+  constexpr int RPW = tc_rows_per_warp<HD>();
+  constexpr int KT = TC_KEY_TILE;
+  constexpr int KS = HD + 8;  // padded row: the 8 rows of an ldmatrix hit 8 bank groups
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][KT][KS]
+  bf16* vs = ks + 2 * KT * KS;               // [2][KT][KS]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int groups = n_head >> 4;
+  // heavy first: under the causal mask the last query blocks walk the most
+  // keys, and they take the first block indices
+  const int qb = causal ? n_qb - 1 - (int)blockIdx.x / batch : (int)blockIdx.x / batch;
+  const int b = blockIdx.x % batch;
+  const int row0 = qb * rows_per_block;
+  const int wrow = row0 + (warp / groups) * RPW;  // the warp's first row
+  const int h0 = (warp % groups) * 16;
+  const int block_keys = causal ? min(row0 + rows_per_block, seq_len) : seq_len;
+  const int warp_keys = wrow >= seq_len ? 0 : causal ? min(wrow + RPW, seq_len) : seq_len;
+  const int n_tiles = (block_keys + KT - 1) / KT;
+  const bf16* kb = k + (size_t)b * seq_len * HD;
+  const bf16* vb = v + (size_t)b * seq_len * HD;
+
+  auto stage = [&](int tile) {
+    const int t0 = tile * KT;
+    bf16* kd = ks + (tile & 1) * KT * KS;
+    bf16* vd = vs + (tile & 1) * KT * KS;
+    for (int i = threadIdx.x; i < KT * (HD / 8); i += blockDim.x) {
+      const int j = i / (HD / 8), d = (i % (HD / 8)) * 8;
+      const bool in = t0 + j < seq_len;  // keys past the end are zeros
+      const size_t src = (size_t)(in ? t0 + j : 0) * HD + d;
+      cp_async16(kd + j * KS + d, kb + src, in);
+      cp_async16(vd + j * KS + d, vb + src, in);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) stage(0);
+
+  // A operands: q of each row's 16 heads, scaled in f32 and rounded
+  uint32_t qa[RPW][HD / 16][4];
+  float acc[RPW][HD / 8][4];
+  float m[RPW][2], l[RPW][2];  // the raw running max of rows g, g+8; this lane's share of the sums
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+    const bf16* qrow = q + ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x0 = 0.f, x1 = 0.f;
+        if (row < seq_len) {
+          const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(
+              qrow + (size_t)(g + (r & 1) * 8) * HD + kk * 16 + 2 * c + (r >> 1) * 8);
+          x0 = __bfloat162float(pair.x) * scale;
+          x1 = __bfloat162float(pair.y) * scale;
+        }
+        qa[rt][kk][r] = pack_bf16(x0, x1);
+      }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) acc[rt][nt][0] = acc[rt][nt][1] = acc[rt][nt][2] = acc[rt][nt][3] = 0.f;
+    m[rt][0] = m[rt][1] = NEG_INF;
+    l[rt][0] = l[rt][1] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) stage(tile + 1);  // overlaps this tile's work
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int t0 = tile * KT;
+    const bf16* kt = ks + (tile & 1) * KT * KS;
+    const bf16* vt = vs + (tile & 1) * KT * KS;
+    const int j_end = min(t0 + KT, warp_keys);
+    for (int j0 = t0; j0 < j_end; j0 += 16) {
+      // keys j0..j0+15: K as B of S = qs.K^T, V (transposed by ldmatrix) as B of P.V
+      uint32_t kf[HD / 16][4], vf[HD / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        ldsm_x4(kf[kk], kt + (j0 - t0 + ldsm_row(lane)) * KS + kk * 16 + ldsm_col(lane));
+        ldsm_x4_t(vf[kk], vt + (j0 - t0 + ldsm_row_t(lane)) * KS + kk * 16 + ldsm_col_t(lane));
+      }
+#pragma unroll
+      for (int rt = 0; rt < RPW; ++rt) {
+        const int row = wrow + rt;
+        if (row >= seq_len || (causal && j0 > row)) continue;  // warp-uniform
+        float s[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) mma_16816(s[nt], qa[rt][kk], kf[kk][2 * nt], kf[kk][2 * nt + 1]);
+        }
+        // the mask, on the diagonal tile and the ragged last tile only
+        if ((causal && j0 + 15 > row) || j0 + 16 > seq_len) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = j0 + nt * 8 + 2 * c + (e & 1);
+              if (key >= seq_len || (causal && key > row)) s[nt][e] = -INFINITY;
+            }
+        }
+        // online softmax over the 16-key tile: the running max rises to the
+        // tile's and what earlier tiles summed is rescaled (by 1 where the max
+        // stays: no branch, so the row tiles' work interleaves)
+        float mxl[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]), fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2)), m[rt][r]);
+          const float corr = ex2((m[rt][r] - mx) * LOG2E);
+          m[rt][r] = mx;
+          l[rt][r] *= corr;
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt) acc[rt][nt][2 * r] *= corr, acc[rt][nt][2 * r + 1] *= corr;
+          mxl[r] = mx * LOG2E;
+        }
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] = ex2(fmaf(s[nt][e], LOG2E, -mxl[e >> 1]));
+        l[rt][0] += (p[0][0] + p[0][1]) + (p[1][0] + p[1][1]);
+        l[rt][1] += (p[0][2] + p[0][3]) + (p[1][2] + p[1][3]);
+        // the S accumulators are the PV product's A fragment; p rounds to bf16
+        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          mma_16816(acc[rt][2 * kk], pa, vf[kk][0], vf[kk][1]);
+          mma_16816(acc[rt][2 * kk + 1], pa, vf[kk][2], vf[kk][3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[rt][r] += __shfl_xor_sync(0xffffffffu, l[rt][r], 1);
+      l[rt][r] += __shfl_xor_sync(0xffffffffu, l[rt][r], 2);
+    }
+    if (row >= seq_len) continue;
+    const float den0 = fmaxf(l[rt][0], 1e-30f), den1 = fmaxf(l[rt][1], 1e-30f);
+    bf16* orow = o + ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      *reinterpret_cast<uint32_t*>(orow + (size_t)g * HD + d) = pack_bf16(acc[rt][nt][0] / den0, acc[rt][nt][1] / den0);
+      *reinterpret_cast<uint32_t*>(orow + (size_t)(g + 8) * HD + d) =
+          pack_bf16(acc[rt][nt][2] / den1, acc[rt][nt][3] / den1);
+    }
+    if (c == 0) {
+      float* lrow = lse + ((size_t)b * seq_len + row) * n_head + h0;
+      lrow[g] = m[rt][0] + logf(den0);
+      lrow[g + 8] = m[rt][1] + logf(den1);
+    }
+  }
+}
+
+// the tensor-core forward takes bf16, MQA, and 1 to TC_WARPS groups of 16 heads
+bool tc_fwd_ok(int kvh, int n_head, int head_dim, int is_bf16) {
+  return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head / 16 <= TC_WARPS &&
+         (head_dim == 16 || head_dim == 32 || head_dim == 64);
+}
+
+template <int HD>
+int launch_tc_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                  int seq_len, int n_head, int causal, cudaStream_t stream) {
+  const int groups = n_head / 16;
+  const int slices = TC_WARPS / groups;  // row slices of a block
+  const int rows = slices * tc_rows_per_warp<HD>();
+  const int n_qb = (seq_len + rows - 1) / rows;
+  if ((long long)n_qb * batch > 0x7fffffffLL) return -1;
+  const size_t smem = (size_t)2 * 2 * TC_KEY_TILE * (HD + 8) * sizeof(bf16);
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  mqa_tc_fwd_kernel<HD, false><<<n_qb * batch, slices * groups * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), batch, seq_len, n_head, rows, n_qb, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool BIAS>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
              int seq_len, int n_head, int kvh, int head_dim, int causal, Bias bias,
@@ -513,7 +741,16 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse, int
             void* stream) {
   if (n_head < 1 || n_head > 1024 || batch < 1 || seq_len < 1 || batch > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
+  if constexpr (!BIAS) {
+    if (tc_fwd_ok(kvh, n_head, head_dim, is_bf16)) {
+      switch (head_dim) {
+        case 16: return launch_tc_fwd<16>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
+        case 32: return launch_tc_fwd<32>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
+        case 64: return launch_tc_fwd<64>(q, k, v, o, lse, batch, seq_len, n_head, causal, s);
+        default: break;
+      }
+    }
+  } else if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
     switch (head_dim) {
       case 16: return launch_mma<16, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
       case 32: return launch_mma<32, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
@@ -550,4 +787,12 @@ extern "C" int flash_bias_fwd(const void* q, const void* k, const void* v, const
   if (n_table < 1 || nk < 0) return -1;
   return forward<true>(q, k, v, o, lse, batch, seq_len, n_head, kvh, head_dim, causal, is_bf16,
                        Bias{static_cast<const float*>(table), n_table, nk}, stream);
+}
+
+// The K/V tiles the heaviest block of flash_fwd walks for this shape (the
+// tensor-core kernel's 64-key tiles), or 0 where the FMA kernel takes the call.
+extern "C" int flash_fwd_tiles_per_block(int seq_len, int n_head, int kvh, int head_dim,
+                                         int is_bf16) {
+  if (!tc_fwd_ok(kvh, n_head, head_dim, is_bf16)) return 0;
+  return (seq_len + TC_KEY_TILE - 1) / TC_KEY_TILE;
 }

@@ -39,6 +39,10 @@ import torch
 from recommendations_tpu_torch.ops.cuda_build import CudaKernel
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+# The bf16 tensor-core forward's softmax chunk: its online softmax raises the
+# running max once per 16-key tile (the TPU grid kernel's chunk is 512 keys).
+KERNEL_SOFTMAX_CHUNK = 16
 
 # Dispatch knobs carried over from the JAX package (measured there on a TPU,
 # not on this card): the fused path serves sequences up to this length...
@@ -78,6 +82,9 @@ FLASH_BIAS_DKV = CudaKernel(
 # rows one of its blocks walks (queries of its grid, not kernels)
 _BIAS_DKV_SLICES = CudaKernel("flash_bwd.cu", "flash_bias_dkv_slices", [ctypes.c_int] * 7)
 _BIAS_DKV_BATCH_PER_BLOCK = CudaKernel("flash_bwd.cu", "flash_bias_dkv_batch_per_block", [ctypes.c_int] * 7)
+# how much one block of the no-bias tensor-core kernels walks (queries, not kernels)
+_FWD_TILES_PER_BLOCK = CudaKernel("flash_fwd.cu", "flash_fwd_tiles_per_block", [ctypes.c_int] * 5)
+_DKV_ITEMS_PER_BLOCK = CudaKernel("flash_bwd.cu", "flash_dkv_items_per_block", [ctypes.c_int] * 6)
 KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_BIAS_FWD, FLASH_BIAS_DQ, FLASH_BIAS_DKV)
 
 
@@ -105,27 +112,65 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int):
     return b, t, qc, hd, k.shape[-1] // hd
 
 
+def _softmax_exp(x: torch.Tensor, m: torch.Tensor, exp2: bool) -> torch.Tensor:
+    """exp(x - m), or as the tensor-core kernels take it, 2**(x log2(e) - m log2(e))."""
+    if exp2:
+        return torch.exp2(x * LOG2E - m * LOG2E)
+    return torch.exp(x - m)
+
+
 def fused_flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int, causal: bool = True,
+    *, chunk: int | None = None, exp2: bool = False,
 ):
-    """Plain PyTorch version of the kernel, with the TPU kernel's arithmetic
-    over the whole key range as one chunk. Returns (o, lse)."""
+    """Plain PyTorch version of the kernel, with the TPU kernel's arithmetic:
+    an online softmax over key chunks of ``chunk`` keys (the whole key range
+    as one chunk by default; the bf16 tensor-core kernel's is
+    ``KERNEL_SOFTMAX_CHUNK``): per chunk the running max rises, what earlier
+    chunks summed is rescaled, p = exp(s - m) is summed in f32 and rounded to
+    v's type for the PV product. ``exp2`` computes each exponential as the
+    kernel does, 2**(x log2(e) - m log2(e)). Returns (o, lse)."""
     b, t, qc, hd, kvh = _check(q, k, v, n_head)
     scale = float(np.float32(1.0 / math.sqrt(hd)))
     qh = (q.float() * scale).to(q.dtype).float().reshape(b, t, n_head, hd).transpose(1, 2)
     kh = k.float().reshape(b, t, kvh, hd).transpose(1, 2)
     vh = v.float().reshape(b, t, kvh, hd).transpose(1, 2)
     s = qh @ kh.transpose(-1, -2)  # (B, H, T, T) f32; kvh=1 broadcasts over H
-    if causal:
-        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril() if causal else None
+    if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    acc = p.to(v.dtype).float() @ vh
+    m = torch.full((*s.shape[:-1], 1), NEG_INF, device=q.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros((*s.shape[:-1], hd), device=q.device)
+    step = t if chunk is None else chunk
+    for c0 in range(0, t, step):
+        sc = s[..., c0 : c0 + step]
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = _softmax_exp(sc, m_new, exp2)
+        if keep is not None:  # a chunk wholly past a row adds nothing to it
+            p = torch.where(keep[:, c0 : c0 + step], p, 0.0)
+        corr = _softmax_exp(m, m_new, exp2)
+        den = den * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(v.dtype).float() @ vh[..., c0 : c0 + step, :]
+        m = m_new
+    den = den.clamp_min(1e-30)
     o = (acc / den).to(q.dtype).transpose(1, 2).reshape(b, t, qc)
     lse = (m + torch.log(den)).squeeze(-1).transpose(1, 2).contiguous()
     return o, lse
+
+
+def kernel_softmax(q: torch.Tensor, k: torch.Tensor, n_head: int) -> dict:
+    """The forward kernel's softmax arithmetic for these inputs, as keyword
+    arguments of ``fused_flash_attention_reference``: the tensor-core kernel
+    (bf16, MQA, 16 to 128 heads in groups of 16, hd 16, 32 or 64) takes
+    16-key chunks and exp2; the FMA kernel 512-key chunks and exp. ``exp2``
+    also says how the backward's kernels take p (the same inputs go to its
+    tensor-core kernels, but for hd 64 with 96 heads or more, whose dK/dV
+    stages do not fit, which take the FMA kernels and exp)."""
+    b, t, qc, hd, kvh = _check(q, k, k, n_head)
+    tensor_cores = (q.dtype == torch.bfloat16 and kvh == 1 and n_head % 16 == 0
+                    and n_head <= 128 and hd in (16, 32, 64))
+    return {"chunk": KERNEL_SOFTMAX_CHUNK, "exp2": True} if tensor_cores else {"chunk": 512, "exp2": False}
 
 
 def _check_launch(hd: int, **tensors) -> None:
@@ -169,14 +214,15 @@ def _rowsum_do_o(do: torch.Tensor, o: torch.Tensor, n_head: int) -> torch.Tensor
 
 def fused_flash_attention_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor, n_head: int, causal: bool = True,
+    do: torch.Tensor, n_head: int, causal: bool = True, *, exp2: bool = False,
 ):
     """Plain PyTorch version of the backward kernel, spelling out
     ``_bwd_fused_kernel``'s arithmetic: qs = round(q*scale); s = qs.k in f32;
     p = exp(s - lse), masked; dp = dO.v; ds = p*(dp - D), rounded to the
     operand type; dq = ds.k*scale; dv = round(p)^T.dO; dk = ds^T.q*scale; at
-    MQA dK and dV summed over heads in f32 before the one rounding. Returns
-    (dq, dk, dv) in the operand type."""
+    MQA dK and dV summed over heads in f32 before the one rounding. ``exp2``
+    takes p as the bf16 tensor-core kernels do, 2**(s log2(e) - lse log2(e)).
+    Returns (dq, dk, dv) in the operand type."""
     b, t, qc, hd, kvh = _check(q, k, v, n_head)
     dt = q.dtype
     do = do.to(dt)
@@ -187,7 +233,7 @@ def fused_flash_attention_bwd_reference(
     qs = (qh * scale).to(dt).float()
     kh, vh = heads(k, kvh), heads(v, kvh)
     s = qs @ kh.transpose(-1, -2)  # (B, H, T, T); kvh=1 broadcasts over H
-    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    p = _softmax_exp(s, lse.transpose(1, 2)[..., None], exp2)
     if causal:
         keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
         p = torch.where(keep, p, 0.0)
@@ -401,6 +447,17 @@ def bias_dkv_batch_per_block(q: torch.Tensor, k: torch.Tensor, n_head: int, caus
     q and k on the current device (1 where the FMA kernels take the call)."""
     b, t, qc, hd, kvh = _check(q, k, k, n_head)
     return _BIAS_DKV_BATCH_PER_BLOCK.build()(b, t, n_head, kvh, hd, int(causal), int(q.dtype == torch.bfloat16))
+
+
+def block_walk(q: torch.Tensor, k: torch.Tensor, n_head: int) -> tuple:
+    """For CUDA tensors q and k on the current device: the 64-key K/V tiles
+    the heaviest block of the no-bias forward (and dQ) kernel walks, and the
+    (key block, batch row) items one no-bias dK/dV block walks at most; 0
+    where the FMA kernels take the call."""
+    b, t, qc, hd, kvh = _check(q, k, k, n_head)
+    bf16 = int(q.dtype == torch.bfloat16)
+    return (_FWD_TILES_PER_BLOCK.build()(t, n_head, kvh, hd, bf16),
+            _DKV_ITEMS_PER_BLOCK.build()(b, t, n_head, kvh, hd, bf16))
 
 
 def fused_flash_attention_bias_bwd(

@@ -97,6 +97,41 @@ def test_flash_plain_version_bf16_operands():
     )
 
 
+@pytest.mark.parametrize("exp2", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [96, 70])
+def test_flash_plain_version_in_chunks_matches_pallas_kernel(t, causal, exp2):
+    """The online softmax over 32-key chunks (the running max raised chunk by
+    chunk, earlier sums rescaled), with exp or exp2, against the Pallas
+    kernel in interpret mode: the same function up to f32 rounding."""
+    b, n_head, hd = 2, 4, 16
+    q, k, v = _qkv(b, t, n_head, hd, 1, seed=t + 11)
+    o_pad, lse_pad, _ = jfa._fused_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_head, causal, 32, True)
+    got_o, got_lse = tfa.fused_flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), n_head, causal, chunk=32, exp2=exp2
+    )
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(o_pad)[:, :t, : n_head * hd], rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse_pad)[:, :t, :n_head], rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("t,causal", [(96, True), (70, True), (70, False)])
+def test_flash_plain_version_at_the_kernel_chunk_bf16(t, causal):
+    """bf16 operands at the tensor-core kernel's arithmetic (16-key chunks,
+    exp2): p rounds to bf16 against a running max rather than the row's, so
+    o agrees with the Pallas kernel to a bf16 ulp, lse to f32 rounding."""
+    b, n_head, hd = 2, 16, 16
+    q, k, v = _qkv(b, t, n_head, hd, 1, seed=t + 12)
+    qb, kb, vb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    o_pad, lse_pad, _ = jfa._fused_fwd_impl(qb, kb, vb, n_head, causal, 32, True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    arith = tfa.kernel_softmax(tq, tk, n_head)
+    assert arith == {"chunk": tfa.KERNEL_SOFTMAX_CHUNK, "exp2": True}
+    got_o, got_lse = tfa.fused_flash_attention_reference(tq, tk, tv, n_head, causal, **arith)
+    want_o = np.asarray(o_pad)[:, :t, : n_head * hd].astype(np.float32)
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=2**-8, atol=2**-8)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse_pad)[:, :t, :n_head], rtol=F32_TOL, atol=F32_TOL)
+
+
 def test_flash_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 16, 1, seed=1))
     before = tfa.FLASH_FWD.launches

@@ -67,15 +67,25 @@ def _qkv(b, t, n_head, hd, kvh, dtype, seed=0):
         (2, 600, 16, 32, 1, torch.bfloat16, True),
         (2, 300, 16, 64, 1, torch.bfloat16, False),
         (2, 96, 4, 16, 1, torch.bfloat16, True),
+        (16, 1025, 32, 16, 1, torch.bfloat16, True),  # the long-history shape: a block walks 17 tiles
+        (32, 450, 32, 16, 1, torch.bfloat16, True),
+        (2, 1025, 32, 16, 1, torch.bfloat16, True),   # ragged last tiles
+        (2, 1026, 32, 16, 1, torch.bfloat16, False),
+        (2, 1, 32, 16, 1, torch.bfloat16, True),      # one row
     ],
 )
 def test_flash_fwd_kernel_matches_plain_version(cuda, b, t, n_head, hd, kvh, dtype, causal):
+    """Against the plain version at the kernel's own softmax arithmetic
+    (``kernel_softmax``), taken over 4 batch rows at a time."""
     q, k, v = _qkv(b, t, n_head, hd, kvh, dtype)
     before = fa.FLASH_FWD.launches
     o, lse = fa.fused_flash_attention_fwd(q, k, v, n_head, causal)
     torch.cuda.synchronize()
     assert fa.FLASH_FWD.launches == before + 1
-    ro, rl = fa.fused_flash_attention_reference(q, k, v, n_head, causal)
+    arith = fa.kernel_softmax(q, k, n_head)
+    parts = [fa.fused_flash_attention_reference(q[i : i + 4], k[i : i + 4], v[i : i + 4], n_head, causal, **arith)
+             for i in range(0, b, 4)]
+    ro, rl = torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
     assert o.dtype == dtype and o.shape == q.shape and lse.shape == (b, t, n_head)
     assert (o.float() - ro.float()).abs().max().item() <= o_tolerance(dtype, ro)
     assert (lse - rl).abs().max().item() <= LSE_TOL
@@ -120,6 +130,11 @@ BWD_SHAPES = [
     (2, 96, 4, 8, 1, torch.float32, True),
     (2, 96, 2, 64, 2, torch.float32, True),
     (2, 96, 4, 16, 1, torch.bfloat16, True),     # MQA with 4 heads: FMA path
+    (16, 1025, 32, 16, 1, torch.bfloat16, True),  # the long-history shape: several items a dK/dV block
+    (32, 450, 32, 16, 1, torch.bfloat16, True),
+    (2, 1025, 32, 16, 1, torch.bfloat16, True),   # ragged last key block
+    (2, 1026, 32, 16, 1, torch.bfloat16, False),
+    (2, 1, 32, 16, 1, torch.bfloat16, True),      # one row
 ]
 
 
@@ -132,7 +147,11 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, b, t, n_head, hd, kvh, dty
     got = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, n_head, causal)
     torch.cuda.synchronize()
     assert fa.FLASH_BWD.launches == before + 1
-    want = fa.fused_flash_attention_bwd_reference(q, k, v, o, lse, do, n_head, causal)
+    exp2 = fa.kernel_softmax(q, k, n_head)["exp2"]
+    parts = [fa.fused_flash_attention_bwd_reference(q[i : i + 4], k[i : i + 4], v[i : i + 4], o[i : i + 4],
+                                                    lse[i : i + 4], do[i : i + 4], n_head, causal, exp2=exp2)
+             for i in range(0, b, 4)]
+    want = [torch.cat([x[j] for x in parts]) for j in range(3)]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
         assert bool(torch.isfinite(g.float()).all()), name
@@ -143,6 +162,21 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, b, t, n_head, hd, kvh, dty
 def test_flash_bwd_is_deterministic(cuda):
     q, k, v = _qkv(8, 257, 32, 16, 1, torch.bfloat16)
     o, lse = fa.fused_flash_attention_fwd(q, k, v, 32, True)
+    do = torch.randn_like(q)
+    a = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, 32, True)
+    b = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, 32, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_is_deterministic_at_the_long_history_shape(cuda):
+    """B=16, T=1025: a dK/dV block walks several (key block, batch row)
+    items and a forward block 17 K/V tiles; two runs give the same bits."""
+    q, k, v = _qkv(16, 1025, 32, 16, 1, torch.bfloat16, seed=4)
+    tiles, items = fa.block_walk(q, k, 32)
+    assert tiles == 17 and items > 1
+    o, lse = fa.fused_flash_attention_fwd(q, k, v, 32, True)
+    assert all(torch.equal(x, y) for x, y in zip((o, lse), fa.fused_flash_attention_fwd(q, k, v, 32, True)))
     do = torch.randn_like(q)
     a = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, 32, True)
     b = fa.fused_flash_attention_bwd(q, k, v, o, lse, do, 32, True)

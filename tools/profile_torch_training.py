@@ -1,7 +1,7 @@
 """Where the time of an LTHM training step goes on the card.
 
     python3 tools/profile_torch_training.py [--steps 3] [--out traces/training_trace.json]
-                                            [--eager-ce] [--production]
+                                            [--eager-ce] [--production | --long-history]
 
 Builds the LTHM-base model and training config that ``chip_smoke.py`` trains
 (``bench.py``'s: random weights from a seed, ``fused_ce`` on, frozen table)
@@ -9,7 +9,10 @@ on the GPU, takes two warm-up steps on one batch of 64 users, and traces
 ``--steps`` more with ``torch.profiler``; ``--eager-ce`` profiles the step
 with ``fused_ce`` off instead; ``--production`` profiles the production LTHM
 of ``configs/model/lthm.yaml`` at context 1024 (``chip_smoke.production_config``:
-16 layers with remat, the position-bias kernels) on 64 users of 1032 events.
+16 layers with remat, the position-bias kernels) on 64 users of 1032 events;
+``--long-history`` the long-history path of ``tools/bench_longseq.py``
+(``chip_smoke.longseq_config``: LTHM-base widths with remat and no position
+bias at context 1024, its eager CE) on 16 users of 1032 events.
 Prints the host time per step, the device's busy share of that window
 (kernel time over wall time; one stream, so kernels do not overlap), the
 device time of each phase of the step (the innermost ``lthm/...`` range of
@@ -40,7 +43,10 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=30)
     ap.add_argument("--out", default=os.path.join("traces", "training_trace.json"))
     ap.add_argument("--eager-ce", action="store_true", help="profile the step with fused_ce off")
-    ap.add_argument("--production", action="store_true", help="profile the production LTHM at context 1024")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--production", action="store_true", help="profile the production LTHM at context 1024")
+    which.add_argument("--long-history", action="store_true",
+                       help="profile tools/bench_longseq.py's path (context 1024, 16 users)")
     args = ap.parse_args()
 
     import torch
@@ -49,7 +55,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import BATCH, PROD_CONTEXT, bench_config, production_config, request_batch
+    from chip_smoke import (BATCH, LONG_BATCH, LONG_CONTEXT, PROD_CONTEXT, bench_config, longseq_config,
+                            production_config, request_batch)
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
@@ -58,10 +65,15 @@ def main() -> int:
     from recommendations_tpu_torch.train.step import train_step
     from recommendations_tpu_torch.train.train_state import TrainState
 
-    base = production_config() if args.production else bench_config()
-    cfg = LTHMModelConfig.from_dict(dict(base, fused_ce=not args.eager_ce))
+    if args.long_history:
+        label, users, cfg = "long-history LTHM at context 1024", LONG_BATCH, LTHMModelConfig.from_dict(longseq_config())
+        batch = request_batch(1000, users, LONG_CONTEXT + 8)
+    else:
+        base = production_config() if args.production else bench_config()
+        label = "production LTHM at context 1024" if args.production else "LTHM-base"
+        users, cfg = BATCH, LTHMModelConfig.from_dict(dict(base, fused_ce=not args.eager_ce))
+        batch = request_batch(1000, BATCH, PROD_CONTEXT + 8) if args.production else request_batch(1000)
     state = TrainState.create(LTHMModelWrapper(cfg, device="cuda", seed=0), seed=1)
-    batch = request_batch(1000, BATCH, PROD_CONTEXT + 8) if args.production else request_batch(1000)
     offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
     for _ in range(2):
         train_step(state, batch, offsets=offsets)
@@ -107,10 +119,9 @@ def main() -> int:
             by_phase[phase(e)][0] += e["dur"]
             by_phase[phase(e)][1] += 1
     n = args.steps
-    print(f"{'production LTHM at context 1024' if args.production else 'LTHM-base'}, "
-          f"fused_ce {'off' if args.eager_ce else 'on'}; the port's launches per step: "
+    print(f"{label}, fused_ce {'on' if cfg.fused_ce else 'off'}; the port's launches per step: "
           + ", ".join(f"{kern.name} {kern.launches // n}" for kern in kernels))
-    print(f"{n} training steps of 64 users: {wall_us / n / 1e3:.3f} ms per step (host clock), "
+    print(f"{n} training steps of {users} users: {wall_us / n / 1e3:.3f} ms per step (host clock), "
           f"device busy {busy_us / n / 1e3:.3f} ms per step = "
           f"{100 * busy_us / wall_us:.1f}% of the window, "
           f"{sum(c for _, c in by_name.values()) // n} device operations per step")
