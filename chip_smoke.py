@@ -45,7 +45,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      flash_fwd and 6 flash_bwd a step), with launch counts;
   5. timing with CUDA events: each kernel, its plain version, one PyTorch
      library call for the same function as a yardstick where there is one
-     (the SDPA backward as profiler device time, beside its event time),
+     (the SDPA backward as profiler device time, beside its event time), the
+     CE kernels at LTHM-base's chunk and at the production chunk (N = 32768),
      the eager CE on the CE kernels' problem, one attention layer on _sdpa
      with the bias against the fused bias path at T=513 and T=1025, the
      requests and the training steps of every path.
@@ -325,8 +326,9 @@ def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref
     against their plain versions (over ``ref_chunk`` batch rows at a time) on
     one input whose table entries are not bf16 values (so the kernels'
     rounding of the table shows), and run twice for the same bits; returns
-    {kernel: (max error, tolerance)}. Prints the batch rows a dK/dV block
-    walks: more than one where B exceeds what one wave of blocks holds."""
+    {kernel: (max error, tolerance)}. Prints the (key block, batch row) items
+    a block of the persistent dK/dV grid walks: more than one where the items
+    exceed what one wave of blocks holds."""
     q, k, v = randn_qkv(b, t, n_head, hd, kvh, dtype, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     table = torch.randn(2 * nk + 1, n_head, generator=g, device="cuda")
@@ -338,7 +340,7 @@ def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref
     torch.cuda.synchronize()
     same_bits = all(torch.equal(x, y) for x, y in zip((o, lse, *got), again))
     ro, rl, want = bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, ref_chunk)
-    per_block = fa.bias_dkv_batch_per_block(q, k, n_head, causal)
+    per_block = fa.bias_dkv_items_per_block(q, k, n_head)
     out = {"flash_bias_fwd": ((o.float() - ro.float()).abs().max().item(), o_tolerance(dtype, ro))}
     lerr = (lse - rl).abs().max().item()
     ok = bool(torch.isfinite(o.float()).all()) and out["flash_bias_fwd"][0] <= out["flash_bias_fwd"][1]
@@ -363,7 +365,7 @@ def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref
         for n, (e, tl) in zip(("dq", "dk", "dv"), errs))
     print(
         f"  flash_bias B={b} T={t} H={n_head} hd={hd} kv_heads={kvh} {str(dtype)[6:]} causal={causal} "
-        f"nk={nk} (dK/dV block walks {per_block} batch rows): o {out['flash_bias_fwd'][0]:.3e} (tol {out['flash_bias_fwd'][1]:.3e}), lse {lerr:.3e} "
+        f"nk={nk} (a dK/dV block walks up to {per_block} items{'' if per_block else ': FMA kernels'}): o {out['flash_bias_fwd'][0]:.3e} (tol {out['flash_bias_fwd'][1]:.3e}), lse {lerr:.3e} "
         f"(tol {LSE_TOL:.0e}); {grads}; "
         f"dtable {t_err:.3e} (tol {t_tol:.3e}); same bits twice {same_bits} -> {'ok' if ok else 'FAIL'}",
         flush=True,
@@ -499,6 +501,49 @@ def ce_bound(kernel, n, d):
         nbytes, flops, peak = rows + 3 * 4 * n + n * d * 2, 4 * n * n * d, BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ce(fc, n, s, d, beta, plain_iters=5):
+    """Each CE kernel alone at (N, D) with s tokens a user, its inputs ready,
+    its plain version and its bound; no single PyTorch call computes this
+    function. Returns {kernel: numbers}."""
+    q, c, v, lq, dce = ce_inputs(n, s, d, "roll", seed=12)
+    stream = torch.cuda.current_stream().cuda_stream
+    m = fc.logsumexp_shift(lq, INV_T, beta)
+    diag = fc.row_diag_reference(q, c, v, INV_T)
+    ce, rank, lse = (torch.empty_like(diag), torch.empty(n, dtype=torch.int32, device="cuda"),
+                     torch.empty_like(diag))
+    grad = torch.empty_like(q)
+    ptrs = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
+    launch = {
+        "ce_row_diag": lambda: fc.CE_ROW_DIAG.launch(
+            q.data_ptr(), c.data_ptr(), v.data_ptr(), diag.data_ptr(), n, d, INV_T, stream),
+        "ce_fwd": lambda: fc.CE_FWD.launch(
+            *ptrs, m.data_ptr(), diag.data_ptr(), ce.data_ptr(), lse.data_ptr(), rank.data_ptr(),
+            n, d, s, INV_T, beta, stream),
+        "ce_dq": lambda: fc.CE_DQ.launch(
+            *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n, d, s, INV_T, beta, stream),
+        "ce_dc": lambda: fc.CE_DC.launch(
+            *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n, d, s, INV_T, beta, stream),
+    }
+    plain = {
+        "ce_row_diag": lambda: fc.row_diag_reference(q, c, v, INV_T),
+        "ce_fwd": lambda: fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta),
+        "ce_dq": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "q"),
+        "ce_dc": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "c"),
+    }
+    launch["ce_row_diag"]()
+    launch["ce_fwd"]()
+    times = {}
+    for name in launch:
+        bound, by = ce_bound(name, n, d)
+        times[name] = {"ms": cuda_ms(launch[name], 50 if n <= 8192 else 10),
+                       "plain_ms": cuda_ms(plain[name], plain_iters, warmup=1),
+                       "bound_ms": bound, "bound_by": by}
+        torch.cuda.empty_cache()
+        print(f"[5] {name} at N={n} D={d} s={s} beta={beta}: kernel {times[name]['ms']:.4f} ms, plain "
+              f"{times[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); library none", flush=True)
+    return times
 
 
 def grads_of(wrapper, batch, aux, offsets):
@@ -822,6 +867,11 @@ def long_history(fa, kernels):
 
 
 PLAIN_BATCH = 16  # the plain bias versions store (B, H, T, T) f32 planes: timed at 16 users
+# flash_bias_dkv at B=64, T=1025 in its 32-key paired design (mqa_mma_dkv_kernel),
+# before the persistent 64-key kernel: this script's time for it, kept in
+# PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700 W); printed beside this
+# run's time
+PARENT_BIAS_DKV_MS = 4.8031
 
 
 def time_production(fa, serving, training):
@@ -846,7 +896,7 @@ def time_production(fa, serving, training):
     dcol = fa._rowsum_do_o(do, o, h).contiguous()
     o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    part = torch.zeros((fa._BIAS_DKV_SLICES.build()(b, t, h, 1, hd, 1, 1), n_table, h), device="cuda")
+    part = torch.zeros((fa._BIAS_DKV_SLICES.build()(b, t, h, 1, hd, 1), n_table, h), device="cuda")
     common = (b, t, h, 1, hd, n_table, nk, 1, 1, torch.cuda.current_stream().cuda_stream)
     ptr = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
     launch = {
@@ -859,8 +909,10 @@ def time_production(fa, serving, training):
     for name, fn in launch.items():
         bound, by, nbytes, flops = flash_bias_bound(name, b, t, h, hd, 1, dt, True, n_table)
         times[name] = {"ms": cuda_ms(fn, 10), "bound_ms": bound, "bound_by": by}
+        parent = (f"; the 32-key paired design before it took {PARENT_BIAS_DKV_MS} ms (PERF.md)"
+                  if name == "flash_bias_dkv" else "")
         print(f"[5] {name} at B={b} T={t} MQA {h}x{hd} bf16 causal nk={nk}: kernel {times[name]['ms']:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}: {nbytes} bytes, {flops} flop)", flush=True)
+              f"bound {bound:.4f} ms ({by}: {nbytes} bytes, {flops} flop){parent}", flush=True)
 
     # the plain versions at PLAIN_BATCH users (the backward's one function
     # computes dq, dk, dv and the table gradient)
@@ -1375,41 +1427,9 @@ def main() -> int:
     # no single PyTorch call computes this function. The eager CECore on the
     # same problem is the comparison users choose between.
     beta = cfg.log_q_config.beta
+    ce_times = time_ce(fc, n_ce, CONTEXT, d_ce, beta)
     q, c, v, lq, dce = ce_inputs(n_ce, CONTEXT, d_ce, "roll", seed=12)
-    stream = torch.cuda.current_stream().cuda_stream
-    m = fc.logsumexp_shift(lq, INV_T, beta)
-    diag = fc.row_diag_reference(q, c, v, INV_T)
-    ce, rank, lse = (torch.empty_like(diag), torch.empty(n_ce, dtype=torch.int32, device="cuda"),
-                     torch.empty_like(diag))
-    grad = torch.empty_like(q)
-    ptrs = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
-    ce_launch = {
-        "ce_row_diag": lambda: fc.CE_ROW_DIAG.launch(
-            q.data_ptr(), c.data_ptr(), v.data_ptr(), diag.data_ptr(), n_ce, d_ce, INV_T, stream),
-        "ce_fwd": lambda: fc.CE_FWD.launch(
-            *ptrs, m.data_ptr(), diag.data_ptr(), ce.data_ptr(), lse.data_ptr(), rank.data_ptr(),
-            n_ce, d_ce, CONTEXT, INV_T, beta, stream),
-        "ce_dq": lambda: fc.CE_DQ.launch(
-            *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n_ce, d_ce, CONTEXT, INV_T, beta, stream),
-        "ce_dc": lambda: fc.CE_DC.launch(
-            *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n_ce, d_ce, CONTEXT, INV_T, beta, stream),
-    }
-    ce_plain = {
-        "ce_row_diag": lambda: fc.row_diag_reference(q, c, v, INV_T),
-        "ce_fwd": lambda: fc.ce_fwd_reference(q, c, v, lq, diag, CONTEXT, INV_T, beta),
-        "ce_dq": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta, "q"),
-        "ce_dc": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta, "c"),
-    }
-    ce_launch["ce_row_diag"]()
-    ce_launch["ce_fwd"]()
-    ce_times = {}
-    for name in ce_launch:
-        bound, by = ce_bound(name, n_ce, d_ce)
-        ce_times[name] = {"ms": cuda_ms(ce_launch[name], 50), "plain_ms": cuda_ms(ce_plain[name], 5),
-                          "bound_ms": bound, "bound_by": by}
-        print(f"[5] {name} at N={n_ce} D={d_ce} s={CONTEXT} beta={beta}: kernel "
-              f"{ce_times[name]['ms']:.4f} ms, plain {ce_times[name]['plain_ms']:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}); library none", flush=True)
+    _, _, lse = fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta)
     fused_fwd_ms = cuda_ms(lambda: fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta), 30)
     fused_bwd_ms = cuda_ms(lambda: fc.ce_backward(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta), 30)
     qg, cg = q.detach().requires_grad_(), c.detach().requires_grad_()
@@ -1427,7 +1447,12 @@ def main() -> int:
     print(f"[5] the CE on one (N={n_ce}, D={d_ce}) chunk: fused forward {fused_fwd_ms:.4f} ms "
           f"(shift, ce_row_diag, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); eager "
           f"CECore forward {eager_fwd_ms:.4f} ms, backward {eager_bwd_ms:.4f} ms", flush=True)
-    del q, c, v, lq, dce, qg, cg, diag, ce, rank, lse, grad
+    del q, c, v, lq, dce, qg, cg, lse
+    torch.cuda.empty_cache()
+    # the production chunk (32 users of 1024 tokens): the CE kernels' shape
+    # on the production step
+    prod_beta = LTHMModelConfig.from_dict(production_config()).log_q_config.beta
+    ce_times_prod = time_ce(fc, 32 * PROD_CONTEXT, PROD_CONTEXT, d_ce, prod_beta, plain_iters=1)
 
     print(f"[5] user_encoder request ({BATCH} users): median {med:.3f} ms, "
           f"min {min(request_ms):.3f} ms, max {max(request_ms):.3f} ms; "
@@ -1487,6 +1512,8 @@ def main() -> int:
         "tolerance": ce_tols[name],
         **ce_times[name],
         "library_ms": None,
+        "n32768": {**ce_times_prod[name], "library_ms": None,
+                   "launches_per_step": prod_training["counts"][name] // PROD_STEPS},
     } for name, line in ce_replaces.items()]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",

@@ -11,6 +11,9 @@ runs the flash kernel with the bias applied inside
 are differentiable through their backward kernels (the bias path also with
 respect to the table); ``_sdpa`` differentiates through autograd. Ring
 attention is not ported yet and raises rather than fall back to ``_sdpa``.
+When ``use_flash`` was asked for but attention falls back to ``_sdpa``, the
+layer logs a warning naming the reason, once per (layer name, reasons), as
+the JAX package's ``_warn_fallback`` does.
 
 Dropout is not ported yet: a training forward with a nonzero rate raises,
 and a rate of 0.0 (the LTHM configs' value) trains.
@@ -18,6 +21,7 @@ and a rate of 0.0 (the LTHM configs' value) trains.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Optional
 
@@ -29,6 +33,16 @@ from torch import nn
 from recommendations_tpu_torch.ops import fused_attention as fa
 
 NEG_INF = -1e9  # additive-mask value
+
+logger = logging.getLogger(__name__)
+_warned: set = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    """A warning for a path that silently runs slower (once per key)."""
+    if key not in _warned:
+        _warned.add(key)
+        logger.warning(msg)
 
 
 class Dense(nn.Module):
@@ -100,7 +114,9 @@ def _sdpa(
         logits = pos_bias(logits)
     if mask is not None:
         logits = logits + mask
-    m = logits.amax(dim=-1, keepdim=True)
+    # the shift carries no gradient (JAX: stop_gradient); in bf16 a gradient
+    # through it would not cancel and would land on each row's argmax logit
+    m = logits.amax(dim=-1, keepdim=True).detach()
     unnorm = torch.exp(logits - m)
     denom = unnorm.sum(dim=-1, keepdim=True)
     out = unnorm.to(v.dtype).float() @ v.float()
@@ -120,8 +136,10 @@ class _AttentionBase(nn.Module):
         dtype: Optional[torch.dtype] = None,
         dropout: float = 0.0,
         attn_dropout: float = 0.0,
+        name: Optional[str] = None,
     ):
         super().__init__()
+        self.name = name  # as the JAX module's name, in the fallback warning
         if use_ring:
             raise NotImplementedError(
                 "ring attention (parallel/ring_attention): ROADMAP, port queue "
@@ -151,6 +169,27 @@ class _AttentionBase(nn.Module):
             return False
         return fa.fused_flash_bias_recommended(seq_len)
 
+    def _warn_fallback(self, mask, seq_len: int) -> None:
+        """Name the reason a requested flash path fell back to ``_sdpa``, with
+        the JAX package's reasons (there: a silent fall-through hid a 5x
+        production-step regression)."""
+        reasons = []
+        if mask is not None:
+            reasons.append("an explicit additive mask")
+        if self.pos_bias_window is not None and seq_len > self.pos_bias_window:
+            reasons.append(f"seq {seq_len} exceeds the pos-bias window {self.pos_bias_window}")
+        if self.pos_bias_window is not None and not fa.fused_flash_bias_recommended(seq_len):
+            reasons.append(
+                f"seq {seq_len} outside the fused pos-bias kernel's winning range (measured crossover ~768)"
+            )
+        if not fa.fused_flash_recommended(seq_len):
+            reasons.append(f"seq {seq_len} above the fused-kernel bound")
+        _warn_once(
+            f"flash:{self.name}:{','.join(reasons)}",
+            f"attention layer {self.name!r}: use_flash requested but falling back to XLA attention "
+            f"because of {'; '.join(reasons) or 'kernel limits'}",
+        )
+
     def _fused_flash_bias(self, q, k, v, causal: bool) -> torch.Tensor:
         """Folded-layout flash attention with the raw (2w+1, H) bias table
         applied inside the kernel, nk = w (the JAX layer's ``_fused_flash_bias``)."""
@@ -176,6 +215,8 @@ class _AttentionBase(nn.Module):
             )
         if self._flash_bias_eligible(mask, t):
             return self._fused_flash_bias(q, k, v, causal)
+        if self.use_flash:
+            self._warn_fallback(mask, t)
         qh = q.reshape(b, t, self.n_head, hd).transpose(1, 2).to(x.dtype)
         kh = k.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)
         vh = v.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)

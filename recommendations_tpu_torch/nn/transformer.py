@@ -96,7 +96,7 @@ class TransformerBlock(nn.Module):
         self.attn = cls(
             n_embd, n_head, generator, use_bias=use_bias,
             pos_bias_window=pos_bias_window, use_flash=use_flash, dtype=dtype,
-            dropout=dropout, attn_dropout=attn_dropout,
+            dropout=dropout, attn_dropout=attn_dropout, name="attn",
         )
         self.ln_2 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
         hidden = int(float(rotator) * n_embd)

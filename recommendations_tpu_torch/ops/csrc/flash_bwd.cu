@@ -58,10 +58,12 @@
 //   the special-function unit and mask only the diagonal and ragged tiles,
 //   and add each stage's (tile's) tensor-core sums into the f32 totals
 //   apart, so that rounding does not build up over long rows.
-// - mqa_mma_dkv_kernel / mqa_mma_dq_kernel (the position-bias case, entries
-//   flash_bias_dq and flash_bias_dkv): a warp owns 16 keys (dK/dV, 2 key
-//   tiles x 4 row parts, rows staged 8 at a time) or 16 heads of one row
-//   (dQ); key blocks i and n - 1 - i paired under the causal mask.
+// - the position-bias case (entries flash_bias_dkv and flash_bias_dq):
+//   dK/dV is mqa_tc_bias_dkv_kernel, the no-bias kernel's design with the
+//   bias (H = 16 or 32; other head counts take the FMA kernels; the bias run
+//   of each stage staged once, the table gradient carried along its
+//   diagonals in registers, see the kernel); dQ is mqa_mma_dq_kernel, where
+//   a warp owns 16 heads of one row.
 // - FMA (float32, MHA, other head counts and dims): one thread per (query
 //   row, head) for dQ and per (key, kv head) for dK/dV.
 
@@ -78,9 +80,6 @@ namespace {
 constexpr int SMEM_BUDGET = 48 * 1024;  // dynamic shared memory per block
 constexpr int THREADS = 256;            // target threads per FMA block
 constexpr int KV_TILE = 512;            // largest K/V staging tile of the dQ kernel
-constexpr int DKV_KEY_TILES = 2;        // 16-key tiles per dK/dV block
-constexpr int DKV_ROW_SPLIT = 4;        // warps that split a key tile's query rows
-constexpr int DKV_MAX_ROWS = 16;        // query rows staged at a time
 
 typedef __nv_bfloat16 bf16;
 
@@ -491,327 +490,6 @@ __global__ void mqa_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __rest
   }
 }
 
-// Shared memory of the dK/dV kernel, in bytes: the staged rows (q, round(q *
-// scale) but with the bias, dO, lse, D), at least the final reduction's
-// buffer; with the bias also the bias of a stage and the per-warp table
-// gradient sums.
-struct DkvSmem {
-  size_t stage, bias, dbw, total;
-};
-__host__ __device__ __forceinline__ int dkv_bias_stride(int n_head) { return n_head + 2; }
-__host__ __device__ __forceinline__ int dkv_dbw_stride(int n_head) { return n_head + 4; }
-__host__ __device__ __forceinline__ DkvSmem dkv_smem(int rows, int n_head, int hd, bool bias) {
-  DkvSmem m;
-  const size_t row_bytes = (size_t)(bias ? 2 : 3) * n_head * hd * sizeof(bf16) + (size_t)2 * n_head * 4;
-  const size_t red_bytes = (size_t)2 * DKV_KEY_TILES * 16 * hd * sizeof(float);
-  m.stage = rows * row_bytes > red_bytes ? rows * row_bytes : red_bytes;
-  m.bias = bias ? (size_t)(rows + 16 * DKV_KEY_TILES - 1) * dkv_bias_stride(n_head) * sizeof(bf16) : 0;
-  m.dbw = bias ? (size_t)DKV_KEY_TILES * DKV_ROW_SPLIT * (rows + 15) * dkv_dbw_stride(n_head) * 4 : 0;
-  m.total = m.stage + m.bias + m.dbw;
-  return m;
-}
-
-// dK/dV: a warp owns 16 keys and a quarter of the block's query rows; the block
-// stages its rows' q (qs), dO, lse and D in shared memory.
-//
-// With the bias (BIAS), the logits take the grid kernel's arithmetic and the
-// block also sums the table gradient: ds (unrounded, f32) of the pair (row i,
-// key j, head h) belongs to table row i - j + nk. A block walks
-// batch_per_block batch rows, and for each the rows of its keys in stages of
-// R; per stage each warp adds its ds into its own buffer by diagonal (a
-// warp's lanes hold distinct (diagonal, head) pairs for a row, and a
-// __syncwarp orders its rows), then the block adds the warps' buffers in a
-// fixed order into its own (n_table, H) slice of dtable_part. No two blocks
-// write one slice and nothing is added atomically, so two runs give the same
-// bits; the caller sums the slices. Under the causal mask a block also takes
-// two key blocks, i and n - 1 - i (paired), so that every block walks about
-// the same number of rows: unpaired, the first key block walks all T rows
-// and the last one 32.
-template <int HD, bool BIAS>
-__global__ void mqa_mma_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                   const float* __restrict__ lse, const float* __restrict__ dcol,
-                                   bf16* __restrict__ dk, bf16* __restrict__ dv, int batch,
-                                   int batch_per_block, int paired, int seq_len, int n_head,
-                                   int rows_per_stage, int causal, float scale,
-                                   const float* __restrict__ table, int n_table, int nk,
-                                   float* __restrict__ dtable_part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int KEYS = 16 * DKV_KEY_TILES;  // keys of a block
-  const int width = n_head * HD;
-  const int R = rows_per_stage;
-  const DkvSmem lay = dkv_smem(R, n_head, HD, BIAS);
-  bf16* q_s = reinterpret_cast<bf16*>(smem);                       // [R][width] q
-  bf16* qs_s = BIAS ? q_s : q_s + (size_t)R * width;               // [R][width] round(q*scale)
-  bf16* do_s = qs_s + (size_t)R * width;                           // [R][width] dO
-  float* lse_s = reinterpret_cast<float*>(do_s + (size_t)R * width);  // [R][H]
-  float* d_s = lse_s + (size_t)R * n_head;                            // [R][H]
-  const int bstride = dkv_bias_stride(n_head), wstride = dkv_dbw_stride(n_head);
-  bf16* bias_s = reinterpret_cast<bf16*>(smem + lay.stage);            // [R + KEYS - 1][bstride]
-  float* dbw_all = reinterpret_cast<float*>(smem + lay.stage + lay.bias);  // [warps][R + 15][wstride]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int tile = warp % DKV_KEY_TILES, part = warp / DKV_KEY_TILES;
-  const int n_kb = (seq_len + KEYS - 1) / KEYS;  // key blocks
-  const int dbw_size = (R + 15) * wstride;
-  float* dbw = dbw_all + (size_t)warp * dbw_size;
-  float* part_out = nullptr;
-  if constexpr (BIAS) {
-    part_out = dtable_part + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * n_table * n_head;
-    for (int i = threadIdx.x; i < DKV_KEY_TILES * DKV_ROW_SPLIT * dbw_size; i += blockDim.x)
-      dbw_all[i] = 0.f;
-  }
-  const int b_lo = blockIdx.y * batch_per_block, b_hi = min(batch, b_lo + batch_per_block);
-  const int kb_second = paired ? n_kb - 1 - (int)blockIdx.x : (int)blockIdx.x;
-
-  for (int kbi = blockIdx.x;; kbi = kb_second) {
-    const int k0 = kbi * KEYS;      // the key block's first key
-    const int kw0 = k0 + 16 * tile;  // warp's first key
-    for (int b = b_lo; b < b_hi; ++b) {
-      // A operands: keys kw0+g and kw0+g+8 of K and V, held for the whole walk
-      uint32_t ka[HD / 16][4], va[HD / 16][4];
-      const size_t kv_base = ((size_t)b * seq_len + kw0) * HD;
-      load_a<HD>(ka, k + kv_base, HD, seq_len - kw0, g, c, 1.f);
-      load_a<HD>(va, v + kv_base, HD, seq_len - kw0, g, c, 1.f);
-
-      float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-      const size_t qbase = (size_t)b * seq_len * width;
-      const size_t rbase = (size_t)b * seq_len * n_head;
-      for (int r0 = causal ? k0 : 0; r0 < seq_len; r0 += R) {
-        const int nr = min(R, seq_len - r0);
-        __syncthreads();
-        const __nv_bfloat162* qsrc = reinterpret_cast<const __nv_bfloat162*>(q + qbase + (size_t)r0 * width);
-        const __nv_bfloat162* dsrc = reinterpret_cast<const __nv_bfloat162*>(dout + qbase + (size_t)r0 * width);
-        for (int i = threadIdx.x; i < nr * width / 2; i += blockDim.x) {
-          const __nv_bfloat162 qp = qsrc[i];
-          reinterpret_cast<__nv_bfloat162*>(q_s)[i] = qp;
-          if constexpr (!BIAS)
-            reinterpret_cast<uint32_t*>(qs_s)[i] =
-                pack_bf16(__bfloat162float(qp.x) * scale, __bfloat162float(qp.y) * scale);
-          reinterpret_cast<__nv_bfloat162*>(do_s)[i] = dsrc[i];
-        }
-        for (int i = threadIdx.x; i < nr * n_head; i += blockDim.x) {
-          lse_s[i] = lse[rbase + (size_t)r0 * n_head + i];
-          d_s[i] = dcol[rbase + (size_t)r0 * n_head + i];
-        }
-        // the bias of this stage: (row i, key j) at u = (i - r0) - (j - k0) + KEYS - 1,
-        // table row l = nk + r0 - k0 - (KEYS - 1) + u
-        const int l0 = nk + r0 - k0 - (KEYS - 1);
-        if constexpr (BIAS) {
-          for (int i = threadIdx.x; i < (nr + KEYS - 1) * n_head; i += blockDim.x) {
-            const int u = i / n_head, h = i - u * n_head, l = l0 + u;
-            const float x = (l >= 0 && l < n_table) ? table[(size_t)l * n_head + h] : 0.f;
-            bias_s[u * bstride + h] = __float2bfloat16_rn(x);
-          }
-        }
-        __syncthreads();
-
-        for (int i = r0 + part; i < r0 + nr; i += DKV_ROW_SPLIT) {
-          if (causal && i < kw0) continue;  // warp-uniform: every key of the warp is after row i
-          const int r = i - r0;
-          const bf16* qrow = qs_s + (size_t)r * width;
-          const bf16* qraw = q_s + (size_t)r * width;
-          const bf16* drow = do_s + (size_t)r * width;
-          const float* lrow = lse_s + (size_t)r * n_head;
-          const float* dd = d_s + (size_t)r * n_head;
-          for (int h0 = 0; h0 < n_head; h0 += 16) {
-            // S^T and dP^T: 16 keys x 8 heads, two tiles for the 16 heads
-            float st[2][4], dpt[2][4];
-#pragma unroll
-            for (int t = 0; t < 2; ++t) {
-              st[t][0] = st[t][1] = st[t][2] = st[t][3] = 0.f;
-              dpt[t][0] = dpt[t][1] = dpt[t][2] = dpt[t][3] = 0.f;
-              const bf16* qh = qrow + (size_t)(h0 + 8 * t + g) * HD + 2 * c;
-              const bf16* dh = drow + (size_t)(h0 + 8 * t + g) * HD + 2 * c;
-#pragma unroll
-              for (int kk = 0; kk < HD / 16; ++kk) {
-                mma_16816(st[t], ka[kk], ld32(qh + kk * 16), ld32(qh + kk * 16 + 8));
-                mma_16816(dpt[t], va[kk], ld32(dh + kk * 16), ld32(dh + kk * 16 + 8));
-              }
-            }
-            float p[2][4], ds[2][4];
-#pragma unroll
-            for (int t = 0; t < 2; ++t) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int kl = g + (e >> 1) * 8;  // key kw0 + kl
-                const int key = kw0 + kl;
-                const int hh = h0 + 8 * t + 2 * c + (e & 1);
-                const bool live = key < seq_len && (!causal || key <= i);
-                float sv = st[t][e];
-                if constexpr (BIAS)
-                  sv = sv * scale + __bfloat162float(bias_s[(r - 16 * tile - kl + KEYS - 1) * bstride + hh]);
-                const float pv = live ? expf(sv - lrow[hh]) : 0.f;
-                p[t][e] = pv;
-                ds[t][e] = pv * (dpt[t][e] - dd[hh]);
-                if constexpr (BIAS) dbw[(r - kl + 15) * wstride + hh] += ds[t][e];
-              }
-            }
-            // P^T and dS^T (16 keys x 16 heads) rounded to bf16 are A fragments
-            const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                                    pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-            const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                                     pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-            // B operands: dO and q of the 16 heads (k = head, n = dim)
-            const bf16* dcolp = drow + (size_t)(h0 + 2 * c) * HD + g;
-            const bf16* qcolp = qraw + (size_t)(h0 + 2 * c) * HD + g;
-#pragma unroll
-            for (int nt = 0; nt < HD / 8; ++nt) {
-              const bf16* dp_ = dcolp + nt * 8;
-              const bf16* qp_ = qcolp + nt * 8;
-              mma_16816(dva[nt], pa, pack_raw(dp_[0], dp_[HD]), pack_raw(dp_[8 * HD], dp_[9 * HD]));
-              mma_16816(dka[nt], dsa, pack_raw(qp_[0], qp_[HD]), pack_raw(qp_[8 * HD], qp_[9 * HD]));
-            }
-          }
-          if constexpr (BIAS) __syncwarp();  // the next row's lanes may add where this row's did
-        }
-
-        if constexpr (BIAS) {
-          // the warps' sums of this stage, in a fixed order, into the block's slice
-          __syncthreads();
-          for (int i = threadIdx.x; i < (nr + KEYS - 1) * n_head; i += blockDim.x) {
-            const int u = i / n_head, h = i - u * n_head;
-            float sum = 0.f;
-            for (int w = 0; w < DKV_KEY_TILES * DKV_ROW_SPLIT; ++w) {
-              const int sw = u + 16 * (w % DKV_KEY_TILES) - (KEYS - 16);  // the warp's own index
-              if (sw < 0 || sw >= R + 15) continue;
-              float* cell = dbw_all + (size_t)w * dbw_size + sw * wstride + h;
-              sum += *cell;
-              *cell = 0.f;
-            }
-            const int l = l0 + u;
-            if (l >= 0 && l < n_table) part_out[(size_t)l * n_head + h] += sum;
-          }
-        }
-      }
-
-      // the row parts of each key tile add up in a fixed order: part 0 takes the
-      // others' sums one at a time through shared memory
-      float* red = reinterpret_cast<float*>(smem);  // [2][DKV_KEY_TILES][16][HD]
-      float* red_k = red + (size_t)tile * 16 * HD;
-      float* red_v = red + (size_t)(DKV_KEY_TILES + tile) * 16 * HD;
-      for (int src = 1; src < DKV_ROW_SPLIT; ++src) {
-        __syncthreads();
-        if (part == src) {
-#pragma unroll
-          for (int nt = 0; nt < HD / 8; ++nt) {
-            const int d = nt * 8 + 2 * c;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int at = (g + (e >> 1) * 8) * HD + d + (e & 1);
-              red_k[at] = dka[nt][e];
-              red_v[at] = dva[nt][e];
-            }
-          }
-        }
-        __syncthreads();
-        if (part == 0) {
-#pragma unroll
-          for (int nt = 0; nt < HD / 8; ++nt) {
-            const int d = nt * 8 + 2 * c;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int at = (g + (e >> 1) * 8) * HD + d + (e & 1);
-              dka[nt][e] += red_k[at];
-              dva[nt][e] += red_v[at];
-            }
-          }
-        }
-      }
-      if (part == 0) {
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
-          const int d = nt * 8 + 2 * c;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int key = kw0 + g + half * 8;
-            if (key >= seq_len) continue;
-            const size_t at = ((size_t)b * seq_len + key) * HD + d;
-            *reinterpret_cast<uint32_t*>(dk + at) =
-                pack_bf16(dka[nt][2 * half] * scale, dka[nt][2 * half + 1] * scale);
-            *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[nt][2 * half], dva[nt][2 * half + 1]);
-          }
-        }
-      }
-    }
-    if (kbi == kb_second) break;
-  }
-}
-
-// rows staged at a time by the dK/dV kernel, or 0 when fewer than its row
-// split fit the budget
-__host__ int dkv_rows_per_stage(int n_head, int head_dim, bool bias) {
-  for (int rows = DKV_MAX_ROWS; rows >= DKV_ROW_SPLIT; --rows)
-    if (dkv_smem(rows, n_head, head_dim, bias).total <= (size_t)SMEM_BUDGET) return rows;
-  return 0;
-}
-
-// the tensor-core kernels take bf16, MQA, 16-head groups and hd in {16, 32, 64}
-bool mma_ok(int kvh, int n_head, int head_dim, int is_bf16, bool bias) {
-  return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512 &&
-         (head_dim == 16 || head_dim == 32 || head_dim == 64) &&
-         dkv_rows_per_stage(n_head, head_dim, bias) >= DKV_ROW_SPLIT;
-}
-
-// The bias dK/dV grid: x over key blocks (pairs of them under the causal
-// mask), y over groups of batch rows, the group as small as lets every block
-// be resident at once (the occupancy the card reports), so that the blocks,
-// of about equal work, fill one wave. The table-gradient slices are x * y.
-struct DkvGrid {
-  int x, y, batch_per_block, paired;
-};
-
-DkvGrid dkv_grid(int batch, int seq_len, int causal, int resident_blocks) {
-  const int n_kb = (seq_len + 16 * DKV_KEY_TILES - 1) / (16 * DKV_KEY_TILES);
-  DkvGrid g{causal ? (n_kb + 1) / 2 : n_kb, 0, 1, causal ? 1 : 0};
-  const int slots = resident_blocks > 0 ? resident_blocks : 1;
-  g.batch_per_block = (g.x * batch + slots - 1) / slots;
-  if (g.batch_per_block < 1) g.batch_per_block = 1;
-  g.y = (batch + g.batch_per_block - 1) / g.batch_per_block;
-  return g;
-}
-
-constexpr int DKV_THREADS = 32 * DKV_KEY_TILES * DKV_ROW_SPLIT;
-
-// blocks of the dK/dV kernel the card holds at once (SMs x blocks per SM)
-template <int HD, bool BIAS>
-int dkv_resident_blocks(int n_head) {
-  const size_t smem = dkv_smem(dkv_rows_per_stage(n_head, HD, BIAS), n_head, HD, BIAS).total;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mqa_mma_dkv_kernel<HD, BIAS>, DKV_THREADS, smem);
-  return sms * per_sm;
-}
-
-template <int HD, bool BIAS>
-DkvGrid dkv_grid_of(int batch, int seq_len, int n_head, int causal) {
-  return dkv_grid(batch, seq_len, causal, dkv_resident_blocks<HD, BIAS>(n_head));
-}
-
-template <int HD, bool BIAS>
-int launch_mma_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                   const void* dcol, void* dk, void* dv, void* dtable_part, int batch,
-                   int seq_len, int n_head, int causal, Bias bias, cudaStream_t stream) {
-  const float scale = (float)(1.0 / sqrt((double)HD));
-  const int rows = dkv_rows_per_stage(n_head, HD, BIAS);
-  const size_t smem = dkv_smem(rows, n_head, HD, BIAS).total;
-  const DkvGrid g = dkv_grid_of<HD, BIAS>(batch, seq_len, n_head, causal);
-  mqa_mma_dkv_kernel<HD, BIAS><<<dim3(g.x, g.y), DKV_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dcol), static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch,
-      g.batch_per_block, g.paired, seq_len, n_head, rows, causal, scale, bias.table, bias.n_table,
-      bias.nk, static_cast<float*>(dtable_part));
-  return (int)cudaGetLastError();
-}
-
 template <int HD, bool BIAS>
 int launch_mma_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                   const void* dcol, void* dq, int batch, int seq_len, int n_head, int causal,
@@ -847,6 +525,7 @@ constexpr int TDKV_KEY_TILES = 4;         // 16-key tiles per dK/dV block
 constexpr int TDKV_ROW_SPLIT = 4;         // warps that split a key tile's query rows
 constexpr int TDKV_MAX_ROWS = 32;         // query rows per stage (two stages in flight)
 constexpr int TDKV_SMEM = 200 * 1024;     // budget: one dK/dV block per SM
+constexpr int TDKV_BIAS_SMEM = 227 * 1024;  // with the bias: the block's table-gradient exits too
 constexpr int TDKV_THREADS = 32 * TDKV_KEY_TILES * TDKV_ROW_SPLIT;
 
 // A dQ warp owns 32 / HD query rows (at least one) of one 16-head group.
@@ -1007,18 +686,40 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
 }
 
 // Shared memory of a dK/dV stage of `rows` query rows: q and dO (swizzled),
-// lse and D; and of the whole block: two stages and the final reduction's buffer.
+// lse and D.
 __host__ __device__ __forceinline__ size_t tdkv_stage_bytes(int rows, int n_head, int hd) {
   return (size_t)rows * n_head * (2 * hd * sizeof(bf16) + 2 * sizeof(float));
 }
-__host__ __device__ __forceinline__ size_t tdkv_smem(int rows, int n_head, int hd) {
-  return 2 * tdkv_stage_bytes(rows, n_head, hd) + (size_t)2 * TDKV_KEY_TILES * 16 * hd * sizeof(float);
+// With the position bias: 32-bit words a staged bias row (u) takes, bf16
+// pairs of heads padded so that the 8 rows one fragment reads lie in 8 bank
+// groups; and the bytes of one stage's bias run (rows + 63 diagonals).
+__host__ __device__ __forceinline__ int tdkv_bias_words(int n_head) { return n_head / 2 + 4; }
+__host__ __device__ __forceinline__ size_t tdkv_bias_bytes(int rows, int n_head) {
+  return (size_t)(rows + 16 * TDKV_KEY_TILES - 1) * tdkv_bias_words(n_head) * 4;
+}
+// With the bias, the diagonals a stage's exits reach: R + 51 (see the kernel).
+__host__ __device__ __forceinline__ int tdkv_diagonals(int rows) { return rows + 3 * 16 + TDKV_ROW_SPLIT - 1; }
+// The whole block: two stages, with the bias two bias runs, then the final
+// reduction's buffer, which with the bias shares its room with the warps'
+// per-stage table-gradient exits (R rows x H f32 a warp); with the bias also
+// the window of the diagonals in progress and two stages' prefetched slice
+// rows (R x H f32 each).
+__host__ __device__ __forceinline__ size_t tdkv_smem(int rows, int n_head, int hd, bool bias) {
+  const size_t red = (size_t)2 * TDKV_KEY_TILES * 16 * hd * sizeof(float);
+  const size_t ex = bias ? (size_t)TDKV_KEY_TILES * TDKV_ROW_SPLIT * rows * n_head * sizeof(float) : 0;
+  const size_t window = bias ? (size_t)(tdkv_diagonals(rows) + 2 * rows) * n_head * sizeof(float) : 0;
+  return 2 * tdkv_stage_bytes(rows, n_head, hd) + (bias ? 2 * tdkv_bias_bytes(rows, n_head) : 0) +
+         (ex > red ? ex : red) + window;
 }
 
-// rows per stage of the dK/dV kernel, or 0 when fewer than its row split fit
-int tdkv_rows(int n_head, int head_dim) {
-  for (int rows = TDKV_MAX_ROWS; rows >= TDKV_ROW_SPLIT; --rows)
-    if (tdkv_smem(rows, n_head, head_dim) <= (size_t)TDKV_SMEM) return rows;
+// rows per stage of the dK/dV kernel, or 0 when fewer than its row split fit;
+// with the bias a multiple of the row split (each warp's rows then step by
+// the split from one stage to the next) in the larger budget
+int tdkv_rows(int n_head, int head_dim, bool bias) {
+  for (int rows = TDKV_MAX_ROWS; rows >= TDKV_ROW_SPLIT; --rows) {
+    if (bias && rows % TDKV_ROW_SPLIT) continue;
+    if (tdkv_smem(rows, n_head, head_dim, bias) <= (size_t)(bias ? TDKV_BIAS_SMEM : TDKV_SMEM)) return rows;
+  }
   return 0;
 }
 
@@ -1051,14 +752,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 // ones. Each block then holds a heavy and a light item in turn, so that the
 // blocks' rows add up to about the same. Each item's dK and dV are written by
 // its one block, in a fixed order of sums.
-template <int HD, bool BIAS>
+template <int HD>
 __global__ void __launch_bounds__(TDKV_THREADS, 1)
     mqa_tc_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ dcol,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int batch, int seq_len,
                       int n_head, int rows_per_stage, int causal, float scale) {
-  static_assert(!BIAS, "the position bias takes mqa_mma_dkv_kernel");
   constexpr int KEYS = 16 * TDKV_KEY_TILES;  // keys of a key block
   const int width = n_head * HD;
   const int R = rows_per_stage;
@@ -1252,12 +952,402 @@ __global__ void __launch_bounds__(TDKV_THREADS, 1)
   }
 }
 
+// dK/dV with the position bias (NG groups of 16 heads, H = 16 NG; entry
+// flash_bias_dkv): the block, grid, staging and sums of the kernel above, and
+// the logits of the grid kernel's arithmetic: q unrounded, s = (q.k) * scale
+// + bf16(table[i - j + nk, h]); the bias run of a stage's R + 63 diagonals is
+// staged once, as bf16 pairs of heads, beside the stage. The block also sums
+// the table gradient, the unrounded ds of each (row i, key j, head h) into
+// table row i - j + nk, without atomics and without a shared
+// read-modify-write per element: a warp carries the sums of the diagonals
+// that cross its 16 keys in registers (the ds fragment's own layout) and,
+// after each of its rows, hands them on by one shuffle to the lanes of the
+// keys 4 further on (its next row is 4 rows on, so a diagonal moves 4 keys).
+// The sums of the 4 diagonals that leave its last keys are stored once to
+// the warp's exit buffer; at the end of a stage the block adds the 16 warps'
+// exits, in a fixed order, into its own (n_table, H) slice of dtable_part (a
+// read-modify-write of one cell by one thread). One drain stage without rows
+// after an item's last stage empties the registers. So two runs give the
+// same bits; the caller sums the slices, one per block of the grid. The
+// window of the table rows in progress (R + 51 of them) stays in shared
+// memory across stages; a row leaves it once, when complete, added to the
+// slice's old value, prefetched a stage ahead. Bound at the production shape
+// (B=64, T=1025, MQA 32x16): its four products over the live pairs take
+// 0.14 ms at the tensor-core peak (operations), its 1.08e9 exponentials 0.26
+// ms at 16 a clock per SM; the instruction stream around each exponential
+// (and the table gradient's shuffles and exits) binds it. The no-bias kernel
+// stays a kernel of its own: built from one template, it lost 3% at the same
+// arithmetic.
+template <int HD, int NG>
+__global__ void __launch_bounds__(TDKV_THREADS, 1)
+    mqa_tc_bias_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ dcol,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int batch, int seq_len,
+                           int n_head, int rows_per_stage, int causal, float scale,
+                           const float* __restrict__ table, int n_table, int nk,
+                           float* __restrict__ dtable_part) {
+  // the table gradient (tools/probe_flash.py times a build with it cut out)
+  constexpr bool DTABLE = true;
+  constexpr int KEYS = 16 * TDKV_KEY_TILES;  // keys of a key block
+  constexpr int H = 16 * NG;
+  const int width = n_head * HD;
+  const int R = rows_per_stage;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t sb = tdkv_stage_bytes(R, n_head, HD);
+  const size_t bb = tdkv_bias_bytes(R, n_head);
+  auto q_of = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * sb); };  // [R][width]
+  auto do_of = [&](int buf) { return q_of(buf) + (size_t)R * width; };              // [R][width]
+  auto lse_of = [&](int buf) { return reinterpret_cast<float*>(do_of(buf) + (size_t)R * width); };  // [R][H]
+  auto d_of = [&](int buf) { return lse_of(buf) + (size_t)R * n_head; };                            // [R][H]
+  // [R + KEYS - 1][bias words]: bf16 pairs of heads of diagonal u = (i - r0) - (j - k0) + KEYS - 1
+  auto bias_of = [&](int buf) { return reinterpret_cast<uint32_t*>(smem + 2 * sb + buf * bb); };
+  float* red = reinterpret_cast<float*>(smem + 2 * sb + 2 * bb);  // [2][KEY_TILES][16][HD]
+  float* ex_all = red;                                             // [warps][R][H]
+  const int n_diag = tdkv_diagonals(R);
+  // the window [n_diag][H] of the table rows in progress (row l at l %
+  // n_diag), then two stages' prefetched slice rows [2][R][H]
+  float* win = ex_all + (size_t)TDKV_KEY_TILES * TDKV_ROW_SPLIT * R * n_head;
+  float* pf = win + (size_t)n_diag * n_head;
+  const int bw = tdkv_bias_words(n_head);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int tile = warp % TDKV_KEY_TILES, part = warp / TDKV_KEY_TILES;
+  const int n_items = (seq_len + KEYS - 1) / KEYS * batch;
+  float* ex = ex_all + (size_t)warp * R * n_head;
+  float* slice = dtable_part + (size_t)blockIdx.x * n_table * n_head;
+  for (int i = threadIdx.x; i < n_diag * n_head; i += blockDim.x) win[i] = 0.f;
+  // (the first stage's __syncthreads orders these before any use)
+
+  for (int round = 0;; ++round) {
+    const int item = round * gridDim.x + ((round & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+    if (item >= n_items) break;
+    const int kbi = item / batch, b = item % batch;
+    const int k0 = kbi * KEYS;       // the key block's first key
+    const int kw0 = k0 + 16 * tile;  // the warp's first key
+    {
+      const size_t qbase = (size_t)b * seq_len * width;
+      const size_t rbase = (size_t)b * seq_len * n_head;
+      const int r_begin = causal ? k0 : 0;
+      const int n_stages = (seq_len - r_begin + R - 1) / R;
+      auto stage = [&](int st) {
+        const int r0 = r_begin + st * R, nr = min(R, seq_len - r0), buf = st & 1;
+        bf16* qd = q_of(buf);
+        bf16* dd = do_of(buf);
+        const bf16* qsrc = q + qbase + (size_t)r0 * width;
+        const bf16* dsrc = dout + qbase + (size_t)r0 * width;
+        const int words = width / 8;  // 16-byte words a row
+        for (int i = threadIdx.x; i < nr * words; i += blockDim.x) {
+          const int r = i / words, w = i - r * words, h = w / (HD / 8);
+          const int at = r * width + swz<HD>(h, w - h * (HD / 8));
+          cp_async16(qd + at, qsrc + (size_t)i * 8, true);
+          cp_async16(dd + at, dsrc + (size_t)i * 8, true);
+        }
+        float* ld = lse_of(buf);
+        float* dl = d_of(buf);
+        for (int i = threadIdx.x; i < nr * n_head; i += blockDim.x) {
+          cp_async4(ld + i, lse + rbase + (size_t)r0 * n_head + i);
+          cp_async4(dl + i, dcol + rbase + (size_t)r0 * n_head + i);
+        }
+        cp_async_commit();
+      };
+      // the bias run of stage st (table rows l0 .. l0 + R + KEYS - 2, rounded
+      // to bf16; rows outside the table, masked pairs only, read 0), loaded
+      // into registers before a stage's work and stored after it, so that the
+      // loads' latency hides behind the products
+      constexpr int NB = (TDKV_MAX_ROWS + KEYS - 1) * 8 * NG / TDKV_THREADS + 1;
+      float2 bias_next[NB];
+      auto bias_load = [&](int st) {
+        const int l0 = nk + r_begin + st * R - k0 - (KEYS - 1), pairs = n_head / 2;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int i = threadIdx.x + j * TDKV_THREADS, u = i / pairs, l = l0 + u;
+          bias_next[j] = make_float2(0.f, 0.f);
+          if (u < R + KEYS - 1 && l >= 0 && l < n_table)
+            bias_next[j] = *reinterpret_cast<const float2*>(table + (size_t)l * n_head + 2 * (i - u * pairs));
+        }
+      };
+      auto bias_store = [&](int st) {
+        uint32_t* bs = bias_of(st & 1);
+        const int pairs = n_head / 2;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int i = threadIdx.x + j * TDKV_THREADS, u = i / pairs;
+          if (u < R + KEYS - 1) bs[u * bw + i - u * pairs] = pack_bf16(bias_next[j].x, bias_next[j].y);
+        }
+      };
+      // the slice rows that stage st completes (table rows nk + r0 - k0 - 63 +
+      // u, u < R), prefetched a stage ahead into buffer st & 1: no stage before
+      // st of this item writes them
+      auto pf_load = [&](int st) {
+        const int l0 = nk + r_begin + st * R - k0 - (KEYS - 1);
+        float* dst = pf + (size_t)(st & 1) * R * n_head;
+        for (int i = 4 * threadIdx.x; i < R * n_head; i += 4 * blockDim.x) {  // 16 bytes a copy
+          const int l = l0 + i / n_head;
+          const bool in = l >= 0 && l < n_table;
+          cp_async16(dst + i, slice + (in ? (size_t)l * n_head + i % n_head : 0), in);
+        }
+      };
+      stage(0);
+      bias_load(0);
+      bias_store(0);
+      pf_load(0);
+      cp_async_commit();
+
+      // A operands: keys kw0+g and kw0+g+8 of K and V, held for the whole walk
+      uint32_t ka[HD / 16][4], va[HD / 16][4];
+      const size_t kv_base = ((size_t)b * seq_len + kw0) * HD;
+      load_a<HD>(ka, k + kv_base, HD, seq_len - kw0, g, c, 1.f);
+      load_a<HD>(va, v + kv_base, HD, seq_len - kw0, g, c, 1.f);
+      float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+      // the sums of the diagonals crossing this lane's keys and heads, in the
+      // ds fragment's layout (key kw0 + g + 8 (e >> 1), head 16 hg + 8 t + 2 c + (e & 1))
+      float dg[NG][2][4];
+#pragma unroll
+      for (int hg = 0; hg < NG; ++hg)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) dg[hg][t][0] = dg[hg][t][1] = dg[hg][t][2] = dg[hg][t][3] = 0.f;
+
+      // the item's stages, and one drain stage without rows
+      for (int st = 0; st < n_stages + 1; ++st) {
+        const bool real = st < n_stages;
+        // this stage's sums, added to the item's in f32 after it: a sum of a few
+        // tensor-core accumulations at a time, so rounding does not build up
+        float sdk[HD / 8][4], sdv[HD / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sdk[nt][e] = sdv[nt][e] = 0.f;
+        if (real) {
+          if (st + 1 < n_stages) {
+            stage(st + 1);  // overlaps this stage's work
+            bias_load(st + 1);
+          } else {
+            cp_async_commit();
+          }
+          if (st + 1 < n_stages) pf_load(st + 1);
+          cp_async_commit();
+          cp_async_wait<2>();  // this stage and its prefetched slice rows
+        }
+        __syncthreads();
+        const int r0 = r_begin + st * R, nr = real ? min(R, seq_len - r0) : 0, buf = st & 1;
+        // the warp's rows part, part + 4, ...: every step of the stage runs
+        // (past the rows, only the diagonal sums move on)
+        for (int r = part; r < R; r += TDKV_ROW_SPLIT) {
+          const int i = r0 + r;
+          const bool live = r < nr && !(causal && i < kw0);  // warp-uniform
+          if (live) {
+            const bool edge = (causal && i < kw0 + 15) || kw0 + 16 > seq_len;  // the mask's rows
+            const bf16* qrow = q_of(buf) + (size_t)r * width;
+            const bf16* drow = do_of(buf) + (size_t)r * width;
+            const float* lrow = lse_of(buf) + (size_t)r * n_head;
+            const float* drw = d_of(buf) + (size_t)r * n_head;
+            // bias row of key g (+8 for the second half): u = r - (16 tile + g) + KEYS - 1
+            const uint32_t* brow = bias_of(buf) + (r - 16 * tile - g + KEYS - 1) * bw + c;
+            // one 16-head group; as a lambda (written inline in the row loop,
+            // the kernel took 11% longer)
+            auto heads16 = [&](int h0, float (&dgh)[2][4]) {
+              // B fragments of the 16 heads: q and dO with k = dim, and with k = head
+              uint32_t qf[HD / 16][4], df[HD / 16][4], qt[HD / 16][4], dt[HD / 16][4];
+#pragma unroll
+              for (int kk = 0; kk < HD / 16; ++kk) {
+                const int at = swz<HD>(h0 + ldsm_row(lane), 2 * kk + (ldsm_col(lane) >> 3));
+                const int at_t = swz<HD>(h0 + ldsm_row_t(lane), 2 * kk + (ldsm_col_t(lane) >> 3));
+                ldsm_x4(qf[kk], qrow + at);
+                ldsm_x4(df[kk], drow + at);
+                ldsm_x4_t(qt[kk], qrow + at_t);
+                ldsm_x4_t(dt[kk], drow + at_t);
+              }
+              // S^T and dP^T: 16 keys x 8 heads, two tiles for the 16 heads
+              float st_[2][4], dpt[2][4];
+#pragma unroll
+              for (int t = 0; t < 2; ++t) {
+                st_[t][0] = st_[t][1] = st_[t][2] = st_[t][3] = 0.f;
+                dpt[t][0] = dpt[t][1] = dpt[t][2] = dpt[t][3] = 0.f;
+#pragma unroll
+                for (int kk = 0; kk < HD / 16; ++kk) {
+                  mma_16816(st_[t], ka[kk], qf[kk][2 * t], qf[kk][2 * t + 1]);
+                  mma_16816(dpt[t], va[kk], df[kk][2 * t], df[kk][2 * t + 1]);
+                }
+              }
+              float p[2][4], ds[2][4];
+#pragma unroll
+              for (int t = 0; t < 2; ++t) {
+                const int hh = h0 + 8 * t + 2 * c;  // this lane's heads hh, hh + 1
+                const float2 l2 = *reinterpret_cast<const float2*>(lrow + hh);
+                const float2 d2 = *reinterpret_cast<const float2*>(drw + hh);
+                uint32_t bias2[2];  // bf16 pairs of heads hh, hh + 1 for keys g, g + 8
+                bias2[0] = brow[(h0 + 8 * t) / 2];
+                bias2[1] = brow[(h0 + 8 * t) / 2 - 8 * bw];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float lv = (e & 1) ? l2.y : l2.x, dv_ = (e & 1) ? d2.y : d2.x;
+                  const int key = kw0 + g + (e >> 1) * 8;
+                  float sv = st_[t][e];
+                  sv = fmaf(sv, scale, (e & 1) ? bf_hi(bias2[e >> 1]) : bf_lo(bias2[e >> 1]));
+                  float pv = ex2(fmaf(sv, LOG2E, -lv * LOG2E));
+                  if (edge && (key >= seq_len || (causal && key > i))) pv = 0.f;
+                  p[t][e] = pv;
+                  ds[t][e] = pv * (dpt[t][e] - dv_);
+                  if constexpr (DTABLE) dgh[t][e] += ds[t][e];
+                }
+              }
+              // P^T and dS^T (16 keys x 16 heads) rounded to bf16 are A fragments
+              const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                      pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+              const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                       pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+              for (int kk = 0; kk < HD / 16; ++kk) {
+                mma_16816(sdv[2 * kk], pa, dt[kk][0], dt[kk][1]);
+                mma_16816(sdv[2 * kk + 1], pa, dt[kk][2], dt[kk][3]);
+                mma_16816(sdk[2 * kk], dsa, qt[kk][0], qt[kk][1]);
+                mma_16816(sdk[2 * kk + 1], dsa, qt[kk][2], qt[kk][3]);
+              }
+            };
+#pragma unroll
+            for (int hg = 0; hg < NG; ++hg) heads16(16 * hg, dg[hg]);
+          }
+          if constexpr (DTABLE) {
+            // the next row of the warp is 4 on, so each diagonal moves 4 keys on:
+            // key kl takes key kl - 4's sum (lane g - 4, or the other half of lane
+            // g + 4), keys 0..3 start at 0, and keys 12..15 (the second half of
+            // lanes g >= 4) leave: lane g < 4 stores key 12 + g's sums at slot
+            // r - part + 3 - g, i.e. at diagonal i - kw0 - 12 - g less the warp's base
+            // r0 + part - kw0 - 15
+#pragma unroll
+            for (int hg = 0; hg < NG; ++hg)
+#pragma unroll
+              for (int t = 0; t < 2; ++t) {
+                float out[2];
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                  const float v0 = __shfl_xor_sync(0xffffffffu, dg[hg][t][j], 16);
+                  const float v1 = __shfl_xor_sync(0xffffffffu, dg[hg][t][2 + j], 16);
+                  out[j] = v1;
+                  dg[hg][t][j] = g >= 4 ? v0 : 0.f;
+                  dg[hg][t][2 + j] = g >= 4 ? v1 : v0;
+                }
+                if (g < 4)
+                  *reinterpret_cast<float2*>(ex + (size_t)(r - part + 3 - g) * n_head + 16 * hg + 8 * t + 2 * c) =
+                      make_float2(out[0], out[1]);
+              }
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dka[nt][e] += sdk[nt][e], dva[nt][e] += sdv[nt][e];
+        if (st + 1 < n_stages) bias_store(st + 1);  // its buffer was last read a stage ago
+        __syncthreads();  // the next iteration's copy overwrites this buffer
+        if constexpr (DTABLE) {
+          // the warps' exits of this stage, in a fixed order, into the window:
+          // diagonal u (table row l = nk + r0 - k0 - 63 + u) is slot u - 48 -
+          // part + 16 tile of warp (tile, part). Rows u < R are then complete
+          // for this item (later stages start R rows on), and every row after
+          // the drain stage: they go into the block's slice (their old values
+          // prefetched, but for the drain's) and leave the window.
+          const int l0 = nk + r0 - k0 - (KEYS - 1);
+          const float* pfs = pf + (size_t)(st & 1) * R * H;
+          for (int idx = threadIdx.x; idx < n_diag * H; idx += blockDim.x) {
+            const int u = idx / H, h = idx - u * H, l = l0 + u;
+            if (l < 0 || l >= n_table) continue;
+            float sum = 0.f;
+#pragma unroll
+            for (int w = 0; w < TDKV_KEY_TILES * TDKV_ROW_SPLIT; ++w) {
+              const int slot = u - 48 - w / TDKV_KEY_TILES + 16 * (w % TDKV_KEY_TILES);
+              if (slot >= 0 && slot < R) sum += ex_all[((size_t)w * R + slot) * H + h];
+            }
+            float* wc = win + (size_t)(l % n_diag) * H + h;
+            const float acc = *wc + sum;
+            if (real && u >= R) {
+              *wc = acc;
+            } else {
+              slice[(size_t)l * H + h] = (real ? pfs[idx] : slice[(size_t)l * H + h]) + acc;
+              *wc = 0.f;
+            }
+          }
+          __syncthreads();  // the exits are read before the next stage stores them
+        }
+      }
+
+      // the row parts of each key tile add up in a fixed order: part 0 takes the
+      // others' sums one at a time through shared memory
+      float* red_k = red + (size_t)tile * 16 * HD;
+      float* red_v = red + (size_t)(TDKV_KEY_TILES + tile) * 16 * HD;
+      for (int src = 1; src < TDKV_ROW_SPLIT; ++src) {
+        if (part == src) {
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int at = (g + (e >> 1) * 8) * HD + nt * 8 + 2 * c + (e & 1);
+              red_k[at] = dka[nt][e];
+              red_v[at] = dva[nt][e];
+            }
+        }
+        __syncthreads();
+        if (part == 0) {
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int at = (g + (e >> 1) * 8) * HD + nt * 8 + 2 * c + (e & 1);
+              dka[nt][e] += red_k[at];
+              dva[nt][e] += red_v[at];
+            }
+        }
+        __syncthreads();
+      }
+      if (part == 0) {
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          const int d = nt * 8 + 2 * c;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int key = kw0 + g + half * 8;
+            if (key >= seq_len) continue;
+            const size_t at = ((size_t)b * seq_len + key) * HD + d;
+            *reinterpret_cast<uint32_t*>(dk + at) =
+                pack_bf16(dka[nt][2 * half] * scale, dka[nt][2 * half + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dva[nt][2 * half], dva[nt][2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // the tensor-core backward takes bf16, MQA, 1 to TC_WARPS groups of 16 heads,
 // hd in {16, 32, 64}, and at least TDKV_ROW_SPLIT rows a dK/dV stage
 bool tc_bwd_ok(int kvh, int n_head, int head_dim, int is_bf16) {
   return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head / 16 <= TC_WARPS &&
          (head_dim == 16 || head_dim == 32 || head_dim == 64) &&
-         tdkv_rows(n_head, head_dim) >= TDKV_ROW_SPLIT;
+         tdkv_rows(n_head, head_dim, false) >= TDKV_ROW_SPLIT;
+}
+
+// with the bias, the dK/dV kernel carries the table gradient of each 16-head
+// group in registers: 1 or 2 groups (H = 16 or 32, LTHM's), hd in {16, 32, 64}
+bool tc_bias_dkv_ok(int kvh, int n_head, int head_dim, int is_bf16) {
+  return is_bf16 && kvh == 1 && (n_head == 16 || n_head == 32) &&
+         (head_dim == 16 || head_dim == 32 || head_dim == 64) &&
+         tdkv_rows(n_head, head_dim, true) >= TDKV_ROW_SPLIT;
+}
+
+// the bias dQ kernel takes bf16, MQA, 16-head groups and hd in {16, 32, 64},
+// where a 16-key K/V tile and its bias run fit its budget
+bool mma_dq_ok(int kvh, int n_head, int head_dim, int is_bf16) {
+  if (!(is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512 &&
+        (head_dim == 16 || head_dim == 32 || head_dim == 64)))
+    return false;
+  const int qrows = n_head >= 256 ? 1 : 16 / (n_head / 16);
+  return (size_t)2 * head_dim * (3 * 16 + 8) + (size_t)2 * n_head * bias_ustride(qrows, 16) <=
+         (size_t)SMEM_BUDGET;
 }
 
 template <int HD>
@@ -1280,37 +1370,59 @@ int launch_tc_dq(const void* q, const void* k, const void* v, const void* dout, 
 }
 
 // the dK/dV kernel's shared memory for this shape, opted in above 48 KB, and
-// the blocks the card holds at once (SMs x blocks per SM)
-template <int HD>
+// the blocks the card holds at once (SMs x blocks per SM); NG > 0: with the
+// bias, H = 16 NG
+template <int HD, int NG>
 int tdkv_prepare(int n_head, size_t* smem, int* resident) {
-  *smem = tdkv_smem(tdkv_rows(n_head, HD), n_head, HD);
-  int rc = (int)cudaFuncSetAttribute(mqa_tc_dkv_kernel<HD, false>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  *smem = tdkv_smem(tdkv_rows(n_head, HD, NG > 0), n_head, HD, NG > 0);
+  const void* kernel;
+  if constexpr (NG == 0) kernel = (const void*)mqa_tc_dkv_kernel<HD>;
+  else kernel = (const void*)mqa_tc_bias_dkv_kernel<HD, NG>;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (rc) return rc;
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mqa_tc_dkv_kernel<HD, false>,
-                                                          TDKV_THREADS, *smem);
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TDKV_THREADS, *smem);
   *resident = sms * per_sm;
-  return rc;
+  return rc ? rc : (*resident < 1 ? -1 : 0);
 }
 
-template <int HD>
-int launch_tc_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                  const void* dcol, void* dk, void* dv, int batch, int seq_len, int n_head,
-                  int causal, cudaStream_t stream) {
-  size_t smem = 0;
+// the persistent dK/dV grid: one block per resident slot, or one per item
+// when there are fewer; with the bias also the number of table-gradient slices
+int tdkv_items(int batch, int seq_len) {
+  return (seq_len + 16 * TDKV_KEY_TILES - 1) / (16 * TDKV_KEY_TILES) * batch;
+}
+
+template <int HD, int NG>
+int tdkv_grid(int batch, int seq_len, int n_head, size_t* smem) {
   int resident = 0;
-  const int rc = tdkv_prepare<HD>(n_head, &smem, &resident);
-  if (rc) return rc;
-  const int items = (seq_len + 16 * TDKV_KEY_TILES - 1) / (16 * TDKV_KEY_TILES) * batch;
+  const int rc = tdkv_prepare<HD, NG>(n_head, smem, &resident);
+  if (rc) return rc > 0 ? -rc : rc;
+  const int items = tdkv_items(batch, seq_len);
+  return items < resident ? items : resident;
+}
+
+template <int HD, int NG>
+int launch_tc_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* dcol, void* dk, void* dv, void* dtable_part, int batch, int seq_len,
+                  int n_head, int causal, Bias bias, cudaStream_t stream) {
+  size_t smem = 0;
+  const int grid = tdkv_grid<HD, NG>(batch, seq_len, n_head, &smem);
+  if (grid < 1) return grid < 0 ? -grid : -1;
   const float scale = (float)(1.0 / sqrt((double)HD));
-  mqa_tc_dkv_kernel<HD, false><<<min(items, resident), TDKV_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dcol), static_cast<bf16*>(dk), static_cast<bf16*>(dv), batch,
-      seq_len, n_head, tdkv_rows(n_head, HD), causal, scale);
+  const int rows = tdkv_rows(n_head, HD, NG > 0);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  const float *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(dcol);
+  bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
+  if constexpr (NG == 0)
+    mqa_tc_dkv_kernel<HD><<<grid, TDKV_THREADS, smem, stream>>>(qb, kb, vb, db, lf, df, dkb, dvb, batch,
+                                                                seq_len, n_head, rows, causal, scale);
+  else
+    mqa_tc_bias_dkv_kernel<HD, NG><<<grid, TDKV_THREADS, smem, stream>>>(
+        qb, kb, vb, db, lf, df, dkb, dvb, batch, seq_len, n_head, rows, causal, scale, bias.table,
+        bias.n_table, bias.nk, static_cast<float*>(dtable_part));
   return (int)cudaGetLastError();
 }
 
@@ -1326,8 +1438,8 @@ int backward(int which, const void* q, const void* k, const void* v, const void*
     if (tc_bwd_ok(kvh, n_head, head_dim, is_bf16)) {
 #define TC_CASE(HD)                                                                               \
   case HD:                                                                                        \
-    return which == 0 ? launch_tc_dkv<HD>(q, k, v, dout, lse, dcol, dk, dv, batch, seq_len,       \
-                                          n_head, causal, s)                                      \
+    return which == 0 ? launch_tc_dkv<HD, 0>(q, k, v, dout, lse, dcol, dk, dv, nullptr, batch,    \
+                                             seq_len, n_head, causal, bias, s)                    \
                       : launch_tc_dq<HD>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head,    \
                                          causal, s);
       switch (head_dim) {
@@ -1338,20 +1450,27 @@ int backward(int which, const void* q, const void* k, const void* v, const void*
       }
 #undef TC_CASE
     }
-  } else if (mma_ok(kvh, n_head, head_dim, is_bf16, BIAS)) {
-#define MMA_CASE(HD)                                                                              \
+  } else if (which == 0 && tc_bias_dkv_ok(kvh, n_head, head_dim, is_bf16)) {
+#define TB_CASE(HD)                                                                               \
   case HD:                                                                                        \
-    return which == 0 ? launch_mma_dkv<HD, BIAS>(q, k, v, dout, lse, dcol, dk, dv, dtable_part,   \
-                                                 batch, seq_len, n_head, causal, bias, s)         \
-                      : launch_mma_dq<HD, BIAS>(q, k, v, dout, lse, dcol, dq, batch, seq_len,     \
-                                                n_head, causal, bias, s);
+    return n_head == 16 ? launch_tc_dkv<HD, 1>(q, k, v, dout, lse, dcol, dk, dv, dtable_part,     \
+                                               batch, seq_len, n_head, causal, bias, s)           \
+                        : launch_tc_dkv<HD, 2>(q, k, v, dout, lse, dcol, dk, dv, dtable_part,     \
+                                               batch, seq_len, n_head, causal, bias, s);
     switch (head_dim) {
-      MMA_CASE(16)
-      MMA_CASE(32)
-      MMA_CASE(64)
+      TB_CASE(16)
+      TB_CASE(32)
+      TB_CASE(64)
       default: return -1;
     }
-#undef MMA_CASE
+#undef TB_CASE
+  } else if (which == 1 && mma_dq_ok(kvh, n_head, head_dim, is_bf16)) {
+    switch (head_dim) {
+      case 16: return launch_mma_dq<16, true>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);
+      case 32: return launch_mma_dq<32, true>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);
+      case 64: return launch_mma_dq<64, true>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);
+      default: return -1;
+    }
   }
 #define FMA_CASE(T, HD)                                                                           \
   case HD: {                                                                                      \
@@ -1381,6 +1500,28 @@ int backward(int which, const void* q, const void* k, const void* v, const void*
     default: return -1;
   }
 #undef FMA_CASE
+}
+
+// The dK/dV grid of this call on the current device: the blocks of the
+// persistent tensor-core kernel (with the bias, also its table-gradient
+// slices), or 0 where the FMA kernels take the call; negative on an error.
+int dkv_grid_of_call(int batch, int seq_len, int n_head, int kvh, int head_dim, int is_bf16, int bias) {
+  if (!(bias ? tc_bias_dkv_ok(kvh, n_head, head_dim, is_bf16) : tc_bwd_ok(kvh, n_head, head_dim, is_bf16)))
+    return 0;
+  size_t smem = 0;
+  const int ng = bias ? n_head / 16 : 0;
+#define GRID_CASE(HD)                                                                             \
+  case HD:                                                                                        \
+    return ng == 0 ? tdkv_grid<HD, 0>(batch, seq_len, n_head, &smem)                              \
+                   : ng == 1 ? tdkv_grid<HD, 1>(batch, seq_len, n_head, &smem)                    \
+                             : tdkv_grid<HD, 2>(batch, seq_len, n_head, &smem);
+  switch (head_dim) {
+    GRID_CASE(16)
+    GRID_CASE(32)
+    GRID_CASE(64)
+    default: return -1;
+  }
+#undef GRID_CASE
 }
 
 }  // namespace
@@ -1428,53 +1569,21 @@ extern "C" int flash_bias_dkv(const void* q, const void* k, const void* v, const
                         static_cast<cudaStream_t>(stream));
 }
 
-namespace {
-
-// the grid flash_bias_dkv launches for this shape on the current device (one
-// block and one slice when the FMA kernels take the call)
-DkvGrid bias_dkv_grid(int batch, int seq_len, int n_head, int kvh, int head_dim, int causal,
-                      int is_bf16) {
-  if (!mma_ok(kvh, n_head, head_dim, is_bf16, true)) return DkvGrid{1, 1, 1, 0};
-  switch (head_dim) {
-    case 16: return dkv_grid_of<16, true>(batch, seq_len, n_head, causal);
-    case 32: return dkv_grid_of<32, true>(batch, seq_len, n_head, causal);
-    case 64: return dkv_grid_of<64, true>(batch, seq_len, n_head, causal);
-    default: return DkvGrid{-1, 1, 1, 0};
-  }
-}
-
-}  // namespace
-
 // The number of table-gradient slices flash_bias_dkv writes for this shape on
-// the current device.
+// the current device: one per block of its persistent grid, or one where the
+// FMA kernels take the call; negative on an error.
 extern "C" int flash_bias_dkv_slices(int batch, int seq_len, int n_head, int kvh, int head_dim,
-                                     int causal, int is_bf16) {
-  const DkvGrid g = bias_dkv_grid(batch, seq_len, n_head, kvh, head_dim, causal, is_bf16);
-  return g.x * g.y;
+                                     int is_bf16) {
+  const int grid = dkv_grid_of_call(batch, seq_len, n_head, kvh, head_dim, is_bf16, 1);
+  return grid == 0 ? 1 : grid;
 }
 
-// The batch rows one block of flash_bias_dkv walks for this shape on the
-// current device.
-extern "C" int flash_bias_dkv_batch_per_block(int batch, int seq_len, int n_head, int kvh,
-                                              int head_dim, int causal, int is_bf16) {
-  return bias_dkv_grid(batch, seq_len, n_head, kvh, head_dim, causal, is_bf16).batch_per_block;
-}
-
-// The (key block, batch row) items one block of the no-bias dK/dV kernel
-// walks for this shape on the current device (at most), or 0 where the FMA
-// kernels take the call.
+// The (key block, batch row) items one block of the dK/dV kernel walks for
+// this shape on the current device (at most), without (bias = 0) or with the
+// position bias; 0 where the FMA kernels take the call, negative on an error.
 extern "C" int flash_dkv_items_per_block(int batch, int seq_len, int n_head, int kvh,
-                                         int head_dim, int is_bf16) {
-  if (!tc_bwd_ok(kvh, n_head, head_dim, is_bf16)) return 0;
-  size_t smem = 0;
-  int resident = 0, rc = 0;
-  switch (head_dim) {
-    case 16: rc = tdkv_prepare<16>(n_head, &smem, &resident); break;
-    case 32: rc = tdkv_prepare<32>(n_head, &smem, &resident); break;
-    default: rc = tdkv_prepare<64>(n_head, &smem, &resident); break;
-  }
-  if (rc || resident < 1) return -1;
-  const int items = (seq_len + 16 * TDKV_KEY_TILES - 1) / (16 * TDKV_KEY_TILES) * batch;
-  const int grid = items < resident ? items : resident;
-  return (items + grid - 1) / grid;
+                                         int head_dim, int is_bf16, int bias) {
+  const int grid = dkv_grid_of_call(batch, seq_len, n_head, kvh, head_dim, is_bf16, bias);
+  if (grid <= 0) return grid;
+  return (tdkv_items(batch, seq_len) + grid - 1) / grid;
 }

@@ -64,7 +64,9 @@ def build_library(source: Path) -> Tuple[ctypes.CDLL, str]:
         lib, log = library_path(source), ""
         if not lib.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            # the process and thread in the name: two source trees with the same
+            # content (and so the same library) may build side by side
+            tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             proc = subprocess.run(
                 [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                 capture_output=True, text=True,

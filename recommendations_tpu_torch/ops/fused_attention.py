@@ -78,13 +78,12 @@ FLASH_BIAS_DKV = CudaKernel(
     "flash_bias_dkv",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
-# the number of table-gradient slices flash_bias_dkv writes, and the batch
-# rows one of its blocks walks (queries of its grid, not kernels)
-_BIAS_DKV_SLICES = CudaKernel("flash_bwd.cu", "flash_bias_dkv_slices", [ctypes.c_int] * 7)
-_BIAS_DKV_BATCH_PER_BLOCK = CudaKernel("flash_bwd.cu", "flash_bias_dkv_batch_per_block", [ctypes.c_int] * 7)
-# how much one block of the no-bias tensor-core kernels walks (queries, not kernels)
+# the number of table-gradient slices flash_bias_dkv writes (a query of its
+# grid, not a kernel)
+_BIAS_DKV_SLICES = CudaKernel("flash_bwd.cu", "flash_bias_dkv_slices", [ctypes.c_int] * 6)
+# how much one block of the tensor-core kernels walks (queries, not kernels)
 _FWD_TILES_PER_BLOCK = CudaKernel("flash_fwd.cu", "flash_fwd_tiles_per_block", [ctypes.c_int] * 5)
-_DKV_ITEMS_PER_BLOCK = CudaKernel("flash_bwd.cu", "flash_dkv_items_per_block", [ctypes.c_int] * 6)
+_DKV_ITEMS_PER_BLOCK = CudaKernel("flash_bwd.cu", "flash_dkv_items_per_block", [ctypes.c_int] * 7)
 KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_BIAS_FWD, FLASH_BIAS_DQ, FLASH_BIAS_DKV)
 
 
@@ -442,11 +441,12 @@ def fused_flash_attention_bias_fwd(
     return o, lse
 
 
-def bias_dkv_batch_per_block(q: torch.Tensor, k: torch.Tensor, n_head: int, causal: bool = True) -> int:
-    """The batch rows one block of ``flash_bias_dkv`` walks for CUDA tensors
-    q and k on the current device (1 where the FMA kernels take the call)."""
+def bias_dkv_items_per_block(q: torch.Tensor, k: torch.Tensor, n_head: int) -> int:
+    """The (key block, batch row) items one block of ``flash_bias_dkv``'s
+    persistent grid walks at most, for CUDA tensors q and k on the current
+    device; 0 where the FMA kernels take the call."""
     b, t, qc, hd, kvh = _check(q, k, k, n_head)
-    return _BIAS_DKV_BATCH_PER_BLOCK.build()(b, t, n_head, kvh, hd, int(causal), int(q.dtype == torch.bfloat16))
+    return _DKV_ITEMS_PER_BLOCK.build()(b, t, n_head, kvh, hd, int(q.dtype == torch.bfloat16), 1)
 
 
 def block_walk(q: torch.Tensor, k: torch.Tensor, n_head: int) -> tuple:
@@ -457,7 +457,7 @@ def block_walk(q: torch.Tensor, k: torch.Tensor, n_head: int) -> tuple:
     b, t, qc, hd, kvh = _check(q, k, k, n_head)
     bf16 = int(q.dtype == torch.bfloat16)
     return (_FWD_TILES_PER_BLOCK.build()(t, n_head, kvh, hd, bf16),
-            _DKV_ITEMS_PER_BLOCK.build()(b, t, n_head, kvh, hd, bf16))
+            _DKV_ITEMS_PER_BLOCK.build()(b, t, n_head, kvh, hd, bf16, 0))
 
 
 def fused_flash_attention_bias_bwd(
@@ -481,7 +481,7 @@ def fused_flash_attention_bias_bwd(
     lse = lse.float().contiguous()
     _check_launch(hd, q=q, k=k, v=v, do=do, table=table)
     bf16 = int(q.dtype == torch.bfloat16)
-    slices = _BIAS_DKV_SLICES.build()(b, t, n_head, kvh, hd, int(causal), bf16)
+    slices = _BIAS_DKV_SLICES.build()(b, t, n_head, kvh, hd, bf16)
     if slices < 1:
         raise ValueError(f"flash_bias_dkv does not take head dim {hd}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -194,6 +194,67 @@ def test_attention_layer_bf16(use_flash):
     np.testing.assert_allclose(got, want, rtol=0, atol=4 * 2**-8 * scale)
 
 
+def test_sdpa_bf16_gradients_match_jax():
+    """bf16 _sdpa (MQA 32x16, causal, T = 257) differentiated against JAX's
+    _sdpa VJP on the same inputs: the softmax shift carries no gradient in
+    either (JAX's stop_gradient), so dq, dk and dv agree to 2^-8 of the
+    largest element. Through an undetached max the bf16 cotangents no longer
+    cancel and the row sums land on each row's argmax logit."""
+    b, t, h, hd = 2, 257, 32, 16
+    rs = np.random.RandomState(21)
+    q, dy = (rs.randn(b, h, t, hd).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, 1, t, hd).astype(np.float32) for _ in range(2))
+    jq, jk, jv, jdy = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, dy))
+    jmask = jatt.causal_mask(t)
+    _, vjp = jax.vjp(lambda a, bb, c: jatt._sdpa(a, bb, c, jmask, None), jq, jk, jv)
+    want = [np.asarray(g).astype(np.float32) for g in vjp(jdy)]
+    tq, tk, tv = (torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v))
+    out = tatt._sdpa(tq, tk, tv, tatt.causal_mask(t), None)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dy).bfloat16())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        tol = 2**-8 * np.abs(w).max()
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= tol, f"{name}: max|err| {err} over tol {tol}"
+
+
+@pytest.mark.parametrize("case", ["mask", "window", "bias_range", "fused"])
+def test_flash_fallback_warns_once_per_reason_as_jax(case, caplog, monkeypatch):
+    """use_flash asked for but attention falls back to _sdpa: both packages
+    log one warning naming the reason (an explicit mask; T over the window;
+    T outside the bias kernel's range), once however often the layer runs;
+    the fused path logs nothing."""
+    monkeypatch.setattr(jatt, "_warned", set())
+    monkeypatch.setattr(tatt, "_warned", set())
+    t = 21
+    window = {"window": 16, "bias_range": 24}.get(case)
+    x = np.random.RandomState(13).randn(1, t, 32).astype(np.float32)
+    mask = tatt.causal_mask(t) if case == "mask" else None
+    jm = jatt.MultiQueryAttention(n_embd=32, n_head=4, use_flash=True, pos_bias_window=window)
+    jmask = None if mask is None else jnp.asarray(mask.numpy())
+    tm = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=True, pos_bias_window=window)
+    messages = {}
+    for pkg, run in (
+        ("jax", lambda: jm.init_with_output(jax.random.PRNGKey(0), jnp.asarray(x), mask=jmask, causal=True)),
+        ("torch", lambda: tm(torch.from_numpy(x), mask=mask, causal=True)),
+    ):
+        caplog.clear()
+        with caplog.at_level("WARNING"):
+            for _ in range(2):
+                try:
+                    with torch.no_grad():
+                        run()
+                except ValueError:  # T over the window: the bias table cannot cover it
+                    pass
+        messages[pkg] = [r.getMessage() for r in caplog.records if "use_flash requested" in r.getMessage()]
+    assert messages["torch"] == messages["jax"]
+    want = {"mask": "an explicit additive mask", "window": "exceeds the pos-bias window 16",
+            "bias_range": "outside the fused pos-bias kernel's winning range", "fused": None}[case]
+    if want is None:
+        assert messages["torch"] == []
+    else:
+        assert len(messages["torch"]) == 1 and want in messages["torch"][0]
+
+
 def test_fused_bias_kernel_and_ring_raise(monkeypatch):
     """The fused bias path (T = 768 = the window) is taken and agrees with
     _sdpa on the same weights at a bf16-representable table (the kernel

@@ -13,7 +13,7 @@ import math
 import pytest
 import torch
 
-from chip_smoke import bias_reference
+from chip_smoke import bias_reference, compare_ce
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
 from recommendations_tpu_torch.ops import fused_attention as fa
@@ -362,6 +362,37 @@ def test_fused_ce_kernels_match_plain_versions(cuda, n, s, d, beta, invalid_user
         assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize(
+    "n,s,d,beta,pattern",
+    [
+        (32768, 1024, 128, 0.0, "roll"),     # the production chunk: 128-row blocks (the own-row split)
+        (8192, 256, 128, 0.0, "roll"),       # LTHM-base: 64-row blocks whose two warpgroups split the stream
+        (20000, 100, 64, 1.0, "random"),     # the own-row split at D = 64, a ragged last block
+        (100, 10, 16, 1.0, "random"),        # N not a multiple of any tile, D = 16
+        (1024, 32, 32, 0.5, "random"),
+        (512, 32, 16, 1.0, "one_user"),      # fully masked rows: ce = -inf
+        (2048, 64, 64, 1.0, "invalid_user"),  # a user with every slot invalid
+    ],
+)
+def test_fused_ce_kernels_at_chip_smoke_shapes(cuda, n, s, d, beta, pattern):
+    """The four CE kernels (ce_dc on its wgmma kernel) against their plain
+    versions at chip_smoke.py's tolerances and input patterns, and twice for
+    the same bits (compare_ce raises on any failure)."""
+    compare_ce(fc, n, s, d, beta, pattern)
+
+
+def test_ce_dc_with_negative_weights(cuda):
+    """dce of either sign (the kernel folds |dce| inv_t into the exponent and
+    applies the sign apart): dc within one bf16 ulp of the largest element."""
+    q, c, v, lq, _ = _ce_inputs(2048, 64, 128, seed=5)
+    dce = torch.randn(2048, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda") * v
+    _, _, lse = fc.ce_forward(q, c, v, lq, 64, 20.0, 1.0)
+    dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, 64, 20.0, 1.0)
+    torch.cuda.synchronize()
+    want = fc.ce_grad_reference(q, c, v, lq, lse, dce, 64, 20.0, 1.0, "c")
+    assert (dc.float() - want.float()).abs().max().item() <= max(_bf16_ulp(want), 2**-16 * 20.0)
+
+
 def test_fused_ce_is_deterministic(cuda):
     q, c, v, lq, dce = _ce_inputs(4096, 128, 128)
     a = fc.ce_forward(q, c, v, lq, 128, 20.0, 1.0)
@@ -420,6 +451,7 @@ BIAS_SHAPES = [
     (4, 1025, 32, 16, 1, torch.bfloat16, True, 1025),  # the production path, 4 of 64 users
     (2, 768, 32, 16, 1, torch.bfloat16, True, 768),    # BIAS_MIN_SEQ
     (2, 1000, 32, 16, 1, torch.bfloat16, True, 1000),  # no tile multiple
+    (3, 770, 32, 16, 1, torch.bfloat16, True, 1025),   # ragged, T below the window
     (2, 900, 32, 16, 1, torch.bfloat16, True, 1200),   # nk > T
     (3, 300, 32, 16, 1, torch.bfloat16, False, 300),   # non-causal; batch not a multiple of 4
     (2, 300, 32, 16, 32, torch.bfloat16, True, 300),   # MHA: FMA kernels
@@ -458,12 +490,13 @@ def test_flash_bias_kernels_match_plain_versions(cuda, b, t, n_head, hd, kvh, dt
     ],
 )
 def test_flash_bias_dkv_blocks_of_several_batch_rows(cuda, b, t, causal, nk):
-    """Where the batch exceeds what one wave of dK/dV blocks holds, a block
-    walks several batch rows (reloading K/V, restarting dK/dV, adding each
-    row's table gradient into its one slice): held to the plain versions,
-    taken over 4 batch rows at a time, as above."""
+    """Where the (key block, batch row) items exceed what one wave of dK/dV
+    blocks holds, a block of the persistent grid walks several (reloading
+    K/V, restarting dK/dV, adding each item's table gradient into its one
+    slice): held to the plain versions, taken over 4 batch rows at a time, as
+    above."""
     q, k, _ = _qkv(b, t, 32, 16, 1, torch.bfloat16)
-    assert fa.bias_dkv_batch_per_block(q, k, 32, causal) > 1
+    assert fa.bias_dkv_items_per_block(q, k, 32) > 1
     _check_bias_kernels(b, t, 32, 16, 1, torch.bfloat16, causal, nk)
 
 

@@ -15,12 +15,17 @@ backward's two kernels apart (``torch.profiler``, device time by kernel
 name), and a JSON summary as its last line. Shapes: MQA 32x16, bf16,
 causal; the forward at B=16, T=1025 and B=64, T=257; the backward at those
 and B=32, T=450; the bias kernels at the production shape B=64, T=1025,
-nk=1025.
+nk=1025. This checkout's ``flash_bias_dkv`` is also timed as a build with
+its table gradient cut out (``DTABLE = false`` in the kernel's source): its
+time beside the full kernel's is what the table gradient costs. The cut
+build lands in ``traces/probe_split/`` (gitignored) and gives no table
+gradient: it is timed, never checked.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -44,14 +49,42 @@ BIAS_SHAPE = (64, 1025)
 
 def kernels_of(csrc: Path | None) -> dict:
     """The five flash entries (and the slice-count query) of a source tree;
-    None is this checkout's."""
+    None is this checkout's. The query took a ``causal`` argument before
+    the persistent bias dK/dV grid: its arity is read from the source."""
     if csrc is None:
         return {k.symbol: k for k in (*fa.KERNELS, fa._BIAS_DKV_SLICES)}
     out = {}
     for k in (*fa.KERNELS, fa._BIAS_DKV_SLICES):
         other = CudaKernel(k.source.name, k.symbol, k.argtypes)
         other.source = csrc / k.source.name
+        if k is fa._BIAS_DKV_SLICES:
+            params = re.search(r"int flash_bias_dkv_slices\(([^)]*)\)", other.source.read_text()).group(1)
+            other.argtypes = [ctypes.c_int] * len(params.split(","))
         out[k.symbol] = other
+    return out
+
+
+def slices_of(kerns, b, t) -> int:
+    """The table-gradient slices of the tree's flash_bias_dkv at MQA H x HD,
+    bf16 (a ``causal`` argument, where the query has one, is 1)."""
+    query = kerns["flash_bias_dkv_slices"]
+    return query.build()(b, t, H, 1, HD, *[1] * (len(query.argtypes) - 5))
+
+
+DTABLE_ON = "constexpr bool DTABLE = true;"
+
+
+def without_dtable(csrc: Path, out: Path) -> Path:
+    """A copy of the tree with the bias dK/dV kernel's table gradient cut out
+    (for timing only: the copy's table gradient is zero)."""
+    src = (csrc / "flash_bwd.cu").read_text()
+    if src.count(DTABLE_ON) != 1:
+        raise RuntimeError(f"{csrc}/flash_bwd.cu: no `{DTABLE_ON}` to cut")
+    src = src.replace(DTABLE_ON, "constexpr bool DTABLE = false;")
+    out.mkdir(parents=True, exist_ok=True)
+    for h in csrc.glob("*.cuh"):
+        (out / h.name).write_text(h.read_text())
+    (out / "flash_bwd.cu").write_text(src)
     return out
 
 
@@ -219,6 +252,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
     trees = {"other": kernels_of(Path(args.other)), "this": kernels_of(None)}
+    if not (args.check_only or args.rounding):
+        cut = without_dtable(Path(fa.FLASH_BWD.source).parent,
+                             Path(__file__).resolve().parent.parent / "traces" / "probe_split")
+        trees["this_no_dtable"] = {k: v for k, v in kernels_of(cut).items() if k.startswith("flash_bias_dkv")}
     builds = [kern for kerns in trees.values() for kern in kerns.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda kern: kern.build(), builds))
@@ -246,7 +283,7 @@ def main() -> int:
     for b, t in FWD_SHAPES:
         q, k, v, _ = qkv(b, t, seed=1)
         o, lse = torch.empty_like(q), torch.empty(b, t, H, device="cuda")
-        fns = {n: Entries(kerns).fwd(q, k, v, o, lse, b, t) for n, kerns in trees.items()}
+        fns = {n: Entries(trees[n]).fwd(q, k, v, o, lse, b, t) for n in ("other", "this")}
         times = {n: [] for n in fns}
         for n in ("other", "this", "this", "other"):
             times[n].append(cuda_ms(fns[n], 30))
@@ -263,7 +300,7 @@ def main() -> int:
         Entries(trees["this"]).fwd(q, k, v, o, lse, b, t)()
         dcol = fa._rowsum_do_o(do, o, H).contiguous()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        fns = {n: Entries(kerns).bwd(q, k, v, do, lse, dcol, dq, dk, dv, b, t) for n, kerns in trees.items()}
+        fns = {n: Entries(trees[n]).bwd(q, k, v, do, lse, dcol, dq, dk, dv, b, t) for n in ("other", "this")}
         times = {n: [] for n in fns}
         for n in ("other", "this", "this", "other"):
             times[n].append(cuda_ms(fns[n], 20))
@@ -301,17 +338,22 @@ def main() -> int:
     for kname in ("flash_bias_fwd", "flash_bias_dq", "flash_bias_dkv"):
         fns = {}
         for n, kerns in trees.items():
-            slices = kerns["flash_bias_dkv_slices"].build()(b, t, H, 1, HD, 1, 1)
-            part = torch.zeros((slices, table.shape[0], H), device="cuda")
+            if kname not in kerns:
+                continue
+            part = torch.zeros((slices_of(kerns, b, t), table.shape[0], H), device="cuda")
             args = {"flash_bias_fwd": ptr(q, k, v, table, o2, lse2),
                     "flash_bias_dq": ptr(q, k, v, do, lse, dcol, table, dq),
                     "flash_bias_dkv": ptr(q, k, v, do, lse, dcol, table, dk, dv, part)}[kname]
             fns[n] = (lambda kern, a, p: lambda: (p, kern.launch(*a, *common)))(kerns[kname], args, part)
         times = {n: [] for n in fns}
-        for n in ("other", "this", "this", "other"):
+        order = ("other", "this", "this", "other")
+        if "this_no_dtable" in fns:  # the table gradient's share, in turns beside the full kernel
+            order = ("other", "this", "this_no_dtable", "this_no_dtable", "this", "other")
+        for n in order:
             times[n].append(cuda_ms(fns[n], 10))
         res["bias"][kname] = times
-        print(f"[time] {kname} B={b} T={t} nk={nk}: other {times['other']} ms, this {times['this']} ms", flush=True)
+        print(f"[time] {kname} B={b} T={t} nk={nk}: " + ", ".join(f"{n} {v} ms" for n, v in times.items()),
+              flush=True)
     print(smi)
     print(json.dumps(res))
     return 0

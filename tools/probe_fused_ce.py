@@ -1,43 +1,76 @@
-"""Quick check of the fused contrastive-CE kernels alone on the card.
+"""The fused contrastive-CE kernels alone on the card, and beside another
+copy of their source.
 
-    python3 tools/probe_fused_ce.py
+    python3 tools/probe_fused_ce.py                                   # this checkout
+    python3 tools/probe_fused_ce.py --other traces/parent_csrc        # and in turns with another tree
+    python3 tools/probe_fused_ce.py --other traces/parent_csrc --check-only
 
 Builds ``recommendations_tpu_torch/ops/csrc/fused_ce.cu`` (printing what
 ``ptxas`` reports for each kernel), runs the forward and backward wrappers at
-four shapes against their plain versions (ce error relative to 1 + |ce|, the
+five shapes against their plain versions (ce error relative to 1 + |ce|, the
 rows whose rank differs, dq and dc errors over their largest element, two
-runs for the same bits), and times the forward wrapper (the shift, ``ce_row_diag``
-and ``ce_fwd``) and the backward wrapper (``ce_dq`` and ``ce_dc``) at one
-32-user loss chunk of LTHM-base (N = 8192, D = 128). Needs a card; imports
-nothing of JAX. ``chip_smoke.py`` holds the same kernels to stated
+runs for the same bits), then times each kernel alone (``ce_row_diag``,
+``ce_fwd``, ``ce_dq``, ``ce_dc``) with its inputs ready at LTHM-base's loss
+chunk (N = 8192, s = 256) and the production chunk (N = 32768, s = 1024),
+D = 128. ``--other`` holds another ``fused_ce.cu`` (``git show
+<commit>:recommendations_tpu_torch/ops/csrc/fused_ce.cu``): its kernels are
+checked the same way and timed in turns with this tree's (other, this, this,
+other) in the same process. Needs a card; imports nothing of JAX. The last
+line is a JSON summary. ``chip_smoke.py`` holds the same kernels to stated
 tolerances and times each alone.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+SHAPES = ((8192, 256, 128, 0.0), (100, 10, 16, 1.0), (8448, 264, 64, 1.0), (512, 32, 32, 0.5), (32768, 1024, 128, 0.0))
+TIMED = ((8192, 256), (32768, 1024))  # (N, s) at D = 128
+INV_T = 20.0
 
 
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", help="a directory with another fused_ce.cu")
+    ap.add_argument("--check-only", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_fused_ce: no CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products in full f32
     from recommendations_tpu_torch.ops import fused_ce as f
+    from recommendations_tpu_torch.ops.cuda_build import CudaKernel
 
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {smi}; torch {torch.__version__}", flush=True)
+    trees = {"this": {k.symbol: k for k in f.KERNELS}}
+    if args.other:
+        trees["other"] = {}
+        for k in f.KERNELS:
+            o = CudaKernel(k.source.name, k.symbol, k.argtypes)
+            o.source = Path(args.other) / k.source.name
+            trees["other"][k.symbol] = o
     t0 = time.time()
-    for k in f.KERNELS:
-        k.build()
+    for kerns in trees.values():
+        for k in kerns.values():
+            k.build()
     print("built in", time.time() - t0)
-    for line in f.CE_FWD.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
-            print("  ", line.strip())
+    for name, kerns in trees.items():
+        for line in kerns["ce_fwd"].build_log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error", "arning", "Compiling")):
+                print(f"  [{name}]", line.strip())
 
     def inputs(n, d, seed=0):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -47,29 +80,58 @@ def main() -> int:
         lq = -torch.rand(n, generator=g, device="cuda") * 10
         return q, c, v, lq
 
-    for n, s, d, beta in [(8192, 256, 128, 0.0), (100, 10, 16, 1.0), (8448, 264, 64, 1.0), (512, 32, 32, 0.5)]:
-        q, c, v, lq = inputs(n, d)
-        ce, rank, lse = f.ce_forward(q, c, v, lq, s, 20.0, beta)
-        torch.cuda.synchronize()
-        rce, rrank, rlse = f.ce_forward_reference(q, c, v, lq, s, 20.0, beta)
-        fin = torch.isfinite(rce)
-        err = ((ce - rce).abs() / (1 + rce.abs()))[fin].max().item()
-        nrank = (rank != rrank).sum().item()
-        dce = torch.rand(n, device="cuda") * v
-        dq, dc = f.ce_backward(q, c, v, lq, lse, dce, s, 20.0, beta)
-        torch.cuda.synchronize()
-        rdq, rdc = f.ce_backward_reference(q, c, v, lq, rlse, dce, s, 20.0, beta)
-        edq = (dq.float() - rdq.float()).abs().max().item() / rdq.float().abs().max().item()
-        edc = (dc.float() - rdc.float()).abs().max().item() / rdc.float().abs().max().item()
-        dq2, dc2 = f.ce_backward(q, c, v, lq, lse, dce, s, 20.0, beta)
-        det = torch.equal(dq, dq2) and torch.equal(dc, dc2)
-        print(f"n={n} s={s} d={d} beta={beta}: ce rel err {err:.3e}, rank differs on {nrank} rows, "
-              f"dq err/max {edq:.3e}, dc err/max {edc:.3e}, deterministic {det}, finite "
-              f"{bool(torch.isfinite(dq.float()).all() and torch.isfinite(dc.float()).all())}", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
 
-    q, c, v, lq = inputs(8192, 128)
-    dce = torch.rand(8192, device="cuda")
-    _, _, lse = f.ce_forward(q, c, v, lq, 256, 20.0, 0.0)
+    def launchers(kerns, q, c, v, lq, m, diag, lse, dce, outs, n, d, s, beta):
+        ce, lse_out, rank, dq, dc = outs
+        p = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
+        return {
+            "ce_row_diag": lambda: kerns["ce_row_diag"].launch(*p[:3], diag.data_ptr(), n, d, INV_T, stream),
+            "ce_fwd": lambda: kerns["ce_fwd"].launch(*p, m.data_ptr(), diag.data_ptr(), ce.data_ptr(),
+                                                     lse_out.data_ptr(), rank.data_ptr(), n, d, s, INV_T, beta, stream),
+            "ce_dq": lambda: kerns["ce_dq"].launch(*p, lse.data_ptr(), dce.data_ptr(), dq.data_ptr(), n, d, s, INV_T,
+                                                   beta, stream),
+            "ce_dc": lambda: kerns["ce_dc"].launch(*p, lse.data_ptr(), dce.data_ptr(), dc.data_ptr(), n, d, s, INV_T,
+                                                   beta, stream),
+        }
+
+    def empty_outs(n, d):
+        e = torch.empty(n, device="cuda")
+        return (e, torch.empty_like(e), torch.empty(n, dtype=torch.int32, device="cuda"),
+                torch.empty(n, d, dtype=torch.bfloat16, device="cuda"),
+                torch.empty(n, d, dtype=torch.bfloat16, device="cuda"))
+
+    ok = True
+    for n, s, d, beta in SHAPES:
+        q, c, v, lq = inputs(n, d)
+        rce, rrank, rlse = f.ce_forward_reference(q, c, v, lq, s, INV_T, beta)
+        dce = torch.rand(n, device="cuda") * v
+        rdq, rdc = f.ce_backward_reference(q, c, v, lq, rlse, dce, s, INV_T, beta)
+        diag = f.row_diag_reference(q, c, v, INV_T)
+        m = f.logsumexp_shift(lq, INV_T, beta)
+        for name, kerns in trees.items():
+            outs, again = empty_outs(n, d), empty_outs(n, d)
+            for o in (outs, again):
+                fns = launchers(kerns, q, c, v, lq, m, diag, rlse, dce, o, n, d, s, beta)
+                for k in ("ce_fwd", "ce_dq", "ce_dc"):
+                    fns[k]()
+            torch.cuda.synchronize()
+            ce, lse, rank, dq, dc = outs
+            fin = torch.isfinite(rce)
+            err = ((ce - rce).abs() / (1 + rce.abs()))[fin].max().item()
+            nrank = (rank != rrank).sum().item()
+            edq = (dq.float() - rdq.float()).abs().max().item() / rdq.float().abs().max().item()
+            edc = (dc.float() - rdc.float()).abs().max().item() / rdc.float().abs().max().item()
+            det = all(torch.equal(x, y) for x, y in zip(outs, again))
+            fine = bool(torch.isfinite(dq.float()).all() and torch.isfinite(dc.float()).all())
+            ok &= det and fine and edq <= 2**-7 and edc <= 2**-7 and err <= 2e-5
+            print(f"[check] {name} n={n} s={s} d={d} beta={beta}: ce rel err {err:.3e}, rank differs on {nrank} "
+                  f"rows, dq err/max {edq:.3e}, dc err/max {edc:.3e}, deterministic {det}, finite {fine}", flush=True)
+        del rce, rrank, rlse, rdq, rdc
+        torch.cuda.empty_cache()
+    if args.check_only or not ok:
+        print(json.dumps({"ok": ok}))
+        return 0 if ok else 1
 
     def ms(fn, it=20):
         for _ in range(3):
@@ -83,8 +145,26 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / it
 
-    print("fwd ms", ms(lambda: f.ce_forward(q, c, v, lq, 256, 20.0, 0.0)))
-    print("bwd ms", ms(lambda: f.ce_backward(q, c, v, lq, lse, dce, 256, 20.0, 0.0)))
+    res = {"device": smi}
+    order = ("other", "this", "this", "other") if "other" in trees else ("this", "this")
+    for n, s in TIMED:
+        d = 128
+        q, c, v, lq = inputs(n, d, seed=1)
+        dce = torch.rand(n, device="cuda") * v
+        m = f.logsumexp_shift(lq, INV_T, 0.0)
+        diag = f.row_diag_reference(q, c, v, INV_T)
+        _, _, lse = f.ce_forward(q, c, v, lq, s, INV_T, 0.0)
+        outs = empty_outs(n, d)
+        fns = {name: launchers(kerns, q, c, v, lq, m, diag, lse, dce, outs, n, d, s, 0.0)
+               for name, kerns in trees.items()}
+        for k in ("ce_row_diag", "ce_fwd", "ce_dq", "ce_dc"):
+            times = {name: [] for name in trees}
+            for name in order:
+                times[name].append(ms(fns[name][k], 20 if n <= 8192 else 5))
+            res[f"{k}_N{n}"] = times
+            print(f"[time] {k} N={n} s={s} D={d}: " + ", ".join(f"{nm} {t} ms" for nm, t in times.items()), flush=True)
+    print(smi)
+    print(json.dumps(res))
     return 0
 
 
