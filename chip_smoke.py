@@ -12,9 +12,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      serving and training shapes, the long-history shapes (B=16, T=1025;
      B=32, T=450: a block walks several tiles or items) and edge shapes
      (ragged last tiles, T=1), beside the stated tolerance, the plain
-     versions over 4 batch rows at a time and the forward's at the kernel's
-     own softmax chunk; every backward kernel (flash, bias, CE) also runs
-     twice for the same bits;
+     versions over 4 batch rows at a time and each forward's (without and
+     with the bias) at its kernel's own softmax arithmetic (16-key chunks
+     and exp2 on the one-pass tensor-core kernels); every backward kernel
+     (flash, bias, CE) and the bias forward also run twice for the same bits;
   3. the serving path: the LTHM user encoder at the LTHM-base width
      (6 layers, d=512, MQA 32x16, context 256, a fresh 1M-row KShift table,
      random weights from a seed) answers 8 requests of 64 users; the launch
@@ -307,13 +308,17 @@ def compare_flash_bwd(fa, b, t, n_head, hd, kvh, dtype, causal, seed=0):
 
 
 def bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, chunk):
-    """The plain bias forward and backward, over ``chunk`` batch rows at a
-    time (their (B, H, T, T) f32 planes take 0.5 GB per 4 rows at T = 1025,
-    H = 32): o, lse, dq, dk and dv concatenated, the table gradients summed."""
+    """The plain bias forward (at the forward kernel's own softmax
+    arithmetic, ``bias_kernel_softmax``) and backward, over ``chunk`` batch
+    rows at a time (their (B, H, T, T) f32 planes take 0.5 GB per 4 rows at
+    T = 1025, H = 32): o, lse, dq, dk and dv concatenated, the table
+    gradients summed."""
+    arith = fa.bias_kernel_softmax(q, k, n_head)
     fwd, bwd = [], []
     for i in range(0, q.shape[0], chunk):
         rows = slice(i, i + chunk)
-        fwd.append(fa.fused_flash_attention_bias_reference(q[rows], k[rows], v[rows], table, n_head, nk, causal))
+        fwd.append(fa.fused_flash_attention_bias_reference(q[rows], k[rows], v[rows], table, n_head, nk, causal,
+                                                           **arith))
         bwd.append(fa.fused_flash_attention_bias_bwd_reference(
             q[rows], k[rows], v[rows], table, o[rows], lse[rows], do[rows], n_head, nk, causal))
     ro, rl = (torch.cat([f[j] for f in fwd]) for j in range(2))
@@ -341,6 +346,7 @@ def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref
     same_bits = all(torch.equal(x, y) for x, y in zip((o, lse, *got), again))
     ro, rl, want = bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, ref_chunk)
     per_block = fa.bias_dkv_items_per_block(q, k, n_head)
+    arith = fa.bias_kernel_softmax(q, k, n_head)
     out = {"flash_bias_fwd": ((o.float() - ro.float()).abs().max().item(), o_tolerance(dtype, ro))}
     lerr = (lse - rl).abs().max().item()
     ok = bool(torch.isfinite(o.float()).all()) and out["flash_bias_fwd"][0] <= out["flash_bias_fwd"][1]
@@ -365,7 +371,9 @@ def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref
         for n, (e, tl) in zip(("dq", "dk", "dv"), errs))
     print(
         f"  flash_bias B={b} T={t} H={n_head} hd={hd} kv_heads={kvh} {str(dtype)[6:]} causal={causal} "
-        f"nk={nk} (a dK/dV block walks up to {per_block} items{'' if per_block else ': FMA kernels'}): o {out['flash_bias_fwd'][0]:.3e} (tol {out['flash_bias_fwd'][1]:.3e}), lse {lerr:.3e} "
+        f"nk={nk} (a dK/dV block walks up to {per_block} items{'' if per_block else ': FMA kernels'}; forward "
+        f"held at softmax chunk {arith['chunk']}, {'exp2' if arith['exp2'] else 'exp'}): "
+        f"o {out['flash_bias_fwd'][0]:.3e} (tol {out['flash_bias_fwd'][1]:.3e}), lse {lerr:.3e} "
         f"(tol {LSE_TOL:.0e}); {grads}; "
         f"dtable {t_err:.3e} (tol {t_tol:.3e}); same bits twice {same_bits} -> {'ok' if ok else 'FAIL'}",
         flush=True,
@@ -1090,6 +1098,9 @@ def main() -> int:
         (2, 800, 32, 16, 32, torch.bfloat16, True, 800),    # MHA: FMA kernels
         (2, 800, 4, 16, 1, torch.float32, True, 800),       # float32: FMA kernels
         (2, 300, 16, 64, 1, torch.bfloat16, False, 300),    # tensor cores at hd 64
+        (2, 1026, 48, 16, 1, torch.bfloat16, True, 1026),   # 3 and 4 groups of 16 heads: the one-pass forward
+        (2, 768, 64, 16, 1, torch.bfloat16, True, 768),
+        (2, 300, 256, 16, 1, torch.bfloat16, True, 300),    # 16 groups: the two-pass tensor-core forward
     ):
         compare_flash_bias(fa, *shape)
     print("[2] fused CE kernels against their plain versions:", flush=True)

@@ -29,7 +29,7 @@
 // 64 us at 16 a clock per SM (132 SMs, 1.98 GHz); at hd=16 the softmax work
 // around the products, not the products, sets the pace.
 //
-// Three kernels, chosen from the inputs:
+// Four kernels, chosen from the inputs:
 // - mqa_tc_fwd_kernel (bf16, MQA, 16 to 128 heads in groups of 16, hd in
 //   {16, 32, 64}; the no-bias path of LTHM). The 16 heads of one query row
 //   share K, V and the causal extent, so they are the 16 rows of an
@@ -52,24 +52,30 @@
 //   exponential floor (above), so the tensor-core route is not what bounds
 //   the kernel; wgmma's 64-row tiles would also mix 4 query rows of
 //   different causal extents in one tile.
-// - mqa_mma_kernel (the position-bias case, entry flash_bias_fwd): a warp owns
-//   16 heads of one query row; two passes per staged tile (max, then the
-//   exponentials), as the tile is the softmax chunk.
+// - mqa_tc_bias_fwd_kernel (the position-bias case, entry flash_bias_fwd,
+//   for the same inputs: the production LTHM's path): the same design, with
+//   the bias run of each head staged per 64-key tile beside K and V (see
+//   the kernel). It is a kernel of its own, not a template case of the one
+//   above, so that the no-bias kernel compiles as it did.
+// - mqa_mma_kernel (the position-bias case for the bias head counts the
+//   one-pass kernel does not take, more than TC_WARPS groups of 16, up to
+//   512 heads): a warp owns 16 heads of one query row; two passes per staged
+//   tile (max, then the exponentials), as the tile is the softmax chunk.
 // - fma_kernel (float32, MHA, other head counts): a thread owns one (query
 //   row, head) pair, the heads of a row in neighbouring lanes, so a warp reads
 //   q and writes o as one contiguous run and its lanes share the causal extent.
 //
 // The relative-position-bias case (entry flash_bias_fwd) replaces the
-// bias_mode forward of _fwd_kernel_grid (launched by _fused_bias_fwd_impl).
-// mqa_mma_kernel and fma_kernel take it as a template case, with the grid
-// kernel's arithmetic: s = (q.k) * scale in f32 with q unrounded, plus the
-// table entry table[q - k + nk, h] rounded to bf16 (the TPU kernel expands the
-// table in bf16 for any operand type), before the mask. The table is (L, H)
-// float32. In the tensor-core kernel a block stages, per key tile, the bias
-// its rows need: for the rows [row0, row0 + R) and keys [t0, t1) that is the
-// run table[row0 - (t1 - 1) + nk .. row0 + R - 1 - t0 + nk] of every head,
-// one contiguous, reversed run per head; the tile is then also the softmax
-// chunk.
+// bias_mode forward of _fwd_kernel_grid (launched by _fused_bias_fwd_impl),
+// with the grid kernel's arithmetic: s = (q.k) * scale in f32 with q
+// unrounded, plus the table entry table[q - k + nk, h] rounded to bf16 (the
+// TPU kernel expands the table in bf16 for any operand type), before the
+// mask. The table is (L, H) float32. Its softmax chunk is 16 keys (and exp2)
+// in mqa_tc_bias_fwd_kernel, the staged tile in mqa_mma_kernel, whose block
+// stages, per key tile, the bias its rows need: for the rows [row0, row0 + R)
+// and keys [t0, t1) that is the run table[row0 - (t1 - 1) + nk .. row0 + R -
+// 1 - t0 + nk] of every head, one contiguous, reversed run per head; and 512
+// keys in fma_kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -533,7 +539,7 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
                       const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                       int batch, int seq_len, int n_head, int rows_per_block, int n_qb, int causal,
                       float scale) {
-  static_assert(!BIAS, "the position bias takes mqa_mma_kernel");
+  static_assert(!BIAS, "the position bias takes mqa_tc_bias_fwd_kernel");
   constexpr int RPW = tc_rows_per_warp<HD>();
   constexpr int KT = TC_KEY_TILE;
   constexpr int KS = HD + 8;  // padded row: the 8 rows of an ldmatrix hit 8 bank groups
@@ -699,6 +705,283 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
   }
 }
 
+// ---- the bias tensor-core forward: the same design, the bias staged per tile ----
+//
+// mqa_tc_fwd_kernel's design (a warp owns 64 / HD rows of a 16-head group;
+// 64-key K/V tiles by cp.async; one pass with the online softmax over 16-key
+// tiles; ex2 with one FFMA; masks on the diagonal and ragged tiles only;
+// heavy first), with the grid kernel's logits: s = (q.k) * scale + bias, q
+// the unscaled bf16 operand, the bias bf16(table[i - j + nk, h]).
+//
+// The bias of a block's R rows against a 64-key tile [t0, t0 + 64) lies on
+// R + 63 diagonals: with z = (row0 + R - 1 - i) + (j - t0), every pair reads
+// table row lz - z, lz = row0 + R - 1 - t0 + nk. The rows it needs, R + 66
+// of the (L, H) f32 table, are one contiguous run: it is copied by cp.async
+// with the K/V tile (rows outside the table read as zeros: masked pairs
+// only), and once landed each head's run is written as bf16 in z order, in
+// two copies, copy p holding z at position z + p. A lane's two neighbouring
+// keys j, j + 1 (j even) of row i sit at z, z + 1 with z of the row's parity:
+// in copy p = z & 1 they are one aligned 32-bit word, and the words of the
+// lane's two heads g and g + 8 sit side by side (a copy is [head pair][word]
+// of 64 bits), so one 64-bit load gives both. A head's run is padded to HS =
+// 8 (mod 16) entries, so the 8 head pairs x 4 key pairs of a fragment's load
+// fall on different banks in each half-warp; the f32 run is padded to H + 4
+// floats a row, so the conversion reads without bank conflicts too.
+//
+// One barrier a tile: the copies of tile t + 2 are issued at the top of tile
+// t (three K/V buffers, two f32 runs, two bf16 copies), after the barrier
+// that follows the wait for tile t + 1's; then tile t + 1's bias is
+// converted and tile t computed. Per 16 keys and row a lane adds 2 bias
+// loads, 8 unpacks and 8 FFMAs to the no-bias kernel's work.
+
+// the bias layout of a block of `rows` query rows and n_head heads
+struct BiasTile {
+  int hs;     // bf16 entries of a head's copy: >= rows + 64, = 8 (mod 16)
+  int words;  // 32-bit words of a copy that the conversion writes
+  int nr;     // table rows staged a tile
+  int rs;     // floats a staged table row: n_head + 4
+  __host__ __device__ BiasTile(int rows, int n_head)
+      : hs((rows + TC_KEY_TILE + 7) / 16 * 16 + 8), words((rows + TC_KEY_TILE + 1) / 2), nr(2 * words + 1),
+        rs(n_head + 4) {}
+};
+
+constexpr int TC_BIAS_KV_BUFS = 3;  // K/V tiles in flight or in use
+
+// shared memory of the bias forward: the K/V tiles, two tiles' two bf16
+// copies, two f32 runs
+template <int HD> size_t tc_bias_fwd_smem(int rows, int n_head) {
+  const BiasTile bt(rows, n_head);
+  return (size_t)TC_BIAS_KV_BUFS * 2 * TC_KEY_TILE * (HD + 8) * sizeof(bf16) +
+         (size_t)2 * 2 * n_head * bt.hs * sizeof(bf16) + (size_t)2 * bt.nr * bt.rs * sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+    mqa_tc_bias_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                           const float* __restrict__ table, int batch, int seq_len, int n_head,
+                           int rows_per_block, int n_qb, int causal, float scale, int n_table, int nk) {
+  // 2: stage the bias and add it; 1: stage it only; 0: neither (the cut
+  // builds of tools/probe_flash.py, timed only: what the bias costs)
+  constexpr int BIAS_WORK = 2;
+  constexpr int RPW = tc_rows_per_warp<HD>();
+  constexpr int KT = TC_KEY_TILE;
+  constexpr int KS = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);        // [3][KT][KS]
+  bf16* vs = ks + TC_BIAS_KV_BUFS * KT * KS;        // [3][KT][KS]
+  const BiasTile bt(rows_per_block, n_head);
+  // [2 tiles][2 copies][n_head / 2 head pairs][hs / 2 words]: pair (16 G + g, 16 G + g + 8) is pair 8 G + g
+  uint2* bw = reinterpret_cast<uint2*>(vs + TC_BIAS_KV_BUFS * KT * KS);
+  const int copy_pairs = n_head / 2 * (bt.hs / 2);
+  float* raw = reinterpret_cast<float*>(bw + 4 * copy_pairs);  // [2 tiles][nr][rs]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int groups = n_head >> 4;
+  const int qb = causal ? n_qb - 1 - (int)blockIdx.x / batch : (int)blockIdx.x / batch;
+  const int b = blockIdx.x % batch;
+  const int row0 = qb * rows_per_block;
+  const int wrow = row0 + (warp / groups) * RPW;
+  const int h0 = (warp % groups) * 16;
+  const int block_keys = causal ? min(row0 + rows_per_block, seq_len) : seq_len;
+  const int warp_keys = wrow >= seq_len ? 0 : causal ? min(wrow + RPW, seq_len) : seq_len;
+  const int n_tiles = (block_keys + KT - 1) / KT;
+  const bf16* kb = k + (size_t)b * seq_len * HD;
+  const bf16* vb = v + (size_t)b * seq_len * HD;
+  const int zrow = row0 + rows_per_block - 1;  // z = (zrow - i) + (j - t0)
+
+  // K and V of a tile, and the table rows its bias reads, in one cp.async
+  // group; the loops step with a carry instead of dividing
+  auto stage = [&](int tile) {
+    const int t0 = tile * KT;
+    bf16* kd = ks + (tile % TC_BIAS_KV_BUFS) * KT * KS;
+    bf16* vd = vs + (tile % TC_BIAS_KV_BUFS) * KT * KS;
+    for (int i = threadIdx.x; i < KT * (HD / 8); i += blockDim.x) {
+      const int j = i / (HD / 8), d = (i % (HD / 8)) * 8;
+      const bool in = t0 + j < seq_len;
+      const size_t src = (size_t)(in ? t0 + j : 0) * HD + d;
+      cp_async16(kd + j * KS + d, kb + src, in);
+      cp_async16(vd + j * KS + d, vb + src, in);
+    }
+    if constexpr (BIAS_WORK > 0) {
+      // staged row r holds table row l_a + r, l_a = lz - 2 words + 1
+      float* rd = raw + (tile & 1) * bt.nr * bt.rs;
+      const int l_a = zrow - t0 + nk - 2 * bt.words + 1;
+      const int chunks = n_head / 4, dr = blockDim.x / chunks, dch = blockDim.x - dr * chunks;
+      for (int r = threadIdx.x / chunks, ch = threadIdx.x - r * chunks; r < bt.nr;) {
+        const int l = l_a + r;
+        const bool in = l >= 0 && l < n_table;
+        cp_async16(rd + r * bt.rs + 4 * ch, table + (size_t)(in ? l : 0) * n_head + 4 * ch, in);
+        r += dr, ch += dch;
+        if (ch >= chunks) ch -= chunks, ++r;
+      }
+    }
+    cp_async_commit();
+  };
+  // the staged run as bf16 copies: copy p word w holds z = 2w - p and 2w + 1 - p
+  // (staged row 2 words - 1 - z); a warp takes 8 head pairs x 4 words at a time
+  auto convert = [&](int tile) {
+    if constexpr (BIAS_WORK > 0) {
+      const float* rd = raw + (tile & 1) * bt.nr * bt.rs;
+      uint2* dst = bw + (tile & 1) * 2 * copy_pairs;
+      const int nwb = (bt.words + 3) / 4, warps = blockDim.x >> 5;
+      const int dwb = warps / groups, dgb = warps - dwb * groups;
+      for (int wb = warp / groups, gb = warp - wb * groups; wb < nwb;) {
+        const int w = (lane >> 3) + 4 * wb;
+        if (w < bt.words) {
+          const float* src = rd + (2 * bt.words - 2 * w) * bt.rs + 16 * gb + (lane & 7);  // z = 2w - 1, head g
+          const float zm = src[0], z0 = src[-bt.rs], zp = src[-2 * bt.rs];
+          const float ym = src[8], y0 = src[8 - bt.rs], yp = src[8 - 2 * bt.rs];  // head g + 8
+          const int at = (8 * gb + (lane & 7)) * (bt.hs / 2) + w;
+          dst[at] = make_uint2(pack_bf16(z0, zp), pack_bf16(y0, yp));
+          dst[copy_pairs + at] = make_uint2(pack_bf16(zm, z0), pack_bf16(ym, y0));
+        }
+        wb += dwb, gb += dgb;
+        if (gb >= groups) gb -= groups, ++wb;
+      }
+    }
+  };
+
+  if (n_tiles > 0) stage(0);
+  if (n_tiles > 1) stage(1);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (n_tiles > 0) convert(0);
+
+  // A operands: q of each row's 16 heads, unscaled (the product is scaled after)
+  uint32_t qa[RPW][HD / 16][4];
+  float acc[RPW][HD / 8][4];
+  float m[RPW][2], l[RPW][2];
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+    const bf16* qrow = q + ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        qa[rt][kk][r] = row < seq_len ? *reinterpret_cast<const uint32_t*>(
+                                            qrow + (size_t)(g + (r & 1) * 8) * HD + kk * 16 + 2 * c + (r >> 1) * 8)
+                                      : 0u;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) acc[rt][nt][0] = acc[rt][nt][1] = acc[rt][nt][2] = acc[rt][nt][3] = 0.f;
+    m[rt][0] = m[rt][1] = NEG_INF;
+    l[rt][0] = l[rt][1] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<0>();  // tile + 1's copies, issued a tile ago
+    __syncthreads();     // ... have landed for every thread; tile's bias is converted; tile - 1 is done
+    if (tile + 2 < n_tiles) stage(tile + 2);
+    if (tile + 1 < n_tiles) convert(tile + 1);
+    const int t0 = tile * KT;
+    const bf16* kt = ks + (tile % TC_BIAS_KV_BUFS) * KT * KS;
+    const bf16* vt = vs + (tile % TC_BIAS_KV_BUFS) * KT * KS;
+    const uint2* bt_w = bw + (tile & 1) * 2 * copy_pairs + (h0 / 2 + g) * (bt.hs / 2) + c;
+    const int j_end = min(t0 + KT, warp_keys);
+    for (int j0 = t0; j0 < j_end; j0 += 16) {
+      uint32_t kf[HD / 16][4], vf[HD / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        ldsm_x4(kf[kk], kt + (j0 - t0 + ldsm_row(lane)) * KS + kk * 16 + ldsm_col(lane));
+        ldsm_x4_t(vf[kk], vt + (j0 - t0 + ldsm_row_t(lane)) * KS + kk * 16 + ldsm_col_t(lane));
+      }
+      // the bias words of row wrow + rt: z = zw - rt at key j0, in copy p =
+      // z & 1 at word (z + p) / 2: rows of the warp's first row's parity
+      // read copy pe at word we - rt / 2, the others copy 1 - pe at word
+      // wo - (rt - 1) / 2
+      const int zw = zrow - wrow + j0 - t0, pe = zw & 1;
+      const uint2* bpe = bt_w + pe * copy_pairs + (zw + pe) / 2;
+      const uint2* bpo = bt_w + (1 - pe) * copy_pairs + (zw - pe) / 2;
+#pragma unroll
+      for (int rt = 0; rt < RPW; ++rt) {
+        const int row = wrow + rt;
+        if (row >= seq_len || (causal && j0 > row)) continue;  // warp-uniform
+        float s[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) mma_16816(s[nt], qa[rt][kk], kf[kk][2 * nt], kf[kk][2 * nt + 1]);
+        }
+        // s = (q.k) * scale + bias: keys j0 + 8 nt + 2c and + 1 of heads g
+        // (.x) and g + 8 (.y), one 64-bit load
+        const uint2* bp = (rt & 1) ? bpo - (rt - 1) / 2 : bpe - rt / 2;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint2 bb = BIAS_WORK > 1 ? bp[4 * nt] : make_uint2(0u, 0u);
+          s[nt][0] = fmaf(s[nt][0], scale, bf_lo(bb.x));
+          s[nt][1] = fmaf(s[nt][1], scale, bf_hi(bb.x));
+          s[nt][2] = fmaf(s[nt][2], scale, bf_lo(bb.y));
+          s[nt][3] = fmaf(s[nt][3], scale, bf_hi(bb.y));
+        }
+        if ((causal && j0 + 15 > row) || j0 + 16 > seq_len) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = j0 + nt * 8 + 2 * c + (e & 1);
+              if (key >= seq_len || (causal && key > row)) s[nt][e] = -INFINITY;
+            }
+        }
+        float mxl[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]), fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2)), m[rt][r]);
+          const float corr = ex2((m[rt][r] - mx) * LOG2E);
+          m[rt][r] = mx;
+          l[rt][r] *= corr;
+#pragma unroll
+          for (int nt = 0; nt < HD / 8; ++nt) acc[rt][nt][2 * r] *= corr, acc[rt][nt][2 * r + 1] *= corr;
+          mxl[r] = mx * LOG2E;
+        }
+        float pr[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pr[nt][e] = ex2(fmaf(s[nt][e], LOG2E, -mxl[e >> 1]));
+        l[rt][0] += (pr[0][0] + pr[0][1]) + (pr[1][0] + pr[1][1]);
+        l[rt][1] += (pr[0][2] + pr[0][3]) + (pr[1][2] + pr[1][3]);
+        const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
+                                pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          mma_16816(acc[rt][2 * kk], pa, vf[kk][0], vf[kk][1]);
+          mma_16816(acc[rt][2 * kk + 1], pa, vf[kk][2], vf[kk][3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[rt][r] += __shfl_xor_sync(0xffffffffu, l[rt][r], 1);
+      l[rt][r] += __shfl_xor_sync(0xffffffffu, l[rt][r], 2);
+    }
+    if (row >= seq_len) continue;
+    const float den0 = fmaxf(l[rt][0], 1e-30f), den1 = fmaxf(l[rt][1], 1e-30f);
+    bf16* orow = o + ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      *reinterpret_cast<uint32_t*>(orow + (size_t)g * HD + d) = pack_bf16(acc[rt][nt][0] / den0, acc[rt][nt][1] / den0);
+      *reinterpret_cast<uint32_t*>(orow + (size_t)(g + 8) * HD + d) =
+          pack_bf16(acc[rt][nt][2] / den1, acc[rt][nt][3] / den1);
+    }
+    if (c == 0) {
+      float* lrow = lse + ((size_t)b * seq_len + row) * n_head + h0;
+      lrow[g] = m[rt][0] + logf(den0);
+      lrow[g + 8] = m[rt][1] + logf(den1);
+    }
+  }
+}
+
 // the tensor-core forward takes bf16, MQA, and 1 to TC_WARPS groups of 16 heads
 bool tc_fwd_ok(int kvh, int n_head, int head_dim, int is_bf16) {
   return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head / 16 <= TC_WARPS &&
@@ -719,6 +1002,26 @@ int launch_tc_fwd(const void* q, const void* k, const void* v, void* o, void* ls
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), batch, seq_len, n_head, rows, n_qb, causal,
       scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tc_bias_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                       int seq_len, int n_head, int causal, Bias bias, cudaStream_t stream) {
+  const int groups = n_head / 16;
+  const int slices = TC_WARPS / groups;
+  const int rows = slices * tc_rows_per_warp<HD>();
+  const int n_qb = (seq_len + rows - 1) / rows;
+  if ((long long)n_qb * batch > 0x7fffffffLL) return -1;
+  const size_t smem = tc_bias_fwd_smem<HD>(rows, n_head);
+  cudaError_t e = cudaFuncSetAttribute(mqa_tc_bias_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  mqa_tc_bias_fwd_kernel<HD><<<n_qb * batch, slices * groups * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), bias.table, batch, seq_len, n_head, rows, n_qb, causal,
+      scale, bias.n_table, bias.nk);
   return (int)cudaGetLastError();
 }
 
@@ -750,8 +1053,15 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse, int
         default: break;
       }
     }
-  } else if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
+  } else if (tc_fwd_ok(kvh, n_head, head_dim, is_bf16)) {
     switch (head_dim) {
+      case 16: return launch_tc_bias_fwd<16>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
+      case 32: return launch_tc_bias_fwd<32>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
+      case 64: return launch_tc_bias_fwd<64>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
+      default: break;
+    }
+  } else if (is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512) {
+    switch (head_dim) {  // more groups of 16 heads than the one-pass kernel's warps
       case 16: return launch_mma<16, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
       case 32: return launch_mma<32, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);
       case 64: return launch_mma<64, BIAS>(q, k, v, o, lse, batch, seq_len, n_head, causal, bias, s);

@@ -32,20 +32,19 @@
 // 0.03-0.05 ms, above the product bound, so these kernels are limited by
 // their per-logit elementwise work.
 //
-// Design of ce_fwd and ce_dq (ce_tile; ce_dc has its own wgmma kernel, see
-// ce_dc_tc_kernel below). A block owns 64 query rows and walks every
-// candidate row (the stream) in stages of 128 rows, double-buffered in shared memory with
-// cp.async. Eight warps: four row groups of 16 own rows times two halves of
-// each stage. The own rows are the A operand of mma.sync.m16n8k16, held in
-// registers; S = own.stream^T runs on the tensor cores with B read by
+// Design of ce_fwd (ce_tile; ce_dq and ce_dc share their own wgmma kernel,
+// see ce_grad_tc_kernel below). A block owns 64 query rows and walks every
+// candidate row (the stream) in stages of 128 rows, double-buffered in shared
+// memory with cp.async. Eight warps: four row groups of 16 own rows times two
+// halves of each stage. The own rows are the A operand of mma.sync.m16n8k16,
+// held in registers; S = own.stream^T runs on the tensor cores with B read by
 // ldmatrix; the masks come from the indices and per-row metadata (user,
-// validity, -beta*lq, lse, dce*inv_t) staged beside each stage. In the
-// backward, g rounded to bf16 is already the A operand of grad += g.stream,
-// whose B operand is the same staged tile read by ldmatrix.trans. The two
-// halves of a row group add their sums in a fixed order at the end: no
-// atomics, so two runs give the same bits. N = 8192 gives 128 blocks of 8
-// warps for 132 SMs, one wave; the column split is inside the block, so it
-// needs no second pass. These two have no wgmma or TMA yet.
+// validity, -beta*lq, diag) staged beside each stage. The two halves of a row
+// group add their sums in a fixed order at the end: no atomics, so two runs
+// give the same bits. N = 8192 gives 128 blocks of 8 warps for 132 SMs, one
+// wave; the column split is inside the block, so it needs no second pass. The
+// forward does one product a logit, against the backward's two, so it has no
+// wgmma or TMA yet.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,7 +69,7 @@ constexpr int PAD = 8;  // bf16 padding per staged row: ldmatrix rows fall on di
 static_assert(STREAM_SPLIT == 2, "the end-of-block reduction adds two halves");
 static_assert(STAGE_ROWS <= THREADS, "one thread stages each stream row's metadata");
 
-enum Kind { FWD = 0, DQ = 1, DC = 2 };  // ce_tile takes FWD and DQ; DC is ce_dc_tc_kernel
+enum Kind { FWD = 0, DQ = 1, DC = 2 };  // ce_tile takes FWD; DQ and DC are ce_grad_tc_kernel
 
 struct CeArgs {
   const bf16* own;     // (n, D): Q for FWD and DQ, C for DC
@@ -109,19 +108,10 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // Four 8x8 b16 matrices from shared memory; lane t gives the address of row
-// t % 8 of matrix t / 8. Plain: lane gets M[g][2c..2c+1] of each; trans:
-// M[2c..2c+1][g].
+// t % 8 of matrix t / 8; lane gets M[g][2c..2c+1] of each.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a)
                : "memory");
@@ -170,32 +160,23 @@ __device__ __forceinline__ void load_stage(bf16* dst, const bf16* src, int row0,
 
 // Per-row metadata. Candidate side (j): user j/s, or -1 where j is invalid or
 // padding (a masked column); x = -beta*lq[j]. Query side (i): user i/s, or -1
-// past n; for FWD x = diag[i]; for DQ x = lse[i] (-1e9 past n) and
-// y = dce[i]*inv_t (0 past n). y is 0 where unused.
-template <bool CANDIDATE, int KIND>
-__device__ __forceinline__ void row_meta(const CeArgs& A, int t, int& u, float& x, float& y) {
+// past n; x = diag[i] (-1e9 past n).
+template <bool CANDIDATE>
+__device__ __forceinline__ void row_meta(const CeArgs& A, int t, int& u, float& x) {
   const bool in = t < A.n;
   if constexpr (CANDIDATE) {
     u = (in && A.v[t]) ? t / A.s : -1;
     x = in ? -(A.beta * A.lq[t]) : 0.f;
-    y = 0.f;
   } else {
     u = in ? t / A.s : -1;
-    if constexpr (KIND == FWD) {
-      x = in ? A.diag[t] : BIG_NEG;
-      y = 0.f;
-    } else {
-      x = in ? A.lse[t] : BIG_NEG;
-      y = in ? A.dce[t] * A.inv_t : 0.f;
-    }
+    x = in ? A.diag[t] : BIG_NEG;
   }
 }
 
-// The body of the two tile kernels below: one block, 64 own (query) rows
-// against every stream (candidate) row.
-template <int D, int KIND>
+// The body of ce_fwd_kernel: one block, 64 own (query) rows against every
+// stream (candidate) row.
+template <int D>
 __device__ __forceinline__ void ce_tile(const CeArgs& A) {
-  static_assert(KIND == FWD || KIND == DQ, "ce_dc takes ce_dc_tc_kernel");
   constexpr int LD = D + PAD;
   constexpr int KK = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -213,25 +194,22 @@ __device__ __forceinline__ void ce_tile(const CeArgs& A) {
   uint32_t a[KK][4];
   load_a<D>(a, A.own + (size_t)own0 * D, n - own0, g, c);
   int own_u[2];
-  float own_x[2], own_y[2];
+  float own_x[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) row_meta<false, KIND>(A, own_i[r], own_u[r], own_x[r], own_y[r]);
+  for (int r = 0; r < 2; ++r) row_meta<false>(A, own_i[r], own_u[r], own_x[r]);
 
   const float inv_t = A.inv_t;
-  const float m_shift = KIND == FWD ? *A.m : 0.f;
+  const float m_shift = *A.m;
   float se[2] = {0.f, 0.f};
   int rk[2] = {0, 0};
-  float out[KIND == FWD ? 1 : D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < (KIND == FWD ? 1 : D / 8); ++nt) out[nt][0] = out[nt][1] = out[nt][2] = out[nt][3] = 0.f;
 
   const int stages = (n + STAGE_ROWS - 1) / STAGE_ROWS;
   load_stage<D>(tiles, A.strm, 0, n);
   cp_async_commit();
   if (threadIdx.x < STAGE_ROWS) {
     int u;
-    float x, y;
-    row_meta<true, KIND>(A, threadIdx.x, u, x, y);
+    float x;
+    row_meta<true>(A, threadIdx.x, u, x);
     s_user[threadIdx.x] = u, s_x[threadIdx.x] = x;
   }
 
@@ -241,9 +219,8 @@ __device__ __forceinline__ void ce_tile(const CeArgs& A) {
     if (more) load_stage<D>(tiles + (size_t)(buf ^ 1) * STAGE_ROWS * LD, A.strm, (st + 1) * STAGE_ROWS, n);
     cp_async_commit();
     int nu = -1;
-    float nx = 0.f, ny = 0.f;
-    if (more && threadIdx.x < STAGE_ROWS)
-      row_meta<true, KIND>(A, (st + 1) * STAGE_ROWS + threadIdx.x, nu, nx, ny);
+    float nx = 0.f;
+    if (more && threadIdx.x < STAGE_ROWS) row_meta<true>(A, (st + 1) * STAGE_ROWS + threadIdx.x, nu, nx);
     cp_async_wait_one();
     __syncthreads();
 
@@ -270,7 +247,6 @@ __device__ __forceinline__ void ce_tile(const CeArgs& A) {
 
 #pragma unroll
       for (int ks = 0; ks < SUB / 16; ++ks) {
-        float gv[2][4];
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const int nt = 2 * ks + h2;
@@ -287,26 +263,8 @@ __device__ __forceinline__ void ce_tile(const CeArgs& A) {
             const bool masked = us < 0 || (us == own_u[r] && !eye);
             const float logit = masked ? BIG_NEG : sacc[nt][e] * inv_t;
             const float adj = eye ? logit : logit + xs;
-            if constexpr (KIND == FWD) {
-              se[r] += __expf(adj - m_shift);
-              rk[r] += (!eye && logit > own_x[r]) ? 1 : 0;
-            } else {
-              const float lse = own_x[r];
-              const float p = lse > LSE_GUARD ? __expf(adj - lse) : 0.f;
-              gv[h2][e] = (p - (eye ? 1.f : 0.f)) * own_y[r];
-            }
-          }
-        }
-        if constexpr (KIND != FWD) {
-          // g rounded to bf16 is the A operand of grad += g . stream
-          const uint32_t ga[4] = {pack_bf16(gv[0][0], gv[0][1]), pack_bf16(gv[0][2], gv[0][3]),
-                                  pack_bf16(gv[1][0], gv[1][1]), pack_bf16(gv[1][2], gv[1][3])};
-#pragma unroll
-          for (int dp = 0; dp < D / 16; ++dp) {
-            uint32_t b[4];
-            ldsm_x4_trans(b, tile + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + dp * 16 + (lane >> 4) * 8);
-            mma_16816(out[2 * dp], ga, b[0], b[1]);
-            mma_16816(out[2 * dp + 1], ga, b[2], b[3]);
+            se[r] += __expf(adj - m_shift);
+            rk[r] += (!eye && logit > own_x[r]) ? 1 : 0;
           }
         }
       }
@@ -321,83 +279,57 @@ __device__ __forceinline__ void ce_tile(const CeArgs& A) {
 
   // the two halves of each row group add up in a fixed order: half 1 hands its
   // sums to half 0 through shared memory (the stage tiles are free now)
-  if constexpr (KIND == FWD) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    se[r] += __shfl_xor_sync(0xffffffffu, se[r], 1);
+    se[r] += __shfl_xor_sync(0xffffffffu, se[r], 2);
+    rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 1);
+    rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 2);
+  }
+  float* red_se = reinterpret_cast<float*>(smem);      // [ROW_GROUPS][16]
+  int* red_rk = reinterpret_cast<int*>(red_se + OWN_ROWS);
+  if (half == 1 && c == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      se[r] += __shfl_xor_sync(0xffffffffu, se[r], 1);
-      se[r] += __shfl_xor_sync(0xffffffffu, se[r], 2);
-      rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 1);
-      rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 2);
+      red_se[rg * 16 + g + 8 * r] = se[r];
+      red_rk[rg * 16 + g + 8 * r] = rk[r];
     }
-    float* red_se = reinterpret_cast<float*>(smem);      // [ROW_GROUPS][16]
-    int* red_rk = reinterpret_cast<int*>(red_se + OWN_ROWS);
-    if (half == 1 && c == 0) {
+  }
+  __syncthreads();
+  if (half == 0 && c == 0) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        red_se[rg * 16 + g + 8 * r] = se[r];
-        red_rk[rg * 16 + g + 8 * r] = rk[r];
-      }
-    }
-    __syncthreads();
-    if (half == 0 && c == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = own_i[r];
-        if (i >= n) continue;
-        const float total = se[r] + red_se[rg * 16 + g + 8 * r];
-        const float lse = m_shift + logf(total);
-        const float ce = lse - own_x[r];
-        A.ce[i] = ce;
-        A.lse_out[i] = ce + own_x[r];
-        A.rank[i] = rk[r] + red_rk[rg * 16 + g + 8 * r];
-      }
-    }
-  } else {
-    float* red = reinterpret_cast<float*>(smem) + (size_t)rg * 16 * D;  // [ROW_GROUPS][16][D]
-    if (half == 1) {
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) red[(g + (e >> 1) * 8) * D + nt * 8 + 2 * c + (e & 1)] = out[nt][e];
-    }
-    __syncthreads();
-    if (half == 0) {
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const int d = nt * 8 + 2 * c;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = own_i[r];
-          if (i >= n) continue;
-          const float* o = red + (g + 8 * r) * D + d;
-          *reinterpret_cast<uint32_t*>(A.grad + (size_t)i * D + d) =
-              pack_bf16(out[nt][2 * r] + o[0], out[nt][2 * r + 1] + o[1]);
-        }
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int i = own_i[r];
+      if (i >= n) continue;
+      const float total = se[r] + red_se[rg * 16 + g + 8 * r];
+      const float lse = m_shift + logf(total);
+      const float ce = lse - own_x[r];
+      A.ce[i] = ce;
+      A.lse_out[i] = ce + own_x[r];
+      A.rank[i] = rk[r] + red_rk[rg * 16 + g + 8 * r];
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) ce_fwd_kernel(const CeArgs A) { ce_tile<D, FWD>(A); }
+__global__ void __launch_bounds__(THREADS, 1) ce_fwd_kernel(const CeArgs A) { ce_tile<D>(A); }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1) ce_dq_kernel(const CeArgs A) { ce_tile<D, DQ>(A); }
-
-// ---- ce_dc on Hopper: wgmma, a TMA ring, two consumer warpgroups ------------
+// ---- ce_dq and ce_dc on Hopper: wgmma, a TMA ring, two consumer warpgroups --
 //
 // dc = sum_i bf16(g[i, j]) q_i has the structure of flash attention's forward
 // with the softmax known in advance: per stream tile (query rows i), S =
 // own.stream^T (own = candidate rows j) and then dc += G.stream, G made from
-// S in registers. At D = 128 each logit costs 256 tensor-core MACs against
-// one exponential, so the products bind, and only wgmma reaches the dense
-// tensor-core rate (mma.sync does not).
+// S in registers. dq = sum_j bf16(g[i, j]) c_j is the same with the roles
+// swapped: own = query rows i, stream = candidate rows j. At D = 128 each
+// logit costs 256 tensor-core MACs against one exponential, so the products
+// bind, and only wgmma reaches the dense tensor-core rate (mma.sync does not).
+// One kernel template, ce_grad_tc_kernel<D, SPLIT, KIND>, serves both roles.
 //
-// Design. A block owns 128 candidate rows (two warpgroups of 64) or, where
-// that leaves SMs idle (N / 128 below the SM count: LTHM-base's N = 8192), 64
+// Design. A block owns 128 own rows (two warpgroups of 64) or, where that
+// leaves SMs idle (N / 128 below the SM count: LTHM-base's N = 8192), 64
 // rows whose stream the two warpgroups split, each taking 64 rows of every
 // stage (S by m64n64k16 then) and adding their sums at the end in a fixed
-// order. The query rows arrive by TMA in stages of
+// order. The stream rows arrive by TMA in stages of
 // 128 rows into a 4-deep ring of shared memory (128-byte swizzled panels of
 // 64 columns), signalled by mbarriers; one thread of a warpgroup issues a
 // stage's copy when all 8 warps have released its slot. (No producer warp:
@@ -417,14 +349,18 @@ __global__ void __launch_bounds__(THREADS, 1) ce_dq_kernel(const CeArgs A) { ce_
 // log2e), the LSE_GUARD rows and the weight dce * inv_t (term_i =
 // log2|dce_i inv_t| - lse_i log2e, or -inf; its sign apart), so that a tile
 // away from the users' block diagonal takes one add, one FFMA and one exp2 a
-// logit and no compare (but a sign, in a stage with a negative weight); only
+// logit and no compare (but a sign where a weight is negative); only
 // tiles that meet a user's block (1 in 8 at s = 1024) apply the same-user
-// mask and the diagonal's own term, g_jj = p_jj dce_j inv_t - dce_j inv_t.
-// g rounds to bf16 before the product and dc once at the end. No atomics:
-// two runs give the same bits.
-//
-// The roles are symmetric (own = q, stream = c gives ce_dq), up to which
-// side's row terms the warpgroups compute.
+// mask and the diagonal's own term, g_ii = p_ii dce_i inv_t - dce_i inv_t
+// (p_ii without the logQ shift, 0 where candidate i is invalid).
+// The roles differ only in which side holds which term: for ce_dc the own
+// rows (candidates j) hold term_j and the stream rows term_i with the
+// weight's sign (a stage with a negative weight multiplies by it); for
+// ce_dq the own rows (queries i) hold term_i and its sign (a warp whose rows
+// have a negative weight multiplies by it), the stream rows term_j. The
+// diagonal term and the same-user mask are symmetric.
+// g rounds to bf16 before the product and the gradient once at the end. No
+// atomics: two runs give the same bits.
 
 constexpr int WG_ROWS = 64;               // own rows of a consumer warpgroup
 constexpr int TC_STREAM = 128;            // stream rows a stage
@@ -552,11 +488,11 @@ template <int D> struct Panels {
   static constexpr int K_PER_PANEL = P / 16;  // k16 slices in a panel row
 };
 
-// Shared memory of the dc kernel (from a 1024-byte aligned base): the own
+// Shared memory of ce_grad_tc_kernel (from a 1024-byte aligned base): the own
 // tile (128 rows), the ring of stages, each warpgroup's stream terms (two
-// stages' worth: terms, signs, and per-warp negative-weight flags), the
-// stream-split reduction buffer (64 x D f32), and the mbarriers.
-template <int D> struct DcSmem {
+// stages' worth: terms, and for ce_dc signs and per-warp negative-weight
+// flags), the stream-split reduction buffer (64 x D f32), and the mbarriers.
+template <int D> struct GradSmem {
   static constexpr int TILE = TC_STREAM * D * 2;  // one staged 128-row tile
   static constexpr int OWN = 0;
   static constexpr int RING = OWN + TILE;
@@ -586,16 +522,18 @@ __device__ __forceinline__ void wg_bar(int id) {  // the 128 threads of one warp
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-// SPLIT: the two warpgroups share 64 own rows and take 64 stream rows of
-// each stage each; otherwise each owns 64 of the block's 128 rows and takes
-// all 128 stream rows of every stage.
-template <int D, bool SPLIT>
+// KIND: DC (own = candidates, stream = queries) or DQ (own = queries, stream
+// = candidates). SPLIT: the two warpgroups share 64 own rows and take 64
+// stream rows of each stage each; otherwise each owns 64 of the block's 128
+// rows and takes all 128 stream rows of every stage.
+template <int D, bool SPLIT, int KIND>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-    ce_dc_tc_kernel(const __grid_constant__ CUtensorMap own_map, const __grid_constant__ CUtensorMap stream_map,
-                    const CeArgs A) {
+    ce_grad_tc_kernel(const __grid_constant__ CUtensorMap own_map, const __grid_constant__ CUtensorMap stream_map,
+                      const CeArgs A) {
+  static_assert(KIND == DC || KIND == DQ, "ce_fwd takes ce_tile");
   constexpr int SR = SPLIT ? TC_STREAM / 2 : TC_STREAM;  // stream rows a warpgroup takes of a stage
   using PN = Panels<D>;
-  using SM = DcSmem<D>;
+  using SM = GradSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM::BARS);
@@ -644,7 +582,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 
   const int own0 = own_base + (SPLIT ? 0 : WG_ROWS * wg);  // the warpgroup's first own row
   // this thread's two own rows (accumulator rows wq*16 + g and + 8): their
-  // column term, diagonal term, weight, its sign, and user
+  // off-diagonal term (ce_dc: the candidate's, ce_dq: the query's), diagonal
+  // term, weight, its sign, and user
   float own_term[2], eye_term[2], own_a[2], own_sign[2];
   int own_j[2], own_u[2];
 #pragma unroll
@@ -653,33 +592,51 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     own_j[r] = j;
     own_u[r] = j / A.s;
     const bool in = j < n, valid = in && A.v[j];
-    own_term[r] = valid ? -(A.beta * A.lq[j]) * LOG2E_F : -INFINITY;
-    own_a[r] = in ? A.dce[j] * A.inv_t : 0.f;
-    own_sign[r] = own_a[r] < 0.f ? -1.f : 1.f;
-    eye_term[r] = (valid && A.lse[j] > LSE_GUARD) ? log2f(fabsf(own_a[r])) - A.lse[j] * LOG2E_F : -INFINITY;
+    if constexpr (KIND == DC) {
+      own_term[r] = valid ? -(A.beta * A.lq[j]) * LOG2E_F : -INFINITY;
+      own_a[r] = in ? A.dce[j] * A.inv_t : 0.f;
+      own_sign[r] = own_a[r] < 0.f ? -1.f : 1.f;
+      eye_term[r] = (valid && A.lse[j] > LSE_GUARD) ? log2f(fabsf(own_a[r])) - A.lse[j] * LOG2E_F : -INFINITY;
+    } else {
+      own_a[r] = in ? A.dce[j] * A.inv_t : 0.f;
+      own_sign[r] = own_a[r] < 0.f ? -1.f : 1.f;
+      own_term[r] = (in && A.lse[j] > LSE_GUARD) ? log2f(fabsf(own_a[r])) - A.lse[j] * LOG2E_F : -INFINITY;
+      eye_term[r] = valid ? own_term[r] : -INFINITY;
+    }
   }
+  // ce_dq: a warp one of whose own rows has a negative weight applies the signs
+  const bool own_neg = KIND == DQ && __any_sync(0xffffffffu, own_a[0] < 0.f || own_a[1] < 0.f);
   const float k1 = A.inv_t * LOG2E_F;
 
   // The stream rows' terms, computed by the warpgroup itself for its rows,
-  // one row a thread, a stage ahead: log2|dce_i inv_t| - lse_i log2e, or -inf past n
-  // and on LSE_GUARD rows (p = 0 there); the weight's sign apart, and a flag
-  // for a stage with a negative weight.
+  // one row a thread, a stage ahead. ce_dc: log2|dce_i inv_t| - lse_i log2e,
+  // or -inf past n and on LSE_GUARD rows (p = 0 there); the weight's sign
+  // apart, and a flag for a stage with a negative weight. ce_dq: -beta lq_j
+  // log2e, or -inf past n and where candidate j is invalid.
   float* terms = reinterpret_cast<float*>(smem + SM::TERMS) + wg * 2 * SM::TERM_FLOATS;  // [2][TERM_FLOATS]
-  float pre_lse = BIG_NEG, pre_a = 0.f;
+  float pre_lse = BIG_NEG, pre_a = 0.f;  // ce_dq: the term itself in pre_lse
   auto fetch_terms = [&](int st) {
     const int i = st * TC_STREAM + row0 + tid;
     const bool in = tid < SR && st < n_stages && i < n;
-    pre_lse = in ? A.lse[i] : BIG_NEG;
-    pre_a = in ? A.dce[i] * A.inv_t : 0.f;
+    if constexpr (KIND == DC) {
+      pre_lse = in ? A.lse[i] : BIG_NEG;
+      pre_a = in ? A.dce[i] * A.inv_t : 0.f;
+    } else {
+      pre_lse = (in && A.v[i]) ? -(A.beta * A.lq[i]) * LOG2E_F : -INFINITY;
+    }
   };
   auto store_terms = [&](int buf) {
     float* tm = terms + buf * SM::TERM_FLOATS;
-    if (tid < SR) {
-      tm[tid] = pre_lse > LSE_GUARD ? log2f(fabsf(pre_a)) - pre_lse * LOG2E_F : -INFINITY;
-      tm[TC_STREAM + tid] = pre_a < 0.f ? -1.f : 1.f;
+    if constexpr (KIND == DC) {
+      if (tid < SR) {
+        tm[tid] = pre_lse > LSE_GUARD ? log2f(fabsf(pre_a)) - pre_lse * LOG2E_F : -INFINITY;
+        tm[TC_STREAM + tid] = pre_a < 0.f ? -1.f : 1.f;
+      }
+      const bool neg = __any_sync(0xffffffffu, pre_a < 0.f);
+      if (lane == 0) tm[2 * TC_STREAM + wq] = neg ? 1.f : 0.f;
+    } else {
+      if (tid < SR) tm[tid] = pre_lse;
     }
-    const bool neg = __any_sync(0xffffffffu, pre_a < 0.f);
-    if (lane == 0) tm[2 * TC_STREAM + wq] = neg ? 1.f : 0.f;
   };
 
   const uint32_t own_addr = smem_u32(smem + SM::OWN) + (SPLIT ? 0 : WG_ROWS * wg) * PN::ROW_BYTES;
@@ -706,7 +663,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     const int i0 = st * TC_STREAM + row0;
     const float* tm = terms + buf * SM::TERM_FLOATS;
     const float* fl = tm + 2 * TC_STREAM;
-    const bool neg = fl[0] != 0.f || fl[1] != 0.f || fl[2] != 0.f || fl[3] != 0.f;  // a negative weight here
+    // a negative weight here: ce_dc, on a stream row of the stage
+    const bool neg = KIND == DC && (fl[0] != 0.f || fl[1] != 0.f || fl[2] != 0.f || fl[3] != 0.f);
     const bool diag_tile = i0 / A.s <= (own0 + WG_ROWS - 1) / A.s && own0 / A.s <= (i0 + SR - 1) / A.s;
 #pragma unroll
     for (int jj = 0; jj < SR / 8; ++jj) {
@@ -720,6 +678,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       if (neg) {
         const float2 sg = *reinterpret_cast<const float2*>(tm + TC_STREAM + 8 * jj + 2 * c);
         gv[0] *= sg.x, gv[1] *= sg.y, gv[2] *= sg.x, gv[3] *= sg.y;
+      }
+      if (own_neg) {
+        gv[0] *= own_sign[0], gv[1] *= own_sign[0], gv[2] *= own_sign[1], gv[3] *= own_sign[1];
       }
       if (diag_tile) {
 #pragma unroll
@@ -736,7 +697,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       ga[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(gv[2], gv[3]);
     }
   };
-  // dc += G . stream: B = the stage's rows, 16 at a time, read N-major
+  // grad += G . stream: B = the stage's rows, 16 at a time, read N-major
   float total[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) total[e] = 0.f;
@@ -797,7 +758,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   wgmma_wait<0>();
   release(n_stages - 1);
 
-  // dc rounded to bf16 once; with the split, warpgroup 1 hands its sums to
+  // the gradient rounded to bf16 once; with the split, warpgroup 1 hands its sums to
   // warpgroup 0 through shared memory, which adds them in a fixed order
   float* red = reinterpret_cast<float*>(smem + SM::RED);
   if constexpr (SPLIT) {
@@ -868,9 +829,10 @@ int row_map(CUtensorMap* map, const bf16* base, int n) {
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-// Own-row split where the 128-row tiles fill the SMs, else the stream split.
-template <int D>
-int launch_dc(const CeArgs& A, cudaStream_t stream) {
+// ce_dq or ce_dc: the own-row split where the 128-row tiles fill the SMs, else
+// the stream split.
+template <int D, int KIND>
+int launch_grad(const CeArgs& A, cudaStream_t stream) {
   CUtensorMap own_map, stream_map;
   int rc = row_map<D>(&own_map, A.own, A.n);
   if (!rc) rc = row_map<D>(&stream_map, A.strm, A.n);
@@ -880,9 +842,9 @@ int launch_dc(const CeArgs& A, cudaStream_t stream) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const bool split = (A.n + TC_CONSUMERS * WG_ROWS - 1) / (TC_CONSUMERS * WG_ROWS) < sms;
   const int own_rows = split ? WG_ROWS : TC_CONSUMERS * WG_ROWS;
-  constexpr int smem = DcSmem<D>::ALLOC;
+  constexpr int smem = GradSmem<D>::ALLOC;
   void (*kern)(const CUtensorMap, const CUtensorMap, const CeArgs) =
-      split ? ce_dc_tc_kernel<D, true> : ce_dc_tc_kernel<D, false>;
+      split ? ce_grad_tc_kernel<D, true, KIND> : ce_grad_tc_kernel<D, false, KIND>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<(A.n + own_rows - 1) / own_rows, TC_THREADS, smem, stream>>>(own_map, stream_map, A);
@@ -912,27 +874,26 @@ __global__ void row_diag_kernel(const bf16* __restrict__ q, const bf16* __restri
 }
 
 template <int D, int KIND>
-int launch_tile(const CeArgs& A, cudaStream_t stream) {
-  constexpr size_t smem =
-      (size_t)2 * STAGE_ROWS * (D + PAD) * sizeof(bf16) + (size_t)2 * STAGE_ROWS * 2 * 4;
-  static_assert((size_t)ROW_GROUPS * 16 * D * 4 <= (size_t)2 * STAGE_ROWS * (D + PAD) * sizeof(bf16),
-                "the end-of-block reduction fits in the stage tiles");
-  if constexpr (KIND == DC) return launch_dc<D>(A, stream);
-  void (*kern)(CeArgs) = KIND == FWD ? ce_fwd_kernel<D> : ce_dq_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (A.n + OWN_ROWS - 1) / OWN_ROWS;
-  kern<<<blocks, THREADS, smem, stream>>>(A);
-  return (int)cudaGetLastError();
+int launch(const CeArgs& A, cudaStream_t stream) {
+  if constexpr (KIND != FWD) {
+    return launch_grad<D, KIND>(A, stream);
+  } else {
+    constexpr size_t smem =
+        (size_t)2 * STAGE_ROWS * (D + PAD) * sizeof(bf16) + (size_t)2 * STAGE_ROWS * 2 * 4;
+    cudaError_t e = cudaFuncSetAttribute(ce_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ce_fwd_kernel<D><<<(A.n + OWN_ROWS - 1) / OWN_ROWS, THREADS, smem, stream>>>(A);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int KIND>
-int dispatch_tile(const CeArgs& A, int d, cudaStream_t stream) {
+int dispatch(const CeArgs& A, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_tile<16, KIND>(A, stream);
-    case 32: return launch_tile<32, KIND>(A, stream);
-    case 64: return launch_tile<64, KIND>(A, stream);
-    case 128: return launch_tile<128, KIND>(A, stream);
+    case 16: return launch<16, KIND>(A, stream);
+    case 32: return launch<32, KIND>(A, stream);
+    case 64: return launch<64, KIND>(A, stream);
+    case 128: return launch<128, KIND>(A, stream);
     default: return -1;
   }
 }
@@ -983,7 +944,7 @@ extern "C" int ce_fwd(const void* q, const void* c, const void* v, const void* l
   A.lse_out = static_cast<float*>(lse_out);
   A.rank = static_cast<int*>(rank);
   A.n = n, A.s = s, A.inv_t = inv_t, A.beta = beta;
-  return dispatch_tile<FWD>(A, d, static_cast<cudaStream_t>(stream));
+  return dispatch<FWD>(A, d, static_cast<cudaStream_t>(stream));
 }
 
 static int ce_grad(int kind, const void* q, const void* c, const void* v, const void* lq,
@@ -1000,7 +961,7 @@ static int ce_grad(int kind, const void* q, const void* c, const void* v, const 
   A.grad = static_cast<bf16*>(grad);
   A.n = n, A.s = s, A.inv_t = inv_t, A.beta = beta;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kind == DQ ? dispatch_tile<DQ>(A, d, st) : dispatch_tile<DC>(A, d, st);
+  return kind == DQ ? dispatch<DQ>(A, d, st) : dispatch<DC>(A, d, st);
 }
 
 extern "C" int ce_dq(const void* q, const void* c, const void* v, const void* lq, const void* lse,

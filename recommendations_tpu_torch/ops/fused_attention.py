@@ -133,14 +133,27 @@ def fused_flash_attention_reference(
     scale = float(np.float32(1.0 / math.sqrt(hd)))
     qh = (q.float() * scale).to(q.dtype).float().reshape(b, t, n_head, hd).transpose(1, 2)
     kh = k.float().reshape(b, t, kvh, hd).transpose(1, 2)
-    vh = v.float().reshape(b, t, kvh, hd).transpose(1, 2)
     s = qh @ kh.transpose(-1, -2)  # (B, H, T, T) f32; kvh=1 broadcasts over H
     keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril() if causal else None
+    vh = v.float().reshape(b, t, kvh, hd).transpose(1, 2)
+    return _online_softmax(s, keep, vh, v.dtype, chunk, exp2)
+
+
+def _online_softmax(s, keep, vh, v_dtype, chunk, exp2):
+    """(o, lse) from the (B, H, T, T) f32 logits s, masked where ``keep`` is
+    False, and V as (B, kvh, T, hd) f32 (kvh = 1 broadcasts over H): an
+    online softmax over key chunks of ``chunk`` keys (all keys as one chunk
+    for None). Per chunk the running max rises, what earlier chunks summed
+    is rescaled, p is summed in f32 and rounded to ``v_dtype`` for the PV
+    product; o = acc / max(l, 1e-30) in ``v_dtype``, (B, T, H*hd), and lse =
+    m + log(max(l, 1e-30)), (B, T, H). ``exp2`` takes each exponential as
+    the tensor-core kernels do, 2**(x log2(e) - m log2(e))."""
+    b, _, t, _ = s.shape
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
-    m = torch.full((*s.shape[:-1], 1), NEG_INF, device=q.device)
+    m = torch.full((*s.shape[:-1], 1), NEG_INF, device=s.device)
     den = torch.zeros_like(m)
-    acc = torch.zeros((*s.shape[:-1], hd), device=q.device)
+    acc = torch.zeros((*s.shape[:-1], vh.shape[-1]), device=s.device)
     step = t if chunk is None else chunk
     for c0 in range(0, t, step):
         sc = s[..., c0 : c0 + step]
@@ -150,10 +163,10 @@ def fused_flash_attention_reference(
             p = torch.where(keep[:, c0 : c0 + step], p, 0.0)
         corr = _softmax_exp(m, m_new, exp2)
         den = den * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + p.to(v.dtype).float() @ vh[..., c0 : c0 + step, :]
+        acc = acc * corr + p.to(v_dtype).float() @ vh[..., c0 : c0 + step, :]
         m = m_new
     den = den.clamp_min(1e-30)
-    o = (acc / den).to(q.dtype).transpose(1, 2).reshape(b, t, qc)
+    o = (acc / den).to(v_dtype).transpose(1, 2).reshape(b, t, -1)
     lse = (m + torch.log(den)).squeeze(-1).transpose(1, 2).contiguous()
     return o, lse
 
@@ -357,26 +370,58 @@ def _bias_logits(q, k, table, n_head, nk, causal):
 
 def fused_flash_attention_bias_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, n_head: int,
-    nk: int, causal: bool = True,
+    nk: int, causal: bool = True, *, chunk: int | None = None, exp2: bool = False,
 ):
     """Plain PyTorch version of the bias forward, with ``_fwd_kernel_grid``'s
-    arithmetic over the whole key range as one chunk: s = (q.k) * scale +
-    bf16(table[q - k + nk, h]) in f32, masked; p = exp(s - m); the PV product
-    with p rounded to v's type; o = acc / max(l, 1e-30), lse = m + log(l).
-    Returns (o, lse)."""
+    arithmetic: s = (q.k) * scale + bf16(table[q - k + nk, h]) in f32,
+    masked; an online softmax over key chunks of ``chunk`` keys (the whole
+    key range as one chunk by default, as the grid kernel over one tile;
+    the kernel's own chunk from ``bias_kernel_softmax``): p = exp(s - m), the
+    PV product with p rounded to v's type; o = acc / max(l, 1e-30), lse =
+    m + log(l). ``exp2`` takes each exponential as the tensor-core kernel
+    does, 2**(x log2(e) - m log2(e)). Returns (o, lse)."""
     b, t, qc, hd, kvh = _check(q, k, v, n_head)
     _check_table(table, q, t, n_head, nk, causal)
     s, keep, _ = _bias_logits(q, k, table, n_head, nk, causal)
-    if keep is not None:
-        s = s.masked_fill(~keep, NEG_INF)
     vh = v.float().reshape(b, t, kvh, hd).transpose(1, 2)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    acc = p.to(v.dtype).float() @ vh
-    o = (acc / den).to(q.dtype).transpose(1, 2).reshape(b, t, qc)
-    lse = (m + torch.log(den)).squeeze(-1).transpose(1, 2).contiguous()
-    return o, lse
+    return _online_softmax(s, keep, vh, v.dtype, chunk, exp2)
+
+
+def _mma_bias_tile(t: int, n_head: int, hd: int) -> int:
+    """The staged key tile of ``mqa_mma_kernel``'s bias case, its softmax
+    chunk: the largest power of two up to 512 whose K, V^T and bias stages
+    fit 48 KB (``launch_mma`` in csrc/flash_fwd.cu), no longer than the
+    sequence needs."""
+    rows = max(1, 16 // (n_head // 16))
+
+    def smem(tile):
+        ustride = ((rows + tile - 1 + 63) & ~63) + 8
+        return 2 * hd * (2 * tile + 8) + 2 * n_head * ustride
+
+    tile = 512
+    while tile > 16 and smem(tile) > 48 * 1024:
+        tile >>= 1
+    need = 16
+    while need < t:
+        need <<= 1
+    return min(tile, need)
+
+
+def bias_kernel_softmax(q: torch.Tensor, k: torch.Tensor, n_head: int) -> dict:
+    """The bias forward kernel's softmax arithmetic for these inputs, as
+    keyword arguments of ``fused_flash_attention_bias_reference``: the
+    one-pass tensor-core kernel (bf16, MQA, 16 to 128 heads in groups of 16,
+    hd 16, 32 or 64: the production LTHM's path) takes 16-key chunks and
+    exp2; the two-pass tensor-core kernel (bf16 MQA, more groups of 16 heads,
+    up to 512 heads) its staged tile and exp; the FMA kernel 512-key chunks
+    and exp."""
+    b, t, qc, hd, kvh = _check(q, k, k, n_head)
+    mqa16 = q.dtype == torch.bfloat16 and kvh == 1 and n_head % 16 == 0 and hd in (16, 32, 64)
+    if mqa16 and n_head <= 128:
+        return {"chunk": KERNEL_SOFTMAX_CHUNK, "exp2": True}
+    if mqa16 and n_head <= 512:
+        return {"chunk": _mma_bias_tile(t, n_head, hd), "exp2": False}
+    return {"chunk": 512, "exp2": False}
 
 
 def fused_flash_attention_bias_bwd_reference(

@@ -372,12 +372,15 @@ def test_fused_ce_kernels_match_plain_versions(cuda, n, s, d, beta, invalid_user
         (1024, 32, 32, 0.5, "random"),
         (512, 32, 16, 1.0, "one_user"),      # fully masked rows: ce = -inf
         (2048, 64, 64, 1.0, "invalid_user"),  # a user with every slot invalid
+        (8448, 264, 128, 1.0, "random"),     # N = 8448, a 264-token context: a ragged last stage
+        (17000, 100, 32, 0.5, "random"),     # the own-row split at D = 32 and 16
+        (17000, 50, 16, 1.0, "invalid_user"),
     ],
 )
 def test_fused_ce_kernels_at_chip_smoke_shapes(cuda, n, s, d, beta, pattern):
-    """The four CE kernels (ce_dc on its wgmma kernel) against their plain
-    versions at chip_smoke.py's tolerances and input patterns, and twice for
-    the same bits (compare_ce raises on any failure)."""
+    """The four CE kernels (ce_dq and ce_dc on their wgmma kernel) against
+    their plain versions at chip_smoke.py's tolerances and input patterns,
+    and twice for the same bits (compare_ce raises on any failure)."""
     compare_ce(fc, n, s, d, beta, pattern)
 
 
@@ -391,6 +394,36 @@ def test_ce_dc_with_negative_weights(cuda):
     torch.cuda.synchronize()
     want = fc.ce_grad_reference(q, c, v, lq, lse, dce, 64, 20.0, 1.0, "c")
     assert (dc.float() - want.float()).abs().max().item() <= max(_bf16_ulp(want), 2**-16 * 20.0)
+
+
+@pytest.mark.parametrize(
+    "n,s,d",
+    [
+        (2048, 64, 128),    # the stream split (N / 128 below the SM count)
+        (20000, 100, 64),   # the own-row split, a ragged last block
+        (32768, 1024, 128),  # the production chunk
+    ],
+)
+def test_ce_dq_with_negative_weights_and_guard_rows(cuda, n, s, d):
+    """ce_dq takes the weight's sign per own (query) row, where ce_dc takes
+    it per stream row: dce of either sign, LSE_GUARD rows (lse at -1e9: p = 0,
+    so a row's gradient is -dce inv_t c_i alone) and a user with every slot
+    invalid. dq and dc within one bf16 ulp of the largest element, and the
+    same bits twice."""
+    q, c, v, lq, _ = _ce_inputs(n, s, d, invalid_user=True, seed=7)
+    dce = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda") * v
+    _, _, lse = fc.ce_forward(q, c, v, lq, s, 20.0, 1.0)
+    lse = lse.clone()
+    lse[::97] = -1e9
+    dce[::97] = 1.0
+    got = fc.ce_backward(q, c, v, lq, lse, dce, s, 20.0, 1.0)
+    again = fc.ce_backward(q, c, v, lq, lse, dce, s, 20.0, 1.0)
+    torch.cuda.synchronize()
+    for name, g_, a_, wrt in zip(("dq", "dc"), got, again, "qc"):
+        want = fc.ce_grad_reference(q, c, v, lq, lse, dce, s, 20.0, 1.0, wrt)
+        assert torch.equal(g_, a_), name
+        err = (g_.float() - want.float()).abs().max().item()
+        assert err <= max(_bf16_ulp(want), 2**-16 * 20.0), (name, err)
 
 
 def test_fused_ce_is_deterministic(cuda):
@@ -520,6 +553,45 @@ def _check_bias_kernels(b, t, n_head, hd, kvh, dtype, causal, nk):
     dtable, wtable = got[3], want[3]
     assert dtable.shape == table.shape and dtable.dtype == torch.float32
     assert (dtable - wtable).abs().max().item() <= 2e-4 * max(1.0, wtable.abs().max().item())
+
+
+@pytest.mark.parametrize(
+    "b,t,n_head,hd,causal,nk",
+    [
+        (64, 1025, 32, 16, True, 1025),   # the production path
+        (45, 1025, 32, 16, True, 1025),
+        (20, 1026, 32, 16, False, 1026),  # non-causal, a ragged last key tile
+        (4, 768, 32, 16, True, 768),      # BIAS_MIN_SEQ
+        (4, 1, 32, 16, True, 1),          # one row
+        (2, 1025, 16, 16, True, 1025),    # 1 to 4 groups of 16 heads: the one-pass kernel
+        (2, 1026, 48, 16, True, 1030),
+        (2, 768, 64, 16, False, 768),
+        (2, 770, 32, 32, True, 1025),     # hd 32 and 64, T below the window
+        (2, 300, 128, 64, True, 300),
+        (2, 300, 256, 16, True, 300),     # 16 groups: the two-pass tensor-core kernel
+    ],
+)
+def test_flash_bias_fwd_matches_plain_version_at_its_arithmetic(cuda, b, t, n_head, hd, causal, nk):
+    """The bias forward against its plain version in the kernel's own
+    softmax arithmetic (``bias_kernel_softmax``: 16-key chunks and exp2 on
+    the one-pass kernel), over 4 batch rows at a time, with table entries
+    that are not bf16 values: o within 2**-8 of the largest output (a sum in
+    another order may land on the neighbouring bf16 value), lse within 1e-4;
+    one launch a call, and the same bits twice."""
+    q, k, v, table, _ = _bias_inputs(b, t, n_head, hd, 1, torch.bfloat16, nk, seed=t + n_head)
+    before = fa.FLASH_BIAS_FWD.launches
+    o, lse = fa.fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)
+    o2, lse2 = fa.fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)
+    torch.cuda.synchronize()
+    assert fa.FLASH_BIAS_FWD.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    arith = fa.bias_kernel_softmax(q, k, n_head)
+    parts = [fa.fused_flash_attention_bias_reference(q[i:i + 4], k[i:i + 4], v[i:i + 4], table, n_head, nk, causal,
+                                                     **arith) for i in range(0, b, 4)]
+    ro, rl = torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o.float()).all())
+    assert (o.float() - ro.float()).abs().max().item() <= o_tolerance(torch.bfloat16, ro)
+    assert (lse - rl).abs().max().item() <= LSE_TOL
 
 
 def test_flash_bias_is_deterministic(cuda):

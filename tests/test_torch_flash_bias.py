@@ -11,6 +11,8 @@ rounding of the table to bf16 shows. Tolerances are the JAX tests' own:
 2e-5 for the forward, 3e-4 for the gradients, 5e-4 over several tiles
 (tests/test_fused_attention_bias.py:93,129,159)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,26 +38,70 @@ def _inputs(b, t, n_head, hd, kvh, nk, seed):
     return q, k, v, table, do
 
 
-@pytest.mark.parametrize(
-    "t,n_head,kvh,causal,tile",
-    [
-        (96, 4, 1, True, 32),
-        (96, 4, 4, False, 32),
-        (70, 2, 1, False, 32),  # T not a tile multiple
-    ],
-)
-def test_bias_forward_matches_pallas_kernel(t, n_head, kvh, causal, tile):
+BIAS_FWD_CASES = [
+    (96, 4, 1, True, 32),
+    (96, 4, 4, False, 32),
+    (70, 2, 1, False, 32),  # T not a tile multiple
+    (1025, 16, 1, True, 256),  # the production context, nk = T = 1025, at a narrow width (MQA 16x16)
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_bias_forward(t, n_head, kvh, causal, tile):
+    """The inputs and the JAX Pallas bias forward (interpret mode) on them:
+    (q, k, v, table, o, lse) as numpy arrays, B = 2, hd = 16, nk = T."""
     b, hd, nk = 2, 16, t
     q, k, v, table, _ = _inputs(b, t, n_head, hd, kvh, nk, seed=t + kvh)
     o, res = jfa._bias_fwd_shared(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table), n_head, nk, causal, tile, True
     )
-    want_lse = np.asarray(res[4])[:, :t, :n_head]
+    return q, k, v, table, np.asarray(o), np.asarray(res[4])[:, :t, :n_head]
+
+
+@pytest.mark.parametrize("t,n_head,kvh,causal,tile", BIAS_FWD_CASES)
+def test_bias_forward_matches_pallas_kernel(t, n_head, kvh, causal, tile):
+    q, k, v, table, want_o, want_lse = _pallas_bias_forward(t, n_head, kvh, causal, tile)
     got_o, got_lse = tfa.fused_flash_attention_bias_fwd(
-        *(torch.from_numpy(x) for x in (q, k, v, table)), n_head, nk, causal
+        *(torch.from_numpy(x) for x in (q, k, v, table)), n_head, t, causal
     )
-    np.testing.assert_allclose(got_o.numpy(), np.asarray(o), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("t,n_head,kvh,causal,tile", BIAS_FWD_CASES)
+def test_bias_forward_kernel_arithmetic_matches_pallas_kernel(t, n_head, kvh, causal, tile):
+    """The plain bias forward in the one-pass tensor-core kernel's
+    arithmetic (``chunk=16, exp2=True``: the running max rises once per
+    16 keys, each exponential as 2**(x log2(e) - m log2(e))) against the
+    Pallas grid kernel: f32 operands, so only the order of the f32 sums and
+    the exp2 argument's rounding differ, within the same 2e-5."""
+    q, k, v, table, want_o, want_lse = _pallas_bias_forward(t, n_head, kvh, causal, tile)
+    got_o, got_lse = tfa.fused_flash_attention_bias_reference(
+        *(torch.from_numpy(x) for x in (q, k, v, table)), n_head, t, causal, chunk=16, exp2=True
+    )
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
+
+
+def test_bias_kernel_softmax_names_each_kernels_arithmetic():
+    """bf16 MQA with up to 8 groups of 16 heads and hd 16/32/64 takes the
+    one-pass kernel (16-key chunks, exp2); more groups (up to 512 heads) the
+    two-pass kernel, whose chunk is its staged tile (exp); the rest the FMA
+    kernel (512 keys, exp). The no-bias forward's arithmetic is unchanged."""
+    def arith(t, n_head, hd, kvh=1, dtype=torch.bfloat16, fn=tfa.bias_kernel_softmax):
+        return fn(torch.zeros(1, t, n_head * hd, dtype=dtype), torch.zeros(1, t, kvh * hd, dtype=dtype), n_head)
+
+    one_pass = {"chunk": 16, "exp2": True}
+    for n_head, hd in ((16, 16), (32, 16), (48, 16), (64, 16), (128, 16), (32, 32), (128, 64)):
+        assert arith(1025, n_head, hd) == one_pass, (n_head, hd)
+    assert arith(300, 256, 16) == {"chunk": 64, "exp2": False}  # launch_mma's tile: 48 KB of stages
+    assert arith(40, 256, 16) == {"chunk": 64, "exp2": False}
+    assert arith(1025, 320, 16) == {"chunk": 32, "exp2": False}  # 20 groups: one row a block
+    assert arith(1025, 32, 16, kvh=32) == {"chunk": 512, "exp2": False}  # MHA: the FMA kernel
+    assert arith(1025, 32, 16, dtype=torch.float32) == {"chunk": 512, "exp2": False}
+    assert arith(1025, 24, 16) == {"chunk": 512, "exp2": False}
+    assert arith(1025, 32, 8) == {"chunk": 512, "exp2": False}
+    assert arith(1025, 32, 16, fn=tfa.kernel_softmax) == one_pass
 
 
 def test_bias_forward_bf16_operands():

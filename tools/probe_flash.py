@@ -15,11 +15,18 @@ backward's two kernels apart (``torch.profiler``, device time by kernel
 name), and a JSON summary as its last line. Shapes: MQA 32x16, bf16,
 causal; the forward at B=16, T=1025 and B=64, T=257; the backward at those
 and B=32, T=450; the bias kernels at the production shape B=64, T=1025,
-nk=1025. This checkout's ``flash_bias_dkv`` is also timed as a build with
+nk=1025, the bias forward also at B=16 (checked first against its plain
+version: this tree's at ``bias_kernel_softmax``'s arithmetic, the other's at
+the two-pass kernel's staged tile and exp, as trees before the one-pass bias
+kernel compute it; and printed beside its exponential floor). This
+checkout's ``flash_bias_dkv`` is also timed as a build with
 its table gradient cut out (``DTABLE = false`` in the kernel's source): its
-time beside the full kernel's is what the table gradient costs. The cut
-build lands in ``traces/probe_split/`` (gitignored) and gives no table
-gradient: it is timed, never checked.
+time beside the full kernel's is what the table gradient costs; and its
+``flash_bias_fwd`` as builds with the bias staged but not added
+(``BIAS_WORK = 1``) and neither staged nor added (``BIAS_WORK = 0``): what
+the bias read and the bias staging cost. The cut builds land in
+``traces/probe_*/`` (gitignored) and compute something else: they are
+timed, never checked.
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ H, HD = 32, 16
 FWD_SHAPES = ((16, 1025), (64, 257))
 BWD_SHAPES = ((16, 1025), (32, 450), (64, 257))
 BIAS_SHAPE = (64, 1025)
+BIAS_FWD_BATCHES = (64, 16)  # the bias forward at T = 1025
+# one exponential per live (row, head, key) at 16 a clock per SM, 132 SMs, 1.98 GHz
+EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def kernels_of(csrc: Path | None) -> dict:
@@ -72,19 +82,19 @@ def slices_of(kerns, b, t) -> int:
 
 
 DTABLE_ON = "constexpr bool DTABLE = true;"
+BIAS_WORK_ON = "constexpr int BIAS_WORK = 2;"
 
 
-def without_dtable(csrc: Path, out: Path) -> Path:
-    """A copy of the tree with the bias dK/dV kernel's table gradient cut out
-    (for timing only: the copy's table gradient is zero)."""
-    src = (csrc / "flash_bwd.cu").read_text()
-    if src.count(DTABLE_ON) != 1:
-        raise RuntimeError(f"{csrc}/flash_bwd.cu: no `{DTABLE_ON}` to cut")
-    src = src.replace(DTABLE_ON, "constexpr bool DTABLE = false;")
+def cut_build(csrc: Path, out: Path, source: str, on: str, off: str) -> Path:
+    """A copy of the tree with ``on`` in ``source`` replaced by ``off`` (for
+    timing only: the copy computes something else)."""
+    src = (csrc / source).read_text()
+    if src.count(on) != 1:
+        raise RuntimeError(f"{csrc}/{source}: no `{on}` to cut")
     out.mkdir(parents=True, exist_ok=True)
-    for h in csrc.glob("*.cuh"):
-        (out / h.name).write_text(h.read_text())
-    (out / "flash_bwd.cu").write_text(src)
+    for f in (*csrc.glob("*.cu"), *csrc.glob("*.cuh")):
+        (out / f.name).write_text(f.read_text())
+    (out / source).write_text(src.replace(on, off))
     return out
 
 
@@ -177,6 +187,33 @@ def check(name, kerns, b, t, arith=None):
     return ok
 
 
+def check_bias_fwd(name, kerns, b, t, arith):
+    """The tree's bias forward against the plain version at ``arith`` (the
+    tree's softmax arithmetic), plain over 4 rows at a time, twice for the
+    same bits."""
+    q, k, v, _ = qkv(b, t, seed=b + t + 1)
+    table = torch.randn(2 * t + 1, H, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    outs = []
+    for _ in range(2):
+        o, lse = torch.empty_like(q), torch.empty(b, t, H, device="cuda")
+        kerns["flash_bias_fwd"].launch(*(x.data_ptr() for x in (q, k, v, table, o, lse)), b, t, H, 1, HD,
+                                       table.shape[0], t, 1, 1, torch.cuda.current_stream().cuda_stream)
+        outs.append((o, lse))
+    torch.cuda.synchronize()
+    (o, lse), again = outs
+    parts = [fa.fused_flash_attention_bias_reference(q[i:i + 4], k[i:i + 4], v[i:i + 4], table, H, t, True, **arith)
+             for i in range(0, b, 4)]
+    ro, rl = torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
+    o_err, l_err = (o.float() - ro.float()).abs().max().item(), (lse - rl).abs().max().item()
+    same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    o_tol = 2**-8 * max(1.0, ro.float().abs().max().item())
+    ok = o_err <= o_tol and l_err <= 1e-4 and same
+    print(f"[check] {name} flash_bias_fwd B={b} T={t} nk={t} (plain at chunk {arith['chunk']}, "
+          f"{'exp2' if arith['exp2'] else 'exp'}): o {o_err:.3e} (tol {o_tol:.3e}), lse {l_err:.3e} (tol 1e-4), "
+          f"same bits twice {same} -> {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def rounding(trees, seeds):
     """How often each tree's backward lands on another bf16 value than its
     plain version (at the tree's own arithmetic: exp for the other tree,
@@ -253,9 +290,13 @@ def main() -> int:
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
     trees = {"other": kernels_of(Path(args.other)), "this": kernels_of(None)}
     if not (args.check_only or args.rounding):
-        cut = without_dtable(Path(fa.FLASH_BWD.source).parent,
-                             Path(__file__).resolve().parent.parent / "traces" / "probe_split")
+        csrc, split = Path(fa.FLASH_BWD.source).parent, Path(__file__).resolve().parent.parent / "traces"
+        cut = cut_build(csrc, split / "probe_split", "flash_bwd.cu", DTABLE_ON, DTABLE_ON.replace("true", "false"))
         trees["this_no_dtable"] = {k: v for k, v in kernels_of(cut).items() if k.startswith("flash_bias_dkv")}
+        for work, label in ((1, "this_bias_staged_only"), (0, "this_no_bias_work")):
+            cut = cut_build(csrc, split / f"probe_{label}", "flash_fwd.cu", BIAS_WORK_ON,
+                            BIAS_WORK_ON.replace("2", str(work)))
+            trees[label] = {"flash_bias_fwd": kernels_of(cut)["flash_bias_fwd"]}
     builds = [kern for kerns in trees.values() for kern in kerns.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda kern: kern.build(), builds))
@@ -274,6 +315,10 @@ def main() -> int:
     for b, t in ((2, 1), (2, 70), (3, 1025), (2, 1026), (16, 1025), (32, 450), (64, 257)):
         for name in ("this", "other") if (b, t) == (16, 1025) else ("this",):
             ok &= check(name, trees[name], b, t, None if name == "this" else {"chunk": 512, "exp2": False})
+    q, k, _, _ = qkv(1, BIAS_SHAPE[1], seed=0)
+    ok &= check_bias_fwd("this", trees["this"], 16, BIAS_SHAPE[1], fa.bias_kernel_softmax(q, k, H))
+    ok &= check_bias_fwd("other", trees["other"], 16, BIAS_SHAPE[1],
+                         {"chunk": fa._mma_bias_tile(BIAS_SHAPE[1], H, HD), "exp2": False})
     if args.check_only or not ok:
         print(json.dumps({"ok": ok}))
         return 0 if ok else 1
@@ -324,25 +369,42 @@ def main() -> int:
               f"scaled_dot_product_attention backward {lib:.4f} ms; by kernel (profiler, ms a call) {split}",
               flush=True)
 
-    b, t = BIAS_SHAPE
-    q, k, v, do = qkv(b, t, seed=3)
+    t = BIAS_SHAPE[1]
     nk = t
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
     table = torch.randn(2 * nk + 1, H, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    for b in BIAS_FWD_BATCHES:
+        q, k, v, _ = qkv(b, t, seed=3)
+        o2, lse2 = torch.empty_like(q), torch.empty(b, t, H, device="cuda")
+        common = (b, t, H, 1, HD, table.shape[0], nk, 1, 1, stream)
+        fns = {n: (lambda kern: lambda: kern.launch(*ptr(q, k, v, table, o2, lse2), *common))(kerns["flash_bias_fwd"])
+               for n, kerns in trees.items() if "flash_bias_fwd" in kerns}
+        times = {n: [] for n in fns}
+        order = ("other", "this", "this", "other")
+        if "this_no_bias_work" in fns:  # the bias's cost, in turns beside the full kernel
+            order = ("other", "this", "this_bias_staged_only", "this_no_bias_work", "this_no_bias_work",
+                     "this_bias_staged_only", "this", "other")
+        for n in order:
+            times[n].append(cuda_ms(fns[n], 10))
+        floor = b * H * t * (t + 1) // 2 / EXP_PER_S * 1e3
+        res["bias"][f"flash_bias_fwd_B{b}"] = {**times, "exp_floor_ms": floor}
+        print(f"[time] flash_bias_fwd B={b} T={t} nk={nk}: " + ", ".join(f"{n} {v} ms" for n, v in times.items())
+              + f"; exponential floor {floor:.4f} ms (this at {min(times['this']) / floor:.2f}x it)", flush=True)
+
+    b = BIAS_SHAPE[0]
+    q, k, v, do = qkv(b, t, seed=3)
     o, lse = fa.fused_flash_attention_bias_fwd(q, k, v, table, H, nk, True)
     dcol = fa._rowsum_do_o(do, o, H).contiguous()
-    o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream().cuda_stream
     common = (b, t, H, 1, HD, table.shape[0], nk, 1, 1, stream)
-    ptr = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
-    for kname in ("flash_bias_fwd", "flash_bias_dq", "flash_bias_dkv"):
+    for kname in ("flash_bias_dq", "flash_bias_dkv"):
         fns = {}
         for n, kerns in trees.items():
             if kname not in kerns:
                 continue
             part = torch.zeros((slices_of(kerns, b, t), table.shape[0], H), device="cuda")
-            args = {"flash_bias_fwd": ptr(q, k, v, table, o2, lse2),
-                    "flash_bias_dq": ptr(q, k, v, do, lse, dcol, table, dq),
+            args = {"flash_bias_dq": ptr(q, k, v, do, lse, dcol, table, dq),
                     "flash_bias_dkv": ptr(q, k, v, do, lse, dcol, table, dk, dv, part)}[kname]
             fns[n] = (lambda kern, a, p: lambda: (p, kern.launch(*a, *common)))(kerns[kname], args, part)
         times = {n: [] for n in fns}

@@ -15,8 +15,9 @@ chunk (N = 8192, s = 256) and the production chunk (N = 32768, s = 1024),
 D = 128. ``--other`` holds another ``fused_ce.cu`` (``git show
 <commit>:recommendations_tpu_torch/ops/csrc/fused_ce.cu``): its kernels are
 checked the same way and timed in turns with this tree's (other, this, this,
-other) in the same process. Needs a card; imports nothing of JAX. The last
-line is a JSON summary. ``chip_smoke.py`` holds the same kernels to stated
+other) in the same process, ``ce_dq`` and ``ce_dc`` with the rate of their
+two products. Needs a card; imports nothing of JAX. The last line is a JSON
+summary. ``chip_smoke.py`` holds the same kernels to stated
 tolerances and times each alone.
 """
 
@@ -162,7 +163,13 @@ def main() -> int:
             for name in order:
                 times[name].append(ms(fns[name][k], 20 if n <= 8192 else 5))
             res[f"{k}_N{n}"] = times
-            print(f"[time] {k} N={n} s={s} D={d}: " + ", ".join(f"{nm} {t} ms" for nm, t in times.items()), flush=True)
+            rate = ""
+            if k in ("ce_dq", "ce_dc"):  # S and the gradient product: 4 N^2 D operations
+                tflops = 4 * n * n * d / (min(times["this"]) * 1e-3) / 1e12
+                res[f"{k}_N{n}_tflops"] = tflops
+                rate = f"; this: the products at {tflops:.1f} TFLOP/s, {tflops / 989:.1%} of the 989 dense peak"
+            print(f"[time] {k} N={n} s={s} D={d}: " + ", ".join(f"{nm} {t} ms" for nm, t in times.items()) + rate,
+                  flush=True)
     print(smi)
     print(json.dumps(res))
     return 0
