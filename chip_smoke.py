@@ -14,8 +14,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (ragged last tiles, T=1), beside the stated tolerance, the plain
      versions over 4 batch rows at a time and each forward's (without and
      with the bias) at its kernel's own softmax arithmetic (16-key chunks
-     and exp2 on the one-pass tensor-core kernels); every backward kernel
-     (flash, bias, CE) and the bias forward also run twice for the same bits;
+     and exp2 on the one-pass tensor-core kernels; the bias backward's p at
+     the dQ kernel's exp2 where it takes it); every backward kernel (flash,
+     bias, CE) and the bias forward also run twice for the same bits;
   3. the serving path: the LTHM user encoder at the LTHM-base width
      (6 layers, d=512, MQA 32x16, context 256, a fresh 1M-row KShift table,
      random weights from a seed) answers 8 requests of 64 users; the launch
@@ -44,8 +45,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      widths, remat, no position bias, context 1024, 16 users) answers 4
      requests (6 flash_fwd each) and trains a warm-up and 3 timed steps (6
      flash_fwd and 6 flash_bwd a step), with launch counts;
-  5. timing with CUDA events: each kernel, its plain version, one PyTorch
-     library call for the same function as a yardstick where there is one
+  5. timing with CUDA events: each kernel, its plain version, its bound
+     (and, as a note, the exponential floor of the bias and CE plane
+     kernels), one PyTorch library call for the same function as a
+     yardstick where there is one
      (the SDPA backward as profiler device time, beside its event time), the
      CE kernels at LTHM-base's chunk and at the production chunk (N = 32768),
      the eager CE on the CE kernels' problem, one attention layer on _sdpa
@@ -76,6 +79,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # dense tensor-core peak
 F32_FLOPS_PER_S = 67e12    # outside the tensor cores
+EXP_PER_S = 16 * 132 * 1.98e9  # ex2 on the special-function units: 16 a clock per SM, 132 SMs, 1.98 GHz
 BATCH, EVENTS, CONTEXT = 64, 264, 256
 REQUESTS = 8
 TRAIN_STEPS = 8
@@ -309,10 +313,10 @@ def compare_flash_bwd(fa, b, t, n_head, hd, kvh, dtype, causal, seed=0):
 
 def bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, chunk):
     """The plain bias forward (at the forward kernel's own softmax
-    arithmetic, ``bias_kernel_softmax``) and backward, over ``chunk`` batch
-    rows at a time (their (B, H, T, T) f32 planes take 0.5 GB per 4 rows at
-    T = 1025, H = 32): o, lse, dq, dk and dv concatenated, the table
-    gradients summed."""
+    arithmetic, ``bias_kernel_softmax``) and backward (p as the dQ kernel
+    takes it, the same ``exp2``), over ``chunk`` batch rows at a time (their
+    (B, H, T, T) f32 planes take 0.5 GB per 4 rows at T = 1025, H = 32): o,
+    lse, dq, dk and dv concatenated, the table gradients summed."""
     arith = fa.bias_kernel_softmax(q, k, n_head)
     fwd, bwd = [], []
     for i in range(0, q.shape[0], chunk):
@@ -320,7 +324,8 @@ def bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, chunk):
         fwd.append(fa.fused_flash_attention_bias_reference(q[rows], k[rows], v[rows], table, n_head, nk, causal,
                                                            **arith))
         bwd.append(fa.fused_flash_attention_bias_bwd_reference(
-            q[rows], k[rows], v[rows], table, o[rows], lse[rows], do[rows], n_head, nk, causal))
+            q[rows], k[rows], v[rows], table, o[rows], lse[rows], do[rows], n_head, nk, causal,
+            exp2=arith["exp2"]))
     ro, rl = (torch.cat([f[j] for f in fwd]) for j in range(2))
     grads = [torch.cat([g[j] for g in bwd]) for j in range(3)]
     return ro, rl, grads + [torch.stack([g[3] for g in bwd]).sum(0)]
@@ -372,7 +377,8 @@ def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref
     print(
         f"  flash_bias B={b} T={t} H={n_head} hd={hd} kv_heads={kvh} {str(dtype)[6:]} causal={causal} "
         f"nk={nk} (a dK/dV block walks up to {per_block} items{'' if per_block else ': FMA kernels'}; forward "
-        f"held at softmax chunk {arith['chunk']}, {'exp2' if arith['exp2'] else 'exp'}): "
+        f"held at softmax chunk {arith['chunk']}, the forward and backward at "
+        f"{'exp2' if arith['exp2'] else 'exp'}): "
         f"o {out['flash_bias_fwd'][0]:.3e} (tol {out['flash_bias_fwd'][1]:.3e}), lse {lerr:.3e} "
         f"(tol {LSE_TOL:.0e}); {grads}; "
         f"dtable {t_err:.3e} (tol {t_tol:.3e}); same bits twice {same_bits} -> {'ok' if ok else 'FAIL'}",
@@ -548,9 +554,12 @@ def time_ce(fc, n, s, d, beta, plain_iters=5):
         times[name] = {"ms": cuda_ms(launch[name], 50 if n <= 8192 else 10),
                        "plain_ms": cuda_ms(plain[name], plain_iters, warmup=1),
                        "bound_ms": bound, "bound_by": by}
+        floor = ""
+        if name != "ce_row_diag":  # a note beside the bound, printed only: one exponential per logit
+            floor = f", exponential floor {n * n / EXP_PER_S * 1e3:.4f} ms (a note: one ex2 per logit)"
         torch.cuda.empty_cache()
         print(f"[5] {name} at N={n} D={d} s={s} beta={beta}: kernel {times[name]['ms']:.4f} ms, plain "
-              f"{times[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); library none", flush=True)
+              f"{times[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}){floor}; library none", flush=True)
     return times
 
 
@@ -914,13 +923,16 @@ def time_production(fa, serving, training):
             *ptr(q, k, v, do, lse, dcol, table, dk, dv, part), *common),
     }
     times = {}
+    # a note beside the bound, printed only: one exponential per live (row, head, key)
+    exp_floor = b * h * t * (t + 1) // 2 / EXP_PER_S * 1e3
     for name, fn in launch.items():
         bound, by, nbytes, flops = flash_bias_bound(name, b, t, h, hd, 1, dt, True, n_table)
         times[name] = {"ms": cuda_ms(fn, 10), "bound_ms": bound, "bound_by": by}
         parent = (f"; the 32-key paired design before it took {PARENT_BIAS_DKV_MS} ms (PERF.md)"
                   if name == "flash_bias_dkv" else "")
         print(f"[5] {name} at B={b} T={t} MQA {h}x{hd} bf16 causal nk={nk}: kernel {times[name]['ms']:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}: {nbytes} bytes, {flops} flop){parent}", flush=True)
+              f"bound {bound:.4f} ms ({by}: {nbytes} bytes, {flops} flop); exponential floor {exp_floor:.4f} ms "
+              f"(a note: one ex2 per live (row, head, key)){parent}", flush=True)
 
     # the plain versions at PLAIN_BATCH users (the backward's one function
     # computes dq, dk, dv and the table gradient)
@@ -1114,6 +1126,7 @@ def main() -> int:
         (512, 32, 16, 1.0, "one_user"),          # fully masked rows: ce = -inf
         (256, 256, 128, 1.0, "random"),          # one user: every off-diagonal masked
         (32 * PROD_CONTEXT, PROD_CONTEXT, 128, 0.0, "roll"),  # a chunk of the production path
+        (17000, 1000, 64, 1.0, "random"),        # 128-row blocks (no split), ragged last stage
     ):
         compare_ce(fc, *shape)
     torch.cuda.empty_cache()

@@ -62,8 +62,10 @@
 //   dK/dV is mqa_tc_bias_dkv_kernel, the no-bias kernel's design with the
 //   bias (H = 16 or 32; other head counts take the FMA kernels; the bias run
 //   of each stage staged once, the table gradient carried along its
-//   diagonals in registers, see the kernel); dQ is mqa_mma_dq_kernel, where
-//   a warp owns 16 heads of one row.
+//   diagonals in registers, see the kernel); dQ is mqa_tc_bias_dq_kernel,
+//   the no-bias dQ kernel's design with the bias run of each 64-key tile
+//   staged as flash_bias_fwd stages it (up to TC_WARPS groups of 16 heads),
+//   and above that mqa_mma_dq_kernel, where a warp owns 16 heads of one row.
 // - FMA (float32, MHA, other head counts and dims): one thread per (query
 //   row, head) for dQ and per (key, kv head) for dK/dV.
 
@@ -309,11 +311,6 @@ int launch_fma_dtable(const void* q, const void* k, const void* v, const void* d
 
 // ---- tensor-core specialization: bf16, MQA, heads a multiple of 16 ------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
@@ -370,9 +367,10 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const bf16* ba
   }
 }
 
-// dQ: a warp owns 16 heads of one query row and walks the row's live keys.
-// With the bias (the grid kernel's arithmetic), q enters unscaled, the product
-// is scaled in f32 and the staged bias added.
+// dQ with the bias for more than TC_WARPS groups of 16 heads (up to 512): a
+// warp owns 16 heads of one query row and walks the row's live keys. With the
+// bias (the grid kernel's arithmetic), q enters unscaled, the product is
+// scaled in f32 and the staged bias added.
 template <int HD, bool BIAS>
 __global__ void mqa_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -542,7 +540,7 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
                      const float* __restrict__ lse, const float* __restrict__ dcol,
                      bf16* __restrict__ dq, int batch, int seq_len, int n_head, int rows_per_block,
                      int n_qb, int causal, float scale) {
-  static_assert(!BIAS, "the position bias takes mqa_mma_dq_kernel");
+  static_assert(!BIAS, "the position bias takes mqa_tc_bias_dq_kernel");
   constexpr int RPW = tc_dq_rows_per_warp<HD>();
   constexpr int KT = TC_KEY_TILE;
   constexpr int KS = HD + 8;  // padded row: the 8 rows of an ldmatrix hit 8 bank groups
@@ -667,6 +665,205 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[rt][nt][e] += tacc[rt][nt][e];
     __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+    if (row >= seq_len) continue;
+    bf16* orow = dq + ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int d = nt * 8 + 2 * c;
+      *reinterpret_cast<uint32_t*>(orow + (size_t)g * HD + d) =
+          pack_bf16(acc[rt][nt][0] * scale, acc[rt][nt][1] * scale);
+      *reinterpret_cast<uint32_t*>(orow + (size_t)(g + 8) * HD + d) =
+          pack_bf16(acc[rt][nt][2] * scale, acc[rt][nt][3] * scale);
+    }
+  }
+}
+
+// ---- the bias tensor-core dQ: the no-bias design, the bias staged per tile ----
+//
+// mqa_tc_dq_kernel's design (a warp owns 32 / HD rows of a 16-head group;
+// 64-key K/V tiles by cp.async; ldmatrix reads K both ways; the dS
+// accumulators, rounded to bf16, are the A fragment of dq += dS.K; ex2 with
+// the mask on diagonal and ragged tiles only; each tile's sums added into the
+// f32 totals apart; heavy first), with the grid kernel's logits: s =
+// (q.k) * scale + bias, q the unscaled bf16 operand, the bias
+// bf16(table[i - j + nk, h]); p = exp(s - lse) as ex2(s log2e - lse log2e).
+//
+// The bias is staged as mqa_tc_bias_fwd_kernel (flash_fwd.cu) stages it, by
+// the same functions, in the layout of BiasTile (flash_bias.cuh): the R + 66
+// table rows a 64-key tile reads, one contiguous f32 run, arrive by cp.async
+// beside K/V two tiles ahead, and once a tile each head's run is written as
+// bf16 in two copies shifted by one (a row reads the copy of its parity), a
+// lane's two heads g and g + 8 interleaved, so that one aligned 64-bit load
+// gives a lane its 4 bias values. One barrier a tile. The two rows of a warp
+// at hd = 16 (tc_dq_rows_per_warp) are of two parities: the first reads copy
+// pe, the second copy 1 - pe.
+//
+// Bound at the production shape (B=64, T=1025, MQA 32x16, bf16, causal): the
+// three products (s, dp, dq) over the live pairs take 0.10 ms at the
+// tensor-core peak; one exponential per live (row, head, key), 1.08 G, takes
+// 0.26 ms at 16 a clock per SM. As in the forward, the per-logit work around
+// the products sets the pace.
+
+template <int HD>
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+    mqa_tc_bias_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dcol,
+                          bf16* __restrict__ dq, const float* __restrict__ table, int batch, int seq_len,
+                          int n_head, int rows_per_block, int n_qb, int causal, float scale, int n_table,
+                          int nk) {
+  constexpr int RPW = tc_dq_rows_per_warp<HD>();
+  constexpr int KT = TC_KEY_TILE;
+  constexpr int KS = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [3][KT][KS]
+  bf16* vs = ks + TC_BIAS_KV_BUFS * KT * KS;  // [3][KT][KS]
+  const BiasTile<KT> bt(rows_per_block, n_head);
+  // [2 tiles][2 copies][n_head / 2 head pairs][hs / 2 words]: pair (16 G + g, 16 G + g + 8) is pair 8 G + g
+  uint2* bw = reinterpret_cast<uint2*>(vs + TC_BIAS_KV_BUFS * KT * KS);
+  const int copy_pairs = n_head / 2 * (bt.hs / 2);
+  float* raw = reinterpret_cast<float*>(bw + 4 * copy_pairs);  // [2 tiles][nr][rs]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int groups = n_head >> 4;
+  const int qb = causal ? n_qb - 1 - (int)blockIdx.x / batch : (int)blockIdx.x / batch;  // heavy first
+  const int b = blockIdx.x % batch;
+  const int row0 = qb * rows_per_block;
+  const int wrow = row0 + (warp / groups) * RPW;
+  const int h0 = (warp % groups) * 16;
+  const int block_keys = causal ? min(row0 + rows_per_block, seq_len) : seq_len;
+  const int warp_keys = wrow >= seq_len ? 0 : causal ? min(wrow + RPW, seq_len) : seq_len;
+  const int n_tiles = (block_keys + KT - 1) / KT;
+  const bf16* kb = k + (size_t)b * seq_len * HD;
+  const bf16* vb = v + (size_t)b * seq_len * HD;
+  const int zrow = row0 + rows_per_block - 1;  // z = (zrow - i) + (j - t0)
+
+  // K and V of a tile, and the table rows its bias reads, in one cp.async group
+  auto stage = [&](int tile) {
+    const int t0 = tile * KT;
+    tc_bias_stage_kv<HD, KT>(ks, vs, kb, vb, tile, seq_len);
+    tc_bias_stage_rows(raw + (tile & 1) * bt.nr * bt.rs, bt, table, n_table, n_head, nk, zrow, t0);
+    cp_async_commit();
+  };
+  auto convert = [&](int tile) { tc_bias_convert(bw, raw, bt, copy_pairs, groups, warp, lane, tile); };
+
+  if (n_tiles > 0) stage(0);
+  if (n_tiles > 1) stage(1);
+
+  // A operands (while the first copies land): q of each row's 16 heads,
+  // unscaled (the product is scaled after), and dO; -lse log2e and D
+  uint32_t qa[RPW][HD / 16][4], da[RPW][HD / 16][4];
+  float nl[RPW][2], dd[RPW][2], acc[RPW][HD / 8][4];
+#pragma unroll
+  for (int rt = 0; rt < RPW; ++rt) {
+    const int row = wrow + rt;
+    const size_t q_row = ((size_t)b * seq_len + row) * n_head * HD + (size_t)h0 * HD;
+    const bool active = row < seq_len;
+    load_a<HD>(qa[rt], q + q_row, HD, active ? 16 : 0, g, c, 1.f);
+    load_a<HD>(da[rt], dout + q_row, HD, active ? 16 : 0, g, c, 1.f);
+    nl[rt][0] = nl[rt][1] = dd[rt][0] = dd[rt][1] = 0.f;
+    if (active) {
+      const size_t r_off = ((size_t)b * seq_len + row) * n_head + h0 + g;
+      nl[rt][0] = -lse[r_off] * LOG2E, nl[rt][1] = -lse[r_off + 8] * LOG2E;
+      dd[rt][0] = dcol[r_off], dd[rt][1] = dcol[r_off + 8];
+    }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) acc[rt][nt][0] = acc[rt][nt][1] = acc[rt][nt][2] = acc[rt][nt][3] = 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (n_tiles > 0) convert(0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<0>();  // tile + 1's copies, issued a tile ago
+    __syncthreads();     // ... have landed for every thread; tile's bias is converted; tile - 1 is done
+    if (tile + 2 < n_tiles) stage(tile + 2);
+    if (tile + 1 < n_tiles) convert(tile + 1);
+    // this tile's sums, added to the rows' in f32 after it
+    float tacc[RPW][HD / 8][4];
+#pragma unroll
+    for (int rt = 0; rt < RPW; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) tacc[rt][nt][0] = tacc[rt][nt][1] = tacc[rt][nt][2] = tacc[rt][nt][3] = 0.f;
+    const int t0 = tile * KT;
+    const bf16* kt = ks + (tile % TC_BIAS_KV_BUFS) * KT * KS;
+    const bf16* vt = vs + (tile % TC_BIAS_KV_BUFS) * KT * KS;
+    const uint2* bt_w = bw + (tile & 1) * 2 * copy_pairs + (h0 / 2 + g) * (bt.hs / 2) + c;
+    const int j_end = min(t0 + KT, warp_keys);
+    for (int j0 = t0; j0 < j_end; j0 += 16) {
+      // keys j0..j0+15: K and V as B of S and dP, K transposed as B of dq
+      uint32_t kf[HD / 16][4], vf[HD / 16][4], ktf[HD / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int at = (j0 - t0 + ldsm_row(lane)) * KS + kk * 16 + ldsm_col(lane);
+        ldsm_x4(kf[kk], kt + at);
+        ldsm_x4(vf[kk], vt + at);
+        ldsm_x4_t(ktf[kk], kt + (j0 - t0 + ldsm_row_t(lane)) * KS + kk * 16 + ldsm_col_t(lane));
+      }
+      // the bias words of row wrow + rt: z = zw - rt at key j0, in copy p =
+      // z & 1 at word (z + p) / 2 (as the forward)
+      const int zw = zrow - wrow + j0 - t0, pe = zw & 1;
+      const uint2* bpe = bt_w + pe * copy_pairs + (zw + pe) / 2;
+      const uint2* bpo = bt_w + (1 - pe) * copy_pairs + (zw - pe) / 2;
+#pragma unroll
+      for (int rt = 0; rt < RPW; ++rt) {
+        const int row = wrow + rt;
+        if (row >= seq_len || (causal && j0 > row)) continue;  // warp-uniform
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            mma_16816(s[nt], qa[rt][kk], kf[kk][2 * nt], kf[kk][2 * nt + 1]);
+            mma_16816(dp[nt], da[rt][kk], vf[kk][2 * nt], vf[kk][2 * nt + 1]);
+          }
+        }
+        // s = (q.k) * scale + bias: keys j0 + 8 nt + 2c and + 1 of heads g
+        // (.x) and g + 8 (.y), one 64-bit load
+        const uint2* bp = (rt & 1) ? bpo - (rt - 1) / 2 : bpe - rt / 2;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint2 bb = bp[4 * nt];
+          s[nt][0] = fmaf(s[nt][0], scale, bf_lo(bb.x));
+          s[nt][1] = fmaf(s[nt][1], scale, bf_hi(bb.x));
+          s[nt][2] = fmaf(s[nt][2], scale, bf_lo(bb.y));
+          s[nt][3] = fmaf(s[nt][3], scale, bf_hi(bb.y));
+        }
+        const bool edge = (causal && j0 + 15 > row) || j0 + 16 > seq_len;  // the mask's tiles
+        float ds[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, key = j0 + nt * 8 + 2 * c + (e & 1);
+            float p = ex2(fmaf(s[nt][e], LOG2E, nl[rt][r]));
+            if (edge && (key >= seq_len || (causal && key > row))) p = 0.f;
+            ds[nt][e] = p * (dp[nt][e] - dd[rt][r]);
+          }
+        // the dS accumulators are the dq product's A fragment; dS rounds to bf16
+        const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                 pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          mma_16816(tacc[rt][2 * kk], dsa, ktf[kk][0], ktf[kk][1]);
+          mma_16816(tacc[rt][2 * kk + 1], dsa, ktf[kk][2], ktf[kk][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rt = 0; rt < RPW; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rt][nt][e] += tacc[rt][nt][e];
   }
 
 #pragma unroll
@@ -1339,8 +1536,16 @@ bool tc_bias_dkv_ok(int kvh, int n_head, int head_dim, int is_bf16) {
          tdkv_rows(n_head, head_dim, true) >= TDKV_ROW_SPLIT;
 }
 
-// the bias dQ kernel takes bf16, MQA, 16-head groups and hd in {16, 32, 64},
-// where a 16-key K/V tile and its bias run fit its budget
+// the bias tensor-core dQ kernel takes bf16, MQA, 1 to TC_WARPS groups of 16
+// heads and hd in {16, 32, 64}
+bool tc_bias_dq_ok(int kvh, int n_head, int head_dim, int is_bf16) {
+  return is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head / 16 <= TC_WARPS &&
+         (head_dim == 16 || head_dim == 32 || head_dim == 64);
+}
+
+// mqa_mma_dq_kernel takes the bias dQ of more groups (up to 512 heads): bf16,
+// MQA, 16-head groups and hd in {16, 32, 64}, where a 16-key K/V tile and its
+// bias run fit its budget
 bool mma_dq_ok(int kvh, int n_head, int head_dim, int is_bf16) {
   if (!(is_bf16 && kvh == 1 && n_head % 16 == 0 && n_head <= 512 &&
         (head_dim == 16 || head_dim == 32 || head_dim == 64)))
@@ -1366,6 +1571,27 @@ int launch_tc_dq(const void* q, const void* k, const void* v, const void* dout, 
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dcol), static_cast<bf16*>(dq), batch, seq_len, n_head, rows, n_qb,
       causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tc_bias_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* dcol, void* dq, int batch, int seq_len, int n_head, int causal, Bias bias,
+                      cudaStream_t stream) {
+  const int groups = n_head / 16;
+  const int slices = TC_WARPS / groups;  // row slices of a block
+  const int rows = slices * tc_dq_rows_per_warp<HD>();
+  const int n_qb = (seq_len + rows - 1) / rows;
+  if ((long long)n_qb * batch > 0x7fffffffLL) return -1;
+  const size_t smem = tc_bias_smem<HD, TC_KEY_TILE>(rows, n_head);
+  cudaError_t e = cudaFuncSetAttribute(mqa_tc_bias_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  mqa_tc_bias_dq_kernel<HD><<<n_qb * batch, slices * groups * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(dcol),
+      static_cast<bf16*>(dq), bias.table, batch, seq_len, n_head, rows, n_qb, causal, scale, bias.n_table, bias.nk);
   return (int)cudaGetLastError();
 }
 
@@ -1464,6 +1690,13 @@ int backward(int which, const void* q, const void* k, const void* v, const void*
       default: return -1;
     }
 #undef TB_CASE
+  } else if (which == 1 && tc_bias_dq_ok(kvh, n_head, head_dim, is_bf16)) {
+    switch (head_dim) {
+      case 16: return launch_tc_bias_dq<16>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);
+      case 32: return launch_tc_bias_dq<32>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);
+      case 64: return launch_tc_bias_dq<64>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);
+      default: return -1;
+    }
   } else if (which == 1 && mma_dq_ok(kvh, n_head, head_dim, is_bf16)) {
     switch (head_dim) {
       case 16: return launch_mma_dq<16, true>(q, k, v, dout, lse, dcol, dq, batch, seq_len, n_head, causal, bias, s);

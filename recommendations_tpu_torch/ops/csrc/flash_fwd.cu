@@ -278,11 +278,6 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, 
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // d += a.b for a 16x16 bf16 A (row-major) and a 16x8 bf16 B (column-major).
 // Fragments (g = lane / 4, c = lane % 4): a[0] = A[g][2c..2c+1],
 // a[1] = A[g+8][2c..], a[2] = A[g][2c+8..], a[3] = A[g+8][2c+8..];
@@ -713,47 +708,12 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
 // heavy first), with the grid kernel's logits: s = (q.k) * scale + bias, q
 // the unscaled bf16 operand, the bias bf16(table[i - j + nk, h]).
 //
-// The bias of a block's R rows against a 64-key tile [t0, t0 + 64) lies on
-// R + 63 diagonals: with z = (row0 + R - 1 - i) + (j - t0), every pair reads
-// table row lz - z, lz = row0 + R - 1 - t0 + nk. The rows it needs, R + 66
-// of the (L, H) f32 table, are one contiguous run: it is copied by cp.async
-// with the K/V tile (rows outside the table read as zeros: masked pairs
-// only), and once landed each head's run is written as bf16 in z order, in
-// two copies, copy p holding z at position z + p. A lane's two neighbouring
-// keys j, j + 1 (j even) of row i sit at z, z + 1 with z of the row's parity:
-// in copy p = z & 1 they are one aligned 32-bit word, and the words of the
-// lane's two heads g and g + 8 sit side by side (a copy is [head pair][word]
-// of 64 bits), so one 64-bit load gives both. A head's run is padded to HS =
-// 8 (mod 16) entries, so the 8 head pairs x 4 key pairs of a fragment's load
-// fall on different banks in each half-warp; the f32 run is padded to H + 4
-// floats a row, so the conversion reads without bank conflicts too.
-//
-// One barrier a tile: the copies of tile t + 2 are issued at the top of tile
-// t (three K/V buffers, two f32 runs, two bf16 copies), after the barrier
-// that follows the wait for tile t + 1's; then tile t + 1's bias is
-// converted and tile t computed. Per 16 keys and row a lane adds 2 bias
-// loads, 8 unpacks and 8 FFMAs to the no-bias kernel's work.
-
-// the bias layout of a block of `rows` query rows and n_head heads
-struct BiasTile {
-  int hs;     // bf16 entries of a head's copy: >= rows + 64, = 8 (mod 16)
-  int words;  // 32-bit words of a copy that the conversion writes
-  int nr;     // table rows staged a tile
-  int rs;     // floats a staged table row: n_head + 4
-  __host__ __device__ BiasTile(int rows, int n_head)
-      : hs((rows + TC_KEY_TILE + 7) / 16 * 16 + 8), words((rows + TC_KEY_TILE + 1) / 2), nr(2 * words + 1),
-        rs(n_head + 4) {}
-};
-
-constexpr int TC_BIAS_KV_BUFS = 3;  // K/V tiles in flight or in use
-
-// shared memory of the bias forward: the K/V tiles, two tiles' two bf16
-// copies, two f32 runs
-template <int HD> size_t tc_bias_fwd_smem(int rows, int n_head) {
-  const BiasTile bt(rows, n_head);
-  return (size_t)TC_BIAS_KV_BUFS * 2 * TC_KEY_TILE * (HD + 8) * sizeof(bf16) +
-         (size_t)2 * 2 * n_head * bt.hs * sizeof(bf16) + (size_t)2 * bt.nr * bt.rs * sizeof(float);
-}
+// The bias is staged in the layout of BiasTile (flash_bias.cuh, where it is
+// explained), shared with mqa_tc_bias_dq_kernel: the table rows of tile t + 2
+// arrive by cp.async beside K/V at the top of tile t, tile t + 1's are
+// converted to bf16 copies, tile t is computed; one barrier a tile. Per 16
+// keys and row a lane adds 2 bias loads, 8 unpacks and 8 FFMAs to the
+// no-bias kernel's work.
 
 template <int HD>
 __global__ void __launch_bounds__(32 * TC_WARPS, 2)
@@ -761,16 +721,13 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
                            const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                            const float* __restrict__ table, int batch, int seq_len, int n_head,
                            int rows_per_block, int n_qb, int causal, float scale, int n_table, int nk) {
-  // 2: stage the bias and add it; 1: stage it only; 0: neither (the cut
-  // builds of tools/probe_flash.py, timed only: what the bias costs)
-  constexpr int BIAS_WORK = 2;
   constexpr int RPW = tc_rows_per_warp<HD>();
   constexpr int KT = TC_KEY_TILE;
   constexpr int KS = HD + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);        // [3][KT][KS]
   bf16* vs = ks + TC_BIAS_KV_BUFS * KT * KS;        // [3][KT][KS]
-  const BiasTile bt(rows_per_block, n_head);
+  const BiasTile<KT> bt(rows_per_block, n_head);
   // [2 tiles][2 copies][n_head / 2 head pairs][hs / 2 words]: pair (16 G + g, 16 G + g + 8) is pair 8 G + g
   uint2* bw = reinterpret_cast<uint2*>(vs + TC_BIAS_KV_BUFS * KT * KS);
   const int copy_pairs = n_head / 2 * (bt.hs / 2);
@@ -791,57 +748,14 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
   const bf16* vb = v + (size_t)b * seq_len * HD;
   const int zrow = row0 + rows_per_block - 1;  // z = (zrow - i) + (j - t0)
 
-  // K and V of a tile, and the table rows its bias reads, in one cp.async
-  // group; the loops step with a carry instead of dividing
+  // K and V of a tile, and the table rows its bias reads, in one cp.async group
   auto stage = [&](int tile) {
     const int t0 = tile * KT;
-    bf16* kd = ks + (tile % TC_BIAS_KV_BUFS) * KT * KS;
-    bf16* vd = vs + (tile % TC_BIAS_KV_BUFS) * KT * KS;
-    for (int i = threadIdx.x; i < KT * (HD / 8); i += blockDim.x) {
-      const int j = i / (HD / 8), d = (i % (HD / 8)) * 8;
-      const bool in = t0 + j < seq_len;
-      const size_t src = (size_t)(in ? t0 + j : 0) * HD + d;
-      cp_async16(kd + j * KS + d, kb + src, in);
-      cp_async16(vd + j * KS + d, vb + src, in);
-    }
-    if constexpr (BIAS_WORK > 0) {
-      // staged row r holds table row l_a + r, l_a = lz - 2 words + 1
-      float* rd = raw + (tile & 1) * bt.nr * bt.rs;
-      const int l_a = zrow - t0 + nk - 2 * bt.words + 1;
-      const int chunks = n_head / 4, dr = blockDim.x / chunks, dch = blockDim.x - dr * chunks;
-      for (int r = threadIdx.x / chunks, ch = threadIdx.x - r * chunks; r < bt.nr;) {
-        const int l = l_a + r;
-        const bool in = l >= 0 && l < n_table;
-        cp_async16(rd + r * bt.rs + 4 * ch, table + (size_t)(in ? l : 0) * n_head + 4 * ch, in);
-        r += dr, ch += dch;
-        if (ch >= chunks) ch -= chunks, ++r;
-      }
-    }
+    tc_bias_stage_kv<HD, KT>(ks, vs, kb, vb, tile, seq_len);
+    tc_bias_stage_rows(raw + (tile & 1) * bt.nr * bt.rs, bt, table, n_table, n_head, nk, zrow, t0);
     cp_async_commit();
   };
-  // the staged run as bf16 copies: copy p word w holds z = 2w - p and 2w + 1 - p
-  // (staged row 2 words - 1 - z); a warp takes 8 head pairs x 4 words at a time
-  auto convert = [&](int tile) {
-    if constexpr (BIAS_WORK > 0) {
-      const float* rd = raw + (tile & 1) * bt.nr * bt.rs;
-      uint2* dst = bw + (tile & 1) * 2 * copy_pairs;
-      const int nwb = (bt.words + 3) / 4, warps = blockDim.x >> 5;
-      const int dwb = warps / groups, dgb = warps - dwb * groups;
-      for (int wb = warp / groups, gb = warp - wb * groups; wb < nwb;) {
-        const int w = (lane >> 3) + 4 * wb;
-        if (w < bt.words) {
-          const float* src = rd + (2 * bt.words - 2 * w) * bt.rs + 16 * gb + (lane & 7);  // z = 2w - 1, head g
-          const float zm = src[0], z0 = src[-bt.rs], zp = src[-2 * bt.rs];
-          const float ym = src[8], y0 = src[8 - bt.rs], yp = src[8 - 2 * bt.rs];  // head g + 8
-          const int at = (8 * gb + (lane & 7)) * (bt.hs / 2) + w;
-          dst[at] = make_uint2(pack_bf16(z0, zp), pack_bf16(y0, yp));
-          dst[copy_pairs + at] = make_uint2(pack_bf16(zm, z0), pack_bf16(ym, y0));
-        }
-        wb += dwb, gb += dgb;
-        if (gb >= groups) gb -= groups, ++wb;
-      }
-    }
-  };
+  auto convert = [&](int tile) { tc_bias_convert(bw, raw, bt, copy_pairs, groups, warp, lane, tile); };
 
   if (n_tiles > 0) stage(0);
   if (n_tiles > 1) stage(1);
@@ -910,7 +824,7 @@ __global__ void __launch_bounds__(32 * TC_WARPS, 2)
         const uint2* bp = (rt & 1) ? bpo - (rt - 1) / 2 : bpe - rt / 2;
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          const uint2 bb = BIAS_WORK > 1 ? bp[4 * nt] : make_uint2(0u, 0u);
+          const uint2 bb = bp[4 * nt];
           s[nt][0] = fmaf(s[nt][0], scale, bf_lo(bb.x));
           s[nt][1] = fmaf(s[nt][1], scale, bf_hi(bb.x));
           s[nt][2] = fmaf(s[nt][2], scale, bf_lo(bb.y));
@@ -1013,7 +927,7 @@ int launch_tc_bias_fwd(const void* q, const void* k, const void* v, void* o, voi
   const int rows = slices * tc_rows_per_warp<HD>();
   const int n_qb = (seq_len + rows - 1) / rows;
   if ((long long)n_qb * batch > 0x7fffffffLL) return -1;
-  const size_t smem = tc_bias_fwd_smem<HD>(rows, n_head);
+  const size_t smem = tc_bias_smem<HD, TC_KEY_TILE>(rows, n_head);
   cudaError_t e = cudaFuncSetAttribute(mqa_tc_bias_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;

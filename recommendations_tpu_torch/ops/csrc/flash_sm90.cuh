@@ -1,6 +1,6 @@
-// Building blocks of the no-bias tensor-core flash kernels, shared by
-// flash_fwd.cu and flash_bwd.cu: ldmatrix fragment loads, 16-byte cp.async
-// staging and the ex2 special-function exponential.
+// Building blocks of the tensor-core flash kernels, shared by flash_fwd.cu
+// and flash_bwd.cu: ldmatrix fragment loads, 16-byte cp.async staging, the
+// ex2 special-function exponential and bf16 packing.
 //
 // Fragment layouts are those of mma.sync m16n8k16 (g = lane / 4, c = lane % 4):
 // a B fragment holds B[2c..2c+1][g] and B[2c+8..2c+9][g]. For a tile stored
@@ -16,6 +16,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -65,5 +66,11 @@ __device__ __forceinline__ float ex2(float x) {
 // the two bf16 halves of a packed pair, as float
 __device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// two floats as a packed bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 }  // namespace

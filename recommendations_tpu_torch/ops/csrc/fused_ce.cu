@@ -32,19 +32,16 @@
 // 0.03-0.05 ms, above the product bound, so these kernels are limited by
 // their per-logit elementwise work.
 //
-// Design of ce_fwd (ce_tile; ce_dq and ce_dc share their own wgmma kernel,
-// see ce_grad_tc_kernel below). A block owns 64 query rows and walks every
-// candidate row (the stream) in stages of 128 rows, double-buffered in shared
-// memory with cp.async. Eight warps: four row groups of 16 own rows times two
-// halves of each stage. The own rows are the A operand of mma.sync.m16n8k16,
-// held in registers; S = own.stream^T runs on the tensor cores with B read by
-// ldmatrix; the masks come from the indices and per-row metadata (user,
-// validity, -beta*lq, diag) staged beside each stage. The two halves of a row
-// group add their sums in a fixed order at the end: no atomics, so two runs
-// give the same bits. N = 8192 gives 128 blocks of 8 warps for 132 SMs, one
-// wave; the column split is inside the block, so it needs no second pass. The
-// forward does one product a logit, against the backward's two, so it has no
-// wgmma or TMA yet.
+// Design. All three plane kernels share one layout on Hopper's tensor-core
+// path: a block owns 128 own rows (two consumer warpgroups of 64), or 64
+// whose stream the two warpgroups split where N / 128 leaves SMs idle; the
+// stream rows arrive by TMA in 128-row stages into a 4-deep mbarrier ring;
+// S = own.stream^T comes from an SS wgmma; the row terms are folded so that
+// a logit away from the users' block diagonal takes an add, an FFMA and an
+// exp2. ce_fwd is ce_fwd_tc_kernel (one product a logit: S, then the row
+// sums and ranks, the next stage's S running meanwhile), ce_dq and ce_dc
+// are ce_grad_tc_kernel (S, then the gradient product). Sums are added in a
+// fixed order and no atomics are used, so two runs give the same bits.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -58,18 +55,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float BIG_NEG = -1e9f;    // a masked logit
 constexpr float LSE_GUARD = -1e8f;  // rows at or below this lse take p = 0
-constexpr int ROW_GROUPS = 4;       // warps that split a block's own rows, 16 each
-constexpr int STREAM_SPLIT = 2;     // warps that split a stage's stream rows
-constexpr int OWN_ROWS = 16 * ROW_GROUPS;
-constexpr int SUB = 64;                            // stream rows per warp per stage
-constexpr int STAGE_ROWS = SUB * STREAM_SPLIT;     // stream rows per stage
-constexpr int THREADS = 32 * ROW_GROUPS * STREAM_SPLIT;
-constexpr int PAD = 8;  // bf16 padding per staged row: ldmatrix rows fall on distinct banks
-
-static_assert(STREAM_SPLIT == 2, "the end-of-block reduction adds two halves");
-static_assert(STAGE_ROWS <= THREADS, "one thread stages each stream row's metadata");
-
-enum Kind { FWD = 0, DQ = 1, DC = 2 };  // ce_tile takes FWD; DQ and DC are ce_grad_tc_kernel
+enum Kind { FWD = 0, DQ = 1, DC = 2 };  // FWD is ce_fwd_tc_kernel; DQ and DC are ce_grad_tc_kernel
 
 struct CeArgs {
   const bf16* own;     // (n, D): Q for FWD and DQ, C for DC
@@ -92,227 +78,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// d += a.b for a 16x16 bf16 A (row-major) and a 16x8 bf16 B (column-major).
-// Fragments (g = lane / 4, c = lane % 4): a[0] = A[g][2c..2c+1],
-// a[1] = A[g+8][2c..], a[2] = A[g][2c+8..], a[3] = A[g+8][2c+8..];
-// b0 = B[2c..2c+1][g], b1 = B[2c+8..2c+9][g]; d[0..1] = D[g][2c..2c+1],
-// d[2..3] = D[g+8][2c..2c+1].
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane t gives the address of row
-// t % 8 of matrix t / 8; lane gets M[g][2c..2c+1] of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// 16 bytes from global to shared memory; zeros when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// A fragments of 16 rows x D of a row-major (rows, D) matrix from base; rows
-// at or past n_rows are zeros.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const bf16* base, int n_rows, int g,
-                                       int c) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = g + (r & 1) * 8;
-      const int d = kk * 16 + 2 * c + (r >> 1) * 8;
-      a[kk][r] = m < n_rows ? *reinterpret_cast<const uint32_t*>(base + (size_t)m * D + d) : 0u;
-    }
-  }
-}
-
-// Stream rows row0 .. row0 + STAGE_ROWS - 1 into a padded shared tile; rows at
-// or past n are zeros.
-template <int D>
-__device__ __forceinline__ void load_stage(bf16* dst, const bf16* src, int row0, int n) {
-  constexpr int PER_ROW = D / 8;  // 16-byte copies
-  for (int idx = threadIdx.x; idx < STAGE_ROWS * PER_ROW; idx += THREADS) {
-    const int r = idx / PER_ROW, k = idx - r * PER_ROW;
-    const int row = row0 + r;
-    const bool in = row < n;
-    cp_async16(dst + r * (D + PAD) + k * 8, in ? src + (size_t)row * D + k * 8 : src, in);
-  }
-}
-
-// Per-row metadata. Candidate side (j): user j/s, or -1 where j is invalid or
-// padding (a masked column); x = -beta*lq[j]. Query side (i): user i/s, or -1
-// past n; x = diag[i] (-1e9 past n).
-template <bool CANDIDATE>
-__device__ __forceinline__ void row_meta(const CeArgs& A, int t, int& u, float& x) {
-  const bool in = t < A.n;
-  if constexpr (CANDIDATE) {
-    u = (in && A.v[t]) ? t / A.s : -1;
-    x = in ? -(A.beta * A.lq[t]) : 0.f;
-  } else {
-    u = in ? t / A.s : -1;
-    x = in ? A.diag[t] : BIG_NEG;
-  }
-}
-
-// The body of ce_fwd_kernel: one block, 64 own (query) rows against every
-// stream (candidate) row.
-template <int D>
-__device__ __forceinline__ void ce_tile(const CeArgs& A) {
-  constexpr int LD = D + PAD;
-  constexpr int KK = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem);  // [2][STAGE_ROWS][LD]
-  int* s_user = reinterpret_cast<int*>(smem + (size_t)2 * STAGE_ROWS * LD * sizeof(bf16));
-  float* s_x = reinterpret_cast<float*>(s_user + 2 * STAGE_ROWS);  // [2][STAGE_ROWS]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int rg = warp % ROW_GROUPS, half = warp / ROW_GROUPS;
-  const int n = A.n;
-  const int own0 = blockIdx.x * OWN_ROWS + rg * 16;
-  const int own_i[2] = {own0 + g, own0 + g + 8};
-
-  uint32_t a[KK][4];
-  load_a<D>(a, A.own + (size_t)own0 * D, n - own0, g, c);
-  int own_u[2];
-  float own_x[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) row_meta<false>(A, own_i[r], own_u[r], own_x[r]);
-
-  const float inv_t = A.inv_t;
-  const float m_shift = *A.m;
-  float se[2] = {0.f, 0.f};
-  int rk[2] = {0, 0};
-
-  const int stages = (n + STAGE_ROWS - 1) / STAGE_ROWS;
-  load_stage<D>(tiles, A.strm, 0, n);
-  cp_async_commit();
-  if (threadIdx.x < STAGE_ROWS) {
-    int u;
-    float x;
-    row_meta<true>(A, threadIdx.x, u, x);
-    s_user[threadIdx.x] = u, s_x[threadIdx.x] = x;
-  }
-
-  for (int st = 0; st < stages; ++st) {
-    const int buf = st & 1;
-    const bool more = st + 1 < stages;
-    if (more) load_stage<D>(tiles + (size_t)(buf ^ 1) * STAGE_ROWS * LD, A.strm, (st + 1) * STAGE_ROWS, n);
-    cp_async_commit();
-    int nu = -1;
-    float nx = 0.f;
-    if (more && threadIdx.x < STAGE_ROWS) row_meta<true>(A, (st + 1) * STAGE_ROWS + threadIdx.x, nu, nx);
-    cp_async_wait_one();
-    __syncthreads();
-
-    const int t0 = st * STAGE_ROWS + half * SUB;  // the warp's first stream row
-    if (t0 < n) {
-      const bf16* tile = tiles + (size_t)buf * STAGE_ROWS * LD + (size_t)half * SUB * LD;
-      const int* su = s_user + buf * STAGE_ROWS + half * SUB;
-      const float* sx = s_x + buf * STAGE_ROWS + half * SUB;
-
-      // S = own . stream^T: 16 own rows x 64 stream rows, f32
-      float sacc[SUB / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < SUB / 8; ++nt) sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KK; ++kk) {
-#pragma unroll
-        for (int np = 0; np < SUB / 16; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, tile + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_16816(sacc[2 * np], a[kk], b[0], b[1]);
-          mma_16816(sacc[2 * np + 1], a[kk], b[2], b[3]);
-        }
-      }
-
-#pragma unroll
-      for (int ks = 0; ks < SUB / 16; ++ks) {
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const int nt = 2 * ks + h2;
-          const int tl = nt * 8 + 2 * c;
-          const int2 uu = *reinterpret_cast<const int2*>(su + tl);
-          const float2 xx = *reinterpret_cast<const float2*>(sx + tl);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const int t = t0 + tl + (e & 1);
-            const int us = (e & 1) ? uu.y : uu.x;
-            const float xs = (e & 1) ? xx.y : xx.x;
-            const bool eye = own_i[r] == t;
-            const bool masked = us < 0 || (us == own_u[r] && !eye);
-            const float logit = masked ? BIG_NEG : sacc[nt][e] * inv_t;
-            const float adj = eye ? logit : logit + xs;
-            se[r] += __expf(adj - m_shift);
-            rk[r] += (!eye && logit > own_x[r]) ? 1 : 0;
-          }
-        }
-      }
-    }
-
-    if (more && threadIdx.x < STAGE_ROWS) {
-      const int at = (buf ^ 1) * STAGE_ROWS + threadIdx.x;
-      s_user[at] = nu, s_x[at] = nx;
-    }
-    __syncthreads();
-  }
-
-  // the two halves of each row group add up in a fixed order: half 1 hands its
-  // sums to half 0 through shared memory (the stage tiles are free now)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    se[r] += __shfl_xor_sync(0xffffffffu, se[r], 1);
-    se[r] += __shfl_xor_sync(0xffffffffu, se[r], 2);
-    rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 1);
-    rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 2);
-  }
-  float* red_se = reinterpret_cast<float*>(smem);      // [ROW_GROUPS][16]
-  int* red_rk = reinterpret_cast<int*>(red_se + OWN_ROWS);
-  if (half == 1 && c == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      red_se[rg * 16 + g + 8 * r] = se[r];
-      red_rk[rg * 16 + g + 8 * r] = rk[r];
-    }
-  }
-  __syncthreads();
-  if (half == 0 && c == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = own_i[r];
-      if (i >= n) continue;
-      const float total = se[r] + red_se[rg * 16 + g + 8 * r];
-      const float lse = m_shift + logf(total);
-      const float ce = lse - own_x[r];
-      A.ce[i] = ce;
-      A.lse_out[i] = ce + own_x[r];
-      A.rank[i] = rk[r] + red_rk[rg * 16 + g + 8 * r];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1) ce_fwd_kernel(const CeArgs A) { ce_tile<D>(A); }
 
 // ---- ce_dq and ce_dc on Hopper: wgmma, a TMA ring, two consumer warpgroups --
 //
@@ -530,7 +295,7 @@ template <int D, bool SPLIT, int KIND>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     ce_grad_tc_kernel(const __grid_constant__ CUtensorMap own_map, const __grid_constant__ CUtensorMap stream_map,
                       const CeArgs A) {
-  static_assert(KIND == DC || KIND == DQ, "ce_fwd takes ce_tile");
+  static_assert(KIND == DC || KIND == DQ, "ce_fwd takes ce_fwd_tc_kernel");
   constexpr int SR = SPLIT ? TC_STREAM / 2 : TC_STREAM;  // stream rows a warpgroup takes of a stage
   using PN = Panels<D>;
   using SM = GradSmem<D>;
@@ -792,6 +557,286 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// the registers as written here: no read of them moves above this point, no
+// write of them below it
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// ---- ce_fwd on Hopper: S by wgmma from the TMA ring, the row sums beside it --
+//
+// ce_grad_tc_kernel's layout, ring and shared memory (the own tile, 128-row
+// stages by TMA, a warpgroup's stream terms a stage ahead, S by an SS wgmma),
+// with the gradient product's place taken by the row sums and ranks. There
+// is no gradient product and no D-wide accumulator, so a warpgroup holds two
+// S accumulators and issues stage st + 1's S before it forms stage st's sums:
+// the tensor cores run while the exponentials do (at one product a logit the
+// two weigh about the same).
+//
+// Arithmetic, the plain version's. Per logit away from the users' block
+// diagonal: se_i += exp2(S inv_t log2e + t_j), t_j = -(beta lq_j + m) log2e,
+// or -inf where candidate j is invalid or past n (one FFMA and one ex2 toward
+// the sum); rank_i += fma(S, inv_t, r_j) > diag_i, r_j = 0, or -inf where j
+// is masked: with a zero addend the FFMA rounds once, as the product, so the
+// compare is the plain version's logit S * inv_t against diag_i (a masked
+// logit, -1e9 there, never exceeds diag_i >= -1e9 either). Only tiles that
+// meet a user's block apply the same-user mask and the diagonal's own term
+// (exp2(S inv_t log2e - m log2e) where candidate i is valid, no logQ shift,
+// and no rank). Each stage's sums are added into the row totals apart, two
+// chains a row. At the end lse_i = m + log(sum), ce_i = lse_i - diag_i, and
+// the backward's residual ce_i + diag_i.
+constexpr int FWD_TURN = 4;  // stages a turn of ce_fwd_tc_kernel's pipeline (even)
+
+// A thread's two own rows in ce_fwd_tc_kernel: diag, the diagonal's term,
+// index, and the first row of its user.
+struct FwdRows {
+  float x[2], eye[2];
+  int i[2], lo[2];
+};
+
+// One stage's row sums and ranks from its S accumulator (own row g + 8 (e >>
+// 1) of the warp's 16, stream column j = jc + 8 jj + (e & 1), jc = the
+// stage's first column + 2 c), with the stream terms tm[16 jj + 0..3] =
+// {t_j, t_j+1, r_j, r_j+1}. DIAG: the tile meets a user's block.
+template <bool DIAG, int SR>
+__device__ __forceinline__ void fwd_stage_sums(const float (&s)[SR / 2], const float* tm, const FwdRows& rows,
+                                               int jc, int per_user, float k1, float inv_t, float (&se)[2],
+                                               int (&rk)[2]) {
+  float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [row][jj parity]: two chains a row
+#pragma unroll
+  for (int jj = 0; jj < SR / 8; ++jj) {
+    const float4 tt = *reinterpret_cast<const float4*>(tm + 16 * jj);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float x = s[4 * jj + e];
+      float ev = ex2_approx(fmaf(x, k1, (e & 1) ? tt.y : tt.x));
+      bool gt = fmaf(x, inv_t, (e & 1) ? tt.w : tt.z) > rows.x[r];
+      if constexpr (DIAG) {
+        const int j = jc + 8 * jj + (e & 1);
+        if (j == rows.i[r]) {
+          ev = ex2_approx(fmaf(x, k1, rows.eye[r]));
+          gt = false;
+        } else if ((unsigned)(j - rows.lo[r]) < (unsigned)per_user) {  // the row's user
+          ev = 0.f;
+          gt = false;
+        }
+      }
+      part[r][jj & 1] += ev;
+      rk[r] += gt ? 1 : 0;
+    }
+  }
+  se[0] += part[0][0] + part[0][1];
+  se[1] += part[1][0] + part[1][1];
+}
+
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    ce_fwd_tc_kernel(const __grid_constant__ CUtensorMap own_map, const __grid_constant__ CUtensorMap stream_map,
+                     const CeArgs A) {
+  constexpr int SR = SPLIT ? TC_STREAM / 2 : TC_STREAM;  // stream rows a warpgroup takes of a stage
+  using PN = Panels<D>;
+  using SM = GradSmem<D>;
+  static_assert(2 * TC_STREAM <= SM::TERM_FLOATS, "a stage's two terms a stream row");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM::BARS);
+  uint64_t* empty = full + TC_STAGES;
+  uint64_t* own_bar = empty + TC_STAGES;
+
+  const int n = A.n;
+  const int own_rows = SPLIT ? WG_ROWS : TC_CONSUMERS * WG_ROWS;
+  const int own_base = blockIdx.x * own_rows;
+  const int n_stages = (n + TC_STREAM - 1) / TC_STREAM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3, tid = threadIdx.x & 127;
+  const int g = lane >> 2, c = lane & 3;
+  const int row0 = SPLIT ? SR * wg : 0;  // the warpgroup's first stream row of a stage
+  constexpr float LOG2E_F = 1.4426950408889634f;
+
+  // stages are issued by thread 0, as in ce_grad_tc_kernel
+  const bool issuer = threadIdx.x == 0;
+  auto issue_stage = [&](int st) {
+    const int slot = st % TC_STAGES;
+    mbar_expect_tx(&full[slot], (uint32_t)SM::TILE);
+    for (int p = 0; p < D / PN::P; ++p)
+      tma_load_2d(smem + SM::RING + slot * SM::TILE + p * TC_STREAM * PN::ROW_BYTES, &stream_map, p * PN::P,
+                  st * TC_STREAM, &full[slot]);
+    mbar_arrive(&full[slot]);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * TC_CONSUMERS);
+    }
+    mbar_init(own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(own_bar, (uint32_t)SM::TILE);
+    for (int p = 0; p < D / PN::P; ++p)
+      tma_load_2d(smem + SM::OWN + p * TC_STREAM * PN::ROW_BYTES, &own_map, p * PN::P, own_base, own_bar);
+    mbar_arrive(own_bar);
+  }
+  if (issuer)
+    for (int st = 0; st < n_stages && st < TC_STAGES; ++st) issue_stage(st);
+
+  const int own0 = own_base + (SPLIT ? 0 : WG_ROWS * wg);  // the warpgroup's first own row
+  const float m_shift = *A.m;
+  // this thread's two own (query) rows, accumulator rows wq*16 + g and + 8
+  FwdRows rows;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = own0 + 16 * wq + g + 8 * r;
+    const bool in = i < n;
+    rows.i[r] = i;
+    rows.lo[r] = i / A.s * A.s;
+    rows.x[r] = in ? A.diag[i] : BIG_NEG;
+    rows.eye[r] = (in && A.v[i]) ? -m_shift * LOG2E_F : -INFINITY;
+  }
+  const float k1 = A.inv_t * LOG2E_F, inv_t = A.inv_t;
+
+  // The stream rows' terms, one row a thread, a stage ahead: a column pair
+  // (2x, 2x + 1) at tm[4x..4x + 3] = {t_2x, t_2x+1, r_2x, r_2x+1}
+  float* terms = reinterpret_cast<float*>(smem + SM::TERMS) + wg * 2 * SM::TERM_FLOATS;  // [2][TERM_FLOATS]
+  float pre_t = -INFINITY, pre_r = -INFINITY;
+  auto fetch_terms = [&](int st) {
+    const int j = st * TC_STREAM + row0 + tid;
+    const bool live = tid < SR && st < n_stages && j < n && A.v[j];
+    pre_t = live ? -(A.beta * A.lq[j] + m_shift) * LOG2E_F : -INFINITY;
+    pre_r = live ? 0.f : -INFINITY;
+  };
+  auto store_terms = [&](int buf) {
+    float* tm = terms + buf * SM::TERM_FLOATS + 4 * (tid >> 1) + (tid & 1);
+    if (tid < SR) tm[0] = pre_t, tm[2] = pre_r;
+  };
+
+  const uint32_t own_addr = smem_u32(smem + SM::OWN) + (SPLIT ? 0 : WG_ROWS * wg) * PN::ROW_BYTES;
+  constexpr uint32_t PANEL_BYTES = TC_STREAM * PN::ROW_BYTES;
+  constexpr uint32_t SBO = 8 * PN::ROW_BYTES;  // 8 rows: one swizzle atom
+
+  // S = own . stream^T of the warpgroup's rows of a stage: 64 own x SR stream
+  // rows (past the end: on a stale slot, unread)
+  auto issue_s = [&](int st, float (&s)[SR / 2]) {
+    const int slot = st % TC_STAGES;
+    if (st < n_stages) mbar_wait(&full[slot], (st / TC_STAGES) & 1);
+    const uint32_t tile = smem_u32(smem + SM::RING + slot * SM::TILE) + row0 * PN::ROW_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t koff = (kk / PN::K_PER_PANEL) * PANEL_BYTES + (kk % PN::K_PER_PANEL) * 32;
+      wgmma_ss<SR>(s, gmma_desc(own_addr + koff, 16, SBO, PN::SWIZZLE),
+                   gmma_desc(tile + koff, 16, SBO, PN::SWIZZLE), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // a warp is done with stage st's tile: release its slot; the issuer refills it
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st % TC_STAGES]);
+    if (issuer && st + TC_STAGES < n_stages) {
+      mbar_wait(&empty[st % TC_STAGES], (st / TC_STAGES) & 1);
+      issue_stage(st + TC_STAGES);
+    }
+    __syncwarp();
+  };
+  // the sums and ranks of a stage, into the row totals; the tiles that meet a
+  // user's block take a body of their own, so that the others carry none of
+  // its compares
+  float se[2] = {0.f, 0.f};
+  int rk[2] = {0, 0};
+  auto sums = [&](int st, int buf, const float (&s)[SR / 2]) {
+    const int j0 = st * TC_STREAM + row0;
+    const float* tm = terms + buf * SM::TERM_FLOATS + 4 * c;
+    if (j0 / A.s <= (own0 + WG_ROWS - 1) / A.s && own0 / A.s <= (j0 + SR - 1) / A.s)
+      fwd_stage_sums<true, SR>(s, tm, rows, j0 + 2 * c, A.s, k1, inv_t, se, rk);
+    else
+      fwd_stage_sums<false, SR>(s, tm, rows, j0 + 2 * c, A.s, k1, inv_t, se, rk);
+  };
+
+  // The pipeline, FWD_TURN stages a turn: S of the turn's first stage, then
+  // for each stage the next one's S (the accumulators sa, sb alternate), the
+  // wait for this one's, its tile released, its sums while the next S runs.
+  // Every wgmma group is issued and waited for within its turn, the same on
+  // every path (a stage past the end is computed on a stale slot and never
+  // read): ptxas serializes every wgmma when a group is still in flight
+  // where the loop turns, or differs between paths. The register fences
+  // keep each read of an accumulator after the wait that completes it.
+  mbar_wait(own_bar, 0);
+  float sa[SR / 2], sb[SR / 2];
+  fetch_terms(0);
+  store_terms(0);
+  fetch_terms(1);
+  wg_bar(1 + wg);  // the first stage's terms are in place
+  for (int st0 = 0; st0 < n_stages; st0 += FWD_TURN) {
+    fence_regs(sa);
+    wgmma_fence();
+    issue_s(st0, sa);
+#pragma unroll
+    for (int k = 0; k < FWD_TURN; ++k) {
+      float (&cur)[SR / 2] = (k & 1) ? sb : sa;
+      float (&nxt)[SR / 2] = (k & 1) ? sa : sb;
+      if (k + 1 < FWD_TURN) {
+        fence_regs(nxt);
+        wgmma_fence();
+        issue_s(st0 + k + 1, nxt);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(cur);
+      const int st = st0 + k;  // of the parity of k: FWD_TURN is even
+      if (st < n_stages) {
+        release(st);
+        store_terms((k + 1) & 1);  // the next stage's terms (its buffer was last read a stage ago)
+        fetch_terms(st + 2);
+        sums(st, k & 1, cur);
+        wg_bar(1 + wg);
+      }
+    }
+  }
+
+  // the four lanes of a row add up in a fixed order; with the split,
+  // warpgroup 1 hands its sums to warpgroup 0 through shared memory
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    se[r] += __shfl_xor_sync(0xffffffffu, se[r], 1);
+    se[r] += __shfl_xor_sync(0xffffffffu, se[r], 2);
+    rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 1);
+    rk[r] += __shfl_xor_sync(0xffffffffu, rk[r], 2);
+  }
+  if constexpr (SPLIT) {
+    float* red_se = reinterpret_cast<float*>(smem + SM::RED);  // [64]
+    int* red_rk = reinterpret_cast<int*>(red_se + WG_ROWS);    // [64]
+    if (wg == 1 && c == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        red_se[16 * wq + g + 8 * r] = se[r];
+        red_rk[16 * wq + g + 8 * r] = rk[r];
+      }
+    }
+    __syncthreads();
+    if (wg == 1) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      se[r] += red_se[16 * wq + g + 8 * r];
+      rk[r] += red_rk[16 * wq + g + 8 * r];
+    }
+  }
+  if (c == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = rows.i[r];
+      if (i >= n) continue;
+      const float ce = m_shift + logf(se[r]) - rows.x[r];
+      A.ce[i] = ce;
+      A.lse_out[i] = ce + rows.x[r];
+      A.rank[i] = rk[r];
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -829,10 +874,10 @@ int row_map(CUtensorMap* map, const bf16* base, int n) {
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-// ce_dq or ce_dc: the own-row split where the 128-row tiles fill the SMs, else
-// the stream split.
+// ce_fwd, ce_dq or ce_dc: the own-row split where the 128-row tiles fill the
+// SMs, else the stream split.
 template <int D, int KIND>
-int launch_grad(const CeArgs& A, cudaStream_t stream) {
+int launch_plane(const CeArgs& A, cudaStream_t stream) {
   CUtensorMap own_map, stream_map;
   int rc = row_map<D>(&own_map, A.own, A.n);
   if (!rc) rc = row_map<D>(&stream_map, A.strm, A.n);
@@ -843,8 +888,9 @@ int launch_grad(const CeArgs& A, cudaStream_t stream) {
   const bool split = (A.n + TC_CONSUMERS * WG_ROWS - 1) / (TC_CONSUMERS * WG_ROWS) < sms;
   const int own_rows = split ? WG_ROWS : TC_CONSUMERS * WG_ROWS;
   constexpr int smem = GradSmem<D>::ALLOC;
-  void (*kern)(const CUtensorMap, const CUtensorMap, const CeArgs) =
-      split ? ce_grad_tc_kernel<D, true, KIND> : ce_grad_tc_kernel<D, false, KIND>;
+  void (*kern)(const CUtensorMap, const CUtensorMap, const CeArgs);
+  if constexpr (KIND == FWD) kern = split ? ce_fwd_tc_kernel<D, true> : ce_fwd_tc_kernel<D, false>;
+  else kern = split ? ce_grad_tc_kernel<D, true, KIND> : ce_grad_tc_kernel<D, false, KIND>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<(A.n + own_rows - 1) / own_rows, TC_THREADS, smem, stream>>>(own_map, stream_map, A);
@@ -873,27 +919,14 @@ __global__ void row_diag_kernel(const bf16* __restrict__ q, const bf16* __restri
   if (lane == 0) diag[row] = v[row] ? acc * inv_t : BIG_NEG;
 }
 
-template <int D, int KIND>
-int launch(const CeArgs& A, cudaStream_t stream) {
-  if constexpr (KIND != FWD) {
-    return launch_grad<D, KIND>(A, stream);
-  } else {
-    constexpr size_t smem =
-        (size_t)2 * STAGE_ROWS * (D + PAD) * sizeof(bf16) + (size_t)2 * STAGE_ROWS * 2 * 4;
-    cudaError_t e = cudaFuncSetAttribute(ce_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    ce_fwd_kernel<D><<<(A.n + OWN_ROWS - 1) / OWN_ROWS, THREADS, smem, stream>>>(A);
-    return (int)cudaGetLastError();
-  }
-}
 
 template <int KIND>
 int dispatch(const CeArgs& A, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<16, KIND>(A, stream);
-    case 32: return launch<32, KIND>(A, stream);
-    case 64: return launch<64, KIND>(A, stream);
-    case 128: return launch<128, KIND>(A, stream);
+    case 16: return launch_plane<16, KIND>(A, stream);
+    case 32: return launch_plane<32, KIND>(A, stream);
+    case 64: return launch_plane<64, KIND>(A, stream);
+    case 128: return launch_plane<128, KIND>(A, stream);
     default: return -1;
   }
 }

@@ -414,7 +414,11 @@ def bias_kernel_softmax(q: torch.Tensor, k: torch.Tensor, n_head: int) -> dict:
     hd 16, 32 or 64: the production LTHM's path) takes 16-key chunks and
     exp2; the two-pass tensor-core kernel (bf16 MQA, more groups of 16 heads,
     up to 512 heads) its staged tile and exp; the FMA kernel 512-key chunks
-    and exp."""
+    and exp. ``exp2`` also names how the bias dQ kernel takes p, as the
+    ``exp2`` argument of ``fused_flash_attention_bias_bwd_reference``: the
+    same inputs go to ``mqa_tc_bias_dq_kernel`` (exp2) where the forward
+    takes its one-pass kernel, and to ``mqa_mma_dq_kernel`` or the FMA
+    kernel (exp) where it does not."""
     b, t, qc, hd, kvh = _check(q, k, k, n_head)
     mqa16 = q.dtype == torch.bfloat16 and kvh == 1 and n_head % 16 == 0 and hd in (16, 32, 64)
     if mqa16 and n_head <= 128:
@@ -426,11 +430,14 @@ def bias_kernel_softmax(q: torch.Tensor, k: torch.Tensor, n_head: int) -> dict:
 
 def fused_flash_attention_bias_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor, o: torch.Tensor,
-    lse: torch.Tensor, do: torch.Tensor, n_head: int, nk: int, causal: bool = True,
+    lse: torch.Tensor, do: torch.Tensor, n_head: int, nk: int, causal: bool = True, *,
+    exp2: bool = False,
 ):
     """Plain PyTorch version of the bias backward, with the grid kernels'
     arithmetic: the cotangent rounded to q's type and D = rowsum(dO * O) in
-    f32; s as the forward's; p = exp(s - lse), masked; ds = p * (dp - D);
+    f32; s as the forward's; p = exp(s - lse), masked (``exp2`` takes p as
+    the tensor-core dQ kernel does, 2**(s log2(e) - lse log2(e)));
+    ds = p * (dp - D);
     dq = round(ds).k * scale and dk = round(ds)^T.q * scale, each scaled once
     at the end; dv = round(p)^T.dO; at MQA dK and dV summed over heads in f32
     before the one rounding. The table gradient is the unrounded f32 ds summed
@@ -442,7 +449,7 @@ def fused_flash_attention_bias_bwd_reference(
     do = do.to(dt)
     dcol = _rowsum_do_o(do, o, n_head).transpose(1, 2)[..., None]  # (B, H, T, 1)
     s, keep, scale = _bias_logits(q, k, table, n_head, nk, causal)
-    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    p = _softmax_exp(s, lse.transpose(1, 2)[..., None], exp2)
     if keep is not None:
         p = torch.where(keep, p, 0.0)
     heads = lambda x, nh: x.float().reshape(b, t, nh, hd).transpose(1, 2)  # noqa: E731

@@ -9,8 +9,8 @@ plane: ``ce_row_diag`` and ``ce_fwd`` replace ``_row_diag_kernel`` and
 and ``ce_dc`` replace ``_ce_dq_kernel`` and ``_ce_dc_kernel`` (the two input
 gradients, each recomputing the plane from the saved logsumexp). The JAX
 entry's ``tile``, ``chunk`` and ``interpret`` arguments set the TPU's
-geometry and are dropped: the CUDA kernels choose their own tiling (64 rows
-a block, the other side in stages of 128 rows).
+geometry and are dropped: the CUDA kernels choose their own tiling (128 or
+64 own rows a block, the other side in stages of 128 rows).
 
 Arithmetic, the JAX kernels': logits are f32 products of the bf16 operands
 times ``inv_t``; a column is masked (-1e9) where it belongs to the row's user

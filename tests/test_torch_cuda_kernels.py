@@ -332,6 +332,9 @@ def _bf16_ulp(ref):
         (2048, 64, 64, 1.0, True),
         (1024, 32, 32, 0.5, False),
         (256, 256, 128, 1.0, False),   # one user: every off-diagonal masked
+        (8448, 264, 16, 1.0, True),    # 64-row blocks (the stream split), a ragged last stage
+        (17000, 100, 32, 0.5, True),   # 128-row blocks, a ragged last block
+        (32768, 1024, 64, 1.0, False),  # the production chunk's shape at D = 64
     ],
 )
 def test_fused_ce_kernels_match_plain_versions(cuda, n, s, d, beta, invalid_user):
@@ -375,10 +378,16 @@ def test_fused_ce_kernels_match_plain_versions(cuda, n, s, d, beta, invalid_user
         (8448, 264, 128, 1.0, "random"),     # N = 8448, a 264-token context: a ragged last stage
         (17000, 100, 32, 0.5, "random"),     # the own-row split at D = 32 and 16
         (17000, 50, 16, 1.0, "invalid_user"),
+        (8448, 264, 32, 0.5, "one_user"),     # one valid user in a split grid: fully masked rows
+        (8448, 264, 64, 1.0, "invalid_user"),
+        (17000, 1000, 128, 1.0, "invalid_user"),  # 128-row blocks, a user with every slot invalid
+        (17000, 1000, 64, 0.0, "one_user"),
+        (32768, 1024, 16, 1.0, "random"),     # the production chunk at D = 16 and 32
+        (32768, 1024, 32, 0.5, "invalid_user"),
     ],
 )
 def test_fused_ce_kernels_at_chip_smoke_shapes(cuda, n, s, d, beta, pattern):
-    """The four CE kernels (ce_dq and ce_dc on their wgmma kernel) against
+    """The four CE kernels (ce_fwd, ce_dq and ce_dc on wgmma kernels) against
     their plain versions at chip_smoke.py's tolerances and input patterns,
     and twice for the same bits (compare_ce raises on any failure)."""
     compare_ce(fc, n, s, d, beta, pattern)
@@ -592,6 +601,63 @@ def test_flash_bias_fwd_matches_plain_version_at_its_arithmetic(cuda, b, t, n_he
     assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o.float()).all())
     assert (o.float() - ro.float()).abs().max().item() <= o_tolerance(torch.bfloat16, ro)
     assert (lse - rl).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize(
+    "b,t,n_head,hd,causal,nk",
+    [
+        (64, 1025, 32, 16, True, 1025),   # the production path
+        (45, 1025, 32, 16, True, 1025),
+        (20, 1026, 32, 16, False, 1026),  # non-causal, a ragged last key tile
+        (4, 768, 32, 16, True, 768),      # BIAS_MIN_SEQ
+        (4, 1, 32, 16, True, 1),          # one row
+        (2, 1025, 16, 16, True, 1025),    # 1 to 8 groups of 16 heads: the tensor-core dQ kernel
+        (2, 1026, 48, 16, True, 1030),
+        (2, 768, 64, 16, False, 768),
+        (2, 770, 32, 32, True, 1025),     # hd 32 and 64, T below the window
+        (2, 300, 128, 64, True, 300),
+        (3, 1025, 128, 16, True, 1025),
+        (2, 300, 256, 16, True, 300),     # 16 groups: mqa_mma_dq_kernel
+    ],
+)
+def test_flash_bias_dq_matches_plain_version_at_its_arithmetic(cuda, b, t, n_head, hd, causal, nk):
+    """The bias dQ kernel against the plain backward's dq with p taken as the
+    kernel takes it (``bias_kernel_softmax``'s ``exp2``: ex2 on the
+    tensor-core dQ kernel, exp on mqa_mma_dq_kernel), over 4 batch rows at a
+    time, with table entries that are not bf16 values: within one bf16 ulp
+    of the largest element (a sum in another order may land on the
+    neighbouring bf16 value), and at T = 1 only, where the gradient
+    vanishes, a floor of 2**-16 (one key, p = 1, so dp - D is the difference
+    of two f32 sums of the same hd products, and both sides hold only its
+    rounding); one launch a call, and the same bits twice."""
+    q, k, v, table, do = _bias_inputs(b, t, n_head, hd, 1, torch.bfloat16, nk, seed=t + 3 * n_head)
+    o, lse = fa.fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)
+    before = fa.FLASH_BIAS_DQ.launches
+    dq = fa.fused_flash_attention_bias_bwd(q, k, v, table, o, lse, do, n_head, nk, causal)[0]
+    dq2 = fa.fused_flash_attention_bias_bwd(q, k, v, table, o, lse, do, n_head, nk, causal)[0]
+    torch.cuda.synchronize()
+    assert fa.FLASH_BIAS_DQ.launches == before + 2
+    assert torch.equal(dq, dq2)
+    exp2 = fa.bias_kernel_softmax(q, k, n_head)["exp2"]
+    assert exp2 == (n_head <= 128)
+    want = torch.cat([fa.fused_flash_attention_bias_bwd_reference(
+        q[i:i + 4], k[i:i + 4], v[i:i + 4], table, o[i:i + 4], lse[i:i + 4], do[i:i + 4], n_head, nk, causal,
+        exp2=exp2)[0] for i in range(0, b, 4)])
+    assert dq.dtype == torch.bfloat16 and bool(torch.isfinite(dq.float()).all())
+    tol = max(_bf16_ulp(want), 2**-16) if t == 1 else _bf16_ulp(want)
+    assert (dq.float() - want.float()).abs().max().item() <= tol
+
+
+def test_flash_bias_dq_refused_launch_raises(cuda):
+    """A shape the kernels refuse (more batch rows than a grid dimension
+    takes): the launch raises, counts nothing, and nothing falls back to the
+    plain version."""
+    q, k, v, table, do = _bias_inputs(65536, 1, 16, 16, 1, torch.bfloat16, 1)
+    o, lse = torch.zeros_like(q), torch.zeros(q.shape[0], 1, 16, device="cuda")
+    before = [kern.launches for kern in (fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)]
+    with pytest.raises(ValueError, match="flash_bias_dq: the kernel does not take this shape"):
+        fa.fused_flash_attention_bias_bwd(q, k, v, table, o, lse, do, 16, 1, True)
+    assert [kern.launches for kern in (fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)] == before
 
 
 def test_flash_bias_is_deterministic(cuda):

@@ -85,9 +85,10 @@ def test_bias_forward_kernel_arithmetic_matches_pallas_kernel(t, n_head, kvh, ca
 
 def test_bias_kernel_softmax_names_each_kernels_arithmetic():
     """bf16 MQA with up to 8 groups of 16 heads and hd 16/32/64 takes the
-    one-pass kernel (16-key chunks, exp2); more groups (up to 512 heads) the
-    two-pass kernel, whose chunk is its staged tile (exp); the rest the FMA
-    kernel (512 keys, exp). The no-bias forward's arithmetic is unchanged."""
+    one-pass kernel (16-key chunks, exp2) and the tensor-core dQ kernel
+    (exp2); more groups (up to 512 heads) the two-pass kernel, whose chunk is
+    its staged tile (exp), and mqa_mma_dq_kernel (exp); the rest the FMA
+    kernels (512 keys, exp). The no-bias forward's arithmetic is unchanged."""
     def arith(t, n_head, hd, kvh=1, dtype=torch.bfloat16, fn=tfa.bias_kernel_softmax):
         return fn(torch.zeros(1, t, n_head * hd, dtype=dtype), torch.zeros(1, t, kvh * hd, dtype=dtype), n_head)
 
@@ -119,17 +120,18 @@ def test_bias_forward_bf16_operands():
     )
 
 
-@pytest.mark.parametrize(
-    "t,n_head,kvh,causal,tile,tol",
-    [
-        (70, 4, 1, True, 32, 3e-4),
-        (70, 4, 4, False, 32, 3e-4),
-        (200, 2, 1, True, 64, 5e-4),  # several tiles, T not a multiple, nk = T as in production
-    ],
-)
-def test_bias_grads_match_pallas_kernels(t, n_head, kvh, causal, tile, tol):
-    """dq, dk, dv and the table gradient through the port's autograd (the
-    custom op's registered backward) against JAX's custom VJP."""
+BIAS_GRAD_CASES = [
+    (70, 4, 1, True, 32, 3e-4),
+    (70, 4, 4, False, 32, 3e-4),
+    (200, 2, 1, True, 64, 5e-4),  # several tiles, T not a multiple, nk = T as in production
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_bias_grads(t, n_head, kvh, causal, tile):
+    """The inputs (B = 2, hd = 16, nk = T) and JAX's custom VJP of its Pallas
+    bias kernels (interpret mode) on them: (q, k, v, table, do) and the
+    gradients of q, k, v and the table, as numpy arrays."""
     b, hd, nk = 2, 16, t
     q, k, v, table, do = _inputs(b, t, n_head, hd, kvh, nk, seed=t + 3 * kvh)
 
@@ -137,14 +139,43 @@ def test_bias_grads_match_pallas_kernels(t, n_head, kvh, causal, tile, tol):
         return jfa.fused_flash_attention_bias(q_, k_, v_, tab, n_head, nk, causal, tile, True)
 
     _, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v, table)))
-    want = vjp(jnp.asarray(do))
+    return (q, k, v, table, do), tuple(np.asarray(w) for w in vjp(jnp.asarray(do)))
+
+
+@pytest.mark.parametrize("t,n_head,kvh,causal,tile,tol", BIAS_GRAD_CASES)
+def test_bias_grads_match_pallas_kernels(t, n_head, kvh, causal, tile, tol):
+    """dq, dk, dv and the table gradient through the port's autograd (the
+    custom op's registered backward) against JAX's custom VJP."""
+    (q, k, v, table, do), want = _pallas_bias_grads(t, n_head, kvh, causal, tile)
     tq, tk, tv, ttab = (torch.from_numpy(x).requires_grad_() for x in (q, k, v, table))
-    out = tfa.fused_flash_attention_bias(tq, tk, tv, ttab, n_head, nk, causal)
+    out = tfa.fused_flash_attention_bias(tq, tk, tv, ttab, n_head, t, causal)
     out.backward(torch.from_numpy(do))
     for name, got, w in zip(("q", "k", "v", "table"), (tq, tk, tv, ttab), want):
         np.testing.assert_allclose(
             got.grad.numpy(), np.asarray(w), rtol=tol, atol=tol, err_msg=f"grad of {name}"
         )
+
+
+@pytest.mark.parametrize("exp2", [False, True])
+@pytest.mark.parametrize("t,n_head,kvh,causal,tile,tol", BIAS_GRAD_CASES)
+def test_bias_bwd_reference_at_each_exp_matches_pallas_kernels(t, n_head, kvh, causal, tile, tol, exp2):
+    """The plain bias backward with p = exp(s - lse) (``exp2=False``) and as
+    the tensor-core dQ kernel takes it, 2**(s log2(e) - lse log2(e))
+    (``exp2=True``), against JAX's Pallas bias kernels within the tolerance
+    above. At ``exp2=False`` it gives the bits of the default, which the
+    custom op's backward gives."""
+    (q, k, v, table, do), want = _pallas_bias_grads(t, n_head, kvh, causal, tile)
+    tq, tk, tv, ttab, tdo = (torch.from_numpy(x) for x in (q, k, v, table, do))
+    o, lse = tfa.fused_flash_attention_bias_reference(tq, tk, tv, ttab, n_head, t, causal)
+    got = tfa.fused_flash_attention_bias_bwd_reference(tq, tk, tv, ttab, o, lse, tdo, n_head, t, causal, exp2=exp2)
+    for name, g, w in zip(("q", "k", "v", "table"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=tol, atol=tol, err_msg=f"grad of {name}, exp2={exp2}")
+    if not exp2:
+        default = tfa.fused_flash_attention_bias_bwd_reference(tq, tk, tv, ttab, o, lse, tdo, n_head, t, causal)
+        assert all(torch.equal(g, d) for g, d in zip(got, default))
+        aq, ak, av, atab = (x.clone().requires_grad_() for x in (tq, tk, tv, ttab))
+        tfa.fused_flash_attention_bias(aq, ak, av, atab, n_head, t, causal).backward(tdo)
+        assert all(torch.equal(g, x.grad) for g, x in zip(got, (aq, ak, av, atab)))
 
 
 def test_bias_entry_checks_the_table_and_launches_nothing_on_cpu():

@@ -15,16 +15,19 @@ backward's two kernels apart (``torch.profiler``, device time by kernel
 name), and a JSON summary as its last line. Shapes: MQA 32x16, bf16,
 causal; the forward at B=16, T=1025 and B=64, T=257; the backward at those
 and B=32, T=450; the bias kernels at the production shape B=64, T=1025,
-nk=1025, the bias forward also at B=16 (checked first against its plain
-version: this tree's at ``bias_kernel_softmax``'s arithmetic, the other's at
-the two-pass kernel's staged tile and exp, as trees before the one-pass bias
-kernel compute it; and printed beside its exponential floor). This
+nk=1025, the bias forward also at B=16 (the bias forward and the bias dQ
+kernel checked first at B=16 against their plain versions, each tree at its
+own arithmetic: this tree's at ``bias_kernel_softmax``'s; a tree without
+the one-pass bias forward at the two-pass kernel's staged tile and exp, and
+one without the tensor-core bias dQ kernel at exp in dQ, as its source
+says; both printed beside their exponential floor). This
 checkout's ``flash_bias_dkv`` is also timed as a build with
 its table gradient cut out (``DTABLE = false`` in the kernel's source): its
 time beside the full kernel's is what the table gradient costs; and its
-``flash_bias_fwd`` as builds with the bias staged but not added
-(``BIAS_WORK = 1``) and neither staged nor added (``BIAS_WORK = 0``): what
-the bias read and the bias staging cost. The cut builds land in
+``flash_bias_fwd`` as builds with the bias staged but not added (the bias
+load in ``mqa_tc_bias_fwd_kernel`` rewritten to zeros) and neither staged
+nor added (the calls that stage and convert the table rows also taken out):
+what the bias read and the bias staging cost. The cut builds land in
 ``traces/probe_*/`` (gitignored) and compute something else: they are
 timed, never checked.
 """
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -81,20 +85,25 @@ def slices_of(kerns, b, t) -> int:
     return query.build()(b, t, H, 1, HD, *[1] * (len(query.argtypes) - 5))
 
 
-DTABLE_ON = "constexpr bool DTABLE = true;"
-BIAS_WORK_ON = "constexpr int BIAS_WORK = 2;"
+# the cuts, as (pattern, replacement) rewrites of one source, each of which
+# must match exactly once
+NO_DTABLE = [(re.escape("constexpr bool DTABLE = true;"), "constexpr bool DTABLE = false;")]
+BIAS_STAGED_ONLY = [(re.escape("const uint2 bb = bp[4 * nt];"), "const uint2 bb = make_uint2(0u, 0u);")]
+NO_BIAS_WORK = BIAS_STAGED_ONLY + [(r"tc_bias_stage_rows\([^;]*\);", ""), (r"tc_bias_convert\([^;]*\);", "")]
 
 
-def cut_build(csrc: Path, out: Path, source: str, on: str, off: str) -> Path:
-    """A copy of the tree with ``on`` in ``source`` replaced by ``off`` (for
-    timing only: the copy computes something else)."""
+def cut_build(csrc: Path, out: Path, source: str, cuts: list) -> Path:
+    """A copy of the tree with ``source`` rewritten by ``cuts`` (for timing
+    only: the copy computes something else)."""
     src = (csrc / source).read_text()
-    if src.count(on) != 1:
-        raise RuntimeError(f"{csrc}/{source}: no `{on}` to cut")
+    for pattern, repl in cuts:
+        src, n = re.subn(pattern, repl, src)
+        if n != 1:
+            raise RuntimeError(f"{csrc}/{source}: `{pattern}` matches {n} times, not once")
     out.mkdir(parents=True, exist_ok=True)
     for f in (*csrc.glob("*.cu"), *csrc.glob("*.cuh")):
         (out / f.name).write_text(f.read_text())
-    (out / source).write_text(src.replace(on, off))
+    (out / source).write_text(src)
     return out
 
 
@@ -214,6 +223,33 @@ def check_bias_fwd(name, kerns, b, t, arith):
     return ok
 
 
+def check_bias_dq(name, kerns, b, t, exp2):
+    """The tree's bias dQ against the plain backward's dq with p taken as
+    ``exp2`` says (the tree's arithmetic), plain over 4 rows at a time,
+    within one bf16 ulp of the largest element; twice for the same bits."""
+    q, k, v, do = qkv(b, t, seed=b + t + 2)
+    table = torch.randn(2 * t + 1, H, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    o, lse = fa.fused_flash_attention_bias_fwd(q, k, v, table, H, t, True)
+    dcol = fa._rowsum_do_o(do, o, H).contiguous()
+    outs = [torch.empty_like(q), torch.empty_like(q)]
+    for dq in outs:
+        kerns["flash_bias_dq"].launch(*(x.data_ptr() for x in (q, k, v, do, lse, dcol, table, dq)), b, t, H, 1, HD,
+                                      table.shape[0], t, 1, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = torch.cat([fa.fused_flash_attention_bias_bwd_reference(
+        q[i:i + 4], k[i:i + 4], v[i:i + 4], table, o[i:i + 4], lse[i:i + 4], do[i:i + 4], H, t, True,
+        exp2=exp2)[0] for i in range(0, b, 4)])
+    err = (outs[0].float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    tol = 2.0 ** (math.floor(math.log2(top)) - 7)
+    same = torch.equal(outs[0], outs[1])
+    ok = err <= tol and same
+    print(f"[check] {name} flash_bias_dq B={b} T={t} nk={t} (plain at {'exp2' if exp2 else 'exp'}): dq {err:.3e} "
+          f"(tol one bf16 ulp of the largest, {tol:.3e}), same bits twice {same} -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
+
 def rounding(trees, seeds):
     """How often each tree's backward lands on another bf16 value than its
     plain version (at the tree's own arithmetic: exp for the other tree,
@@ -291,11 +327,10 @@ def main() -> int:
     trees = {"other": kernels_of(Path(args.other)), "this": kernels_of(None)}
     if not (args.check_only or args.rounding):
         csrc, split = Path(fa.FLASH_BWD.source).parent, Path(__file__).resolve().parent.parent / "traces"
-        cut = cut_build(csrc, split / "probe_split", "flash_bwd.cu", DTABLE_ON, DTABLE_ON.replace("true", "false"))
+        cut = cut_build(csrc, split / "probe_split", "flash_bwd.cu", NO_DTABLE)
         trees["this_no_dtable"] = {k: v for k, v in kernels_of(cut).items() if k.startswith("flash_bias_dkv")}
-        for work, label in ((1, "this_bias_staged_only"), (0, "this_no_bias_work")):
-            cut = cut_build(csrc, split / f"probe_{label}", "flash_fwd.cu", BIAS_WORK_ON,
-                            BIAS_WORK_ON.replace("2", str(work)))
+        for cuts, label in ((BIAS_STAGED_ONLY, "this_bias_staged_only"), (NO_BIAS_WORK, "this_no_bias_work")):
+            cut = cut_build(csrc, split / f"probe_{label}", "flash_fwd.cu", cuts)
             trees[label] = {"flash_bias_fwd": kernels_of(cut)["flash_bias_fwd"]}
     builds = [kern for kerns in trees.values() for kern in kerns.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -317,8 +352,17 @@ def main() -> int:
             ok &= check(name, trees[name], b, t, None if name == "this" else {"chunk": 512, "exp2": False})
     q, k, _, _ = qkv(1, BIAS_SHAPE[1], seed=0)
     ok &= check_bias_fwd("this", trees["this"], 16, BIAS_SHAPE[1], fa.bias_kernel_softmax(q, k, H))
+    # the other tree at its own arithmetic, read from its source: a tree
+    # without the tensor-core bias kernels takes the two-pass forward's
+    # staged tile and exp, and exp in the dQ kernel
+    other_src = Path(args.other)
+    one_pass = "mqa_tc_bias_fwd_kernel" in (other_src / "flash_fwd.cu").read_text()
+    tc_dq = "mqa_tc_bias_dq_kernel" in (other_src / "flash_bwd.cu").read_text()
     ok &= check_bias_fwd("other", trees["other"], 16, BIAS_SHAPE[1],
+                         fa.bias_kernel_softmax(q, k, H) if one_pass else
                          {"chunk": fa._mma_bias_tile(BIAS_SHAPE[1], H, HD), "exp2": False})
+    for name in ("this", "other"):
+        ok &= check_bias_dq(name, trees[name], 16, BIAS_SHAPE[1], name == "this" or tc_dq)
     if args.check_only or not ok:
         print(json.dumps({"ok": ok}))
         return 0 if ok else 1
@@ -413,9 +457,10 @@ def main() -> int:
             order = ("other", "this", "this_no_dtable", "this_no_dtable", "this", "other")
         for n in order:
             times[n].append(cuda_ms(fns[n], 10))
-        res["bias"][kname] = times
-        print(f"[time] {kname} B={b} T={t} nk={nk}: " + ", ".join(f"{n} {v} ms" for n, v in times.items()),
-              flush=True)
+        floor = b * H * t * (t + 1) // 2 / EXP_PER_S * 1e3
+        res["bias"][kname] = {**times, "exp_floor_ms": floor}
+        print(f"[time] {kname} B={b} T={t} nk={nk}: " + ", ".join(f"{n} {v} ms" for n, v in times.items())
+              + f"; exponential floor {floor:.4f} ms (this at {min(times['this']) / floor:.2f}x it)", flush=True)
     print(smi)
     print(json.dumps(res))
     return 0

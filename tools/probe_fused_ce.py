@@ -16,7 +16,13 @@ D = 128. ``--other`` holds another ``fused_ce.cu`` (``git show
 <commit>:recommendations_tpu_torch/ops/csrc/fused_ce.cu``): its kernels are
 checked the same way and timed in turns with this tree's (other, this, this,
 other) in the same process, ``ce_dq`` and ``ce_dc`` with the rate of their
-two products. Needs a card; imports nothing of JAX. The last line is a JSON
+two products, ``ce_fwd`` beside its exponential floor. This tree's
+``ce_fwd`` is also timed as cut builds (``ce_fwd_tc_kernel``'s source
+rewritten: the products without the sums, the sums without the products,
+neither; in
+``traces/probe_ce_*/``, gitignored), which compute something else and are
+timed, never checked: what the sums and the products cost beside the
+staging. Needs a card; imports nothing of JAX. The last line is a JSON
 summary. ``chip_smoke.py`` holds the same kernels to stated
 tolerances and times each alone.
 """
@@ -26,9 +32,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,6 +44,24 @@ sys.path.insert(0, ROOT)
 
 SHAPES = ((8192, 256, 128, 0.0), (100, 10, 16, 1.0), (8448, 264, 64, 1.0), (512, 32, 32, 0.5), (32768, 1024, 128, 0.0))
 TIMED = ((8192, 256), (32768, 1024))  # (N, s) at D = 128
+# the cuts of ce_fwd_tc_kernel, rewrites of its body: the wgmma that issues
+# S, and the call that forms a stage's sums and ranks
+FWD_KERNEL = "ce_fwd_tc_kernel(const __grid_constant__"
+NO_PRODUCTS = (r"wgmma_ss<SR>\([^;]*\);", "")
+NO_SUMS = (r"sums\(st, k & 1, cur\);", "")
+
+
+def cut_ce_fwd(src: str, cuts) -> str:
+    """``src`` with each of ``cuts`` made once in ce_fwd_tc_kernel's body (for
+    timing only: the copy computes something else)."""
+    if src.count(FWD_KERNEL) != 1:
+        raise RuntimeError(f"no `{FWD_KERNEL}` to cut")
+    head, body = src.split(FWD_KERNEL)
+    for pattern, repl in cuts:
+        body, n = re.subn(pattern, repl, body, count=1)
+        if n != 1:
+            raise RuntimeError(f"ce_fwd_tc_kernel: no `{pattern}` to cut")
+    return head + FWD_KERNEL + body
 INV_T = 20.0
 
 
@@ -56,17 +82,30 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
-    trees = {"this": {k.symbol: k for k in f.KERNELS}}
-    if args.other:
-        trees["other"] = {}
+    def kernels_at(source: Path) -> dict:
+        out = {}
         for k in f.KERNELS:
             o = CudaKernel(k.source.name, k.symbol, k.argtypes)
-            o.source = Path(args.other) / k.source.name
-            trees["other"][k.symbol] = o
+            o.source = source
+            out[k.symbol] = o
+        return out
+
+    trees = {"this": {k.symbol: k for k in f.KERNELS}}
+    if args.other:
+        trees["other"] = kernels_at(Path(args.other) / "fused_ce.cu")
+    # this tree's ce_fwd as cut builds, timed only
+    cuts = {}
+    if not args.check_only:
+        src = f.CE_FWD.source.read_text()
+        for cut, label in (([NO_SUMS], "this_products_only"), ([NO_PRODUCTS], "this_sums_only"),
+                           ([NO_PRODUCTS, NO_SUMS], "this_neither")):
+            d = Path(ROOT) / "traces" / f"probe_ce_{label}"
+            d.mkdir(parents=True, exist_ok=True)
+            (d / "fused_ce.cu").write_text(cut_ce_fwd(src, cut))
+            cuts[label] = kernels_at(d / "fused_ce.cu")
     t0 = time.time()
-    for kerns in trees.values():
-        for k in kerns.values():
-            k.build()
+    with ThreadPoolExecutor(1 + len(trees) + len(cuts)) as pool:
+        list(pool.map(lambda k: k.build(), [k for kerns in (*trees.values(), *cuts.values()) for k in kerns.values()]))
     print("built in", time.time() - t0)
     for name, kerns in trees.items():
         for line in kerns["ce_fwd"].build_log.splitlines():
@@ -148,6 +187,9 @@ def main() -> int:
 
     res = {"device": smi}
     order = ("other", "this", "this", "other") if "other" in trees else ("this", "this")
+    fwd_order = (("other",) if "other" in trees else ()) + ("this", *cuts, *reversed(cuts), "this") + (
+        ("other",) if "other" in trees else ())
+    trees.update(cuts)
     for n, s in TIMED:
         d = 128
         q, c, v, lq = inputs(n, d, seed=1)
@@ -159,11 +201,16 @@ def main() -> int:
         fns = {name: launchers(kerns, q, c, v, lq, m, diag, lse, dce, outs, n, d, s, 0.0)
                for name, kerns in trees.items()}
         for k in ("ce_row_diag", "ce_fwd", "ce_dq", "ce_dc"):
-            times = {name: [] for name in trees}
-            for name in order:
+            turns = fwd_order if k == "ce_fwd" else order
+            times = {name: [] for name in dict.fromkeys(turns)}
+            for name in turns:
                 times[name].append(ms(fns[name][k], 20 if n <= 8192 else 5))
             res[f"{k}_N{n}"] = times
             rate = ""
+            if k == "ce_fwd":  # one exponential per logit at 16 a clock per SM, 132 SMs, 1.98 GHz
+                floor = n * n / (16 * 132 * 1.98e9) * 1e3
+                res[f"{k}_N{n}_exp_floor_ms"] = floor
+                rate = f"; exponential floor {floor:.4f} ms (this at {min(times['this']) / floor:.2f}x it)"
             if k in ("ce_dq", "ce_dc"):  # S and the gradient product: 4 N^2 D operations
                 tflops = 4 * n * n * d / (min(times["this"]) * 1e-3) / 1e12
                 res[f"{k}_N{n}_tflops"] = tflops

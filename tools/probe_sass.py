@@ -31,14 +31,27 @@ sys.path.insert(0, ROOT)
 from recommendations_tpu_torch.ops.cuda_build import CSRC, build_library, find_nvcc, library_path  # noqa: E402
 
 # (source, the other tree's kernel, this tree's kernel): the name and the
-# integer and bool template arguments, as ``kernel_key`` writes them
+# integer and bool template arguments, as ``kernel_key`` writes them. The
+# kernels that a change beside them should leave as they are.
+HDS = (16, 32, 64)
 PAIRS = [
-    ("flash_fwd.cu", f"mqa_tc_fwd_kernel<{hd},0>", f"mqa_tc_fwd_kernel<{hd},0>") for hd in (16, 32, 64)
+    ("flash_fwd.cu", f"mqa_tc_fwd_kernel<{hd},0>", f"mqa_tc_fwd_kernel<{hd},0>") for hd in HDS
 ] + [
-    ("fused_ce.cu", f"ce_dc_tc_kernel<{d},{s}>", f"ce_grad_tc_kernel<{d},{s},2>") for d in (16, 32, 64, 128)
-    for s in (0, 1)
+    ("flash_fwd.cu", f"mqa_tc_bias_fwd_kernel<{hd}>", f"mqa_tc_bias_fwd_kernel<{hd}>") for hd in HDS
 ] + [
-    ("fused_ce.cu", f"ce_fwd_kernel<{d}>", f"ce_fwd_kernel<{d}>") for d in (16, 32, 64, 128)
+    ("flash_bwd.cu", f"mqa_tc_dq_kernel<{hd},0>", f"mqa_tc_dq_kernel<{hd},0>") for hd in HDS
+] + [
+    ("flash_bwd.cu", f"mqa_tc_dkv_kernel<{hd}>", f"mqa_tc_dkv_kernel<{hd}>") for hd in HDS
+] + [
+    ("flash_bwd.cu", f"mqa_tc_bias_dkv_kernel<{hd},{ng}>", f"mqa_tc_bias_dkv_kernel<{hd},{ng}>")
+    for hd in HDS for ng in (1, 2)
+] + [
+    ("flash_bwd.cu", f"mqa_mma_dq_kernel<{hd},1>", f"mqa_mma_dq_kernel<{hd},1>") for hd in HDS
+] + [
+    ("fused_ce.cu", f"ce_grad_tc_kernel<{d},{s},{kind}>", f"ce_grad_tc_kernel<{d},{s},{kind}>")
+    for d in (16, 32, 64, 128) for s in (0, 1) for kind in (1, 2)
+] + [
+    ("fused_ce.cu", f"row_diag_kernel<{d}>", f"row_diag_kernel<{d}>") for d in (16, 32, 64, 128)
 ]
 
 

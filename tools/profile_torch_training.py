@@ -19,7 +19,7 @@ device time of each phase of the step (the innermost ``lthm/...`` range of
 ``torch.profiler.record_function`` that launched each kernel: forward,
 loss, backward, ce_backward, optimizer), and the kernels that take the most
 device time, each with its launches per step (the fused CE's are
-``ce_row_diag``, ``ce_fwd_kernel`` and ``ce_grad_tc_kernel``, whose last
+``row_diag_kernel``, ``ce_fwd_tc_kernel`` and ``ce_grad_tc_kernel``, whose last
 template argument is 1 for ``ce_dq`` and 2 for ``ce_dc``),
 and the port's own launch count of each of its kernels per step. Writes the
 Chrome trace to ``--out``. Needs a card; imports nothing of JAX.
