@@ -454,11 +454,17 @@ def compare_ce(fc, n, s, d, beta, pattern):
     dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
     torch.cuda.synchronize()
     again = fc.ce_forward(q, c, v, lq, s, INV_T, beta) + fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
-    same_bits = all(torch.equal(a, b) for a, b in zip((ce, rank, lse, dq, dc), again))
-    diag_k = torch.empty_like(ce)
-    fc.CE_ROW_DIAG.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), diag_k.data_ptr(), n, d, INV_T,
-                          torch.cuda.current_stream().cuda_stream)
-    diag = fc.row_diag_reference(q, c, v, INV_T)
+    # ce_row_diag alone, twice: diag and the shift m
+    pair = []
+    for _ in range(2):
+        diag_k, m_k = torch.empty_like(ce), torch.empty((), device="cuda")
+        fc.CE_ROW_DIAG.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr(), diag_k.data_ptr(),
+                              m_k.data_ptr(), n, d, INV_T, beta, torch.cuda.current_stream().cuda_stream)
+        pair.append((diag_k, m_k))
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip((ce, rank, lse, dq, dc, *pair[0]), again + pair[1]))
+    diag, m = fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta)
+    m_bits = torch.equal(m_k.view(torch.int32), m.view(torch.int32))
     rce, rrank, rlse = fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta)
     rdq = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "q")
     rdc = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "c")
@@ -476,7 +482,7 @@ def compare_ce(fc, n, s, d, beta, pattern):
     differ = rank != rrank
     unexplained = int((differ & ~near).sum())
     del logits, eye
-    ok = errs["ce_row_diag"] <= CE_TOL and errs["ce_fwd"] <= CE_TOL and unexplained == 0
+    ok = errs["ce_row_diag"] <= CE_TOL and m_bits and errs["ce_fwd"] <= CE_TOL and unexplained == 0
     tols = {"ce_row_diag": CE_TOL, "ce_fwd": CE_TOL}
     for name, got, want in (("ce_dq", dq, rdq), ("ce_dc", dc, rdc)):
         err = (got.float() - want.float()).abs().max().item()
@@ -489,6 +495,7 @@ def compare_ce(fc, n, s, d, beta, pattern):
     ok &= same_bits
     print(
         f"  fused CE N={n} s={s} D={d} beta={beta} {pattern}: diag {errs['ce_row_diag']:.2e}, "
+        f"m {m_k.item()!r} (plain {m.item()!r}, bit-equal {m_bits}), "
         f"ce/lse {errs['ce_fwd']:.2e} (tol {CE_TOL:.0e} abs + rel); rank differs on "
         f"{int(differ.sum())} rows, {int(near.sum())} rows have a logit within {TIE_EPS:.0e} of "
         f"the positive's, {unexplained} differ otherwise; dq {errs['ce_dq']:.3e} "
@@ -507,8 +514,8 @@ def ce_bound(kernel, n, d):
     outputs written once over HBM rate, or its products at the peak rate
     (the row dot on the f32 units, the tiles' products on the tensor cores)."""
     rows = 2 * n * d * 2 + n  # q, c, v
-    if kernel == "ce_row_diag":
-        nbytes, flops, peak = rows + 4 * n, 2 * n * d, F32_FLOPS_PER_S
+    if kernel == "ce_row_diag":  # lq read, diag and m written
+        nbytes, flops, peak = rows + 4 * n + 4 * n + 4, 2 * n * d, F32_FLOPS_PER_S
     elif kernel == "ce_fwd":
         nbytes, flops, peak = rows + 2 * 4 * n + 4 + 3 * 4 * n, 2 * n * n * d, BF16_FLOPS_PER_S
     else:  # ce_dq, ce_dc: S and the gradient product
@@ -519,19 +526,21 @@ def ce_bound(kernel, n, d):
 
 def time_ce(fc, n, s, d, beta, plain_iters=5):
     """Each CE kernel alone at (N, D) with s tokens a user, its inputs ready,
-    its plain version and its bound; no single PyTorch call computes this
-    function. Returns {kernel: numbers}."""
+    its plain version, its bound and the nearest single PyTorch call: for
+    ``ce_row_diag`` ``torch.linalg.vecdot`` of the bf16 rows, which returns
+    bf16 and forms no shift (a yardstick, not the same function); none
+    computes the plane kernels' function. ``ce_row_diag``'s and its library
+    call's ms are device time under the profiler. Returns {kernel: numbers}."""
     q, c, v, lq, dce = ce_inputs(n, s, d, "roll", seed=12)
     stream = torch.cuda.current_stream().cuda_stream
-    m = fc.logsumexp_shift(lq, INV_T, beta)
-    diag = fc.row_diag_reference(q, c, v, INV_T)
+    diag, m = fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta)
     ce, rank, lse = (torch.empty_like(diag), torch.empty(n, dtype=torch.int32, device="cuda"),
                      torch.empty_like(diag))
     grad = torch.empty_like(q)
     ptrs = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
     launch = {
         "ce_row_diag": lambda: fc.CE_ROW_DIAG.launch(
-            q.data_ptr(), c.data_ptr(), v.data_ptr(), diag.data_ptr(), n, d, INV_T, stream),
+            *ptrs, diag.data_ptr(), m.data_ptr(), n, d, INV_T, beta, stream),
         "ce_fwd": lambda: fc.CE_FWD.launch(
             *ptrs, m.data_ptr(), diag.data_ptr(), ce.data_ptr(), lse.data_ptr(), rank.data_ptr(),
             n, d, s, INV_T, beta, stream),
@@ -541,7 +550,7 @@ def time_ce(fc, n, s, d, beta, plain_iters=5):
             *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n, d, s, INV_T, beta, stream),
     }
     plain = {
-        "ce_row_diag": lambda: fc.row_diag_reference(q, c, v, INV_T),
+        "ce_row_diag": lambda: fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta),
         "ce_fwd": lambda: fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta),
         "ce_dq": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "q"),
         "ce_dc": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "c"),
@@ -553,13 +562,24 @@ def time_ce(fc, n, s, d, beta, plain_iters=5):
         bound, by = ce_bound(name, n, d)
         times[name] = {"ms": cuda_ms(launch[name], 50 if n <= 8192 else 10),
                        "plain_ms": cuda_ms(plain[name], plain_iters, warmup=1),
-                       "bound_ms": bound, "bound_by": by}
-        floor = ""
-        if name != "ce_row_diag":  # a note beside the bound, printed only: one exponential per logit
+                       "bound_ms": bound, "bound_by": by, "library_ms": None}
+        how, floor, library = "", "", "none"
+        if name == "ce_row_diag":
+            # a loop of its launches from Python is host-bound (about 0.012 ms
+            # a launch at either N): the kernel's and the library call's ms
+            # are their device time under the profiler; the loop's is kept
+            times[name]["loop_ms"] = times[name]["ms"]
+            times[name]["ms"] = device_ms(launch[name], 50)
+            times[name]["library_ms"] = device_ms(lambda: torch.linalg.vecdot(q, c), 50)
+            how = f" (device time; a loop of launches {times[name]['loop_ms']:.4f} ms)"
+            library = (f"torch.linalg.vecdot {times[name]['library_ms']:.4f} ms device time (bf16 out, no "
+                       "shift: a yardstick)")
+        else:  # a note beside the bound, printed only: one exponential per logit
             floor = f", exponential floor {n * n / EXP_PER_S * 1e3:.4f} ms (a note: one ex2 per logit)"
         torch.cuda.empty_cache()
-        print(f"[5] {name} at N={n} D={d} s={s} beta={beta}: kernel {times[name]['ms']:.4f} ms, plain "
-              f"{times[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}){floor}; library none", flush=True)
+        print(f"[5] {name} at N={n} D={d} s={s} beta={beta}: kernel {times[name]['ms']:.4f} ms{how}, plain "
+              f"{times[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}){floor}; library {library}",
+              flush=True)
     return times
 
 
@@ -1447,9 +1467,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the CE kernels at the path's shape (one 32-user chunk, beta as
-    # LTHM-base's), each alone with its inputs ready, and its plain version;
-    # no single PyTorch call computes this function. The eager CECore on the
-    # same problem is the comparison users choose between.
+    # LTHM-base's), each alone with its inputs ready, and its plain version
+    # (ce_row_diag also beside torch.linalg.vecdot, a yardstick). The eager
+    # CECore on the same problem is the comparison users choose between.
     beta = cfg.log_q_config.beta
     ce_times = time_ce(fc, n_ce, CONTEXT, d_ce, beta)
     q, c, v, lq, dce = ce_inputs(n_ce, CONTEXT, d_ce, "roll", seed=12)
@@ -1469,7 +1489,7 @@ def main() -> int:
     eager_fwd_ms = cuda_ms(eager_fwd, 10)
     eager_bwd_ms = cuda_ms(eager_fwd_bwd, 10) - eager_fwd_ms
     print(f"[5] the CE on one (N={n_ce}, D={d_ce}) chunk: fused forward {fused_fwd_ms:.4f} ms "
-          f"(shift, ce_row_diag, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); eager "
+          f"(ce_row_diag with the shift, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); eager "
           f"CECore forward {eager_fwd_ms:.4f} ms, backward {eager_bwd_ms:.4f} ms", flush=True)
     del q, c, v, lq, dce, qg, cg, lse
     torch.cuda.empty_cache()
@@ -1535,9 +1555,9 @@ def main() -> int:
         "max_abs_err": ce_errs[name],
         "tolerance": ce_tols[name],
         **ce_times[name],
-        "library_ms": None,
-        "n32768": {**ce_times_prod[name], "library_ms": None,
-                   "launches_per_step": prod_training["counts"][name] // PROD_STEPS},
+        **({"library_call": "torch.linalg.vecdot of the bf16 rows (bf16 out, no shift: a yardstick)"}
+           if name == "ce_row_diag" else {}),
+        "n32768": {**ce_times_prod[name], "launches_per_step": prod_training["counts"][name] // PROD_STEPS},
     } for name, line in ce_replaces.items()]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",

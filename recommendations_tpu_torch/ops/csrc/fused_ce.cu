@@ -2,7 +2,8 @@
 // (sm_90a).
 //
 // Replaces the four TPU kernels of recommendations_tpu/ops/fused_ce.py:
-//   ce_row_diag  <- _row_diag_kernel  diag[i] = q_i.c_i * inv_t where v[i], else -1e9
+//   ce_row_diag  <- _row_diag_kernel  diag[i] = q_i.c_i * inv_t where v[i], else -1e9,
+//                                     and the shift m below
 //   ce_fwd       <- _ce_fwd_kernel    ce, rank and the backward's lse per row
 //   ce_dq        <- _ce_dq_kernel     dq = sum_j bf16(g[i, j]) c_j
 //   ce_dc        <- _ce_dc_kernel     dc = sum_i bf16(g[i, j]) q_i
@@ -10,12 +11,13 @@
 //   masked[i, j] = (i/s == j/s and i != j) or not v[j] or j >= n
 //   logit        = masked ? -1e9 : q_i.c_j * inv_t        (f32 product of bf16)
 //   adj          = i == j ? logit : logit - beta * lq[j]
-//   lse_i        = m + log(sum_j exp(adj - m)),  m = inv_t + beta * max|lq| + 1
+//   lse_i        = m + log(sum_j exp(adj - m)),  m = (inv_t + beta * max|lq|) + 1
 //   ce_i         = lse_i - diag_i;  the backward's residual is ce_i + diag_i
 //   rank_i       = #{j != i : logit[i, j] > diag_i}
 //   g[i, j]      = (p - [i == j]) * dce_i * inv_t,  p = exp(adj - lse_i), or 0
 //                  where lse_i <= -1e8 (padded or fully masked rows)
-// m is computed by the caller and read from device memory.
+// ce_row_diag forms m (and diag) in one launch; ce_fwd reads both from device
+// memory.
 //
 // The rank counts only j != i, as the JAX package's unfused _ce_core does. The
 // TPU kernel counts column i too, comparing the tile's product q_i.c_i with
@@ -897,28 +899,135 @@ int launch_plane(const CeArgs& A, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// One warp per row: diag[i] = q_i.c_i * inv_t (an f32 sum of the bf16
-// products) where v[i], else -1e9.
-template <int D>
-__global__ void row_diag_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cm,
-                                const uint8_t* __restrict__ v, float* __restrict__ diag, int n,
-                                float inv_t) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  float acc = 0.f;
+// ce_row_diag, one launch for both outputs of this step of the CE forward:
+//   diag[i] = q_i.c_i * inv_t (an f32 sum of the bf16 products) where v[i], else -1e9
+//   m       = (inv_t + beta * max|lq|) + 1, in float32 in that order (JAX forms it
+//             beside _row_diag_kernel, at _fwd_impl)
+// Bound by bytes: q and c (2 N D bf16), and v, lq and diag (9 N bytes); no
+// shared memory, no tensor cores. A thread reads 8 bf16 of q and 8
+// of c with one 16-byte load each, so a row is D/8 threads (16 at D = 128, 2
+// at D = 16), and each thread issues the loads of RD_ROWS rows before it sums
+// any. The grid is one wave at most (the occupancy query times the SMs), and
+// its last block forms m alone: it takes no rows and reduces |lq| with
+// RD_LQ 16-byte loads a thread in flight (on an H100 it ends before the rows
+// do, at N = 8192 and 32768). A thread sums its 8 products in
+// order, then the row's threads add by xor shuffles (both partners form the
+// same sum), so two runs give the same bits.
+constexpr int RD_THREADS = 256;
+constexpr int RD_ROWS = 4;
+constexpr int RD_LQ = 8;
+
+__device__ __forceinline__ float dot8(const uint4 a, const uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;  // a product of two bf16 is exact in f32: the FMA rounds only the sum
 #pragma unroll
-  for (int d = 2 * lane; d < D; d += 64) {
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(q + (size_t)row * D + d);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(cm + (size_t)row * D + d);
-    acc = fmaf(__bfloat162float(a.x), __bfloat162float(b.x), acc);
-    acc = fmaf(__bfloat162float(a.y), __bfloat162float(b.y), acc);
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) diag[row] = v[row] ? acc * inv_t : BIG_NEG;
+  return acc;
 }
 
+// |x| as bits: for non-negative floats the unsigned order is the float order,
+// and a NaN lies above +inf, so an unsigned max propagates NaN as
+// torch.amax and jnp.max do (fmaxf would drop it).
+__device__ __forceinline__ uint32_t abs_bits(uint32_t x) { return x & 0x7fffffffu; }
+
+__device__ __forceinline__ uint32_t max4(const uint4 x) {
+  return max(max(abs_bits(x.x), abs_bits(x.y)), max(abs_bits(x.z), abs_bits(x.w)));
+}
+
+// m from all n of lq, by one block. lq is only 4-byte aligned: the scalars
+// before its first 16-byte boundary and after its last are read one by one.
+__device__ __forceinline__ void lq_shift(const float* __restrict__ lq, float* __restrict__ m, int n,
+                                         float inv_t, float beta) {
+  __shared__ uint32_t warp_max[RD_THREADS / 32];
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(lq);
+  const int head = min(n, (int)((16 - (reinterpret_cast<uintptr_t>(lq) & 15)) & 15) / 4);
+  const int quads = (n - head) / 4;
+  const uint4* body = reinterpret_cast<const uint4*>(lq + head);
+  uint32_t mx = 0;
+  for (int i = threadIdx.x; i < head; i += RD_THREADS) mx = max(mx, abs_bits(__ldg(bits + i)));
+  for (int i = head + 4 * quads + threadIdx.x; i < n; i += RD_THREADS) mx = max(mx, abs_bits(__ldg(bits + i)));
+  for (int i0 = threadIdx.x; i0 < quads; i0 += RD_LQ * RD_THREADS) {
+    uint4 x[RD_LQ];
+#pragma unroll
+    for (int j = 0; j < RD_LQ; ++j) {
+      const int i = i0 + j * RD_THREADS;
+      x[j] = i < quads ? __ldg(body + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < RD_LQ; ++j) mx = max(mx, max4(x[j]));
+  }
+  mx = __reduce_max_sync(0xffffffffu, mx);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < RD_THREADS / 32; ++w) mx = max(mx, warp_max[w]);
+    // _rn: one rounding an operation, no FMA contraction of beta * max + inv_t
+    *m = __fadd_rn(__fadd_rn(inv_t, __fmul_rn(beta, __uint_as_float(mx))), 1.0f);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(RD_THREADS)
+    row_diag_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cm, const uint8_t* __restrict__ v,
+                    const float* __restrict__ lq, float* __restrict__ diag, float* __restrict__ m, int n,
+                    float inv_t, float beta) {
+  if (blockIdx.x == gridDim.x - 1) {
+    lq_shift(lq, m, n, inv_t, beta);
+    return;
+  }
+  constexpr int LANES = D / 8;                       // threads of one row
+  constexpr int SLOTS_PER_BLOCK = RD_THREADS / LANES;  // rows a block reads at once
+  const int part = threadIdx.x % LANES;
+  const int slot = blockIdx.x * SLOTS_PER_BLOCK + threadIdx.x / LANES;
+  const int slots = (gridDim.x - 1) * SLOTS_PER_BLOCK;
+  const int warp_slot = slot - (threadIdx.x & 31) / LANES;  // the warp's first: the loop is warp-uniform
+  for (int base = 0; warp_slot + base < n; base += RD_ROWS * slots) {
+    uint4 a[RD_ROWS], b[RD_ROWS];
+    bool ok[RD_ROWS];
+#pragma unroll
+    for (int k = 0; k < RD_ROWS; ++k) {
+      const int row = slot + base + k * slots;
+      a[k] = b[k] = make_uint4(0u, 0u, 0u, 0u);
+      ok[k] = false;
+      if (row < n) {
+        a[k] = __ldg(reinterpret_cast<const uint4*>(q + (size_t)row * D) + part);
+        b[k] = __ldg(reinterpret_cast<const uint4*>(cm + (size_t)row * D) + part);
+        ok[k] = __ldg(v + row) != 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RD_ROWS; ++k) {
+      float acc = dot8(a[k], b[k]);
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const int row = slot + base + k * slots;
+      if (part == 0 && row < n) diag[row] = ok[k] ? acc * inv_t : BIG_NEG;
+    }
+  }
+}
+
+template <int D>
+int launch_row_diag(const void* q, const void* c, const void* v, const void* lq, void* diag, void* m, int n,
+                    float inv_t, float beta, cudaStream_t stream) {
+  static const int per_sm = [] {
+    int blocks = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, row_diag_kernel<D>, RD_THREADS, 0);
+    return blocks;
+  }();
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  constexpr int rows_per_block = RD_THREADS / (D / 8) * RD_ROWS;
+  const int row_blocks = max(1, min(per_sm * sms - 1, (n + rows_per_block - 1) / rows_per_block));
+  row_diag_kernel<D><<<row_blocks + 1, RD_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(c), static_cast<const uint8_t*>(v),
+      static_cast<const float*>(lq), static_cast<float*>(diag), static_cast<float*>(m), n, inv_t, beta);
+  return (int)cudaGetLastError();
+}
 
 template <int KIND>
 int dispatch(const CeArgs& A, int d, cudaStream_t stream) {
@@ -941,25 +1050,19 @@ bool bad_shape(int n, int d, int s) {
 // or -1 for a shape the kernels do not take (n < 1, s < 1, d not in
 // {16, 32, 64, 128}). All pointers are device pointers; q, c (and dq, dc) are
 // (n, d) bf16 row-major and 16-byte aligned; v is (n,) bool as bytes; lq,
-// diag, lse, dce, ce are (n,) float32; rank is (n,) int32; m is one float32.
+// diag, lse, dce, ce are (n,) float32, 4-byte aligned; rank is (n,) int32; m is
+// one float32.
 
-extern "C" int ce_row_diag(const void* q, const void* c, const void* v, void* diag, int n, int d,
-                           float inv_t, void* stream) {
+extern "C" int ce_row_diag(const void* q, const void* c, const void* v, const void* lq, void* diag, void* m,
+                           int n, int d, float inv_t, float beta, void* stream) {
   if (bad_shape(n, d, 1)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int ROWS = 8;  // warps per block
-  const dim3 grid((n + ROWS - 1) / ROWS), block(32 * ROWS);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* cb = static_cast<const bf16*>(c);
-  const uint8_t* vb = static_cast<const uint8_t*>(v);
-  float* out = static_cast<float*>(diag);
   switch (d) {
-    case 16: row_diag_kernel<16><<<grid, block, 0, st>>>(qb, cb, vb, out, n, inv_t); break;
-    case 32: row_diag_kernel<32><<<grid, block, 0, st>>>(qb, cb, vb, out, n, inv_t); break;
-    case 64: row_diag_kernel<64><<<grid, block, 0, st>>>(qb, cb, vb, out, n, inv_t); break;
-    default: row_diag_kernel<128><<<grid, block, 0, st>>>(qb, cb, vb, out, n, inv_t); break;
+    case 16: return launch_row_diag<16>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    case 32: return launch_row_diag<32>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    case 64: return launch_row_diag<64>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    default: return launch_row_diag<128>(q, c, v, lq, diag, m, n, inv_t, beta, st);
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int ce_fwd(const void* q, const void* c, const void* v, const void* lq, const void* m,

@@ -5,23 +5,25 @@ Port of ``recommendations_tpu/ops/fused_ce.py``. Per loss chunk of N rows
 (users x tokens per user) the LTHM loss scores every query against every
 candidate, an (N, N) plane of logits. ``csrc/fused_ce.cu`` never stores that
 plane: ``ce_row_diag`` and ``ce_fwd`` replace ``_row_diag_kernel`` and
-``_ce_fwd_kernel`` (ce, rank and the backward's logsumexp per row), ``ce_dq``
-and ``ce_dc`` replace ``_ce_dq_kernel`` and ``_ce_dc_kernel`` (the two input
-gradients, each recomputing the plane from the saved logsumexp). The JAX
-entry's ``tile``, ``chunk`` and ``interpret`` arguments set the TPU's
-geometry and are dropped: the CUDA kernels choose their own tiling (128 or
-64 own rows a block, the other side in stages of 128 rows).
+``_ce_fwd_kernel`` (ce, rank and the backward's logsumexp per row;
+``ce_row_diag`` also forms the logsumexp shift, which JAX computes beside its
+kernels), ``ce_dq`` and ``ce_dc`` replace ``_ce_dq_kernel`` and
+``_ce_dc_kernel`` (the two input gradients, each recomputing the plane from
+the saved logsumexp). The JAX entry's ``tile``, ``chunk`` and ``interpret``
+arguments set the TPU's geometry and are dropped: the CUDA kernels choose
+their own tiling (128 or 64 own rows a block, the other side in stages of
+128 rows).
 
 Arithmetic, the JAX kernels': logits are f32 products of the bf16 operands
 times ``inv_t``; a column is masked (-1e9) where it belongs to the row's user
 and is not the row's own, or is invalid; off the diagonal ``beta * lq`` of
 the column is subtracted; the logsumexp uses the analytic shift
-``m = inv_t + beta * max|lq| + 1`` (inputs are L2-normalized); diag is an f32
-row dot, -1e9 where the row's candidate is invalid; ce = lse - diag, so an
-invalid row gives a huge but finite ce (a fully masked one gives -inf, as
-the JAX package's do). The backward forms g = (p - I) * dce * inv_t with
-p = 0 on rows whose lse <= -1e8, rounds g to bf16, and sums
-dq = g.C and dc = g^T.Q in f32, each rounded to bf16 once.
+``m = (inv_t + beta * max|lq|) + 1`` in float32, in that order (inputs are
+L2-normalized); diag is an f32 row dot, -1e9 where the row's candidate is
+invalid; ce = lse - diag, so an invalid row gives a huge but finite ce (a
+fully masked one gives -inf, as the JAX package's do). The backward forms
+g = (p - I) * dce * inv_t with p = 0 on rows whose lse <= -1e8, rounds g to
+bf16, and sums dq = g.C and dc = g^T.Q in f32, each rounded to bf16 once.
 
 One difference from the TPU kernel, on purpose: rank counts the columns
 j != i whose logit exceeds diag_i, as the unfused ``_ce_core`` does. The TPU
@@ -47,7 +49,7 @@ LSE_GUARD = -1e8
 SUPPORTED_DIMS = (16, 32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-CE_ROW_DIAG = CudaKernel("fused_ce.cu", "ce_row_diag", [_P] * 4 + [_I] * 2 + [_F, _P])
+CE_ROW_DIAG = CudaKernel("fused_ce.cu", "ce_row_diag", [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P])
 CE_FWD = CudaKernel("fused_ce.cu", "ce_fwd", [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P])
 CE_DQ = CudaKernel("fused_ce.cu", "ce_dq", [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P])
 CE_DC = CudaKernel("fused_ce.cu", "ce_dc", [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P])
@@ -84,9 +86,11 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def logsumexp_shift(lq: torch.Tensor, inv_t: float, beta: float) -> torch.Tensor:
-    """The analytic shift beta * max|lq| + (inv_t + 1), a float32 scalar on
-    lq's device: |logit| <= inv_t for unit rows, so exp(adj - m) <= 1."""
-    return lq.abs().amax().mul(beta).add(inv_t + 1.0)
+    """The analytic shift m = (inv_t + beta * max|lq|) + 1, a float32 scalar
+    on lq's device, one rounding an operation in the JAX package's order
+    (``_fwd_impl``): |logit| <= inv_t for unit rows, so exp(adj - m) <= 1.
+    The max propagates NaN."""
+    return lq.abs().amax().mul(beta).add(inv_t).add(1.0)
 
 
 def _masked_plane(q16, c16, v, lq, s: int, inv_t: float, beta: float):
@@ -103,9 +107,15 @@ def _masked_plane(q16, c16, v, lq, s: int, inv_t: float, beta: float):
 
 
 def row_diag_reference(q16, c16, v, inv_t: float) -> torch.Tensor:
-    """Plain PyTorch version of ``ce_row_diag``: the f32 row dot q_i.c_i times
-    inv_t, -1e9 where the row's candidate is invalid."""
+    """The diagonal of ``ce_row_diag``'s plain version: the f32 row dot
+    q_i.c_i times inv_t, -1e9 where the row's candidate is invalid."""
     return torch.where(v, (q16.float() * c16.float()).sum(-1) * inv_t, BIG_NEG)
+
+
+def row_diag_and_shift_reference(q16, c16, v, lq, inv_t: float, beta: float):
+    """Plain PyTorch version of ``ce_row_diag``: (diag, m), the row diagonal
+    and the logsumexp shift."""
+    return row_diag_reference(q16, c16, v, inv_t), logsumexp_shift(lq.float(), inv_t, beta)
 
 
 def ce_fwd_reference(q16, c16, v, lq, diag, s: int, inv_t: float, beta: float):
@@ -134,12 +144,15 @@ def ce_forward(q16, c16, v, lq, s: int, inv_t: float, beta: float):
         raise ValueError(f"no fused CE kernel for device {q16.device}")
     _check_launch(q16, c16, v, lq, s)
     n, d = q16.shape
-    m = logsumexp_shift(lq, inv_t, beta)
+    m = torch.empty((), dtype=torch.float32, device=q16.device)
     diag = torch.empty(n, dtype=torch.float32, device=q16.device)
     ce, lse = torch.empty_like(diag), torch.empty_like(diag)
     rank = torch.empty(n, dtype=torch.int32, device=q16.device)
     stream = _stream(q16)
-    CE_ROW_DIAG.launch(q16.data_ptr(), c16.data_ptr(), v.data_ptr(), diag.data_ptr(), n, d, inv_t, stream)
+    CE_ROW_DIAG.launch(
+        q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), diag.data_ptr(), m.data_ptr(),
+        n, d, inv_t, beta, stream,
+    )
     CE_FWD.launch(
         q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), m.data_ptr(), diag.data_ptr(),
         ce.data_ptr(), lse.data_ptr(), rank.data_ptr(), n, d, s, inv_t, beta, stream,

@@ -435,6 +435,78 @@ def test_ce_dq_with_negative_weights_and_guard_rows(cuda, n, s, d):
         assert err <= max(_bf16_ulp(want), 2**-16 * 20.0), (name, err)
 
 
+def _row_diag(q, c, v, lq, beta):
+    """One launch of ce_row_diag: (diag, m)."""
+    n, d = q.shape
+    diag, m = torch.empty(n, device=q.device), torch.empty((), device=q.device)
+    fc.CE_ROW_DIAG.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr(), diag.data_ptr(), m.data_ptr(),
+                          n, d, 20.0, beta, torch.cuda.current_stream().cuda_stream)
+    return diag, m
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 7, 100, 8192, 8448, 17000, 32768])
+def test_ce_row_diag_matches_plain_pair(cuda, n, d):
+    """diag within 2e-5 absolute plus relative (f32 sums in another order),
+    -1e9 on the invalid rows, the shift m bit for bit, and the same bits on
+    a second launch: from one row (a grid of one row block and the shift
+    block) to the production chunk, at every width (a row is D/8 threads)."""
+    q, c, v, lq, _ = _ce_inputs(n, 16, d, seed=n + d)
+    v[::5] = False
+    for beta in (0.0, 1.0, 0.37):
+        diag, m = _row_diag(q, c, v, lq, beta)
+        diag2, m2 = _row_diag(q, c, v, lq, beta)
+        torch.cuda.synchronize()
+        want_diag, want_m = fc.row_diag_and_shift_reference(q, c, v, lq, 20.0, beta)
+        assert ((diag - want_diag).abs() <= CE_TOL * (1 + want_diag.abs())).all()
+        assert torch.equal(diag[~v], want_diag[~v])
+        assert _same_bits(m, want_m), (m.item(), want_m.item())
+        assert _same_bits(diag, diag2) and _same_bits(m, m2)
+
+
+def test_ce_row_diag_shift_propagates_nan(cuda):
+    """One NaN anywhere in lq (the head, the 16-byte body or the tail the
+    shift block reads) gives a NaN m, as torch.amax does; diag stays finite."""
+    n = 1029
+    q, c, v, lq, _ = _ce_inputs(n + 1, 13, 128, seed=3)
+    q, c, v = q[1:], c[1:], v[1:]
+    for at in (0, 500, n - 1):  # lq starts 4 bytes past a 16-byte boundary: head 3, tail 2
+        bad = lq.clone()[1:]
+        bad[at] = float("nan")
+        diag, m = _row_diag(q, c, v, bad, 1.0)
+        torch.cuda.synchronize()
+        assert math.isnan(m.item()) and math.isnan(fc.logsumexp_shift(bad, 20.0, 1.0).item()), at
+        assert bool(torch.isfinite(diag).all())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ce_row_diag_takes_lq_at_any_float_offset(cuda, offset):
+    """lq only 4-byte aligned (a slice of a longer vector): the shift block
+    reads its scalars before the first and after the last 16-byte boundary
+    one by one, so m is bit-equal to the plain shift with the max in the
+    head, the body or the last element (the tail at offsets 1 and 2), and
+    ce_forward's ce is within 2e-5 of the plain version's."""
+    n, s = 8192 + 5, 13
+    q, c, v, _, _ = _ce_inputs(n, s, 64, seed=9)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    longer = -torch.log(torch.rand(n + 3, generator=g, device="cuda") * 1e4 + 1.0)
+    for where in (0, n // 2, n - 1):
+        lq = longer.clone()[offset: offset + n]
+        lq[where] = -30.0
+        assert lq.data_ptr() % 16 and lq.is_contiguous()
+        _, m = _row_diag(q, c, v, lq, 1.0)
+        torch.cuda.synchronize()
+        assert _same_bits(m, fc.logsumexp_shift(lq, 20.0, 1.0)), where
+    ce, _, _ = fc.ce_forward(q, c, v, lq, s, 20.0, 1.0)
+    rce, _, _ = fc.ce_forward_reference(q, c, v, lq, s, 20.0, 1.0)
+    fin = torch.isfinite(rce)
+    assert ((ce - rce).abs()[fin] <= CE_TOL * (1 + rce.abs()[fin])).all()
+
+
 def test_fused_ce_is_deterministic(cuda):
     q, c, v, lq, dce = _ce_inputs(4096, 128, 128)
     a = fc.ce_forward(q, c, v, lq, 128, 20.0, 1.0)

@@ -21,6 +21,7 @@ import torch
 
 from recommendations_tpu.models.lthm import loss as jloss
 from recommendations_tpu.nn import logq as jlogq
+from recommendations_tpu.ops.fused_ce import _fwd_impl as jax_fwd_impl
 from recommendations_tpu.ops.fused_ce import fused_contrastive_ce as jax_fused_ce
 from recommendations_tpu_torch.models.lthm import loss as tloss
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
@@ -135,6 +136,34 @@ def test_fused_ce_grads_match_jax(n, s, d, beta, invalid, all_invalid_user):
         assert np.isfinite(got).all(), name
         atol = max(2**-8 * np.abs(ref).max(), 2**-16 * INV_T)
         np.testing.assert_allclose(got, ref, rtol=0, atol=atol, err_msg=name)
+
+
+# (n, s, d, beta, invalid fraction, one user all invalid, inv_t, max|lq| or
+# None): CASES at INV_T, and a temperature of 0.07 with a max|lq| at which
+# the shift's order moves its last bit (beta * max + (inv_t + 1) gives
+# 16.54646873474121, JAX's order 16.546466827392578)
+SHIFT_CASES = [(*case, INV_T, None) for case in CASES] + [
+    (96, 12, 16, 1.0, 0.2, False, 1 / 0.07, 1.260753870010376),
+]
+
+
+@pytest.mark.parametrize("n,s,d,beta,invalid,all_invalid_user,inv_t,lq_max", SHIFT_CASES)
+def test_row_diag_and_shift_match_jax(n, s, d, beta, invalid, all_invalid_user, inv_t, lq_max):
+    """The plain pair of ``ce_row_diag`` (the kernel's oracle on the card)
+    against JAX's ``_fwd_impl`` in interpret mode: its ``_row_diag_kernel``
+    output within the JAX kernel tests' 2e-5, and its shift m bit for bit."""
+    q, c, v, lq, _ = _inputs(n, s, d, seed=3 * n + d, invalid=invalid, all_invalid_user=all_invalid_user)
+    if lq_max is not None:
+        lq = np.clip(lq, -1.0, 0.0)
+        lq[n // 3] = -np.float32(lq_max)
+    _, _, res = jax_fwd_impl(*_jax(q, c, v, lq), s, inv_t, beta, None, None, True)
+    jdiag = np.asarray(res[5]).reshape(-1)[:n]
+    jm = np.asarray(res[4], np.float32).reshape(())
+    tdiag, tm = tfc.row_diag_and_shift_reference(*_torch(q, c, v, lq), inv_t, beta)
+    assert tdiag.dtype == tm.dtype == torch.float32 and tm.shape == ()
+    np.testing.assert_allclose(tdiag.numpy(), jdiag, rtol=CE_TOL, atol=CE_TOL)
+    np.testing.assert_array_equal(tdiag.numpy()[~v], jdiag[~v])
+    assert tm.numpy().view(np.int32) == jm.view(np.int32), (float(tm), float(jm))
 
 
 def test_fused_ce_on_cpu_runs_the_plain_version():

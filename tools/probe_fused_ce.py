@@ -8,28 +8,37 @@ copy of their source.
 Builds ``recommendations_tpu_torch/ops/csrc/fused_ce.cu`` (printing what
 ``ptxas`` reports for each kernel), runs the forward and backward wrappers at
 five shapes against their plain versions (ce error relative to 1 + |ce|, the
-rows whose rank differs, dq and dc errors over their largest element, two
-runs for the same bits), then times each kernel alone (``ce_row_diag``,
-``ce_fwd``, ``ce_dq``, ``ce_dc``) with its inputs ready at LTHM-base's loss
+rows whose rank differs, dq and dc errors over their largest element,
+``ce_row_diag``'s diag error and whether its shift m has the plain shift's
+bits, two runs for the same bits), then times each kernel alone
+(``ce_row_diag``, ``ce_fwd``, ``ce_dq``, ``ce_dc``) with its inputs ready at
+LTHM-base's loss
 chunk (N = 8192, s = 256) and the production chunk (N = 32768, s = 1024),
 D = 128. ``--other`` holds another ``fused_ce.cu`` (``git show
 <commit>:recommendations_tpu_torch/ops/csrc/fused_ce.cu``): its kernels are
 checked the same way and timed in turns with this tree's (other, this, this,
 other) in the same process, ``ce_dq`` and ``ce_dc`` with the rate of their
-two products, ``ce_fwd`` beside its exponential floor. This tree's
-``ce_fwd`` is also timed as cut builds (``ce_fwd_tc_kernel``'s source
-rewritten: the products without the sums, the sums without the products,
-neither; in
-``traces/probe_ce_*/``, gitignored), which compute something else and are
-timed, never checked: what the sums and the products cost beside the
-staging. Needs a card; imports nothing of JAX. The last line is a JSON
-summary. ``chip_smoke.py`` holds the same kernels to stated
-tolerances and times each alone.
+two products, ``ce_fwd`` beside its exponential floor, ``ce_row_diag`` also
+by its device time under the profiler (a loop of its launches is
+host-bound) beside ``torch.linalg.vecdot``'s. A tree whose
+``ce_row_diag`` entry takes no ``lq`` (before the shift moved into it; its
+arity is read from the source) is bound with its own signature and timed
+with the four operations that formed the shift before it, the work the new
+launch replaces. This tree's ``ce_fwd`` and ``ce_row_diag`` are also timed
+as cut builds (in ``traces/probe_ce_*/``, gitignored): ``ce_fwd_tc_kernel``'s
+source rewritten to the products without the sums, the sums without the
+products, neither; ``row_diag_kernel``'s to the rows without the shift
+block's work, and the shift block alone. They compute something else and
+are timed, never checked: what the sums and the products cost beside the
+staging, and whether the shift block is the launch's tail. Needs a card;
+imports nothing of JAX. The last line is a JSON summary. ``chip_smoke.py``
+holds the same kernels to stated tolerances and times each alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -44,25 +53,81 @@ sys.path.insert(0, ROOT)
 
 SHAPES = ((8192, 256, 128, 0.0), (100, 10, 16, 1.0), (8448, 264, 64, 1.0), (512, 32, 32, 0.5), (32768, 1024, 128, 0.0))
 TIMED = ((8192, 256), (32768, 1024))  # (N, s) at D = 128
-# the cuts of ce_fwd_tc_kernel, rewrites of its body: the wgmma that issues
-# S, and the call that forms a stage's sums and ranks
+# the cuts, rewrites of one kernel's body (the text after its marker): in
+# ce_fwd_tc_kernel the wgmma that issues S and the call that forms a stage's
+# sums and ranks; in row_diag_kernel the shift block's work and the rows'
 FWD_KERNEL = "ce_fwd_tc_kernel(const __grid_constant__"
 NO_PRODUCTS = (r"wgmma_ss<SR>\([^;]*\);", "")
 NO_SUMS = (r"sums\(st, k & 1, cur\);", "")
+ROW_DIAG_KERNEL = "row_diag_kernel(const bf16* __restrict__ q"
+NO_SHIFT = (r"lq_shift\(lq, m, n, inv_t, beta\);", "")
+NO_ROWS = (re.escape("for (int base = 0;"), "for (int base = n;")
+CUTS = {  # label: (kernel timed, its marker, the rewrites)
+    "this_products_only": ("ce_fwd", FWD_KERNEL, [NO_SUMS]),
+    "this_sums_only": ("ce_fwd", FWD_KERNEL, [NO_PRODUCTS]),
+    "this_neither": ("ce_fwd", FWD_KERNEL, [NO_PRODUCTS, NO_SUMS]),
+    "this_rows_only": ("ce_row_diag", ROW_DIAG_KERNEL, [NO_SHIFT]),
+    "this_shift_only": ("ce_row_diag", ROW_DIAG_KERNEL, [NO_ROWS]),
+}
+# ce_row_diag's entry before the shift moved into it: (q, c, v, diag, n, d, inv_t, stream)
+SHIFT_APART = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+INV_T = 20.0
 
 
-def cut_ce_fwd(src: str, cuts) -> str:
-    """``src`` with each of ``cuts`` made once in ce_fwd_tc_kernel's body (for
-    timing only: the copy computes something else)."""
-    if src.count(FWD_KERNEL) != 1:
-        raise RuntimeError(f"no `{FWD_KERNEL}` to cut")
-    head, body = src.split(FWD_KERNEL)
+def cut_kernel(src: str, marker: str, cuts) -> str:
+    """``src`` with each of ``cuts`` made once in the body after ``marker``
+    (for timing only: the copy computes something else)."""
+    if src.count(marker) != 1:
+        raise RuntimeError(f"no `{marker}` to cut")
+    head, body = src.split(marker)
     for pattern, repl in cuts:
         body, n = re.subn(pattern, repl, body, count=1)
         if n != 1:
-            raise RuntimeError(f"ce_fwd_tc_kernel: no `{pattern}` to cut")
-    return head + FWD_KERNEL + body
-INV_T = 20.0
+            raise RuntimeError(f"{marker}: no `{pattern}` to cut")
+    return head + marker + body
+
+
+def row_diag_argtypes(source: Path, default: list) -> list:
+    """The argtypes of ``source``'s ce_row_diag entry: ``default`` (this
+    tree's) or, where the entry takes 8 arguments, ``SHIFT_APART``."""
+    params = re.search(r'extern "C" int ce_row_diag\(([^)]*)\)', source.read_text()).group(1)
+    return SHIFT_APART if len(params.split(",")) == len(SHIFT_APART) else default
+
+
+def row_diag_and_shift(kern, q, c, v, lq, diag, m, n, d, inv_t, beta, stream):
+    """One ce_forward's row diagonal and shift with ``kern``: one launch that
+    writes diag and m; or, for an entry that takes no lq, the four
+    operations that formed m before it (abs, amax, mul, add; the returned m)
+    and its launch."""
+    if kern.argtypes == SHIFT_APART:
+        m = lq.abs().amax().mul(beta).add(inv_t + 1.0)
+        kern.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), diag.data_ptr(), n, d, inv_t, stream)
+        return m
+    kern.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr(), diag.data_ptr(), m.data_ptr(),
+                n, d, inv_t, beta, stream)
+    return m
+
+
+def ce_forward_shift_apart(q16, c16, v, lq, s, inv_t, beta):
+    """``fused_ce.ce_forward`` for a tree whose ce_row_diag takes no lq (bound
+    with ``SHIFT_APART``): the shift's four operations, then the two launches."""
+    import torch
+
+    from recommendations_tpu_torch.ops import fused_ce as f
+
+    f._check(q16, c16, v, lq)
+    f._check_launch(q16, c16, v, lq, s)
+    n, d = q16.shape
+    diag = torch.empty(n, dtype=torch.float32, device=q16.device)
+    ce, lse = torch.empty_like(diag), torch.empty_like(diag)
+    rank = torch.empty(n, dtype=torch.int32, device=q16.device)
+    stream = torch.cuda.current_stream(q16.device).cuda_stream
+    m = row_diag_and_shift(f.CE_ROW_DIAG, q16, c16, v, lq, diag, None, n, d, inv_t, beta, stream)
+    f.CE_FWD.launch(
+        q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), m.data_ptr(), diag.data_ptr(),
+        ce.data_ptr(), lse.data_ptr(), rank.data_ptr(), n, d, s, inv_t, beta, stream,
+    )
+    return ce, rank, lse
 
 
 def main() -> int:
@@ -88,20 +153,20 @@ def main() -> int:
             o = CudaKernel(k.source.name, k.symbol, k.argtypes)
             o.source = source
             out[k.symbol] = o
+        out["ce_row_diag"].argtypes = row_diag_argtypes(source, f.CE_ROW_DIAG.argtypes)
         return out
 
     trees = {"this": {k.symbol: k for k in f.KERNELS}}
     if args.other:
         trees["other"] = kernels_at(Path(args.other) / "fused_ce.cu")
-    # this tree's ce_fwd as cut builds, timed only
+    # this tree's ce_fwd and ce_row_diag as cut builds, timed only
     cuts = {}
     if not args.check_only:
         src = f.CE_FWD.source.read_text()
-        for cut, label in (([NO_SUMS], "this_products_only"), ([NO_PRODUCTS], "this_sums_only"),
-                           ([NO_PRODUCTS, NO_SUMS], "this_neither")):
+        for label, (_, marker, cut) in CUTS.items():
             d = Path(ROOT) / "traces" / f"probe_ce_{label}"
             d.mkdir(parents=True, exist_ok=True)
-            (d / "fused_ce.cu").write_text(cut_ce_fwd(src, cut))
+            (d / "fused_ce.cu").write_text(cut_kernel(src, marker, cut))
             cuts[label] = kernels_at(d / "fused_ce.cu")
     t0 = time.time()
     with ThreadPoolExecutor(1 + len(trees) + len(cuts)) as pool:
@@ -109,7 +174,7 @@ def main() -> int:
     print("built in", time.time() - t0)
     for name, kerns in trees.items():
         for line in kerns["ce_fwd"].build_log.splitlines():
-            if any(w in line for w in ("registers", "spill", "error", "arning", "Compiling")):
+            if any(w in line for w in ("Used ", "spill", "error", "arning", "Compiling")):
                 print(f"  [{name}]", line.strip())
 
     def inputs(n, d, seed=0):
@@ -123,10 +188,11 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def launchers(kerns, q, c, v, lq, m, diag, lse, dce, outs, n, d, s, beta):
-        ce, lse_out, rank, dq, dc = outs
+        ce, lse_out, rank, dq, dc, diag_out, m_out = outs
         p = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
         return {
-            "ce_row_diag": lambda: kerns["ce_row_diag"].launch(*p[:3], diag.data_ptr(), n, d, INV_T, stream),
+            "ce_row_diag": lambda: row_diag_and_shift(kerns["ce_row_diag"], q, c, v, lq, diag_out, m_out, n, d,
+                                                      INV_T, beta, stream),
             "ce_fwd": lambda: kerns["ce_fwd"].launch(*p, m.data_ptr(), diag.data_ptr(), ce.data_ptr(),
                                                      lse_out.data_ptr(), rank.data_ptr(), n, d, s, INV_T, beta, stream),
             "ce_dq": lambda: kerns["ce_dq"].launch(*p, lse.data_ptr(), dce.data_ptr(), dq.data_ptr(), n, d, s, INV_T,
@@ -139,7 +205,8 @@ def main() -> int:
         e = torch.empty(n, device="cuda")
         return (e, torch.empty_like(e), torch.empty(n, dtype=torch.int32, device="cuda"),
                 torch.empty(n, d, dtype=torch.bfloat16, device="cuda"),
-                torch.empty(n, d, dtype=torch.bfloat16, device="cuda"))
+                torch.empty(n, d, dtype=torch.bfloat16, device="cuda"),
+                torch.empty_like(e), torch.empty((), device="cuda"))
 
     ok = True
     for n, s, d, beta in SHAPES:
@@ -147,25 +214,30 @@ def main() -> int:
         rce, rrank, rlse = f.ce_forward_reference(q, c, v, lq, s, INV_T, beta)
         dce = torch.rand(n, device="cuda") * v
         rdq, rdc = f.ce_backward_reference(q, c, v, lq, rlse, dce, s, INV_T, beta)
-        diag = f.row_diag_reference(q, c, v, INV_T)
-        m = f.logsumexp_shift(lq, INV_T, beta)
+        diag, m = f.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta)
         for name, kerns in trees.items():
-            outs, again = empty_outs(n, d), empty_outs(n, d)
+            outs, again, m_runs = empty_outs(n, d), empty_outs(n, d), []
             for o in (outs, again):
                 fns = launchers(kerns, q, c, v, lq, m, diag, rlse, dce, o, n, d, s, beta)
                 for k in ("ce_fwd", "ce_dq", "ce_dc"):
                     fns[k]()
+                m_runs.append(fns["ce_row_diag"]())
             torch.cuda.synchronize()
-            ce, lse, rank, dq, dc = outs
+            m_k = m_runs[0]
+            ce, lse, rank, dq, dc, diag_k, _ = outs
             fin = torch.isfinite(rce)
             err = ((ce - rce).abs() / (1 + rce.abs()))[fin].max().item()
+            ediag = ((diag_k - diag).abs() / (1 + diag.abs())).max().item()
+            m_bits = torch.equal(m_k.view(torch.int32), m.view(torch.int32))
             nrank = (rank != rrank).sum().item()
             edq = (dq.float() - rdq.float()).abs().max().item() / rdq.float().abs().max().item()
             edc = (dc.float() - rdc.float()).abs().max().item() / rdc.float().abs().max().item()
-            det = all(torch.equal(x, y) for x, y in zip(outs, again))
+            det = all(torch.equal(x, y) for x, y in zip((*outs[:6], m_runs[0]), (*again[:6], m_runs[1])))
             fine = bool(torch.isfinite(dq.float()).all() and torch.isfinite(dc.float()).all())
-            ok &= det and fine and edq <= 2**-7 and edc <= 2**-7 and err <= 2e-5
-            print(f"[check] {name} n={n} s={s} d={d} beta={beta}: ce rel err {err:.3e}, rank differs on {nrank} "
+            ok &= det and fine and edq <= 2**-7 and edc <= 2**-7 and err <= 2e-5 and ediag <= 2e-5
+            ok &= m_bits or name != "this"  # a tree that forms m apart keeps the order it had
+            print(f"[check] {name} n={n} s={s} d={d} beta={beta}: ce rel err {err:.3e}, diag rel err {ediag:.3e}, "
+                  f"m {m_k.item()!r} (plain {m.item()!r}, bit-equal {m_bits}), rank differs on {nrank} "
                   f"rows, dq err/max {edq:.3e}, dc err/max {edc:.3e}, deterministic {det}, finite {fine}", flush=True)
         del rce, rrank, rlse, rdq, rdc
         torch.cuda.empty_cache()
@@ -185,28 +257,47 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / it
 
+    def device_ms(fn, it=50):
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(it):
+                fn()
+            torch.cuda.synchronize()
+        return sum(ev.self_device_time_total for ev in prof.key_averages()) / 1e3 / it
+
     res = {"device": smi}
-    order = ("other", "this", "this", "other") if "other" in trees else ("this", "this")
-    fwd_order = (("other",) if "other" in trees else ()) + ("this", *cuts, *reversed(cuts), "this") + (
-        ("other",) if "other" in trees else ())
+    ends = ("other",) if "other" in trees else ()
+
+    def turns(kernel):  # other, this, this's cut builds of the kernel and back
+        mine = [label for label in cuts if CUTS[label][0] == kernel]
+        return ends + ("this", *mine, *reversed(mine), "this") + ends
+
     trees.update(cuts)
     for n, s in TIMED:
         d = 128
         q, c, v, lq = inputs(n, d, seed=1)
         dce = torch.rand(n, device="cuda") * v
-        m = f.logsumexp_shift(lq, INV_T, 0.0)
-        diag = f.row_diag_reference(q, c, v, INV_T)
+        diag, m = f.row_diag_and_shift_reference(q, c, v, lq, INV_T, 0.0)
         _, _, lse = f.ce_forward(q, c, v, lq, s, INV_T, 0.0)
         outs = empty_outs(n, d)
         fns = {name: launchers(kerns, q, c, v, lq, m, diag, lse, dce, outs, n, d, s, 0.0)
                for name, kerns in trees.items()}
         for k in ("ce_row_diag", "ce_fwd", "ce_dq", "ce_dc"):
-            turns = fwd_order if k == "ce_fwd" else order
-            times = {name: [] for name in dict.fromkeys(turns)}
-            for name in turns:
+            times = {name: [] for name in dict.fromkeys(turns(k))}
+            for name in turns(k):
                 times[name].append(ms(fns[name][k], 20 if n <= 8192 else 5))
             res[f"{k}_N{n}"] = times
             rate = ""
+            if k == "ce_row_diag":  # its launch loop is host-bound: device time under the profiler too
+                dev = {name: [] for name in times}
+                for name in turns(k):
+                    dev[name].append(device_ms(fns[name][k]))
+                dev["torch.linalg.vecdot"] = [device_ms(lambda: torch.linalg.vecdot(q, c)) for _ in range(2)]
+                res[f"{k}_N{n}_device"] = dev
+                rate = "; device time " + ", ".join(f"{nm} {t} ms" for nm, t in dev.items())
             if k == "ce_fwd":  # one exponential per logit at 16 a clock per SM, 132 SMs, 1.98 GHz
                 floor = n * n / (16 * 132 * 1.98e9) * 1e3
                 res[f"{k}_N{n}_exp_floor_ms"] = floor

@@ -8,8 +8,10 @@ Builds the production LTHM of ``configs/model/lthm.yaml`` at context 1024
 (``chip_smoke.production_config``: 16 layers with remat, the position-bias
 kernels, ``fused_ce`` on, random weights from a seed) once, then in turns
 (other, this, this, other, per round) points every kernel of the port at one
-tree's sources (their C entries are the same), takes a warm-up step and a
-warm-up request, and times ``--steps`` training steps of 64 users on one
+tree's sources (their C entries are the same, but for a ``ce_row_diag`` that
+takes no lq: it is bound with its own signature and given the shift's four
+operations before it, as in ``tools/probe_fused_ce.py``), takes a warm-up
+step and a warm-up request, and times ``--steps`` training steps of 64 users on one
 batch with fixed lookahead offsets and ``--requests`` requests of 64 users
 (host clock around work that ends in ``torch.cuda.synchronize()``), then one
 step and one request under ``torch.profiler`` for their device time (kernel
@@ -56,6 +58,7 @@ def main() -> int:
     from recommendations_tpu_torch.ops import fused_ce as fc
     from recommendations_tpu_torch.train.step import train_step
     from recommendations_tpu_torch.train.train_state import TrainState
+    from tools.probe_fused_ce import ce_forward_shift_apart, row_diag_argtypes
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -66,10 +69,15 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(cuda_build.build_library, sources))
 
+    own_row_diag, own_forward = fc.CE_ROW_DIAG.argtypes, fc.ce_forward
+
     def use(tree: Path) -> None:
         for kern in kernels:
             kern.source = tree / kern.source.name
             kern._fn = None
+        # a tree whose ce_row_diag takes no lq forms the shift as it did, apart
+        fc.CE_ROW_DIAG.argtypes = row_diag_argtypes(tree / "fused_ce.cu", own_row_diag)
+        fc.ce_forward = own_forward if fc.CE_ROW_DIAG.argtypes is own_row_diag else ce_forward_shift_apart
 
     cfg = LTHMModelConfig.from_dict(production_config())
     wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)

@@ -51,7 +51,8 @@ PAIRS = [
     ("fused_ce.cu", f"ce_grad_tc_kernel<{d},{s},{kind}>", f"ce_grad_tc_kernel<{d},{s},{kind}>")
     for d in (16, 32, 64, 128) for s in (0, 1) for kind in (1, 2)
 ] + [
-    ("fused_ce.cu", f"row_diag_kernel<{d}>", f"row_diag_kernel<{d}>") for d in (16, 32, 64, 128)
+    ("fused_ce.cu", f"ce_fwd_tc_kernel<{d},{s}>", f"ce_fwd_tc_kernel<{d},{s}>")
+    for d in (16, 32, 64, 128) for s in (0, 1)
 ]
 
 
