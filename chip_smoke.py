@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
   2. each kernel against its plain PyTorch version on the card, at the
      serving and training shapes, the long-history shapes (B=16, T=1025;
      B=32, T=450: a block walks several tiles or items) and edge shapes
-     (ragged last tiles, T=1), beside the stated tolerance, the plain
+     (ragged last tiles, T=1), the CE kernels also at N = 16384 (context
+     512), beside the stated tolerance, the plain
      versions over 4 batch rows at a time and each forward's (without and
      with the bias) at its kernel's own softmax arithmetic (16-key chunks
      and exp2 on the one-pass tensor-core kernels; the bias backward's p at
@@ -44,7 +45,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
      bits; then the long-history path of tools/bench_longseq.py (LTHM-base
      widths, remat, no position bias, context 1024, 16 users) answers 4
      requests (6 flash_fwd each) and trains a warm-up and 3 timed steps (6
-     flash_fwd and 6 flash_bwd a step), with launch counts;
+     flash_fwd and 6 flash_bwd a step), with launch counts; then the
+     trainable table (detach_item_tower false): LTHM-base (1M rows) with
+     rowwise_adam, lazy_rowwise_adam and sparse_fused_adam forced, and the
+     production LTHM at context 1024 (10M rows) with auto (which resolves to
+     sparse_fused_adam, the fused (V, 128) record) and rowwise_adam, a
+     warm-up and 3 timed steps each with launch counts, rows_nan folded into
+     params_nan, the table rows that moved (only rows the batch's ids
+     reach, and those of every real token the model reads); then the
+     production LTHM at lthm.yaml's own context 512 (T = 513 = the bias
+     window) answers 4 requests and trains a warm-up and 3 steps under the
+     CUDA dispatch (the bias kernels at T == window), then one step under
+     the JAX package's dispatch (_sdpa with the bias), the two dispatches'
+     gradients on one state held to each other, peak memory of each;
   5. timing with CUDA events: each kernel, its plain version, its bound
      (and, as a note, the exponential floor of the bias and CE plane
      kernels), one PyTorch library call for the same function as a
@@ -52,8 +65,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (the SDPA backward as profiler device time, beside its event time), the
      CE kernels at LTHM-base's chunk and at the production chunk (N = 32768),
      the eager CE on the CE kernels' problem, one attention layer on _sdpa
-     with the bias against the fused bias path at T=513 and T=1025, the
-     requests and the training steps of every path.
+     with the bias against the fused bias path at T=513 and T=1025, and at
+     T = window from 2 to 769 at B = 16 and 64 (the measurement behind the
+     CUDA dispatch at T == window), the table updates alone, the requests and the
+     training steps of every path, and the script's own seconds.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -87,6 +102,8 @@ EAGER_STEPS = 4
 PROD_REQUESTS = 4
 PROD_STEPS = 3
 PROD_CHECK_BATCH = 8  # users in the production path's checks against plain attention
+TABLE_STEPS = 3  # timed steps of each trainable-table path
+SWEEP_WINDOWS = (2, 17, 33, 65, 129, 257, 385, 513, 769)  # T = window of the bias sweep
 INV_T = 20.0  # 1 / softmax_temperature
 
 
@@ -127,6 +144,7 @@ def bench_config() -> dict:
 
 
 PROD_CONTEXT = 1024  # BASELINE config 5's history length
+CTX512 = 512  # configs/model/lthm.yaml's own context_width
 
 
 def production_config(context: int = PROD_CONTEXT) -> dict:
@@ -998,7 +1016,7 @@ def time_production(fa, serving, training):
     torch.cuda.empty_cache()
 
     # one attention layer, forward + backward, _sdpa with the bias against the
-    # fused bias path (BIAS_MIN_SEQ lowered to 0 to take it at T=513)
+    # fused bias path (taken at T == window on the card)
     crossover = {}
     for tl in (513, 1025):
         x = torch.randn(PLAIN_BATCH, tl, 512, device="cuda").to(dt).requires_grad_()
@@ -1010,12 +1028,11 @@ def time_production(fa, serving, training):
             def fwd_bwd():
                 layer(x, causal=True).backward(dy)
 
-            with mock.patch.object(fa, "BIAS_MIN_SEQ", 0):
-                before = fa.FLASH_BIAS_FWD.launches
-                fwd_bwd()
-                if (fa.FLASH_BIAS_FWD.launches > before) != fused:
-                    raise AssertionError("the layer did not take the path it was timed for")
-                crossover[(tl, fused)] = cuda_ms(fwd_bwd, 5)
+            before = fa.FLASH_BIAS_FWD.launches
+            fwd_bwd()
+            if (fa.FLASH_BIAS_FWD.launches > before) != fused:
+                raise AssertionError("the layer did not take the path it was timed for")
+            crossover[(tl, fused)] = cuda_ms(fwd_bwd, 5)
             del layer
         torch.cuda.empty_cache()
         print(f"[5] one attention layer (B={PLAIN_BATCH}, T={tl}, d=512, MQA 32x16, bf16, position bias) "
@@ -1034,7 +1051,306 @@ def time_production(fa, serving, training):
     return times, {f"t{tl}_{'fused' if f else 'sdpa'}_ms": ms for (tl, f), ms in crossover.items()}
 
 
+def timed_train(label, state, batch, offsets, steps, kernels, want):
+    """A warm-up step, then ``steps`` timed steps on one batch with fixed
+    lookahead offsets, every launch count set to 0 just before the timed
+    steps and read just after; fails unless each kernel launched ``want``
+    times a step, the losses and gradient norms are finite, no parameter
+    (and no written table row) turned NaN, and the loss fell. Returns the
+    numbers for phase [5]."""
+    from recommendations_tpu_torch.train.step import train_step
+
+    first = train_step(state, batch, offsets=offsets)[0].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    step_ms, losses, grad_norms, nans = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, metrics = train_step(state, batch, offsets=offsets)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        grad_norms.append(metrics["grad_norm"].item())
+        nans.append(metrics["params_nan"].item())
+    counts = {kern.name: kern.launches for kern in kernels}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    full_want = {kern.name: 0 for kern in kernels}
+    full_want.update(want)
+    print(f"[4] {label}: {steps} steps, launches {counts} (expected per step {full_want}); loss: step 1 "
+          f"{first:.5f}, then {[round(x, 5) for x in losses]}; grad_norm {[round(x, 4) for x in grad_norms]}; "
+          f"params_nan {nans}", flush=True)
+    if counts != {k: n * steps for k, n in full_want.items()}:
+        raise AssertionError(f"{label}: the step did not launch each kernel of its path as expected")
+    if not all(np.isfinite(losses + grad_norms + [first])) or any(nans):
+        raise AssertionError(f"{label}: a non-finite loss or gradient, or NaN parameters or table rows")
+    if not losses[-1] < first:
+        raise AssertionError(f"{label}: the loss did not fall over {steps + 1} steps on one batch")
+    return {"step_ms": step_ms, "median_ms": float(np.median(step_ms)), "peak_mib": peak_mib,
+            "counts": counts, "per_step": {k: n // steps for k, n in counts.items()}}
+
+
+def table_rows_checked(label, wrapper, batch, before, d):
+    """The table's rows after training against ``before`` (its (V, d) table
+    lanes): every row that moved is one the batch's ids reach, no other row
+    moved, and the rows of the real (non-padding) tokens the model reads
+    moved, every one of them: the query tower keeps each history's
+    ``context_width`` most recent events (the first ones), so older events
+    take no gradient and are not counted."""
+    from recommendations_tpu_torch.nn.embeddings import kshift_row_indices
+
+    lm = wrapper.config.product_tower.latent_model_config
+    ids = torch.as_tensor(batch["product_ids"], device="cuda")
+    idx = kshift_row_indices(ids, lm.vocab_size_latent, lm.num_shifts_latent)
+    reached = torch.zeros(lm.vocab_size_latent, dtype=torch.bool, device="cuda")
+    reached[idx.reshape(-1)] = True
+    cw = wrapper.config.context_width
+    real = torch.zeros_like(reached)
+    real[idx[:, :cw][ids[:, :cw] != 0].reshape(-1)] = True
+    moved = (wrapper.module.product_emb_module.embedding.detach()[:, :d] != before).any(dim=1)
+    stray, n_moved, n_real = int((moved & ~reached).sum()), int(moved.sum()), int(real.sum())
+    missed = int((real & ~moved).sum())
+    ok = stray == 0 and missed == 0
+    print(f"[4] {label}: {n_moved} table rows moved of {lm.vocab_size_latent}; the batch's real tokens reach "
+          f"{n_real} rows, {missed} of them unmoved; {stray} rows moved that no id reaches "
+          f"-> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the table's rows moved where the batch did not reach them, or did not move")
+    return {"rows_moved": n_moved, "rows_reached_by_real_tokens": n_real}
+
+
+def table_update_ms(wrapper, state, batch):
+    """The table's own update alone, on CUDA events, at the path's shape:
+    the fused record's (random tap gradients of the batch's shape), the lazy
+    rows' (the table's last gradient), or RowwiseAdam's step (the same)."""
+    cfg = wrapper.config
+    table = wrapper.module.product_emb_module.embedding
+    if wrapper.uses_sparse_taps():
+        ids = torch.as_tensor(batch["product_ids"])
+        k, d = cfg.product_tower.latent_model_config.num_shifts_latent, cfg.product_tower.inp_emb_dim
+        g = torch.randn((*ids.shape, k, d), device="cuda").to(getattr(torch, cfg.compute_dtype)) * 1e-3
+        holder = {"state": state.table_state}
+
+        def run():
+            holder["state"], _ = wrapper.apply_sparse_table_update({"product_emb_rows": g}, holder["state"], batch)
+    elif wrapper.uses_lazy_table():
+        grad, holder = table.grad.clone(), {"state": state.table_state}
+
+        def run():
+            holder["state"] = wrapper.apply_lazy_table_update(grad, holder["state"], batch)
+    else:
+        run = state.optimizer.table.step
+    return cuda_ms(run, 5, warmup=1)
+
+
+def trainable_base(fa, fc, kernels):
+    """Phase [4] on LTHM-base with a trainable table (detach_item_tower
+    false; 1M rows): rowwise_adam (what ``auto`` resolves to there),
+    lazy_rowwise_adam, and sparse_fused_adam forced: a warm-up and
+    TABLE_STEPS timed steps each, launch counts (6 flash_fwd, 6 flash_bwd and
+    12 of each CE kernel a step), the table rows that moved, and the table
+    update alone. Returns numbers for phase [5]."""
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    out = {}
+    for opt in ("rowwise_adam", "lazy_rowwise_adam", "sparse_fused_adam"):
+        d = bench_config()
+        d["table_optimizer"] = opt
+        d["product_tower"]["detach_item_tower"] = False
+        cfg = LTHMModelConfig.from_dict(d)
+        wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+        state = TrainState.create(wrapper, seed=1)
+        dim = cfg.product_tower.inp_emb_dim
+        before = wrapper.module.product_emb_module.embedding.detach()[:, :dim].clone()
+        batch = request_batch(1000)
+        offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+        layers, heads, chunks = cfg.transformer_config.num_layers, len(cfg.lookahead), BATCH // cfg.train_mini_batch_size
+        want = {"flash_fwd": layers, "flash_bwd": layers, **{k.name: heads * chunks for k in fc.KERNELS}}
+        label = f"LTHM-base, table_optimizer {opt} (auto resolves to {dataclasses.replace(cfg, table_optimizer='auto').resolved_table_optimizer()})"
+        res = timed_train(label, state, batch, offsets, TABLE_STEPS, kernels, want)
+        res.update(table_rows_checked(label, wrapper, batch, before, dim))
+        res["update_ms"] = table_update_ms(wrapper, state, batch)
+        print(f"[4] {label}: the table update alone {res['update_ms']:.4f} ms (CUDA events)", flush=True)
+        out[opt] = res
+        del wrapper, state, before
+        torch.cuda.empty_cache()
+    return out
+
+
+def trainable_production(fa, fc, kernels):
+    """Phase [4] on the production LTHM at context 1024 with a trainable
+    10M-row table (detach_item_tower false): ``auto`` resolves to
+    sparse_fused_adam (the fused (V, 128) record, 5.12 GB), then
+    rowwise_adam forced; a warm-up and TABLE_STEPS timed steps each (16 of
+    each bias kernel and 12 of each CE kernel a step), the rows moved, and
+    the table update alone. Returns numbers for phase [5]."""
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    out = {}
+    for opt in ("auto", "rowwise_adam"):
+        d = production_config()
+        d["table_optimizer"] = opt
+        d["product_tower"]["detach_item_tower"] = False
+        cfg = LTHMModelConfig.from_dict(d)
+        resolved = cfg.resolved_table_optimizer()
+        if opt == "auto" and resolved != "sparse_fused_adam":
+            raise AssertionError(f"auto resolved to {resolved} at 10M rows")
+        t0 = time.perf_counter()
+        wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        table = wrapper.module.product_emb_module.embedding
+        state = TrainState.create(wrapper, seed=1)
+        dim = cfg.product_tower.inp_emb_dim
+        before = table.detach()[:, :dim].clone()
+        events = PROD_CONTEXT + 8
+        batch = request_batch(2000, BATCH, events)
+        offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+        layers, heads, chunks = cfg.transformer_config.num_layers, len(cfg.lookahead), BATCH // cfg.train_mini_batch_size
+        want = {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers,
+                **{k.name: heads * chunks for k in fc.KERNELS}}
+        label = (f"production, context 1024, table_optimizer {opt} -> {resolved}, "
+                 f"table {tuple(table.shape)} built in {built_s:.2f} s")
+        res = timed_train(label, state, batch, offsets, TABLE_STEPS, kernels, want)
+        res.update(table_rows_checked(label, wrapper, batch, before, dim))
+        res["update_ms"] = table_update_ms(wrapper, state, batch)
+        print(f"[4] {label}: the table update alone {res['update_ms']:.4f} ms (CUDA events)", flush=True)
+        out[resolved] = res
+        del wrapper, state, before, table
+        torch.cuda.empty_cache()
+    return out
+
+
+def production_512(fa, fc, kernels):
+    """Phases [3] and [4] on the production LTHM at lthm.yaml's own context
+    512 (T = 513 = the bias window, CE N = 16384; frozen table; random
+    bf16 position-bias tables in place of the initial zeros): a warm-up
+    and PROD_REQUESTS requests and a warm-up and PROD_STEPS timed steps
+    under the CUDA dispatch (the fused bias kernels at T == window, 16 each a
+    step), then a warm-up and one timed step under the JAX package's
+    dispatch (_sdpa with the bias, no bias kernel), each with its peak
+    memory; one step's loss and gradients of the two dispatches on the same
+    state and batch held to each other. Returns numbers for phase [5]."""
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.nn.attention import RelativePositionBias
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    cfg = LTHMModelConfig.from_dict(production_config(CTX512))
+    t = CTX512 + 1
+    if cfg.transformer_config.attn_config.pos_bias.context_window != t or not fa.fused_flash_bias_taken(t, t, True):
+        raise AssertionError("the context-512 path does not take the bias kernels under the CUDA dispatch")
+    layers, heads, chunks = cfg.transformer_config.num_layers, len(cfg.lookahead), BATCH // cfg.train_mini_batch_size
+    wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    # the position-bias tables start at zeros: random bf16 values, so that a
+    # bias kernel that ignored the table or read the wrong rows would fail the
+    # comparison with _sdpa below
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tables = [m.bias for m in wrapper.module.modules() if isinstance(m, RelativePositionBias)]
+    if len(tables) != layers:
+        raise AssertionError(f"{len(tables)} position-bias tables in {layers} layers")
+    with torch.no_grad():
+        for table in tables:
+            table.copy_(torch.randn(table.shape, generator=gen, device="cuda").to(torch.bfloat16))
+    models = wrapper.inference_models()
+    events = CTX512 + 8
+    models["user_encoder"](request_batch(500, BATCH, events))  # warm-up
+    requests = [request_batch(seed, BATCH, events) for seed in range(501, 501 + PROD_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    request_ms = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        emb = models["user_encoder"](batch)["user_emb"]
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(emb.shape) != (BATCH, cfg.product_tower.product_emb_dim) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError("production context-512 user_emb: wrong shape or not finite")
+        if (emb.norm(dim=-1) - 1).abs().max().item() > 1e-4:
+            raise AssertionError("production context-512 user_emb is not unit-norm")
+    serve_counts = {kern.name: kern.launches for kern in kernels}
+    serve_peak = torch.cuda.max_memory_allocated() / 2**20
+    want = {kern.name: (layers * PROD_REQUESTS if kern is fa.FLASH_BIAS_FWD else 0) for kern in kernels}
+    print(f"[3] {PROD_REQUESTS} production requests at context {CTX512} (T = {t} = the window, CUDA dispatch) of "
+          f"{BATCH} users: launches {serve_counts} (expected {want})", flush=True)
+    if serve_counts != want:
+        raise AssertionError("the context-512 requests did not launch the bias forward once a layer")
+    del models
+
+    state = TrainState.create(wrapper, seed=1)
+    batch = request_batch(2500, BATCH, events)
+    offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    fused = timed_train(f"production, context {CTX512}, CUDA dispatch (fused bias kernels at T = {t})", state,
+                        batch, offsets, PROD_STEPS, kernels,
+                        {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers,
+                         **{k.name: heads * chunks for k in fc.KERNELS}})
+    loss_k, grads_k = grads_of(wrapper, batch, state.aux, offsets)
+    taken = fa.fused_flash_bias_taken
+    # the JAX package's dispatch, the CPU's: _sdpa at T = 513 < BIAS_MIN_SEQ
+    with mock.patch.object(fa, "fused_flash_bias_taken", lambda t, w, on_cuda: taken(t, w, False)):
+        before = {kern.name: kern.launches for kern in kernels[:5]}
+        other = grads_of(wrapper, batch, state.aux, offsets)
+        if {kern.name: kern.launches for kern in kernels[:5]} != before:
+            raise AssertionError("the _sdpa dispatch launched a flash kernel")
+        sdpa = timed_train(f"production, context {CTX512}, the JAX package's dispatch (_sdpa with the bias)",
+                           state, batch, offsets, 1, kernels, {k.name: heads * chunks for k in fc.KERNELS})
+    held_to(f"production context {CTX512}, CUDA dispatch vs the JAX package's (_sdpa)", other, grads_k, loss_k,
+            2**-4, 1e-2,
+            f"_sdpa rounds each logit to bf16 before its softmax and p to bf16 before PV, the kernels keep "
+            f"f32 logits: held as the CPU tests hold bf16 against JAX (2**-4, the loss 1e-2) over {layers} layers")
+    del grads_k, other
+    request_med = float(np.median(request_ms))
+    del wrapper, state
+    torch.cuda.empty_cache()
+    return {"request_ms": request_ms, "request_median_ms": request_med, "serve_peak_mib": serve_peak,
+            "serve_counts": serve_counts, "fused": fused, "sdpa": sdpa}
+
+
+def bias_sweep(fa):
+    """Phase [5]: one attention layer (d=512, MQA 32x16, bf16, position bias
+    at window T, causal) forward + backward at T = window, on the fused bias
+    kernels and on _sdpa with the bias, at B = 16 and 64; the measurement
+    behind taking the bias kernels at every T == window on the card."""
+    from recommendations_tpu_torch.nn.attention import MultiQueryAttention
+
+    dt, out = torch.bfloat16, {}
+    for b in (16, 64):
+        for tl in SWEEP_WINDOWS:
+            x = torch.randn(b, tl, 512, device="cuda").to(dt).requires_grad_()
+            dy = torch.randn(b, tl, 512, device="cuda").to(dt)
+            for fused in (True, False):
+                layer = MultiQueryAttention(512, 32, torch.Generator(device="cuda").manual_seed(3), use_bias=False,
+                                            pos_bias_window=tl, use_flash=fused, dtype=dt)
+
+                def fwd_bwd():
+                    layer(x, causal=True).backward(dy)
+
+                before = fa.FLASH_BIAS_FWD.launches
+                fwd_bwd()
+                if (fa.FLASH_BIAS_FWD.launches > before) != fused:
+                    raise AssertionError("the layer did not take the path it was timed for")
+                out[(b, tl, fused)] = cuda_ms(fwd_bwd, 5)
+                del layer
+            del x, dy
+            torch.cuda.empty_cache()
+            print(f"[5] one attention layer at T = window = {tl}, B={b} (d=512, MQA 32x16, bf16) forward + "
+                  f"backward: fused bias kernels {out[(b, tl, True)]:.4f} ms, _sdpa with the bias "
+                  f"{out[(b, tl, False)]:.4f} ms", flush=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1121,6 +1437,7 @@ def main() -> int:
     bias_errs = compare_flash_bias(fa, BATCH, prod_t, 32, 16, 1, torch.bfloat16, True, prod_t)
     for shape in (
         (4, prod_t, 32, 16, 1, torch.bfloat16, True, prod_t),  # one batch row a block
+        (BATCH, CTX512 + 1, 32, 16, 1, torch.bfloat16, True, CTX512 + 1),  # production at context 512
         (45, 768, 32, 16, 1, torch.bfloat16, True, 768),    # a last block of fewer batch rows
         (20, 1025, 32, 16, 1, torch.bfloat16, False, 1024),  # non-causal, several rows a block
         (2, 768, 32, 16, 1, torch.bfloat16, True, 768),     # BIAS_MIN_SEQ
@@ -1146,6 +1463,7 @@ def main() -> int:
         (512, 32, 16, 1.0, "one_user"),          # fully masked rows: ce = -inf
         (256, 256, 128, 1.0, "random"),          # one user: every off-diagonal masked
         (32 * PROD_CONTEXT, PROD_CONTEXT, 128, 0.0, "roll"),  # a chunk of the production path
+        (32 * CTX512, CTX512, 128, 0.0, "roll"),  # a chunk of the production path at context 512
         (17000, 1000, 64, 1.0, "random"),        # 128-row blocks (no split), ragged last stage
     ):
         compare_ce(fc, *shape)
@@ -1381,6 +1699,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     long_path = long_history(fa, kernels)
     torch.cuda.empty_cache()
+    base_tables = trainable_base(fa, fc, kernels)
+    prod_tables = trainable_production(fa, fc, kernels)
+    ctx512 = production_512(fa, fc, kernels)
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -1497,6 +1818,7 @@ def main() -> int:
     # on the production step
     prod_beta = LTHMModelConfig.from_dict(production_config()).log_q_config.beta
     ce_times_prod = time_ce(fc, 32 * PROD_CONTEXT, PROD_CONTEXT, d_ce, prod_beta, plain_iters=1)
+    ce_times_512 = time_ce(fc, 32 * CTX512, CTX512, d_ce, prod_beta, plain_iters=1)
 
     print(f"[5] user_encoder request ({BATCH} users): median {med:.3f} ms, "
           f"min {min(request_ms):.3f} ms, max {max(request_ms):.3f} ms; "
@@ -1521,6 +1843,44 @@ def main() -> int:
                  "launches_per_step": long_path["launches_per_step"]}
 
     bias_times, crossover = time_production(fa, prod_serving, prod_training)
+    sweep = bias_sweep(fa)
+
+    # the new paths' requests and steps
+    base_frozen = float(np.median(step_ms))
+    for opt, res in base_tables.items():
+        print(f"[5] LTHM-base training step, table_optimizer {opt} ({BATCH} users, fused_ce on): median "
+              f"{res['median_ms']:.3f} ms (frozen table {base_frozen:.3f} ms in this run), min {min(res['step_ms']):.3f}, "
+              f"max {max(res['step_ms']):.3f} over {len(res['step_ms'])}; {BATCH / (res['median_ms'] / 1e3):.1f} "
+              f"examples/s; the table update alone {res['update_ms']:.4f} ms; peak device memory "
+              f"{res['peak_mib']:.1f} MiB", flush=True)
+    prod_frozen = float(np.median(prod_training["step_ms"]))
+    for opt, res in prod_tables.items():
+        print(f"[5] production training step at context {PROD_CONTEXT}, 10M-row table, {opt}: median "
+              f"{res['median_ms']:.3f} ms (frozen table {prod_frozen:.3f} ms in this run), min {min(res['step_ms']):.3f}, "
+              f"max {max(res['step_ms']):.3f} over {len(res['step_ms'])}; {BATCH / (res['median_ms'] / 1e3):.1f} "
+              f"examples/s; the table update alone {res['update_ms']:.4f} ms; peak device memory "
+              f"{res['peak_mib']:.1f} MiB", flush=True)
+    print(f"[5] production user_encoder request at context {CTX512} ({BATCH} users, T={CTX512 + 1}, CUDA dispatch): "
+          f"median {ctx512['request_median_ms']:.3f} ms, min {min(ctx512['request_ms']):.3f}, max "
+          f"{max(ctx512['request_ms']):.3f}; {BATCH / (ctx512['request_median_ms'] / 1e3):.1f} users/s; peak "
+          f"device memory {ctx512['serve_peak_mib']:.1f} MiB", flush=True)
+    for label, res in (("CUDA dispatch, fused bias kernels", ctx512["fused"]),
+                       ("the JAX package's dispatch, _sdpa with the bias", ctx512["sdpa"])):
+        print(f"[5] production training step at context {CTX512} ({label}): median {res['median_ms']:.3f} ms "
+              f"over {len(res['step_ms'])} ({[round(x, 3) for x in res['step_ms']]}); "
+              f"{BATCH / (res['median_ms'] / 1e3):.1f} examples/s; peak device memory {res['peak_mib']:.1f} MiB",
+              flush=True)
+    paths = {
+        **{f"base_{opt}": res["per_step"] for opt, res in base_tables.items()},
+        **{f"prod1024_{opt}": res["per_step"] for opt, res in prod_tables.items()},
+        "prod512_cuda_dispatch": ctx512["fused"]["per_step"],
+        "prod512_jax_dispatch": ctx512["sdpa"]["per_step"],
+        "prod512_per_request": {k: n // PROD_REQUESTS for k, n in ctx512["serve_counts"].items()},
+    }
+
+    def new_paths(name):
+        """Launches per step (per request) of kernel ``name`` on the paths this script added last."""
+        return {path: counts[name] for path, counts in paths.items() if counts.get(name)}
     bias_kernels = {  # name: (source, the TPU kernel's def in recommendations_tpu/ops/fused_attention.py)
         "flash_bias_fwd": ("flash_fwd.cu", 578), "flash_bias_dq": ("flash_bwd.cu", 668),
         "flash_bias_dkv": ("flash_bwd.cu", 738),
@@ -1542,7 +1902,10 @@ def main() -> int:
         "plain_batch": PLAIN_BATCH,
         "library_call": "scaled_dot_product_attention, float attn_mask, enable_gqa"
                         + (" (backward: dq, dk, dv and the mask gradient in one)" if name != "flash_bias_fwd" else ""),
-        **({"layer_crossover_b16": crossover} if name == "flash_bias_fwd" else {}),
+        **({"layer_crossover_b16": crossover,
+            "layer_sweep_t_eq_window": {f"b{b}_t{tl}_{'fused' if f else 'sdpa'}_ms": ms
+                                        for (b, tl, f), ms in sweep.items()}} if name == "flash_bias_fwd" else {}),
+        "launches_per_step_new_paths": new_paths(name),
     } for name, (src, line) in bias_kernels.items()]
     ce_replaces = {"ce_row_diag": 82, "ce_fwd": 102, "ce_dq": 135, "ce_dc": 168}
     ce_entries = [{
@@ -1558,6 +1921,8 @@ def main() -> int:
         **({"library_call": "torch.linalg.vecdot of the bf16 rows (bf16 out, no shift: a yardstick)"}
            if name == "ce_row_diag" else {}),
         "n32768": {**ce_times_prod[name], "launches_per_step": prod_training["counts"][name] // PROD_STEPS},
+        "n16384": {**ce_times_512[name], "launches_per_step": ctx512["fused"]["per_step"][name]},
+        "launches_per_step_new_paths": new_paths(name),
     } for name, line in ce_replaces.items()]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
@@ -1581,6 +1946,7 @@ def main() -> int:
                   "launches_per_request": long_json["launches_per_request"],
                   "launches_per_step": long_json["launches_per_step"]["flash_fwd"]},
         "long_history": long_json,
+        "launches_per_step_new_paths": new_paths("flash_fwd"),
     }, {
         "name": "flash_bwd",
         "route": "cuda",
@@ -1593,7 +1959,9 @@ def main() -> int:
         **bwd_times,
         "t450": bwd_t450,
         "t1025": {**bwd_t1025, "launches_per_step": long_json["launches_per_step"]["flash_bwd"]},
+        "launches_per_step_new_paths": new_paths("flash_bwd"),
     }, *bias_entries, *ce_entries]}))
+    print(f"[5] chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,7 +11,11 @@ import typing
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
+# The JAX package's table-optimizer thresholds, kept at its values: moving
+# either changes which rows' moments decay, so the trained model, and not
+# only its speed (train/sparse_table.py).
 TABLE_OPT_SPARSE_FUSED_MIN_ROWS = 2_000_000
+TABLE_OPT_LAZY_MAX_ROWS = 5_000_000
 TABLE_OPTIMIZERS = (
     "auto", "rowwise_adam", "lazy_rowwise_adam", "sparse_fused_adam", "adamw", "frozen",
 )
@@ -186,6 +190,17 @@ class LTHMModelConfig:
             raise ValueError(f"table_optimizer {self.table_optimizer!r} not in {TABLE_OPTIMIZERS}")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r} not in ('bfloat16', 'float32')")
+        rows = self.product_tower.latent_model_config.vocab_size_latent
+        if self.table_optimizer == "lazy_rowwise_adam" and rows >= TABLE_OPT_LAZY_MAX_ROWS:
+            # the JAX package's gate and text (its scan is a nonzero over V)
+            raise ValueError(
+                "table_optimizer=lazy_rowwise_adam at "
+                f"{rows} "
+                f"rows (>= {TABLE_OPT_LAZY_MAX_ROWS}): its nonzero-over-V "
+                "touched-row scan measures 969 ms/step at 10M rows on v5e. "
+                "Use table_optimizer: auto (resolves to sparse_fused_adam at "
+                "this size) or sparse_fused_adam explicitly."
+            )
 
     @classmethod
     def from_dict(cls, d: dict) -> "LTHMModelConfig":

@@ -13,7 +13,7 @@ returns float32, and each block adds its compute-dtype outputs to it).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -177,7 +177,8 @@ class QueryTower(nn.Module):
 
 
 class LTHMEncoder(nn.Module):
-    """Full LTHM forward with a fresh KShift product-embedding table."""
+    """Full LTHM forward with a fresh KShift product-embedding table (a
+    dense table, or the fused record when ``cfg.uses_fused_table()``)."""
 
     def __init__(
         self,
@@ -210,10 +211,16 @@ class LTHMEncoder(nn.Module):
         self.query_tower = QueryTower(cfg, generator)
 
     def forward(
-        self, batch: Dict[str, torch.Tensor], training: bool = False
+        self,
+        batch: Dict[str, torch.Tensor],
+        training: bool = False,
+        taps: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
+        """``taps``: ``{"product_emb_rows": zeros (B, S, k, d)}`` on the
+        fused-record table, whose gradient is the gathered rows' (the
+        wrapper's ``make_taps``)."""
         ids = batch[self.ids_key]
-        embs = self.product_emb_module(ids)
+        embs = self.product_emb_module(ids, tap=(taps or {}).get("product_emb_rows"))
         inp, target, mask = self.product_tower(ids, embs)
         # float timestamps and labels truncate to int64, as astype does
         labels = batch[self.labels_key].to(torch.int64)

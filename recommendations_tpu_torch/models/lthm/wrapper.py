@@ -4,35 +4,58 @@ the training step its loss and optimizer groups.
 Port of ``recommendations_tpu/models/lthm/wrapper.py``: ``format_inputs``,
 ``forward`` and ``inference_models`` (serving); ``init_aux_state``,
 ``loss_and_metrics``, ``param_labels`` and ``optimizers_for_param_groups``
-(training, with a frozen product-embedding table). Weights come from a seeded
-``torch.Generator`` or, through ``load_jax_variables``, from the JAX
-package's variables.
+(training), and the table paths the training step takes for each
+``table_optimizer``:
+
+- ``frozen``: the table takes no gradient;
+- ``adamw``: the table trains in the main AdamW group;
+- ``rowwise_adam``: the table trains in its own group on ``RowwiseAdam``;
+- ``lazy_rowwise_adam``: ``uses_lazy_table``; the step calls
+  ``apply_lazy_table_update`` with the table's dense gradient;
+- ``sparse_fused_adam``: ``uses_sparse_taps``; the table is the fused
+  record, the step takes the gradient of ``make_taps`` and calls
+  ``apply_sparse_table_update``.
+
+Weights come from a seeded ``torch.Generator`` or, through
+``load_jax_variables``, from the JAX package's variables.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from recommendations_tpu_torch import resolve_device
-from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+from recommendations_tpu_torch.models.lthm.config import (
+    TABLE_OPT_SPARSE_FUSED_MIN_ROWS,
+    LTHMModelConfig,
+)
 from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
 from recommendations_tpu_torch.models.lthm.loss import Metrics, contrastive_step
 from recommendations_tpu_torch.models.lthm.model import LTHMEncoder
+from recommendations_tpu_torch.nn.embeddings import kshift_row_indices
 from recommendations_tpu_torch.nn.functional import l2_normalize
 from recommendations_tpu_torch.nn.logq import LogQState, init_logq_state
+from recommendations_tpu_torch.train.sparse_table import (
+    FusedTableState,
+    init_lazy_row_state,
+    lazy_rowwise_adam_update,
+    sparse_fused_adam_update,
+)
 
 TABLE_GROUP = "EMB_TABLE"
 MAIN_GROUP = "USE_OPTIM"
+TABLE_PARAM = "product_emb_module.embedding"
+
+log = logging.getLogger(__name__)
 
 
 class LTHMAuxState(NamedTuple):
     logq: LogQState
     batch_idx: torch.Tensor  # float32 scalar batch counter
-
-
 
 
 class LTHMModelWrapper:
@@ -44,6 +67,28 @@ class LTHMModelWrapper:
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.module = LTHMEncoder(config, gen).eval()
+        # the JAX wrapper's two warnings, in its words
+        if (
+            config.uses_fused_table()
+            and config.product_tower.latent_model_config.vocab_size_latent
+            < TABLE_OPT_SPARSE_FUSED_MIN_ROWS
+        ):
+            log.warning(
+                "table_optimizer=sparse_fused_adam below ~2M rows: the dense "
+                "rowwise_adam path measures faster at this size (1075 vs 986 "
+                "ex/s at 1M on v5e, QUALITY.md round 4) — sparse wins only "
+                "where dense table passes dominate (10M rows: 881 vs 722). "
+                "table_optimizer: auto encodes the measured dispatch."
+            )
+        if config.table_optimizer == "sparse_fused_adam" and config.shard_embedding_rows:
+            log.warning(
+                "table_optimizer=sparse_fused_adam with "
+                "shard_embedding_rows=True falls back to dense rowwise_adam "
+                "co-sharded with the rows (the fused record path is "
+                "single-device). Note the semantics differ: the dense path "
+                "decays every row's moments each step, the fused path only "
+                "touched rows'."
+            )
 
     def load_jax_variables(self, variables: Mapping[str, Any]) -> None:
         """Load the JAX package's variables (nested dicts of numpy arrays)."""
@@ -80,13 +125,15 @@ class LTHMModelWrapper:
         training: bool,
         offsets=None,
         generator: Optional[torch.Generator] = None,
+        taps: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Metrics, LTHMAuxState]:
         """Forward (with autograd) and the contrastive loss: (loss, metrics
         under the JAX package's keys, new aux state). ``offsets`` overrides
-        the draw of the lookahead offsets from ``generator``."""
+        the draw of the lookahead offsets from ``generator``; ``taps`` are
+        ``make_taps``'s, on the fused-record table."""
         cfg = self.config
         with record_function("lthm/forward"):
-            output = self.module(self.format_inputs(batch), training=training)
+            output = self.module(self.format_inputs(batch), training=training, taps=taps)
         with record_function("lthm/loss"):
             loss, metrics, new_logq = contrastive_step(
                 output,
@@ -108,32 +155,119 @@ class LTHMModelWrapper:
         )
         return loss, metrics, new_aux
 
+    # ----- the table's optimizer ---------------------------------------------
+
+    def _uses_rowwise_table(self) -> bool:
+        """The table is its own group (every table optimizer but adamw)."""
+        return self.config.resolved_table_optimizer() != "adamw"
+
+    def uses_sparse_taps(self) -> bool:
+        """The fused-record table: the step takes the gradient of
+        ``make_taps`` and calls ``apply_sparse_table_update``."""
+        return self.config.uses_fused_table()
+
+    def uses_lazy_table(self) -> bool:
+        """Lazy rowwise Adam: the step calls ``apply_lazy_table_update``."""
+        cfg = self.config
+        return (
+            cfg.resolved_table_optimizer() == "lazy_rowwise_adam"
+            and cfg.product_tower.model_init_metadata is None
+            and not cfg.shard_embedding_rows
+        )
+
+    def _table(self) -> torch.nn.Parameter:
+        return self.module.product_emb_module.embedding
+
+    def _row_indices(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        lm = self.config.product_tower.latent_model_config
+        ids = self.format_inputs({self.module.ids_key: batch[self.module.ids_key]})[self.module.ids_key]
+        return kshift_row_indices(ids, lm.vocab_size_latent, lm.num_shifts_latent)
+
+    def make_taps(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """Zero perturbations of the gathered rows, (B, S, k, d) in the
+        compute dtype, that require a gradient: their gradient is the
+        per-(token, shift) row cotangent that replaces a dense table
+        gradient."""
+        cfg = self.config
+        ids = torch.as_tensor(batch[self.module.ids_key])
+        k = cfg.product_tower.latent_model_config.num_shifts_latent
+        d = cfg.product_tower.inp_emb_dim
+        rows = torch.zeros((*ids.shape, k, d), dtype=getattr(torch, cfg.compute_dtype), device=self.device)
+        return {"product_emb_rows": rows.requires_grad_()}
+
+    def init_table_state(self):
+        """The fused or lazy table's update state; None on the other paths."""
+        if self.uses_sparse_taps():
+            return FusedTableState(count=torch.zeros((), dtype=torch.int32, device=self.device))
+        if self.uses_lazy_table():
+            return init_lazy_row_state(self._table().detach())
+        return None
+
+    def apply_sparse_table_update(self, tap_grads, table_state, batch):
+        """Rowwise Adam on the fused record's touched rows, in place:
+        (new table state, rows_nan)."""
+        cfg = self.config
+        g = tap_grads["product_emb_rows"]
+        return sparse_fused_adam_update(
+            self._table().data,
+            self._row_indices(batch).reshape(-1),
+            g.reshape(-1, g.shape[-1]),
+            table_state,
+            learning_rate=cfg.lr,
+            b1=cfg.betas[0],
+            b2=cfg.betas[1],
+        )
+
+    def apply_lazy_table_update(self, grad: torch.Tensor, table_state, batch):
+        """Lazy rowwise Adam on the rows ``grad`` touches (the table's
+        gradient before clipping), in place: the new table state. Its
+        capacity is the batch's (token, shift) count."""
+        cfg = self.config
+        ids = batch[self.module.ids_key]
+        capacity = int(torch.as_tensor(ids).numel()) * cfg.product_tower.latent_model_config.num_shifts_latent
+        return lazy_rowwise_adam_update(
+            self._table().data, grad, table_state,
+            learning_rate=cfg.lr, capacity=capacity, b1=cfg.betas[0], b2=cfg.betas[1],
+        )
+
+    def nan_check_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters the step's ``params_nan`` covers: all but the fused
+        record, whose written rows ``apply_sparse_table_update`` checks."""
+        params = dict(self.module.named_parameters())
+        if self.uses_sparse_taps():
+            del params[TABLE_PARAM]
+        return params
+
     def param_labels(self) -> Dict[str, str]:
         """Parameter name -> optimizer group: the product-embedding table is
-        its own group, everything else the main AdamW group."""
+        its own group, but with ``adamw`` everything is the main group."""
+        rowwise = self._uses_rowwise_table()
         return {
-            name: TABLE_GROUP if name.split(".")[0] == "product_emb_module" else MAIN_GROUP
+            name: TABLE_GROUP if rowwise and name.split(".")[0] == "product_emb_module" else MAIN_GROUP
             for name, _ in self.module.named_parameters()
         }
 
     def optimizers_for_param_groups(self) -> Dict[str, Optional[dict]]:
-        """Group -> AdamW settings, or None for a group that does not train.
-        The frozen table takes ``requires_grad=False`` (the JAX package's
-        ``optax.set_to_zero``); other table optimizers raise."""
+        """Group -> optimizer settings, or None for a group the optimizer
+        does not step (the JAX package's ``optax.set_to_zero``): the frozen
+        table, and the lazy and fused tables, which the step updates itself.
+        Behind ``detach_item_tower`` the table takes ``requires_grad=False``.
+        ``rowwise_adam`` runs ``RowwiseAdam`` on the table."""
         cfg = self.config
         t = cfg.resolved_table_optimizer()
-        if t != "frozen":
-            raise NotImplementedError(
-                f"table_optimizer {t!r}: ROADMAP, port queue items 4 (rowwise_adam) and 8 "
-                "(lazy and sparse tables); the port trains with table_optimizer 'frozen'"
-            )
-        self.module.product_emb_module.embedding.requires_grad_(False)
-        return {
+        groups: Dict[str, Optional[dict]] = {
             MAIN_GROUP: dict(
                 lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8, weight_decay=cfg.weight_decay
             ),
-            TABLE_GROUP: None,
         }
+        if t == "frozen" or self.uses_lazy_table() or self.uses_sparse_taps():
+            groups[TABLE_GROUP] = None
+            if cfg.product_tower.detach_item_tower:
+                # no gradient reaches it: none is taken
+                self._table().requires_grad_(False)
+        elif t == "rowwise_adam":
+            groups[TABLE_GROUP] = dict(optimizer="rowwise_adam", lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8)
+        return groups
 
     def inference_models(self) -> Dict[str, Callable]:
         """Serving entry points:

@@ -7,7 +7,11 @@ fused path serves, attention runs the flash kernel
 sequence and a length in ``BIAS_MIN_SEQ <= T <= RECOMMENDED_MAX_SEQ``, it
 runs the flash kernel with the bias applied inside
 (``fused_flash_attention_bias``, given the raw table); otherwise it runs
-``_sdpa``, whose softmax is normalized after the V product. The flash paths
+``_sdpa``, whose softmax is normalized after the V product. On a CUDA
+tensor the bias kernels also take every T == window
+(``fused_flash_bias_taken``), where they compute what ``_sdpa`` does;
+a shorter sequence (a short request) takes ``_sdpa`` as in the JAX package,
+since below the window the two paths read different table rows. The flash paths
 are differentiable through their backward kernels (the bias path also with
 respect to the table); ``_sdpa`` differentiates through autograd. Ring
 attention is not ported yet and raises rather than fall back to ``_sdpa``.
@@ -162,12 +166,10 @@ class _AttentionBase(nn.Module):
             return False
         return fa.fused_flash_recommended(seq_len)
 
-    def _flash_bias_eligible(self, mask, seq_len: int) -> bool:
+    def _flash_bias_eligible(self, mask, seq_len: int, on_cuda: bool) -> bool:
         if not self.use_flash or mask is not None or self.pos_bias_window is None:
             return False
-        if seq_len > self.pos_bias_window:
-            return False
-        return fa.fused_flash_bias_recommended(seq_len)
+        return fa.fused_flash_bias_taken(seq_len, self.pos_bias_window, on_cuda)
 
     def _warn_fallback(self, mask, seq_len: int) -> None:
         """Name the reason a requested flash path fell back to ``_sdpa``, with
@@ -213,7 +215,7 @@ class _AttentionBase(nn.Module):
             return fa.fused_flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), self.n_head, causal
             )
-        if self._flash_bias_eligible(mask, t):
+        if self._flash_bias_eligible(mask, t, x.is_cuda):
             return self._fused_flash_bias(q, k, v, causal)
         if self.use_flash:
             self._warn_fallback(mask, t)

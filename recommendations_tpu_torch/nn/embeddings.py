@@ -1,7 +1,8 @@
 """Hash-embedding layers.
 
 Port of ``recommendations_tpu/nn/embeddings.py``: FlatEmbedding,
-KShiftEmbedding (dense table), HistogramEmbedding and PatternFromTimelocal.
+KShiftEmbedding (a dense table, or the fused (V, 128) record of
+``train/sparse_table.py``), HistogramEmbedding and PatternFromTimelocal.
 
 Ids are int64 over the full range. The KShift hash uses an unsigned 64-bit
 rotation and an unsigned mod; PyTorch's uint64 support is partial, so both
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from recommendations_tpu_torch.nn.functional import l2_normalize
+from recommendations_tpu_torch.train.sparse_table import fused_record_init
 
 # Tables up to this many rows are looked up by a one-hot matmul; larger ones
 # by indexing (exact rows).
@@ -98,9 +100,40 @@ class FlatEmbedding(nn.Module):
         return small_table_lookup(self.embedding, idx, self.compute_dtype)
 
 
+class _GatherRowsLowp(torch.autograd.Function):
+    """``table[idx]`` rounded to a lower dtype, whose table gradient sums a
+    row's duplicate cotangents in that dtype and converts once to the
+    table's: the JAX package casts the table before its gather, so its
+    scatter-add (``ops/bucketed_scatter.py``) runs in the compute dtype.
+    (The cast and the gather commute in the forward, so only the gathered
+    rows are cast here.)"""
+
+    @staticmethod
+    def forward(ctx, table, idx, dtype):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[0]
+        ctx.table_dtype = table.dtype
+        return table[idx].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        d = g.shape[-1]
+        acc = torch.zeros((ctx.num_rows, d), dtype=g.dtype, device=g.device)
+        acc.index_put_((idx.reshape(-1),), g.reshape(-1, d), accumulate=True)
+        return acc.to(ctx.table_dtype), None, None
+
+
 class KShiftEmbedding(nn.Module):
     """k-shift parameter-shared embedding: each id sums k rotated-hash rows of
-    one table, scaled by 1/sqrt(k) or L2-normalized. Dense table only."""
+    one table, scaled by 1/sqrt(k) or L2-normalized.
+
+    With ``fused_record`` the parameter is the (V, 128) float32 record
+    ``[table d | m d | v 1 | pad]`` that ``train/sparse_table.py`` updates
+    outside autograd: the lookup gathers rows of the detached record, keeps
+    the first d lanes, casts them to the compute dtype and adds ``tap``, a
+    zero tensor whose gradient is then the gradient of the gathered rows
+    (the JAX package's tap cotangent)."""
 
     def __init__(
         self,
@@ -113,24 +146,35 @@ class KShiftEmbedding(nn.Module):
         fused_record: bool = False,
     ):
         super().__init__()
-        if fused_record:
-            raise NotImplementedError(
-                "KShiftEmbedding(fused_record=True), the sparse fused-record "
-                "table: ROADMAP, port queue 'Trainable table'"
-            )
         self.num_embeddings = num_embeddings
+        self.features = features
         self.num_shifts = num_shifts
         self.normalize_output = normalize_output
         self.compute_dtype = compute_dtype
-        self.embedding = init_param((num_embeddings, features), 1.0, generator)
+        self.fused_record = fused_record
+        if fused_record:
+            self.embedding = nn.Parameter(
+                fused_record_init(num_embeddings, features, generator), requires_grad=False
+            )
+        else:
+            self.embedding = init_param((num_embeddings, features), 1.0, generator)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, tap: Optional[torch.Tensor] = None) -> torch.Tensor:
         idx = kshift_row_indices(ids, self.num_embeddings, self.num_shifts)
-        rows = self.embedding[idx]  # (..., k, d)
+        if self.fused_record:
+            rows = self.embedding.detach()[:, : self.features][idx]
+            if self.compute_dtype is not None:
+                rows = rows.to(self.compute_dtype)
+            if tap is not None:
+                rows = rows + tap.to(rows.dtype)
+        elif self.compute_dtype is not None and self.compute_dtype != self.embedding.dtype:
+            rows = _GatherRowsLowp.apply(self.embedding, idx, self.compute_dtype)
+        else:
+            rows = self.embedding[idx]  # (..., k, d)
         if self.compute_dtype is not None:
-            # the reference sums the compute-dtype rows with f32 accumulation
-            # and one rounding back to the compute dtype
-            x = rows.to(self.compute_dtype).float().sum(dim=-2).to(self.compute_dtype).float()
+            # the rows are in the compute dtype; the reference sums them with
+            # f32 accumulation and one rounding back to the compute dtype
+            x = rows.float().sum(dim=-2).to(self.compute_dtype).float()
         else:
             x = rows.sum(dim=-2)
         if self.normalize_output:

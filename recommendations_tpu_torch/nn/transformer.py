@@ -113,7 +113,7 @@ class TransformerBlock(nn.Module):
             and attn_mask is None
             and (
                 self.pos_bias_window is None
-                or (t <= self.pos_bias_window and fa.fused_flash_bias_recommended(t))
+                or fa.fused_flash_bias_taken(t, self.pos_bias_window, x.is_cuda)
             )
         )
         if self.is_causal and not flash_ok:

@@ -47,7 +47,13 @@ KERNEL_SOFTMAX_CHUNK = 16
 # Dispatch knobs carried over from the JAX package (measured there on a TPU,
 # not on this card): the fused path serves sequences up to this length...
 RECOMMENDED_MAX_SEQ = 4096
-# ...and the fused relative-position-bias kernel from this length up.
+# ...and the fused relative-position-bias kernel from this length up. On the
+# CPU the dispatch is the JAX package's. On a CUDA tensor the bias kernels
+# also serve every T == window: there they read the same table rows as _sdpa
+# with the bias, so they compute the same function, and one layer forward +
+# backward is faster fused than on _sdpa at every window from 2 to 769
+# (chip_smoke.py's sweep on an H100; PERF.md). Below the window the two
+# paths read different rows, and the JAX package's dispatch stays.
 BIAS_MIN_SEQ = 768
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
@@ -93,6 +99,17 @@ def fused_flash_recommended(seq_len: int) -> bool:
 
 def fused_flash_bias_recommended(seq_len: int) -> bool:
     return BIAS_MIN_SEQ <= seq_len <= RECOMMENDED_MAX_SEQ
+
+
+def fused_flash_bias_taken(seq_len: int, window: int, on_cuda: bool) -> bool:
+    """Whether attention with a position bias of ``window`` takes the fused
+    bias kernels at ``seq_len``: the JAX package's range within the window,
+    and on a CUDA tensor also every T == window."""
+    if seq_len > window:
+        return False
+    if fused_flash_bias_recommended(seq_len):
+        return True
+    return on_cuda and seq_len == window <= RECOMMENDED_MAX_SEQ
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int):

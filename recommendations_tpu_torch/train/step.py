@@ -1,11 +1,21 @@
 """The single-GPU training step.
 
-Port of the dense path of ``recommendations_tpu/train/strategy.py``'s
-``train_step`` (as ``bench.py`` times it): forward, loss and backward; the
-optimizer step; the new aux state; the metrics ``grad_norm`` (of the raw
-gradients) and ``params_nan``; ``step += 1``. The sparse-tap and lazy-table
-branches are not ported: their table optimizers raise when the state is
-built (``wrapper.optimizers_for_param_groups``).
+Port of ``train_step`` in ``recommendations_tpu/train/strategy.py`` (as
+``bench.py`` times it), with its three table paths:
+
+- dense (``frozen``, ``adamw``, ``rowwise_adam``): forward, loss and
+  backward, then the optimizer step over every group;
+- lazy (``lazy_rowwise_adam``): the same, and ``apply_lazy_table_update``
+  on the table's gradient as the backward left it, before clipping;
+- taps (``sparse_fused_adam``): the gradient is taken of the parameters and
+  of the wrapper's taps, the optimizer steps the dense parameters, then
+  ``apply_sparse_table_update`` steps the record's touched rows from the
+  taps' gradient (unclipped, as in the JAX package).
+
+Then the new aux state; the metrics ``grad_norm`` (of the raw gradients,
+with the taps' squares summed over every occurrence) and ``params_nan``
+(every parameter but the fused record, whose written rows the update checks
+itself: its ``rows_nan`` is folded in); ``step += 1``.
 
 The phases run inside ``torch.profiler.record_function`` ranges named
 ``lthm/...`` (forward and loss in the wrapper, the CE backward in the loss),
@@ -30,19 +40,34 @@ def train_step(
     """One step in place on ``state``; returns (loss, metrics) as device
     tensors. ``offsets`` overrides the draw from ``state.generator``."""
     wrapper = state.wrapper
+    use_taps = wrapper.uses_sparse_taps()
     state.optimizer.zero_grad()
+    taps = wrapper.make_taps(batch) if use_taps else None
     loss, metrics, new_aux = wrapper.loss_and_metrics(
-        batch, state.aux, True, offsets=offsets, generator=state.generator
+        batch, state.aux, True, offsets=offsets, generator=state.generator, taps=taps
     )
     with record_function("lthm/backward"):
         loss.backward()
     params = list(wrapper.module.parameters())
     with record_function("lthm/optimizer"), torch.no_grad():
-        gsq = torch.stack([p.grad.float().square().sum() for p in params if p.grad is not None])
-        metrics["grad_norm"] = gsq.sum().sqrt()
+        squares = [p.grad.float().square().sum() for p in params if p.grad is not None]
+        if use_taps:
+            # a tap's gradient is None when the product tower detaches it
+            taps = {k: t.grad if t.grad is not None else torch.zeros_like(t) for k, t in taps.items()}
+            squares += [g.float().square().sum() for g in taps.values()]
+        metrics["grad_norm"] = torch.stack(squares).sum().sqrt()
+        if wrapper.uses_lazy_table():
+            table = wrapper.module.product_emb_module.embedding
+            grad = table.grad if table.grad is not None else torch.zeros_like(table)
+            # before the optimizer step, whose clipping scales the gradients in place
+            state.table_state = wrapper.apply_lazy_table_update(grad, state.table_state, batch)
         state.optimizer.step()
-        nan = torch.stack([p.isnan().any() for p in params if p.is_floating_point()])
-        metrics["params_nan"] = nan.any().float()
+        rows_nan = None
+        if use_taps:
+            state.table_state, rows_nan = wrapper.apply_sparse_table_update(taps, state.table_state, batch)
+        nan = torch.stack([p.isnan().any() for p in wrapper.nan_check_params().values() if p.is_floating_point()])
+        params_nan = nan.any() if rows_nan is None else nan.any() | rows_nan
+        metrics["params_nan"] = params_nan.float()
     state.aux = new_aux
     state.step += 1
     return loss.detach(), metrics

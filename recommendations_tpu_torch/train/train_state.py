@@ -3,8 +3,10 @@
 Port of ``recommendations_tpu/train/train_state.py``. The parameters live in
 the wrapper's module and the optimizer moments in the optimizer, so the
 state holds those two objects beside the model's aux state (the logQ
-estimator), the step count and the generator that draws the lookahead
-offsets (a CPU generator: the offsets are host integers).
+estimator), the step count, the generator that draws the lookahead
+offsets (a CPU generator: the offsets are host integers) and the lazy or
+fused table's update state (``train/sparse_table.py``; None on the other
+table paths).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ class TrainState:
     aux: Any
     generator: torch.Generator
     step: int = 0
+    table_state: Any = None
 
     @classmethod
     def create(
@@ -35,4 +38,5 @@ class TrainState:
             optimizer=build_optimizer(wrapper, train_config or ModelTrainConfig()),
             aux=wrapper.init_aux_state(),
             generator=torch.Generator().manual_seed(seed),
+            table_state=wrapper.init_table_state(),
         )

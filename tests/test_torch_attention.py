@@ -281,10 +281,69 @@ def test_fused_bias_kernel_and_ring_raise(monkeypatch):
 def test_causal_mask_and_dispatch_knobs():
     np.testing.assert_array_equal(tatt.causal_mask(5).numpy(), np.asarray(jatt.causal_mask(5)))
     assert tfa.RECOMMENDED_MAX_SEQ == jfa.RECOMMENDED_MAX_SEQ
-    assert tfa.BIAS_MIN_SEQ == jfa.BIAS_MIN_SEQ
+    assert tfa.BIAS_MIN_SEQ == jfa.BIAS_MIN_SEQ  # the CPU dispatch's value
     for t in (257, 767, 768, 4096, 4097):
         assert tfa.fused_flash_recommended(t) == jfa.fused_flash_recommended(t)
         assert tfa.fused_flash_bias_recommended(t) == jfa.fused_flash_bias_recommended(t)
+
+
+# (T, window): (the fused bias kernels on a CPU tensor, on a CUDA tensor).
+# The CPU column is the JAX package's dispatch; on a CUDA tensor the kernels
+# also take every T == window.
+BIAS_DISPATCH = {
+    (2, 2): (False, True),
+    (40, 40): (False, True),
+    (65, 65): (False, True),
+    (257, 257): (False, True),
+    (256, 257): (False, False),   # a short request: _sdpa, as in JAX
+    (513, 513): (False, True),    # lthm.yaml at its own context 512
+    (512, 513): (False, False),
+    (767, 767): (False, True),
+    (767, 1025): (False, False),
+    (768, 768): (True, True),     # BIAS_MIN_SEQ: JAX's range
+    (768, 1025): (True, True),
+    (1025, 1025): (True, True),   # production at context 1024
+    (1026, 1025): (False, False),  # over the window
+    (4097, 4097): (False, False),  # over RECOMMENDED_MAX_SEQ
+}
+
+
+@pytest.mark.parametrize("t,window", sorted(BIAS_DISPATCH))
+def test_bias_dispatch_by_length_window_and_device(t, window):
+    """Which path attention with a position bias takes, by (T, window,
+    device); the CPU's is the JAX package's, and so is the layer's on a CPU
+    tensor."""
+    on_cpu, on_cuda = BIAS_DISPATCH[(t, window)]
+    assert tfa.fused_flash_bias_taken(t, window, on_cuda=False) == on_cpu
+    assert tfa.fused_flash_bias_taken(t, window, on_cuda=True) == on_cuda
+    assert on_cpu == (t <= window and jfa.fused_flash_bias_recommended(t))
+    m = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=True, pos_bias_window=window)
+    assert m._flash_bias_eligible(None, t, False) == on_cpu
+    assert m._flash_bias_eligible(None, t, True) == on_cuda
+
+
+@pytest.mark.parametrize("t", [33, 65, 129])
+def test_fused_bias_plain_path_equals_jax_sdpa_at_the_window(t, monkeypatch):
+    """At T = window below BIAS_MIN_SEQ, the path a CUDA tensor takes (the
+    fused bias function; its plain version here, forced on the CPU) computes
+    what JAX's _sdpa with the bias computes: f32 within 1e-5, at a table of
+    bf16 values (the kernels apply the table at bf16)."""
+    x = np.random.RandomState(t).randn(2, t, 32).astype(np.float32)
+    jm = jatt.MultiQueryAttention(n_embd=32, n_head=4, use_bias=True, use_flash=True, pos_bias_window=t)
+    vs = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x), causal=True))
+    table = vs["params"]["pos_bias"]["bias"]
+    vs["params"]["pos_bias"]["bias"] = (
+        torch.randn(table.shape, generator=_gen(1)).bfloat16().float().numpy())
+    want = np.asarray(jm.apply(vs, jnp.asarray(x), deterministic=True, causal=True))
+    tm = _load(tatt.MultiQueryAttention(32, 4, _gen(), use_bias=True, use_flash=True, pos_bias_window=t), vs)
+    calls = []
+    monkeypatch.setattr(tfa, "BIAS_MIN_SEQ", 0)
+    monkeypatch.setattr(tfa, "fused_flash_attention_bias",
+                        lambda *a, **kw: calls.append(1) or tfa.fused_flash_attention_bias_fwd(*a, **kw)[0])
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), causal=True).numpy()
+    assert calls == [1]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("attn_type", ["multi_query", "multi_head"])

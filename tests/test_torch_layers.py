@@ -116,11 +116,6 @@ def test_kshift_embedding(compute_dtype, normalize):
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
 
 
-def test_kshift_fused_record_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        temb.KShiftEmbedding(10, 4, _gen(), fused_record=True)
-
-
 @pytest.mark.parametrize("n_proj,num_bins", [(32, 2), (32, 12), (16, 20)])
 def test_cosine_vector_embedding(n_proj, num_bins):
     rs = np.random.RandomState(4)

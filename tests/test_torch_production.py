@@ -74,10 +74,11 @@ def test_convert_carries_the_position_bias_at_window_1025():
         np.testing.assert_array_equal(got.detach().numpy(), vs["params"][f"block_{depth}"]["attn"]["pos_bias"]["bias"])
 
 
-def tiny_production_config() -> dict:
-    """lthm.yaml's shape at context 767, cut to 2 narrow layers and small tables."""
-    d = production_config(CONTEXT)
-    d.update(compute_dtype="float32", fused_ce=False, train_mini_batch_size=-1)
+def tiny_production_config(context=CONTEXT, compute_dtype="float32") -> dict:
+    """lthm.yaml's shape at ``context`` (767 by default), cut to 2 narrow
+    layers and small tables."""
+    d = production_config(context)
+    d.update(compute_dtype=compute_dtype, fused_ce=False, train_mini_batch_size=-1)
     d["log_q_config"]["num_buckets"] = 4096
     t = d["transformer_config"]
     t["num_layers"] = 2
@@ -232,3 +233,60 @@ def test_remat_policy_keeps_the_flash_forward(monkeypatch, policy, runs):
     monkeypatch.setattr(tfa, "fused_flash_attention_fwd", lambda *a, **kw: calls.append(1) or real(*a, **kw))
     _stack_grads(policy, True, bias=False)
     assert len(calls) == runs
+
+
+SHORT_CONTEXT = 127  # T = 128 = the window, below BIAS_MIN_SEQ: _sdpa with the bias
+
+
+def test_bf16_remat_step_through_sdpa_at_the_window_matches_jax(monkeypatch):
+    """lthm.yaml's own regime, T = window < 768 (its context 512 gives T =
+    513), at its bf16 compute with remat (dots_no_batch), cut to 2 layers
+    (d=32, MQA with 4 heads) at T = 128: attention on the CPU takes _sdpa
+    with the bias in both packages, recomputed in the backward. One training
+    loss and its gradients against JAX, held as test_grads_match_jax_bf16
+    (tests/test_torch_train.py) holds bf16: the loss within 1e-2, each
+    gradient within 2**-4 norm-relative."""
+    from recommendations_tpu_torch.nn import attention as tatt
+
+    d = tiny_production_config(SHORT_CONTEXT, "bfloat16")
+    assert d["transformer_config"]["attn_config"]["pos_bias"]["context_window"] == SHORT_CONTEXT + 1
+    assert d["transformer_config"]["enable_gradient_checkpointing"]
+    batch = tiny_batch(b=2, s=SHORT_CONTEXT + 8, seed=4)
+    batch["product_ids"][1, 90:] = 0
+    jw = JaxWrapper(JaxConfig(**copy.deepcopy(d)))
+    vs = jax.tree_util.tree_map(np.asarray, jw.init_variables(
+        jax.random.PRNGKey(0), {k: jnp.asarray(v[:, :40]) for k, v in batch.items()}))
+    rs = np.random.RandomState(12)
+    for depth in range(2):
+        attn = vs["params"]["query_tower"]["transformer"][f"block_{depth}"]["attn"]
+        attn["pos_bias"]["bias"] = rs.randn(*attn["pos_bias"]["bias"].shape).astype(np.float32)
+    tw = LTHMModelWrapper(LTHMModelConfig.from_dict(copy.deepcopy(d)), device="cpu")
+    tw.load_jax_variables(vs)
+    rng = jax.random.PRNGKey(5)
+    offsets = np.asarray(sample_offsets(jax.random.split(rng)[1], jw.config.lookahead))
+
+    def loss_fn(p):
+        return jw.loss_and_metrics(p, vs["constants"], jw.init_aux_state(),
+                                   {k: jnp.asarray(v) for k, v in batch.items()}, rng, True)
+
+    (jl, _), jg = jax.value_and_grad(loss_fn, has_aux=True)(vs["params"])
+    seen = []
+    real_sdpa = tatt._sdpa
+    monkeypatch.setattr(tatt, "_sdpa", lambda q, *a: seen.append(q.shape[-2]) or real_sdpa(q, *a))
+    tl, _, _ = tw.loss_and_metrics(batch, tw.init_aux_state(), True, offsets=offsets)
+    tl.backward()
+    assert seen == [SHORT_CONTEXT + 1] * 4  # 2 layers, each run again under remat
+    assert abs(tl.item() - float(jl)) <= 1e-2
+    want = state_dict_from_jax(
+        {"params": jax.tree_util.tree_map(np.asarray, jg), "constants": vs["constants"]}, tw.module
+    )
+    checked = 0
+    for name, p in tw.module.named_parameters():
+        if name.startswith("product_emb_module."):
+            assert p.grad is None
+            continue
+        w = want[name].numpy()
+        err = np.linalg.norm(p.grad.float().numpy() - w) / max(np.linalg.norm(w), 1e-30)
+        assert err <= 2**-4, f"{name}: {err:.3e}"
+        checked += name.endswith("pos_bias.bias")
+    assert checked == 2

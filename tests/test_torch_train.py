@@ -338,21 +338,6 @@ def test_zero_dropout_trains():
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize(
-    "change,match",
-    [
-        ({"table_optimizer": "rowwise_adam"}, "items 4"),
-        ({"table_optimizer": "lazy_rowwise_adam"}, "items 4"),
-        ({"table_optimizer": "adamw"}, "items 4"),
-    ],
-)
-def test_unported_training_branches_raise(change, match):
-    tw = LTHMModelWrapper(LTHMModelConfig.from_dict(small_config(False, **change)), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        state = TrainState.create(tw)
-        train_step(state, small_batch())
-
-
 def test_gradient_accumulation_raises():
     tw = LTHMModelWrapper(LTHMModelConfig.from_dict(small_config(False)), device="cpu")
     with pytest.raises(NotImplementedError, match="item 4"):

@@ -2,6 +2,7 @@
 
     python3 tools/profile_torch_training.py [--steps 3] [--out traces/training_trace.json]
                                             [--eager-ce] [--production | --long-history]
+                                            [--context N] [--table-optimizer NAME]
 
 Builds the LTHM-base model and training config that ``chip_smoke.py`` trains
 (``bench.py``'s: random weights from a seed, ``fused_ce`` on, frozen table)
@@ -13,6 +14,10 @@ of ``configs/model/lthm.yaml`` at context 1024 (``chip_smoke.production_config``
 ``--long-history`` the long-history path of ``tools/bench_longseq.py``
 (``chip_smoke.longseq_config``: LTHM-base widths with remat and no position
 bias at context 1024, its eager CE) on 16 users of 1032 events.
+``--context N`` sets the production LTHM's context (and its bias window,
+N + 1; 512 is ``lthm.yaml``'s own); ``--table-optimizer NAME`` trains the
+product-embedding table (``detach_item_tower`` false) with NAME, ``auto``
+included, on LTHM-base or the production LTHM.
 Prints the host time per step, the device's busy share of that window
 (kernel time over wall time; one stream, so kernels do not overlap), the
 device time of each phase of the step (the innermost ``lthm/...`` range of
@@ -48,6 +53,9 @@ def main() -> int:
     which.add_argument("--production", action="store_true", help="profile the production LTHM at context 1024")
     which.add_argument("--long-history", action="store_true",
                        help="profile tools/bench_longseq.py's path (context 1024, 16 users)")
+    ap.add_argument("--context", type=int, default=None, help="the production LTHM's context (default 1024)")
+    ap.add_argument("--table-optimizer", default=None,
+                    help="train the table with this table_optimizer (detach_item_tower false)")
     args = ap.parse_args()
 
     import torch
@@ -70,10 +78,15 @@ def main() -> int:
         label, users, cfg = "long-history LTHM at context 1024", LONG_BATCH, LTHMModelConfig.from_dict(longseq_config())
         batch = request_batch(1000, users, LONG_CONTEXT + 8)
     else:
-        base = production_config() if args.production else bench_config()
-        label = "production LTHM at context 1024" if args.production else "LTHM-base"
+        context = args.context or PROD_CONTEXT
+        base = production_config(context) if args.production else bench_config()
+        label = f"production LTHM at context {context}" if args.production else "LTHM-base"
+        if args.table_optimizer:
+            base["table_optimizer"] = args.table_optimizer
+            base["product_tower"]["detach_item_tower"] = False
+            label += f", table_optimizer {args.table_optimizer}"
         users, cfg = BATCH, LTHMModelConfig.from_dict(dict(base, fused_ce=not args.eager_ce))
-        batch = request_batch(1000, BATCH, PROD_CONTEXT + 8) if args.production else request_batch(1000)
+        batch = request_batch(1000, BATCH, context + 8) if args.production else request_batch(1000)
     state = TrainState.create(LTHMModelWrapper(cfg, device="cuda", seed=0), seed=1)
     offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
     for _ in range(2):
