@@ -57,7 +57,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      window) answers 4 requests and trains a warm-up and 3 steps under the
      CUDA dispatch (the bias kernels at T == window), then one step under
      the JAX package's dispatch (_sdpa with the bias), the two dispatches'
-     gradients on one state held to each other, peak memory of each;
+     gradients on one state held to each other, peak memory of each; then
+     the port's entry point, main_training, on configs/lthm_train.yaml (the
+     production LTHM at context 512, eager CE, batch 64) with data from the
+     port's synth_data in the in-memory store: 8 steps, 2 validation
+     batches every 4 steps, a checkpoint and an export every 4 steps, a
+     jsonl tracker; 16 of each bias kernel a step and 16 bias forwards a
+     validation batch, the jsonl's lines under the JAX package's keys with
+     finite losses, a second run resumed from the step-4 checkpoint ending
+     on the same bits, the export serving the same user vectors in a fresh
+     wrapper, and train_step called directly on the trained model;
   5. timing with CUDA events: each kernel, its plain version, its bound
      (and, as a note, the exponential floor of the bias and CE plane
      kernels), one PyTorch library call for the same function as a
@@ -68,7 +77,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      with the bias against the fused bias path at T=513 and T=1025, and at
      T = window from 2 to 769 at B = 16 and 64 (the measurement behind the
      CUDA dispatch at T == window), the table updates alone, the requests and the
-     training steps of every path, and the script's own seconds.
+     training steps of every path, the trainer loop's step, its share
+     waiting for the feed and its peak memory, and the script's own seconds.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -1316,6 +1326,182 @@ def production_512(fa, fc, kernels):
             "serve_counts": serve_counts, "fused": fused, "sdpa": sdpa}
 
 
+TRAINER_STEPS, TRAINER_VAL_BATCHES = 8, 2
+TRAINER_USERS_PER_FILE, TRAINER_HISTORY = 320, 768  # lthm.yaml pads history to 768; 2 files: 10 batches of 64
+
+
+def expected_metric_keys(model_cfg, prefix: str) -> set:
+    """The metric keys the JAX package's loss logs under ``prefix`` (train
+    or val) for an LTHM config, and the trainer's own."""
+    per_head = ["average_hit_position", "average_negatives_per_token", "effective_batch_size",
+                "loss_all_tokens", "median_hit_position", "offset", "used_tokens"]
+    per_head += [f"hit_rate_at_{k}" for k in model_cfg.metrics_k_all]
+    keys = {f"{prefix}_{name}_lookahead_{i}" for name in per_head for i in range(len(model_cfg.lookahead))}
+    keys |= {f"{prefix}_loss", f"{prefix}_batch_size", f"{prefix}_seq_len"}
+    if prefix == "train":
+        keys |= {"grad_norm", "params_nan", "training speed - samples per second", "epoch", "steps"}
+    else:
+        keys |= {"val_batches_skipped_nan", "eval speed - samples per second", "RAM Available - GB"}
+    return keys
+
+
+def trainer_path(fa, kernels):
+    """Phase [4]: the port's entry point, ``main_training``, on
+    configs/lthm_train.yaml (the production LTHM at context 512, T = 513 =
+    the bias window, eager CE, frozen 10M-row table) at batch 64, on data
+    from the port's synth_data in the in-memory store (``kind=fake``;
+    histories of 768 events), for TRAINER_STEPS steps with
+    TRAINER_VAL_BATCHES validation batches every 4 steps, a checkpoint and
+    an export every 4 steps, metrics every 4 steps to a jsonl tracker. The
+    launch counts are set to 0 just before the run and read just after: 16
+    of each bias kernel a trained step, and 16 bias forwards a validation
+    batch. Then the step-4 checkpoint resumes in a second run, whose steps
+    5-8 must give the same bits as the first run's; and the export loads
+    into a fresh wrapper that serves the same user vectors. Returns the
+    numbers for phase [5]."""
+    import shutil
+    import tempfile
+
+    from recommendations_tpu_torch import main_training
+    from recommendations_tpu_torch.data.data_store import FakeDataStore
+    from recommendations_tpu_torch.pipeline.export import load_exported_wrapper
+    from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
+
+    t0 = time.perf_counter()
+    FakeDataStore.reset()
+    write_synthetic_dataset(None, ["20240101"], files_per_date=2, users_per_file=TRAINER_USERS_PER_FILE,
+                            history_len=TRAINER_HISTORY, fake_store=True)
+    synth_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    bias = (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)
+    try:
+        def run(tag, ckpt_dir):
+            argv = ["--config-name", "lthm_train", "datestr=20240101", "dataset.filesystem_config.kind=fake",
+                    f"train.train_steps={TRAINER_STEPS}", f"train.validation_steps={TRAINER_VAL_BATCHES}",
+                    "train.val_metrics_every_n_steps=4", "train.checkpoint_every_k_steps=4",
+                    "train.train_metrics_every_n_steps=4", f"checkpoint_dir={ckpt_dir}",
+                    f"export.filesystem_config.local_dir_prefix={tmp}/export_{tag}",
+                    f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]",
+                    f"model_version={tag}", f"run_id=chip_smoke_{tag}"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels:
+                kern.launches = 0
+            t1 = time.perf_counter()
+            pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            counts = {kern.name: kern.launches for kern in kernels}
+            return pipeline, metrics, counts, torch.cuda.max_memory_allocated() / 2**20, seconds
+
+        pipe_a, met_a, counts_a, peak_a, secs_a = run("a", f"{tmp}/ckpt_a")
+        wrapper, state_a = pipe_a._trained
+        cfg = wrapper.config
+        layers = cfg.transformer_config.num_layers
+        val_runs = TRAINER_STEPS // 4
+        want = {kern.name: 0 for kern in kernels}
+        want.update({"flash_bias_fwd": layers * (TRAINER_STEPS + val_runs * TRAINER_VAL_BATCHES),
+                     "flash_bias_dq": layers * TRAINER_STEPS, "flash_bias_dkv": layers * TRAINER_STEPS})
+        print(f"[4] main_training on lthm_train.yaml ({TRAINER_STEPS} steps of {cfg_batch(pipe_a)} users, "
+              f"{TRAINER_VAL_BATCHES} validation batches every 4 steps, synth data {synth_s:.1f} s): launches "
+              f"{counts_a} (expected {want}: {layers} of each bias kernel a step, {layers} bias forwards a "
+              f"validation batch)", flush=True)
+        if counts_a != want:
+            raise AssertionError("the trainer's steps did not launch each bias kernel once a layer")
+        if state_a.step != TRAINER_STEPS:
+            raise AssertionError(f"the trainer stopped at step {state_a.step}, not {TRAINER_STEPS}")
+
+        # the jsonl tracker: train and validation lines under the JAX package's keys
+        with open(f"{tmp}/a.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        lines = [r for r in records if r["event"] == "metrics"]
+        train_lines = [r for r in lines if "train_loss" in r["metrics"]]
+        val_lines = [r for r in lines if "val_loss" in r["metrics"]]
+        if [r["metrics"]["steps"] for r in train_lines] != [4, 8] or len(val_lines) != 2:
+            raise AssertionError(f"jsonl: train lines at steps {[r['metrics'].get('steps') for r in train_lines]}, "
+                                 f"{len(val_lines)} validation lines")
+        for r in train_lines + val_lines:
+            prefix = "train" if r in train_lines else "val"
+            if set(r["metrics"]) != expected_metric_keys(cfg, prefix):
+                raise AssertionError(f"jsonl {prefix} keys differ: {sorted(set(r['metrics']) ^ expected_metric_keys(cfg, prefix))}")
+        losses = [r["metrics"][f"{p}_loss"] for r, p in [(r, "train") for r in train_lines] + [(r, "val") for r in val_lines]]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"a logged loss is not finite: {losses}")
+        batch_size = cfg_batch(pipe_a)
+        if [r["step"] for r in lines] != [4 * batch_size] * 2 + [TRAINER_STEPS * batch_size] * 2:
+            raise AssertionError(f"jsonl steps {[r['step'] for r in lines]}: not the samples seen, as JAX logs")
+        print(f"[4] jsonl: {len(train_lines)} train and {len(val_lines)} validation lines under the JAX "
+              f"package's keys; losses {[round(x, 5) for x in losses]} (train, then val)", flush=True)
+
+        # resume: the step-4 checkpoint, steps 5-8 again
+        os.makedirs(f"{tmp}/ckpt_b")
+        shutil.copy(f"{tmp}/ckpt_a/step_00000004.pt", f"{tmp}/ckpt_b/step_00000004.pt")
+        pipe_b, met_b, counts_b, _, secs_b = run("b", f"{tmp}/ckpt_b")
+        state_b = pipe_b._trained[1]
+        resumed = TRAINER_STEPS - 4
+        want_b = {kern.name: 0 for kern in kernels}
+        want_b.update({"flash_bias_fwd": layers * (resumed + TRAINER_VAL_BATCHES),
+                       "flash_bias_dq": layers * resumed, "flash_bias_dkv": layers * resumed})
+        if counts_b != want_b:
+            raise AssertionError(f"the resumed run's launches {counts_b}, expected {want_b}")
+        sd_a, sd_b = state_a.state_dict(), state_b.state_dict()
+        differ = [name for name, t in sd_a["module"].items() if not torch.equal(t, sd_b["module"][name])]
+        for i, (oa, ob) in enumerate(zip(sd_a["optimizers"], sd_b["optimizers"])):
+            for pid, st in oa["state"].items():
+                differ += [f"optimizer{i}.{pid}.{k}" for k, t in st.items()
+                           if torch.is_tensor(t) and not torch.equal(t, ob["state"][pid][k])]
+        differ += [f"aux.logq.{k}" for k in ("a", "b") if not torch.equal(getattr(state_a.aux.logq, k),
+                                                                          getattr(state_b.aux.logq, k))]
+        if not torch.equal(state_a.aux.batch_idx, state_b.aux.batch_idx) or state_b.step != TRAINER_STEPS:
+            differ.append("aux.batch_idx or step")
+        print(f"[4] resumed from the step-4 checkpoint, steps 5-{TRAINER_STEPS} again: launches {counts_b}; "
+              f"{len(sd_a['module'])} parameters and buffers, the AdamW moments and the logQ state "
+              f"{'bit-equal to the uninterrupted run' if not differ else 'DIFFER: ' + ', '.join(differ[:8])}",
+              flush=True)
+        if differ:
+            raise AssertionError("the resumed run's state differs from the uninterrupted run's")
+        del pipe_b, state_b, sd_b
+
+        # the export serves the same user vectors in a fresh wrapper
+        export_dir = pipe_a.export_dir()
+        fresh = load_exported_wrapper(export_dir, device="cuda")
+        batch = request_batch(4242, 64, CTX512 + 8)
+        want_emb = wrapper.inference_models()["user_encoder"](batch)["user_emb"]
+        got_emb = fresh.inference_models()["user_encoder"](batch)["user_emb"]
+        same = torch.equal(want_emb, got_emb)
+        print(f"[4] export ({export_dir}: params/ and config.json) loaded into a fresh LTHMModelWrapper: "
+              f"user_encoder on 64 users {'bit-equal to the trained model' if same else 'DIFFERS'}", flush=True)
+        if not same:
+            raise AssertionError("the exported model serves other user vectors than the trained one")
+        del fresh
+
+        # train_step called directly on one batch of the trainer's shapes, on
+        # the trained state: the loop's own cost is the difference
+        direct = timed_train("lthm_train.yaml's model, train_step called directly (fused_ce off, as the YAML)",
+                             state_a, request_batch(4343, cfg_batch(pipe_a), TRAINER_HISTORY),
+                             [0, 5, 6, 12, 24, 30], PROD_STEPS, kernels,
+                             {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers})
+
+        stages = met_a["feed_path_stages"]
+        turns = met_a["step_times_s"]
+        # the turns that neither validate, checkpoint nor log, the first (warm-up) left out
+        plain = [x for i, x in enumerate(turns, start=1) if i > 1 and i % 4]
+        wait = stages.get("step.next_batch_wait", {}).get("total_s", 0.0)
+        return {"turn_ms": [x * 1e3 for x in turns], "median_ms": float(np.median(plain)) * 1e3,
+                "plain_turns": len(plain), "all_median_ms": float(np.median(turns)) * 1e3, "direct": direct,
+                "peak_mib": peak_a, "feed_wait_share": wait / sum(turns), "stages": stages,
+                "seconds": secs_a, "resume_seconds": secs_b, "counts": counts_a,
+                "per_step": {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers},
+                "batch": cfg_batch(pipe_a)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        FakeDataStore.reset()
+
+
+def cfg_batch(pipeline) -> int:
+    return pipeline.pipeline_config.train.batch_size
+
+
 def bias_sweep(fa):
     """Phase [5]: one attention layer (d=512, MQA 32x16, bf16, position bias
     at window T, causal) forward + backward at T = window, on the fused bias
@@ -1702,6 +1888,8 @@ def main() -> int:
     base_tables = trainable_base(fa, fc, kernels)
     prod_tables = trainable_production(fa, fc, kernels)
     ctx512 = production_512(fa, fc, kernels)
+    trainer = trainer_path(fa, kernels)
+    torch.cuda.empty_cache()
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -1870,12 +2058,26 @@ def main() -> int:
               f"over {len(res['step_ms'])} ({[round(x, 3) for x in res['step_ms']]}); "
               f"{BATCH / (res['median_ms'] / 1e3):.1f} examples/s; peak device memory {res['peak_mib']:.1f} MiB",
               flush=True)
+    tr_med = trainer["median_ms"]
+    print(f"[5] {smi}: the trainer loop (main_training on lthm_train.yaml, context {CTX512}, eager CE, "
+          f"{trainer['batch']} users a step): median step {tr_med:.3f} ms over the {trainer['plain_turns']} turns "
+          f"that neither validate, checkpoint nor log, after the first (all turns "
+          f"{[round(x, 3) for x in trainer['turn_ms']]}, median {trainer['all_median_ms']:.3f}; turns 4 and 8 "
+          f"also log, validate, checkpoint and export); {trainer['batch'] / (tr_med / 1e3):.1f} examples/s; peak "
+          f"device memory {trainer['peak_mib']:.1f} MiB; waiting for the feed {100 * trainer['feed_wait_share']:.2f}% "
+          f"of the loop; train_step called directly on one batch of the same model: median "
+          f"{trainer['direct']['median_ms']:.3f} ms ({[round(x, 3) for x in trainer['direct']['step_ms']]}), peak "
+          f"{trainer['direct']['peak_mib']:.1f} MiB (the context-{CTX512} phase's step at fused_ce on: "
+          f"{ctx512['fused']['median_ms']:.3f} ms); the run {trainer['seconds']:.1f} s, the resumed run "
+          f"{trainer['resume_seconds']:.1f} s", flush=True)
+    print(f"[5] trainer feed-path stage timers: {json.dumps(trainer['stages'])}", flush=True)
     paths = {
         **{f"base_{opt}": res["per_step"] for opt, res in base_tables.items()},
         **{f"prod1024_{opt}": res["per_step"] for opt, res in prod_tables.items()},
         "prod512_cuda_dispatch": ctx512["fused"]["per_step"],
         "prod512_jax_dispatch": ctx512["sdpa"]["per_step"],
         "prod512_per_request": {k: n // PROD_REQUESTS for k, n in ctx512["serve_counts"].items()},
+        "trainer_lthm_train_per_step": trainer["per_step"],
     }
 
     def new_paths(name):

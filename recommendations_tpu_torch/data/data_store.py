@@ -1,0 +1,183 @@
+"""Storage: one interface over the local file system and an in-memory store.
+
+Port of ``recommendations_tpu/data/data_store.py``: list a date range's data
+files, read one parquet file into a table of numpy columns
+(``features/transforms.py``), upload artifacts. ``LocalDataStore`` reads
+parquet through ``pyarrow``, imported by the reader only; ``FakeDataStore``
+holds numpy tables in memory (the JAX package's ``FileSystemKind.FAKE``).
+``S3DataStore`` is not ported yet and raises (ROADMAP, port queue item 6b).
+"""
+
+from __future__ import annotations
+
+import abc
+import datetime
+import glob
+import logging
+import os
+import random
+import shutil
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from recommendations_tpu_torch.config.trainer_config import FileSystemConfig, FileSystemKind
+from recommendations_tpu_torch.features.transforms import Table
+
+logger = logging.getLogger(__name__)
+
+
+def get_date_range_str(date: str, steps: int, backward: bool) -> List[str]:
+    """``steps`` dates ending (backward) or starting (forward) at ``date``
+    (YYYYMMDD) - reference ``data_store.py:25-37``."""
+    d = datetime.datetime.strptime(date, "%Y%m%d")
+    sign = -1 if backward else 1
+    return [(d + sign * datetime.timedelta(days=i)).strftime("%Y%m%d") for i in range(steps)]
+
+
+def sample_paths(paths: List[str], data_ratio: float, seed: Optional[int] = 17) -> List[str]:
+    if data_ratio >= 1.0:
+        return paths
+    rng = random.Random(seed)
+    k = max(1, int(len(paths) * data_ratio))
+    return sorted(rng.sample(paths, k))
+
+
+def read_parquet_table(source, columns: Optional[List[str]] = None) -> Table:
+    """A parquet file (a path or a file object) as numpy columns: list and
+    string columns become object arrays, as pandas reads them."""
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError("reading parquet needs pyarrow, which is not installed") from e
+    table = pq.read_table(source, columns=columns)
+    names = columns if columns is not None else table.column_names
+    return {name: table.column(name).combine_chunks().to_numpy(zero_copy_only=False) for name in names}
+
+
+class DataStoreInterface(abc.ABC):
+    @abc.abstractmethod
+    def get_training_data_paths_for_dates(self, data_dates: List[str], data_ratio: float = 1.0) -> List[str]:
+        ...
+
+    @abc.abstractmethod
+    def read_single_parquet_file(self, path: str, columns: Optional[List[str]] = None) -> Optional[Table]:
+        ...
+
+    @abc.abstractmethod
+    def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
+        ...
+
+    @staticmethod
+    def _is_data_file(name: str) -> bool:
+        base = os.path.basename(name)
+        return not (base.startswith("_") or base.startswith(".") or base == "" or base.endswith(".crc"))
+
+
+class LocalDataStore(DataStoreInterface):
+    """The local file system; also DBFS through its /dbfs mount."""
+
+    def __init__(self, config: FileSystemConfig):
+        self.config = config
+        if config.kind == FileSystemKind.DBFS:
+            self.base = config.dbfs_base.replace("dbfs:/", "/dbfs/")
+        else:
+            self.base = config.local_dir_prefix or "."
+
+    def _date_dir(self, date: str) -> str:
+        template = self.config.path_template or "date={date}"
+        return os.path.join(self.base, template.format(date=date))
+
+    def get_training_data_paths_for_dates(self, data_dates, data_ratio=1.0):
+        paths: List[str] = []
+        for date in data_dates:
+            found = sorted(glob.glob(os.path.join(self._date_dir(date), "**", "*"), recursive=True))
+            paths.extend(p for p in found if os.path.isfile(p) and self._is_data_file(p))
+        return sample_paths(paths, data_ratio)
+
+    def read_single_parquet_file(self, path, columns=None):
+        try:
+            return read_parquet_table(path, columns)
+        except ImportError:
+            raise
+        except Exception:
+            logger.exception("failed reading %s", path)
+            return None
+
+    def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
+        target = os.path.join(self.base, folder)
+        os.makedirs(target, exist_ok=True)
+        for root, _, files in os.walk(local_directory):
+            for name in files:
+                src = os.path.join(root, name)
+                dst = os.path.join(target, os.path.relpath(src, local_directory))
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                shutil.copy2(src, dst)
+
+
+class FakeDataStore(DataStoreInterface):
+    """In-memory store of numpy tables, keyed by path; the tables and files
+    are the class's, shared by every instance (``reset`` clears them)."""
+
+    _tables: Dict[str, Table] = {}
+    _files: Dict[str, bytes] = {}
+
+    def __init__(self, config: Optional[FileSystemConfig] = None):
+        self.config = config
+
+    @classmethod
+    def reset(cls):
+        cls._tables.clear()
+        cls._files.clear()
+
+    @classmethod
+    def put_table(cls, path: str, table: Table):
+        cls._tables[path] = table
+
+    def get_training_data_paths_for_dates(self, data_dates, data_ratio=1.0):
+        template = (self.config.path_template if self.config else None) or "date={date}"
+        out = []
+        for date in data_dates:
+            prefix = template.format(date=date)
+            out.extend(sorted(p for p in self._tables if p.startswith(prefix)))
+        return sample_paths(out, data_ratio)
+
+    def read_single_parquet_file(self, path, columns=None):
+        table = self._tables.get(path)
+        if table is None:
+            return None
+        return {c: np.array(table[c], copy=True) for c in (columns or table)}
+
+    def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
+        for root, _, files in os.walk(local_directory):
+            for name in files:
+                src = os.path.join(root, name)
+                with open(src, "rb") as f:
+                    self._files[f"{folder}/{os.path.relpath(src, local_directory)}"] = f.read()
+
+
+class S3DataStore:
+    """Not ported yet: the JAX package's S3 store (boto3, retries)."""
+
+    def __init__(self, config: FileSystemConfig):
+        raise NotImplementedError("S3DataStore is not ported yet: ROADMAP, port queue item 6b")
+
+
+class DataStoreAccessor:
+    """One store per file-system config - reference ``data_store.py:95-102``."""
+
+    _instances: Dict[str, DataStoreInterface] = {}
+
+    @classmethod
+    def get_instance(cls, fs_config: FileSystemConfig) -> DataStoreInterface:
+        key = repr(fs_config)
+        if key not in cls._instances:
+            if fs_config.kind == FileSystemKind.S3:
+                cls._instances[key] = S3DataStore(fs_config)
+            elif fs_config.kind in (FileSystemKind.LOCAL, FileSystemKind.DBFS):
+                cls._instances[key] = LocalDataStore(fs_config)
+            elif fs_config.kind == FileSystemKind.FAKE:
+                cls._instances[key] = FakeDataStore(fs_config)
+            else:
+                raise ValueError(f"Unsupported filesystem {fs_config.kind}")
+        return cls._instances[key]

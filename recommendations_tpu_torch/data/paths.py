@@ -1,0 +1,65 @@
+"""Dataset paths: date ranges through the data store, glob overrides,
+excluded dates and block chunks.
+
+Port of ``recommendations_tpu/data/paths.py`` (reference
+``commons/data/dataset_generator_utils.py``) for one process: the
+per-host split (``get_paths_for_worker``) waits for the multi-host trainer
+(ROADMAP, port queue item 10), and the extra-day validation set, which
+nothing reads in the JAX package, is left out.
+"""
+
+from __future__ import annotations
+
+import glob
+from typing import List, Optional
+
+import numpy as np
+
+from recommendations_tpu_torch.config.trainer_config import TrainDatasetConfig
+from recommendations_tpu_torch.data.data_store import DataStoreAccessor, get_date_range_str
+
+
+def get_path_chunks(
+    paths: List[str], block_size: int, shuffle_files: bool = False, seed: Optional[int] = None
+) -> List[List[str]]:
+    arr = np.array(paths)
+    if shuffle_files:
+        rng = np.random.RandomState(seed)
+        rng.shuffle(arr)
+    num_segments = max(1, len(arr) // block_size)
+    return [list(p) for p in np.array_split(arr, num_segments)]
+
+
+def _resolve_dates(date: str, steps: int, backward: bool, exclude: List[str]) -> List[str]:
+    dates = get_date_range_str(date=date, steps=steps, backward=backward)
+    if exclude:
+        dates = [d for d in dates if d not in exclude]
+    if not dates:
+        raise ValueError("date range is empty after exclusions")
+    return dates
+
+
+def get_train_data_paths(dataset_config: TrainDatasetConfig) -> List[str]:
+    if dataset_config.path_glob_train:
+        return sorted(glob.glob(dataset_config.path_glob_train))
+    dates = _resolve_dates(
+        dataset_config.train_data_end_date,
+        dataset_config.train_period_in_days,
+        backward=True,
+        exclude=dataset_config.exclude_dates,
+    )
+    store = DataStoreAccessor.get_instance(dataset_config.filesystem_config)
+    return store.get_training_data_paths_for_dates(dates, dataset_config.train_data_ratio)
+
+
+def get_val_data_paths(dataset_config: TrainDatasetConfig) -> List[str]:
+    if dataset_config.path_glob_test:
+        return sorted(glob.glob(dataset_config.path_glob_test))
+    dates = _resolve_dates(
+        dataset_config.val_data_start_date,
+        dataset_config.val_period_in_days,
+        backward=False,
+        exclude=dataset_config.exclude_dates,
+    )
+    store = DataStoreAccessor.get_instance(dataset_config.filesystem_config)
+    return store.get_training_data_paths_for_dates(dates, dataset_config.val_data_ratio)

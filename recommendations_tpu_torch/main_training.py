@@ -1,0 +1,65 @@
+"""The port's training entry point, the counterpart of ``main_training.py``.
+
+    python -m recommendations_tpu_torch.main_training --config-name lthm_tiny \\
+        [--device cpu] [--config-dir DIR] [a.b.c=value ...]
+
+Composes the YAML from ``configs/`` (hydra-style defaults and
+interpolation, ``config/yaml_loader.py``), builds the pipeline config, and
+trains, validates, checkpoints and exports on one device: the card unless
+``--device cpu`` is given; without a card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from pathlib import Path
+
+from recommendations_tpu_torch import resolve_device
+from recommendations_tpu_torch.config.yaml_loader import load_config, parse_cli_overrides
+from recommendations_tpu_torch.data.generator import get_data_loader_strategy
+from recommendations_tpu_torch.pipeline.trainer_pipeline import TrainerPipeline
+from recommendations_tpu_torch.train.strategy import get_training_strategy
+
+logger = logging.getLogger("main_training")
+
+CONFIG_ROOT = Path(__file__).resolve().parent.parent / "configs"
+
+
+def build_pipeline(cfg, device="cuda") -> TrainerPipeline:
+    device = resolve_device(device)
+    data_loader_strategy = get_data_loader_strategy(
+        cfg.data_loader,
+        columns=cfg.model.features.get_input_columns(),
+        data_mapper=cfg.model.preprocess_fn,
+    )
+    return TrainerPipeline(
+        pipeline_config=cfg,
+        model_builder=cfg.model.get_builder(stats=None, device=device),
+        training_strategy=get_training_strategy(cfg.training_strategy, device=device),
+        data_loader_strategy=data_loader_strategy,
+    )
+
+
+def main(argv=None, return_pipeline: bool = False):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config-name", required=True)
+    parser.add_argument("--config-dir", default=str(CONFIG_ROOT))
+    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+
+    config_path = Path(args.config_dir) / f"{args.config_name}.yaml"
+    cfg = load_config(config_path, overrides=parse_cli_overrides(args.overrides), search_paths=[args.config_dir])
+    logger.info("model=%s/%s strategy=%s device=%s", cfg.model.kind, cfg.model.name, cfg.training_strategy.name, device)
+    pipeline = build_pipeline(cfg, device)
+    metrics = pipeline.execute()
+    logger.info("final metrics: %s", {k: round(v, 5) for k, v in metrics.items() if isinstance(v, float)})
+    return (pipeline, metrics) if return_pipeline else 0
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s", force=True)
+    sys.exit(main())

@@ -2,14 +2,21 @@
 
 Port of ``recommendations_tpu/models/lthm/config.py``: the same field names
 and defaults, and ``from_dict`` takes the same nested dict the JAX config
-takes. ``features`` stays an untyped dict here.
+takes. ``features`` is the feature schema (``features/feature_config.py``);
+the config is registered under (lthm, lthm) for the pipeline config.
 """
 
 from __future__ import annotations
 
-import typing
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
+
+import numpy as np
+
+from recommendations_tpu_torch.config.base import build_fields
+from recommendations_tpu_torch.config.model_config import ModelConfig, register_model_config
+from recommendations_tpu_torch.features.feature_config import FeaturesConfig
+from recommendations_tpu_torch.features.transforms import Table, take_rows
 
 # The JAX package's table-optimizer thresholds, kept at its values: moving
 # either changes which rows' moments decay, so the trained model, and not
@@ -21,28 +28,15 @@ TABLE_OPTIMIZERS = (
 )
 
 
-def _coerce(hint, value):
-    """pydantic's scalar coercion, which the JAX config gets for free: YAML
-    reads ``1e-4`` as a string."""
-    if hint is float and isinstance(value, (str, int)) and not isinstance(value, bool):
-        return float(value)
-    if hint is int and isinstance(value, str):
-        return int(value)
-    return value
-
-
 def _build(cls, value):
-    """A dataclass from a dict (nested dataclass fields already built), or
+    """A dataclass from a dict, its fields coerced by their annotations as
+    pydantic coerces the JAX config's (YAML reads ``1e-4`` as a string), or
     the value itself when it is already one. Unknown fields are an error."""
     if value is None or isinstance(value, cls):
         return value
     if not isinstance(value, dict):
         raise TypeError(f"{cls.__name__} expects a dict, got {type(value).__name__}")
-    hints = typing.get_type_hints(cls)
-    unknown = set(value) - set(hints)
-    if unknown:
-        raise TypeError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
-    return cls(**{k: _coerce(hints[k], v) for k, v in value.items()})
+    return build_fields(cls, value, extra="forbid")
 
 
 @dataclass
@@ -153,10 +147,11 @@ class TransformerConfig:
         return 4.0
 
 
+@register_model_config
 @dataclass
-class LTHMModelConfig:
+class LTHMModelConfig(ModelConfig):
     transformer_config: TransformerConfig
-    features: dict = field(default_factory=dict)
+    features: FeaturesConfig = field(default_factory=FeaturesConfig)
     kind: str = "lthm"
     type: str = "lthm_seq"
     name: str = "lthm"
@@ -212,7 +207,23 @@ class LTHMModelConfig:
             d["log_q_config"] = _build(LogQConfig, d["log_q_config"])
         if "betas" in d:
             d["betas"] = tuple(d["betas"])
+        if isinstance(d.get("features"), dict):
+            d["features"] = FeaturesConfig.from_dict(d["features"])
         return _build(cls, d)
+
+    def get_builder(self, stats: Any = None, device="cuda"):
+        from recommendations_tpu_torch.models.lthm.builder import LTHMModelBuilder
+
+        return LTHMModelBuilder(stats, self, device=device)
+
+    def custom_data_preprocessor(self, table: Table, kind: str = "train") -> Table:
+        """Drop users with fewer than ``min_history_size`` real (nonzero)
+        events in the first history feature, as the JAX package does."""
+        hist = self.features.categorical_history_features
+        if self.min_history_size <= 0 or not hist or hist[0].name not in table:
+            return table
+        counts = np.array([np.count_nonzero(np.asarray(h)) for h in table[hist[0].name]])
+        return take_rows(table, counts >= self.min_history_size)
 
     @property
     def emb_dim(self) -> int:

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from recommendations_tpu_torch.nn.functional import l2_normalize
+from recommendations_tpu_torch.nn.functional import l2_normalize, sorted_segment_sum
 from recommendations_tpu_torch.train.sparse_table import fused_record_init
 
 # Tables up to this many rows are looked up by a one-hot matmul; larger ones
@@ -102,8 +102,9 @@ class FlatEmbedding(nn.Module):
 
 class _GatherRowsLowp(torch.autograd.Function):
     """``table[idx]`` rounded to a lower dtype, whose table gradient sums a
-    row's duplicate cotangents in that dtype and converts once to the
-    table's: the JAX package casts the table before its gather, so its
+    row's duplicate cotangents in that dtype, in their order of occurrence
+    on every device (``nn.functional.sorted_segment_sum``), and converts once
+    to the table's: the JAX package casts the table before its gather, so its
     scatter-add (``ops/bucketed_scatter.py``) runs in the compute dtype.
     (The cast and the gather commute in the forward, so only the gathered
     rows are cast here.)"""
@@ -119,8 +120,9 @@ class _GatherRowsLowp(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         d = g.shape[-1]
+        rows, sums = sorted_segment_sum(idx, g.reshape(-1, d))
         acc = torch.zeros((ctx.num_rows, d), dtype=g.dtype, device=g.device)
-        acc.index_put_((idx.reshape(-1),), g.reshape(-1, d), accumulate=True)
+        acc[rows] = sums  # distinct rows: no accumulation
         return acc.to(ctx.table_dtype), None, None
 
 

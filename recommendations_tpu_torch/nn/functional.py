@@ -32,3 +32,20 @@ def l2_normalize_f32acc(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> t
     xf = x.float()
     sq = torch.sum(xf * xf, dim=dim, keepdim=True)
     return (xf / torch.sqrt(torch.clamp_min(sq, eps * eps))).to(x.dtype)
+
+
+def sorted_segment_sum(idx: torch.Tensor, rows: torch.Tensor):
+    """Sum of the rows that share an index, in a fixed order: (sorted distinct
+    indices, (U, d) sums in ``rows``' dtype). A stable sort keeps each
+    index's rows in their order of occurrence, and each segment is summed
+    one row after the other, every add rounded to the dtype, on any device.
+    (An ``index_add_`` or accumulating ``index_put_`` on a CUDA tensor adds
+    in an order it does not fix, or in float32.)"""
+    idx = idx.reshape(-1).to(torch.int64)
+    rows = rows.reshape(idx.shape[0], -1)
+    if idx.numel() == 0:
+        return idx, rows[:0]
+    sorted_idx, order = torch.sort(idx, stable=True)
+    uniq, counts = torch.unique_consecutive(sorted_idx, return_counts=True)
+    sums = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0, unsafe=True)
+    return uniq, sums

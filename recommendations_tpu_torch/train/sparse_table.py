@@ -25,6 +25,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from recommendations_tpu_torch.nn.functional import sorted_segment_sum
+
 RECORD_LANES = 128
 
 
@@ -84,17 +86,16 @@ def sparse_fused_adam_update(
     ``record``.
 
     idx_flat: (M,) row ids, duplicates allowed (a row's gradient is the sum
-    over its duplicates, in float32); grad_rows: (M, d) gradient of the
+    over its duplicates, in float32, in their order of occurrence on every
+    device); grad_rows: (M, d) gradient of the
     gathered rows. Rows whose summed gradient is exactly zero (masked and
     padding tokens) are skipped. Returns ``(new_state, rows_nan)``:
     ``rows_nan`` is a bool scalar, any non-finite value among the rows
     written this step (the dense NaN check leaves the record out)."""
     d = grad_rows.shape[-1]
     count = state.count + 1
-    # sorted distinct ids and each occurrence's slot among them
-    uniq, inv = torch.unique(idx_flat.to(torch.int64), sorted=True, return_inverse=True)
-    acc = torch.zeros((uniq.shape[0], d), dtype=torch.float32, device=record.device)
-    acc.index_add_(0, inv, grad_rows.to(torch.float32))
+    # sorted distinct ids and each one's gradient, summed in a fixed order
+    uniq, acc = sorted_segment_sum(idx_flat, grad_rows.to(torch.float32))
     keep = (acc != 0).any(dim=1)
     rows_idx, g_sum = uniq[keep], acc[keep]
 
@@ -160,7 +161,7 @@ def lazy_rowwise_adam_update(
     vhat = new_v / c2
     upd = (-learning_rate * mhat / (vhat.sqrt() + eps)).to(table.dtype)
 
-    table.index_add_(0, idx, upd)
+    table.index_add_(0, idx, upd)  # distinct rows (nonzero's): a fixed order
     state.m[idx] = new_m.to(state.m.dtype)
     state.v[idx] = new_v
     return LazyRowState(m=state.m, v=state.v, count=count)

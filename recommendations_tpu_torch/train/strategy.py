@@ -1,0 +1,303 @@
+"""The single-process training strategy: the train loop, validation,
+checkpoints and the best-model export gate.
+
+Port of ``train`` (``:334-754``) and ``_run_val`` (``:755``) of
+``recommendations_tpu/train/strategy.py``, on one device. Both strategy
+names the YAMLs use, ``pjit`` and ``single_device``, run it. The loop is
+the JAX package's:
+
+- the eval cache: the first ``validation_steps`` validation batches, kept
+  on the host and run every ``val_metrics_every_n_steps`` steps;
+- every ``train_metrics_every_n_steps`` steps, that step's metrics (with
+  the speed, epoch and step) go to the trackers at
+  ``step = samples seen``, and a NaN in the loss or the parameters stops
+  the run;
+- every ``checkpoint_every_k_steps`` steps, unless the loss is NaN or above
+  ``export_if_loss_within_factor_of_best_model`` times the best loss seen
+  after ``best_model_after_k_steps``: a full checkpoint (with
+  ``checkpoint_dir``) and an export through the model checkpointer;
+- the run stops at ``train_steps`` or after ``epochs``;
+- on restart from a checkpoint, the step count continues, and the data
+  position is replayed: the checkpoint's epoch's loader skips the batches
+  already consumed, as the JAX package does without a snapshot.
+
+The lookahead offsets are drawn from the state's generator (a CPU
+generator); validation draws its own from a generator seeded per cached
+batch. Beside the JAX package's final metrics, ``step_times_s`` holds each
+loop turn's host wall time. What the port does not do yet raises, citing its ROADMAP item: a
+mesh or several hosts (item 10), ``steps_per_dispatch`` above 1, profile
+capture and ``debug_numerics`` (item 6b).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from recommendations_tpu_torch import resolve_device
+from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
+from recommendations_tpu_torch.config.training_strategy_config import TrainingStrategyConfig
+from recommendations_tpu_torch.data.loader import DevicePrefetcher, StageTimer, get_host_dataloader, to_device
+from recommendations_tpu_torch.train.checkpoint import CheckpointManager
+from recommendations_tpu_torch.train.step import train_step
+from recommendations_tpu_torch.train.train_state import TrainState
+
+logger = logging.getLogger(__name__)
+
+VAL_SEED = 1234  # the JAX package validates with PRNGKey(1234) folded with the batch index
+
+
+def _ram_available_gb() -> Optional[float]:
+    """MemAvailable from /proc/meminfo, in GB (psutil's
+    ``virtual_memory().available``)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        return None
+    return None
+
+
+def _host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """One device fetch for every metric, in sorted key order (the JAX
+    package's packed metric vector)."""
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].detach().float().reshape(()) for k in keys]).cpu().tolist()
+    return dict(zip(keys, vals))
+
+
+class SingleProcessTrainingStrategy:
+    def __init__(self, training_strategy_config: TrainingStrategyConfig, device="cuda"):
+        self.config = training_strategy_config
+        self.device = resolve_device(device)
+        self._refuse_unported()
+
+    def _refuse_unported(self) -> None:
+        cfg = self.config
+        mesh = [
+            getattr(cfg, "mesh_data", -1) not in (-1, 1),
+            getattr(cfg, "mesh_model", 1) != 1,
+            getattr(cfg, "mesh_expert", 1) != 1,
+            getattr(cfg, "mesh_dcn_data", None) not in (None, 1),
+        ]
+        if any(mesh):
+            raise NotImplementedError("a device mesh is not ported yet: ROADMAP, port queue item 10 (Multi-device)")
+        if getattr(cfg, "debug_numerics", False):
+            raise NotImplementedError("debug_numerics is not ported yet: ROADMAP, port queue item 6b")
+        if getattr(cfg, "profile_dir", None):
+            raise NotImplementedError("profile capture (profile_dir) is not ported yet: ROADMAP, port queue item 6b")
+
+    def train(
+        self,
+        model_builder,
+        data_loader_strategy,
+        train_data_paths: List[str],
+        val_data_paths: List[str],
+        pipeline_config,
+        model_checkpointer=None,
+    ) -> Tuple[object, TrainState, Dict[str, float]]:
+        train_cfg: ModelTrainConfig = pipeline_config.train
+        if train_cfg.num_workers != 1:
+            raise NotImplementedError("training on several hosts is not ported yet: ROADMAP, port queue item 10")
+        if train_cfg.steps_per_dispatch > 1:
+            raise NotImplementedError("steps_per_dispatch > 1 is not ported yet: ROADMAP, port queue item 6b")
+        wrapper = model_builder.build()
+        trackers = pipeline_config.trackers
+        features = pipeline_config.model.features
+        fs = pipeline_config.dataset.filesystem_config
+        feed_timer = StageTimer()
+
+        def make_loader(kind: str, paths: List[str], epoch: int = 0):
+            return get_host_dataloader(
+                kind=kind,
+                worker_id=0,
+                paths=paths,
+                batch_size=train_cfg.batch_size,
+                num_steps=None,
+                data_loader_strategy=data_loader_strategy,
+                features_config=features,
+                fs_config=fs,
+                epoch=epoch,
+                timer=feed_timer if kind == "train" else None,
+            )
+
+        state = TrainState.create(wrapper, train_cfg)
+
+        ckpt_mgr: Optional[CheckpointManager] = None
+        ckpt_dir = pipeline_config.checkpoint_dir
+        resume_epoch = resume_batches = 0
+        if train_cfg.checkpoint_every_k_steps and ckpt_dir:
+            ckpt_mgr = CheckpointManager(ckpt_dir)
+            restored = ckpt_mgr.restore(state)
+            if restored is not None:
+                state, data_iter_state = restored
+                logger.info("resumed from checkpoint step=%s", state.step)
+                resume_epoch = int(data_iter_state.get("epoch", 0))
+                resume_batches = int(data_iter_state.get("batches_in_epoch", 0))
+
+        # the eval cache (reference init_eval_cache, :277-291)
+        eval_cache: List[Dict[str, np.ndarray]] = []
+        if train_cfg.validation_steps > 0 and val_data_paths:
+            for b in make_loader("val", val_data_paths):
+                eval_cache.append(b)
+                if len(eval_cache) >= train_cfg.validation_steps:
+                    break
+
+        global_metrics: Dict[str, float] = {}
+        best_loss = float("inf")
+        export_cfg = pipeline_config.export
+        loss_factor = (
+            export_cfg.export_if_loss_within_factor_of_best_model
+            if export_cfg is not None and export_cfg.export_if_loss_within_factor_of_best_model
+            else float("inf")
+        )
+        best_after = (
+            export_cfg.best_model_after_k_steps
+            if export_cfg is not None and export_cfg.best_model_after_k_steps
+            else 0
+        )
+
+        global_num_samples = 0
+        batch_nb = state.step
+        train_start = None
+        stop_all = False
+        last_loss = None
+        step_times: List[float] = []  # each loop turn's host wall time: feed, step, metrics, checkpoints
+
+        def every(n: Optional[int]) -> bool:
+            return bool(n) and n > 0 and batch_nb % n == 0
+
+        for epoch in range(train_cfg.epochs):
+            if stop_all:
+                break
+            if epoch < resume_epoch:
+                continue
+            it = iter(make_loader("train", train_data_paths, epoch=epoch))
+            batches_in_epoch = 0
+            if epoch == resume_epoch and resume_batches > 0:
+                # replay-and-discard: the loader's order is fixed per epoch
+                for _ in range(resume_batches):
+                    if next(it, None) is None:
+                        break
+                logger.info("fast-forwarded data iterator to epoch %d batch %d (replay)", epoch, resume_batches)
+                batches_in_epoch = resume_batches
+            # the next batch's copy runs while this step runs; built after
+            # the replay, since it starts consuming the iterator at once
+            dev_it = iter(DevicePrefetcher(it, self.device, depth=2, timer=feed_timer))
+            t_loop_prev = None
+            while not stop_all:
+                t_feed = time.perf_counter()
+                if t_loop_prev is not None:
+                    feed_timer.add("step.loop_other", t_feed - t_loop_prev)
+                batch = next(dev_it, None)
+                if batch is None:
+                    break
+                t_disp = time.perf_counter()
+                loss, metrics = train_step(state, batch)
+                feed_timer.add("step.next_batch_wait", t_disp - t_feed)
+                t_loop_prev = time.perf_counter()
+                feed_timer.add("step.dispatch", t_loop_prev - t_disp)
+                last_loss = loss
+                batch_nb += 1
+                batches_in_epoch += 1
+                if train_start is None:
+                    # the steady-state clock starts after the first step
+                    float(loss)
+                    train_start = time.time()
+                    global_num_samples = 0
+                global_num_samples += train_cfg.batch_size
+                loss_val: Optional[float] = None
+
+                if every(train_cfg.train_metrics_every_n_steps):
+                    host_metrics = _host_metrics(metrics)
+                    loss_val = float(loss)
+                    avg = dict(host_metrics)
+                    speed = global_num_samples / max(time.time() - train_start, 1e-9)
+                    avg["training speed - samples per second"] = speed
+                    avg["epoch"] = epoch
+                    avg["steps"] = batch_nb
+                    trackers.log_metrics(avg, step=global_num_samples)
+                    logger.info("epoch %d step %d loss %.5f %.1f samples/s", epoch, batch_nb, loss_val, speed)
+                    global_metrics.update(avg)
+                    # the NaN watchdog (reference :374-398)
+                    if math.isnan(loss_val) or host_metrics.get("params_nan", 0.0) > 0:
+                        raise ValueError("Stopping: NaN in loss or parameters at step %d" % batch_nb)
+                    if batch_nb >= best_after:
+                        best_loss = min(best_loss, loss_val)
+
+                if eval_cache and every(train_cfg.val_metrics_every_n_steps):
+                    val_metrics = self._run_val(state, eval_cache, train_cfg)
+                    trackers.log_metrics(val_metrics, step=global_num_samples)
+                    global_metrics.update(val_metrics)
+
+                if every(train_cfg.checkpoint_every_k_steps):
+                    if loss_val is None:
+                        loss_val = float(loss)
+                    skip = math.isnan(loss_val) or (best_loss > 0.0 and loss_val > loss_factor * best_loss)
+                    if not skip:
+                        if ckpt_mgr is not None:
+                            ckpt_mgr.save(
+                                batch_nb, state, {"loss": loss_val},
+                                data_iter_state={"epoch": epoch, "batches_in_epoch": batches_in_epoch},
+                            )
+                        if model_checkpointer is not None:
+                            model_checkpointer.checkpoint(state, result_df=dict(global_metrics))
+                    else:
+                        logger.info("skip checkpoint at %d (loss %.4f best %.4f)", batch_nb, loss_val, best_loss)
+
+                if train_cfg.train_steps and batch_nb >= train_cfg.train_steps:
+                    stop_all = True
+                step_times.append(time.perf_counter() - t_feed)
+            dev_it.close()
+            it.close()
+
+        if last_loss is not None:
+            float(last_loss)  # the device finishes before the clock is read
+        elapsed = max(time.time() - train_start, 1e-9) if train_start else 0.0
+        final: Dict[str, object] = dict(global_metrics)
+        final["train_steps_total"] = batch_nb
+        final["train_samples_per_sec"] = global_num_samples / elapsed if elapsed else 0.0
+        final["feed_path_stages"] = feed_timer.summary()
+        final["step_times_s"] = step_times
+        feed_timer.log()
+        return wrapper, state, final
+
+    @torch.no_grad()
+    def _run_val(self, state: TrainState, eval_cache, train_cfg: ModelTrainConfig) -> Dict[str, float]:
+        t0 = time.time()
+        wrapper = state.wrapper
+        agg: Dict[str, float] = {}
+        n = skipped = 0
+        for i, host_batch in enumerate(eval_cache):
+            batch = to_device(host_batch, self.device)
+            gen = torch.Generator().manual_seed(VAL_SEED + i)
+            _, metrics, _ = wrapper.loss_and_metrics(batch, state.aux, False, generator=gen)
+            m = _host_metrics(metrics)
+            if any(math.isnan(v) for v in m.values()):
+                skipped += 1  # NaN val batches skipped and counted (reference :509-519)
+                continue
+            for k, v in m.items():
+                agg[k] = agg.get(k, 0.0) + v
+            n += 1
+        out: Dict[str, float] = {k: v / max(n, 1) for k, v in agg.items()}
+        out["val_batches_skipped_nan"] = skipped
+        out["eval speed - samples per second"] = len(eval_cache) * train_cfg.batch_size / max(time.time() - t0, 1e-9)
+        ram = _ram_available_gb()
+        if ram is not None:
+            out["RAM Available - GB"] = ram
+        return out
+
+
+def get_training_strategy(training_strategy_config: TrainingStrategyConfig, device="cuda"):
+    """Factory - reference ``commons/training_strategy/__init__.py:6-12``."""
+    name = training_strategy_config.name
+    if name in ("pjit", "single_device"):
+        return SingleProcessTrainingStrategy(training_strategy_config, device=device)
+    raise ValueError(f"Unknown training strategy {name!r}")

@@ -6,7 +6,8 @@ state holds those two objects beside the model's aux state (the logQ
 estimator), the step count, the generator that draws the lookahead
 offsets (a CPU generator: the offsets are host integers) and the lazy or
 fused table's update state (``train/sparse_table.py``; None on the other
-table paths).
+table paths). ``state_dict`` and ``load_state_dict`` carry all of it for
+``train/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -40,3 +41,25 @@ class TrainState:
             generator=torch.Generator().manual_seed(seed),
             table_state=wrapper.init_table_state(),
         )
+
+    def state_dict(self) -> dict:
+        return {
+            "module": self.wrapper.module.state_dict(),
+            "optimizers": [opt.state_dict() for opt in self.optimizer.optimizers()],
+            "aux": self.aux,
+            "table_state": self.table_state,
+            "step": self.step,
+            "generator": self.generator.get_state(),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.wrapper.module.load_state_dict(sd["module"])
+        optimizers = self.optimizer.optimizers()
+        if len(optimizers) != len(sd["optimizers"]):
+            raise ValueError(f"{len(sd['optimizers'])} optimizer states for {len(optimizers)} optimizers")
+        for opt, opt_sd in zip(optimizers, sd["optimizers"]):
+            opt.load_state_dict(opt_sd)
+        self.aux = sd["aux"]
+        self.table_state = sd["table_state"]
+        self.step = int(sd["step"])
+        self.generator.set_state(sd["generator"])

@@ -213,9 +213,9 @@ def test_dense_table_gradient_sums_in_bf16_as_jax():
     converted once to f32; the port sums them in bf16 too. On a 7-row table
     read 8 times per id, every row repeats often. Held per row within the
     row's duplicate count of bf16 ulps of the row's largest value (the sum
-    order may differ; on the CPU both sum in index order). On a CUDA tensor
-    a bf16 ``index_put_`` accumulates in an order it does not fix, so the
-    card's bits may differ from run to run within the same bound."""
+    order may differ; on the CPU both sum in index order). The port sums in
+    the order of occurrence on every device, so the card gives the same
+    bits twice (tests/test_torch_table_cuda.py)."""
     rs = np.random.RandomState(5)
     ids = rs.randint(-(2**62), 2**62, size=(4, 30)).astype(np.int64)
     w = rs.randn(4, 30, 16).astype(np.float32)

@@ -1,5 +1,6 @@
 """The trainable table's updates and the production attention layer at
-lthm.yaml's own context 512 on the card.
+lthm.yaml's own context 512 on the card; each table update gives the same
+bits when run twice.
 
 These tests need an NVIDIA GPU and skip without one. On the card:
 
@@ -8,15 +9,22 @@ These tests need an NVIDIA GPU and skip without one. On the card:
 (``--noconftest``: the suite's conftest imports JAX.)
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import request_batch
+from chip_smoke import bench_config, request_batch
+from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
 from recommendations_tpu_torch.nn.attention import MultiQueryAttention
 from recommendations_tpu_torch.nn.embeddings import kshift_row_indices
+from recommendations_tpu_torch.nn.functional import sorted_segment_sum
 from recommendations_tpu_torch.ops import fused_attention as fa
 from recommendations_tpu_torch.train import sparse_table as st
+from recommendations_tpu_torch.train.step import train_step
+from recommendations_tpu_torch.train.train_state import TrainState
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +116,62 @@ def test_production_layer_at_513_takes_the_bias_kernels_and_agrees_with_sdpa(cud
     for got, want in ((y_f, y_p), (dx_f, dx_p)):
         tol = 4 * 2**-8 * want.abs().max().item()
         assert (got - want).abs().max().item() <= tol
+
+
+def _one_step_on_a_trainable_table(table_optimizer, ids):
+    """A fresh LTHM-base model (2 layers, bf16, a 1M-row table that trains)
+    on the card and one training step on ``ids`` at fixed offsets: (whether
+    the table moved, the table after the step (the fused record's moments
+    included), every tensor of the table state and of the optimizers'
+    states), on the host."""
+    d = copy.deepcopy(bench_config())
+    d["transformer_config"]["num_layers"] = 2
+    d["product_tower"]["detach_item_tower"] = False
+    d["table_optimizer"] = table_optimizer
+    wrapper = LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cuda", seed=4)
+    table = wrapper.module.product_emb_module.embedding
+    before = table.detach().cpu()
+    state = TrainState.create(wrapper)
+    batch = request_batch(5, 16, ids.shape[1])
+    batch["product_ids"] = ids
+    train_step(state, batch, offsets=[0, 5, 6, 12, 24, 30])
+    after = table.detach().cpu()
+    states = [t.cpu() for t in (state.table_state or ()) if torch.is_tensor(t)]
+    for opt in state.optimizer.optimizers():
+        for per_param in opt.state.values():
+            states += [t.cpu() for t in per_param.values() if torch.is_tensor(t)]
+    return bool((after != before).any()), after, states
+
+
+@pytest.mark.parametrize("table_optimizer", ["rowwise_adam", "lazy_rowwise_adam", "adamw", "sparse_fused_adam"])
+def test_table_updates_give_the_same_bits_twice(cuda, table_optimizer):
+    """Fault 3c: a row's duplicate gradients are summed in a fixed order on
+    the card, so one training step from one state gives the same table bits
+    twice. The batch repeats ids on purpose: one popular id in a third of
+    the events, a second in every user's first event, and the padding id in
+    the last four, so many rows are hit hundreds of times."""
+    ids = request_batch(6, 16, 264)["product_ids"]
+    ids[:, ::3] = 1234567
+    ids[:, 0] = -98765
+    moved, first, first_states = _one_step_on_a_trainable_table(table_optimizer, ids)
+    _, second, second_states = _one_step_on_a_trainable_table(table_optimizer, ids)
+    assert moved, "the table did not train"
+    assert torch.equal(first, second)
+    assert len(first_states) == len(second_states) > 0
+    for a, b in zip(first_states, second_states):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sorted_segment_sum_on_the_card_equals_the_cpu(cuda, dtype):
+    """The duplicate-row sum behind both table gradients: on the card the
+    same bits as on the CPU (each row's duplicates added one after the other
+    in their order of occurrence, every add rounded to the dtype), with one
+    row hit by a third of the 20000 rows."""
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 50, (20000,), generator=gen)
+    idx[::3] = 7
+    rows = torch.randn(20000, 32, generator=gen).to(dtype)
+    want_rows, want = sorted_segment_sum(idx, rows)
+    got_rows, got = sorted_segment_sum(idx.to(cuda), rows.to(cuda))
+    assert torch.equal(got_rows.cpu(), want_rows) and torch.equal(got.cpu(), want)
