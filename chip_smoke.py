@@ -66,7 +66,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
      validation batch, the jsonl's lines under the JAX package's keys with
      finite losses, a second run resumed from the step-4 checkpoint ending
      on the same bits, the export serving the same user vectors in a fresh
-     wrapper, and train_step called directly on the trained model;
+     wrapper, and train_step called directly on the trained model; then
+     main_training on lthm_train.yaml with every trainer knob (the fused CE,
+     dropout 0.1 on q/k/v tokens and the residual branches, gradient
+     accumulation 2, the spawned process reader, grouping by product_id
+     under a shuffle buffer): 8 micro-steps at two steps a dispatch with a
+     checkpoint (and the iterator snapshot) every 4 and profile capture over
+     2 steps (16 of each bias kernel and of each CE kernel's count a step,
+     the trace naming them), again at one step a dispatch (the same bits),
+     and resumed from the step-4 snapshot (the same bits); the kernels held
+     again to their plain versions on one layer's dropped-out q, k, v and one
+     CE chunk of this model; the masks' keep rate within 4 binomial standard
+     deviations of 0.9; remat on against off with dropout; debug_numerics on
+     lthm_tiny (the clean loss unchanged, a planted NaN weight named by
+     operation, a NaN kernel input named by kernel);
   5. timing with CUDA events: each kernel, its plain version, its bound
      (and, as a note, the exponential floor of the bias and CE plane
      kernels), one PyTorch library call for the same function as a
@@ -78,7 +91,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      T = window from 2 to 769 at B = 16 and 64 (the measurement behind the
      CUDA dispatch at T == window), the table updates alone, the requests and the
      training steps of every path, the trainer loop's step, its share
-     waiting for the feed and its peak memory, and the script's own seconds.
+     waiting for the feed and its peak memory (also with every knob on), and
+     the script's own seconds.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -359,17 +373,18 @@ def bias_reference(fa, q, k, v, table, o, lse, do, n_head, nk, causal, chunk):
     return ro, rl, grads + [torch.stack([g[3] for g in bwd]).sum(0)]
 
 
-def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref_chunk=4):
+def compare_flash_bias(fa, b, t, n_head, hd, kvh, dtype, causal, nk, seed=0, ref_chunk=4, inputs=None):
     """The three bias kernels (forward, dQ, dK/dV with the table gradient)
     against their plain versions (over ``ref_chunk`` batch rows at a time) on
     one input whose table entries are not bf16 values (so the kernels'
     rounding of the table shows), and run twice for the same bits; returns
     {kernel: (max error, tolerance)}. Prints the (key block, batch row) items
     a block of the persistent dK/dV grid walks: more than one where the items
-    exceed what one wave of blocks holds."""
-    q, k, v = randn_qkv(b, t, n_head, hd, kvh, dtype, seed)
+    exceed what one wave of blocks holds. ``inputs``: (q, k, v, table) to
+    hold them on, in place of random ones."""
+    q, k, v = randn_qkv(b, t, n_head, hd, kvh, dtype, seed) if inputs is None else inputs[:3]
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    table = torch.randn(2 * nk + 1, n_head, generator=g, device="cuda")
+    table = torch.randn(2 * nk + 1, n_head, generator=g, device="cuda") if inputs is None else inputs[3]
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
     o, lse = fa.fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)
     got = fa.fused_flash_attention_bias_bwd(q, k, v, table, o, lse, do, n_head, nk, causal)
@@ -474,10 +489,13 @@ def ce_inputs(n, s, d, pattern, seed=0):
     return q, c, v, lq, dce
 
 
-def compare_ce(fc, n, s, d, beta, pattern):
-    """Each CE kernel against its plain version on one input; returns the
-    errors of the four kernels and their tolerances."""
+def compare_ce(fc, n, s, d, beta, pattern, inputs=None):
+    """Each CE kernel against its plain version on one input (random, or
+    ``inputs``: (q, c, v, lq), with a random cotangent); returns the errors
+    of the four kernels and their tolerances."""
     q, c, v, lq, dce = ce_inputs(n, s, d, pattern, seed=n + d)
+    if inputs is not None:
+        q, c, v, lq = inputs
     ce, rank, lse = fc.ce_forward(q, c, v, lq, s, INV_T, beta)
     dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
     torch.cuda.synchronize()
@@ -611,10 +629,10 @@ def time_ce(fc, n, s, d, beta, plain_iters=5):
     return times
 
 
-def grads_of(wrapper, batch, aux, offsets):
+def grads_of(wrapper, batch, aux, offsets, dropout_seed=None):
     """One forward and backward of the training loss; (loss, {name: grad})."""
     wrapper.module.zero_grad(set_to_none=True)
-    loss, _, _ = wrapper.loss_and_metrics(batch, aux, True, offsets=offsets)
+    loss, _, _ = wrapper.loss_and_metrics(batch, aux, True, offsets=offsets, dropout_seed=dropout_seed)
     loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in wrapper.module.named_parameters() if p.grad is not None}
     wrapper.module.zero_grad(set_to_none=True)
@@ -1498,6 +1516,296 @@ def trainer_path(fa, kernels):
         FakeDataStore.reset()
 
 
+KNOB_STEPS = 8  # micro-steps of the trainer phase with every knob on
+KNOB_TURN_STEPS = 2  # steps_per_dispatch of its main run
+# every trainer knob of slice 12 on lthm_train.yaml at full width: the
+# SelfAttentionConfig default rates, accumulation, two steps a dispatch, the
+# spawned reader (bypass_dataloader off: the YAML bypasses the loader, which
+# the process reader needs), grouping by product_id (the last item of a
+# history: users share it, so the groups have repeated keys) sorted by
+# customer_id, a shuffle buffer (so a resume takes the snapshot), the fused CE
+KNOB_ARGS = ("model.fused_ce=true", "model.transformer_config.attn_config.dropout=0.1",
+             "model.transformer_config.attn_config.attn_dropout=0.1", "train.gradient_accumulation_steps=2",
+             "data_loader.bypass_dataloader=false", "data_loader.process_reader=true",
+             "data_loader.shuffle_buffer_num_mini_batches=2",
+             "model.features.group_dataset={group_by_columns: [product_id], sort_by_columns: [customer_id], "
+             "minimum_group_size: 1}")
+KNOB_KERNEL_NAMES = {  # the device names the profiler records for each kernel of the path
+    "flash_bias_fwd": "mqa_tc_bias_fwd_kernel", "flash_bias_dq": "mqa_tc_bias_dq_kernel",
+    "flash_bias_dkv": "mqa_tc_bias_dkv_kernel", "ce_row_diag": "row_diag_kernel", "ce_fwd": "ce_fwd_tc_kernel",
+    "ce_dq": "ce_grad_tc_kernel", "ce_dc": "ce_grad_tc_kernel",
+}
+
+
+def same_state_bits(sa, sb) -> list:
+    """The names of the state's tensors that differ between two runs: the
+    parameters, the optimizer moments and accumulation, the logQ state, the
+    step and the generators."""
+    da, db = sa.state_dict(), sb.state_dict()
+    differ = [n for n, t in da["module"].items() if not torch.equal(t, db["module"][n])]
+    for i, (oa, ob) in enumerate(zip(da["optimizers"], db["optimizers"])):
+        for pid, st in oa["state"].items():
+            differ += [f"optimizer{i}.{pid}.{k}" for k, t in st.items()
+                       if torch.is_tensor(t) and not torch.equal(t, ob["state"][pid][k])]
+    acc_a, acc_b = da["accumulation"], db["accumulation"]
+    if acc_a["mini_step"] != acc_b["mini_step"] or set(acc_a["acc"]) != set(acc_b["acc"]) or not all(
+            torch.equal(t, acc_b["acc"][i]) for i, t in acc_a["acc"].items()):
+        differ.append("accumulation")
+    differ += [f"aux.logq.{k}" for k in ("a", "b") if not torch.equal(getattr(sa.aux.logq, k), getattr(sb.aux.logq, k))]
+    if not torch.equal(sa.aux.batch_idx, sb.aux.batch_idx) or sa.step != sb.step:
+        differ.append("aux.batch_idx or step")
+    differ += [g for g in ("generator", "dropout_generator") if not torch.equal(da[g], db[g])]
+    return differ
+
+
+def trainer_knobs(fa, fc, kernels, ce_per_step):
+    """Phase [4]: main_training on configs/lthm_train.yaml at full width (16
+    layers, context 512, MQA 32x16, bf16, the 10M-row table frozen) with
+    every knob of the single-GPU trainer on (``KNOB_ARGS``): dropout 0.1
+    on q/k/v tokens and on the residual branches, gradient accumulation 2,
+    the process reader, grouping and a shuffle buffer, the fused CE; on the
+    in-memory store filled by the port's synth_data, KNOB_STEPS micro-steps
+    of 64 users. Run A: two steps a dispatch, a checkpoint every 4 steps
+    (the iterator snapshot beside it) and profile capture over steps 5-6,
+    its launch counts set to 0 just before it and read just after (16 of
+    each bias kernel and ``ce_per_step`` of each CE kernel a step). Run B:
+    one step a dispatch; its state must equal A's bit for bit. Run C: from
+    A's step-4 checkpoint through the snapshot; equal to A bit for bit. The
+    profile's Chrome trace must name the bias and CE kernels. Then on A's
+    model: one forward and backward with dropout, whose first layer's
+    dropped-out q, k, v (and table) and first CE chunk hold the kernels to
+    their plain versions again, and whose masks keep 0.9 within 4 binomial
+    standard deviations; remat on against off with dropout. Then
+    debug_numerics on lthm_tiny (2 layers, fused CE): a clean step's loss
+    unchanged, a planted NaN weight raising with the operation's name, a
+    NaN in a kernel's input raising with the kernel's name. Returns the
+    numbers for phase [5]."""
+    import logging
+    import shutil
+    import tempfile
+
+    from recommendations_tpu_torch import main_training
+    from recommendations_tpu_torch.core import debug
+    from recommendations_tpu_torch.data.data_store import FakeDataStore
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.nn import dropout as tdrop
+    from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    FakeDataStore.reset()
+    write_synthetic_dataset(None, ["20240101"], files_per_date=2, users_per_file=TRAINER_USERS_PER_FILE,
+                            history_len=TRAINER_HISTORY, fake_store=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_knobs_")
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = Keep(level=logging.INFO)
+    strategy_log = logging.getLogger("recommendations_tpu_torch.train.strategy")
+    strategy_log.addHandler(handler)
+    old_level = strategy_log.level
+    strategy_log.setLevel(logging.INFO)
+    try:
+        def run(tag, extra):
+            argv = ["--config-name", "lthm_train", "datestr=20240101", "dataset.filesystem_config.kind=fake",
+                    f"train.train_steps={KNOB_STEPS}", "train.validation_steps=0", "train.train_metrics_every_n_steps=4",
+                    "export=null", f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]",
+                    f"model_version={tag}", f"run_id=chip_smoke_{tag}", *KNOB_ARGS, *extra]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels:
+                kern.launches = 0
+            t1 = time.perf_counter()
+            pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            return (pipeline._trained, metrics, {kern.name: kern.launches for kern in kernels},
+                    torch.cuda.max_memory_allocated() / 2**20, seconds)
+
+        (wrapper, state_a), met_a, counts_a, peak_a, secs_a = run("a", [
+            f"train.steps_per_dispatch={KNOB_TURN_STEPS}", "train.checkpoint_every_k_steps=4",
+            f"checkpoint_dir={tmp}/ckpt_a", f"training_strategy.profile_dir={tmp}/profile",
+            "training_strategy.profile_start_step=4", "training_strategy.profile_num_steps=2"])
+        cfg = wrapper.config
+        layers = cfg.transformer_config.num_layers
+        per_step = {kern.name: 0 for kern in kernels}
+        per_step.update({"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers,
+                         **{name: ce_per_step[name] for name in ("ce_row_diag", "ce_fwd", "ce_dq", "ce_dc")}})
+        want = {k: n * KNOB_STEPS for k, n in per_step.items()}
+        print(f"[4] main_training on lthm_train.yaml with every trainer knob ({KNOB_STEPS} micro-steps of 64 "
+              f"users, dropout {cfg.transformer_config.attn_config.dropout}/"
+              f"{cfg.transformer_config.attn_config.attn_dropout}, accumulation 2, {KNOB_TURN_STEPS} steps a "
+              f"dispatch, process reader, grouping by product_id with a shuffle buffer, fused CE, profile over "
+              f"steps 5-6, a checkpoint every 4): launches {counts_a} (expected {want}); {secs_a:.1f} s", flush=True)
+        if counts_a != want or state_a.step != KNOB_STEPS:
+            raise AssertionError("the knobs run did not launch each kernel of its path as expected")
+        if sorted(os.listdir(f"{tmp}/ckpt_a")) != ["data_iter_h0_s4.pkl", "data_iter_h0_s8.pkl",
+                                                  "step_00000004.pt", "step_00000008.pt"]:
+            raise AssertionError(f"checkpoints and snapshots: {sorted(os.listdir(f'{tmp}/ckpt_a'))}")
+        if not np.isfinite(met_a["train_loss"]):
+            raise AssertionError("the knobs run's loss is not finite")
+
+        # the profile: a Chrome trace that names the path's kernels
+        traces = os.listdir(f"{tmp}/profile")
+        with open(os.path.join(tmp, "profile", traces[0])) as f:
+            trace_names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        named = {k: any(dev in n for n in trace_names) for k, dev in KNOB_KERNEL_NAMES.items()}
+        print(f"[4] profile: {traces} ({len(trace_names)} distinct device kernels); the path's kernels named: "
+              f"{named}", flush=True)
+        if len(traces) != 1 or not all(named.values()):
+            raise AssertionError("the profile trace does not name every kernel of the path")
+
+        # B: one step a dispatch gives A's bits
+        (_, state_b), met_b, counts_b, peak_b, secs_b = run("b", ["train.steps_per_dispatch=1"])
+        differ_b = same_state_bits(state_a, state_b)
+        print(f"[4] steps_per_dispatch 1 against {KNOB_TURN_STEPS}, {KNOB_STEPS} micro-steps: launches {counts_b}; "
+              f"{'bit-equal' if not differ_b else 'DIFFER: ' + ', '.join(differ_b[:8])}", flush=True)
+        if differ_b or counts_b != want:
+            raise AssertionError("steps_per_dispatch changed the trained state")
+        turns_b = met_b["step_times_s"]
+        del state_b
+
+        # C: resumed from A's step-4 checkpoint through the iterator snapshot
+        os.makedirs(f"{tmp}/ckpt_c")
+        for name in ("step_00000004.pt", "data_iter_h0_s4.pkl"):
+            shutil.copy(f"{tmp}/ckpt_a/{name}", f"{tmp}/ckpt_c/{name}")
+        messages.clear()
+        (_, state_c), _, counts_c, _, secs_c = run("c", [
+            f"train.steps_per_dispatch={KNOB_TURN_STEPS}", "train.checkpoint_every_k_steps=4",
+            f"checkpoint_dir={tmp}/ckpt_c"])
+        restored = [m for m in messages if "data-iterator snapshot" in m]
+        differ_c = same_state_bits(state_a, state_c)
+        print(f"[4] resumed from the step-4 checkpoint: {restored or 'NO SNAPSHOT RESTORE'}; launches {counts_c}; "
+              f"{'bit-equal to the uninterrupted run' if not differ_c else 'DIFFER: ' + ', '.join(differ_c[:8])}",
+              flush=True)
+        if not restored or any("(replay)" in m for m in messages) or differ_c:
+            raise AssertionError("the resume did not restore the snapshot to the uninterrupted run's bits")
+        del state_c
+        torch.cuda.empty_cache()
+
+        # one forward and backward of A's model with dropout: the kernels'
+        # inputs of one layer and one CE chunk, and the masks' keep rate
+        captured, kept = {}, []
+        real_bias, real_ce, real_keep = fa.fused_flash_attention_bias_fwd, fc.ce_forward, tdrop.dropout_keep
+
+        def bias_fwd(q, k, v, table, n_head, nk, causal=True):
+            captured.setdefault("bias", (q.detach().clone(), k.detach().clone(), v.detach().clone(),
+                                         table.detach().clone(), n_head, nk, causal))
+            return real_bias(q, k, v, table, n_head, nk, causal)
+
+        def ce_fwd(q16, c16, v, lq, s, inv_t, beta):
+            captured.setdefault("ce", (q16.detach().clone(), c16.detach().clone(), v.clone(), lq.clone(), s, beta))
+            return real_ce(q16, c16, v, lq, s, inv_t, beta)
+
+        def keep(generator, keep_prob, shape, device):
+            mask = real_keep(generator, keep_prob, shape, device)
+            kept.append((mask.sum(), mask.numel(), keep_prob))
+            return mask
+
+        batch = request_batch(4646, BATCH, TRAINER_HISTORY)
+        offsets = sample_offsets(torch.Generator().manual_seed(6), cfg.lookahead)
+        with mock.patch.object(fa, "fused_flash_attention_bias_fwd", bias_fwd), \
+                mock.patch.object(fc, "ce_forward", ce_fwd), mock.patch.object(tdrop, "dropout_keep", keep):
+            grads_of(wrapper, batch, state_a.aux, offsets, dropout_seed=77)
+        n_kept = int(sum(int(x[0]) for x in kept))
+        n_all = sum(x[1] for x in kept)
+        rate = n_kept / n_all
+        sd = math.sqrt(0.9 * 0.1 / n_all)
+        q, k, v, table, n_head, nk, causal = captured["bias"]
+        hd = q.shape[-1] // n_head
+        zero_tokens = (q.view(q.shape[0], q.shape[1], -1) == 0).all(-1).float().mean().item()
+        print(f"[4] one training forward of the trained model with dropout: {len(kept)} masks drawn on the card, "
+              f"{n_kept} of {n_all} kept = {rate:.6f} (0.9 +- 4 x {sd:.2e}: "
+              f"{'ok' if abs(rate - 0.9) <= 4 * sd else 'FAIL'}); the first layer's q has {zero_tokens:.4f} of "
+              f"its tokens dropped whole", flush=True)
+        if abs(rate - 0.9) > 4 * sd or not 0.05 < zero_tokens < 0.15:
+            raise AssertionError("the card's dropout masks do not keep 0.9")
+        print("[4] the kernels of this path against their plain versions on the dropped-out inputs of this run:",
+              flush=True)
+        bias_errs = compare_flash_bias(fa, q.shape[0], q.shape[1], n_head, hd, 1, q.dtype, causal, nk,
+                                       inputs=(q, k, v, table))
+        q16, c16, cv, lq, s_ce, beta = captured["ce"]
+        ce_errs, ce_tols = compare_ce(fc, q16.shape[0], s_ce, q16.shape[1], beta, "roll", inputs=(q16, c16, cv, lq))
+        del captured, q, k, v, table, q16, c16, cv, lq
+
+        # remat on against remat off, with dropout
+        check = request_batch(4747, PROD_CHECK_BATCH, TRAINER_HISTORY)
+        loss_on, grads_on = grads_of(wrapper, check, state_a.aux, offsets, dropout_seed=78)
+        stack = wrapper.module.query_tower.transformer
+        stack.remat = False
+        remat_off = grads_of(wrapper, check, state_a.aux, offsets, dropout_seed=78)
+        stack.remat = True
+        bits = remat_off[0] == loss_on and all(torch.equal(grads_on[n], remat_off[1][n]) for n in grads_on)
+        remat_err = held_to("lthm_train.yaml's model with dropout, remat on vs off", remat_off, grads_on, loss_on,
+                            2**-5, 2**-8 * abs(loss_on), f"the production path's bf16 tolerances; the same bits: {bits}")
+        del wrapper, state_a, grads_on, remat_off
+        torch.cuda.empty_cache()
+
+        # debug_numerics on lthm_tiny (2 layers; the mode syncs on every op)
+        tiny = main_training.load_config(main_training.CONFIG_ROOT / "lthm_tiny.yaml",
+                                         overrides=main_training.parse_cli_overrides(
+                                             ["model.fused_ce=true", "model.transformer_config.attn_config.dropout=0.1",
+                                              "model.transformer_config.attn_config.attn_dropout=0.1"]),
+                                         search_paths=[str(main_training.CONFIG_ROOT)]).model
+        tiny_batch = request_batch(4848, 32, tiny.context_width + 8)
+        tiny_offsets = sample_offsets(torch.Generator().manual_seed(7), tiny.lookahead)
+        losses = []
+        for checked in (False, True):
+            tw = LTHMModelWrapper(tiny, device="cuda", seed=0)
+            st = TrainState.create(tw, seed=3)
+            before = [kern.launches for kern in kernels]
+            step = debug.checked_step(train_step) if checked else train_step
+            losses.append(step(st, tiny_batch, offsets=tiny_offsets)[0].item())
+            launched = {kern.name for kern, n in zip(kernels, before) if kern.launches > n}
+        with torch.no_grad():
+            tw.module.query_tower.transformer.block_1.c_fc.weight[0, 0] = float("nan")
+        try:
+            debug.checked_step(train_step)(st, tiny_batch, offsets=tiny_offsets)
+            weight_error = "no error"
+        except FloatingPointError as e:
+            weight_error = str(e)
+        o_in = torch.randn(2, 513, 512, device="cuda").to(torch.bfloat16)
+        o_in[1, 7, 3] = float("nan")
+        kv_in = torch.randn(2, 513, 32, device="cuda").to(torch.bfloat16)
+        tab = torch.randn(2 * 513 + 1, 32, device="cuda")
+        kernel_error = "no error"
+        with debug.numerics_checked():
+            try:
+                fa.fused_flash_attention_bias_fwd(o_in, kv_in[..., :16].contiguous(), kv_in[..., 16:].contiguous(),
+                                                  tab, 32, 513, True)
+            except FloatingPointError as e:
+                kernel_error = str(e)
+        ok = (losses[0] == losses[1] and "produced by operation aten." in weight_error
+              and "produced by kernel flash_bias_fwd" in kernel_error)
+        print(f"[4] debug_numerics on lthm_tiny (2 layers, dropout, fused CE; kernels {sorted(launched)}): clean "
+              f"step loss {losses[1]!r} checked vs {losses[0]!r} unchecked; a NaN planted in "
+              f"block_1.c_fc.weight: {weight_error!r}; a NaN in flash_bias_fwd's q: {kernel_error!r} "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("debug_numerics did not hold")
+
+        stages = met_b["feed_path_stages"]
+        plain = [x for i, x in enumerate(turns_b, start=1) if i > 1 and i % 4]  # neither warm-up nor metrics
+        waits = met_b["feed_wait_s"]
+        # the first turn's wait holds the spawned reader's start and its first batch
+        return {"turn_ms": [x * 1e3 for x in turns_b], "median_ms": float(np.median(plain)) * 1e3,
+                "min_ms": min(plain) * 1e3, "max_ms": max(plain) * 1e3, "plain_turns": len(plain),
+                "turn_a_ms": [x * 1e3 for x in met_a["step_times_s"]],
+                "feed_wait_share": sum(waits[1:]) / sum(turns_b[1:]), "first_wait_ms": waits[0] * 1e3,
+                "peak_mib": peak_a, "peak_b_mib": peak_b, "stages": stages, "seconds": [secs_a, secs_b, secs_c],
+                "per_step": per_step, "bias_errs": bias_errs, "ce_errs": ce_errs, "ce_tols": ce_tols,
+                "keep_rate": rate, "remat_err": remat_err, "remat_bits": bits}
+    finally:
+        strategy_log.removeHandler(handler)
+        strategy_log.setLevel(old_level)
+        shutil.rmtree(tmp, ignore_errors=True)
+        FakeDataStore.reset()
+
+
 def cfg_batch(pipeline) -> int:
     return pipeline.pipeline_config.train.batch_size
 
@@ -1890,6 +2198,8 @@ def main() -> int:
     ctx512 = production_512(fa, fc, kernels)
     trainer = trainer_path(fa, kernels)
     torch.cuda.empty_cache()
+    knobs = trainer_knobs(fa, fc, kernels, ctx512["fused"]["per_step"])
+    torch.cuda.empty_cache()
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -2071,6 +2381,18 @@ def main() -> int:
           f"{ctx512['fused']['median_ms']:.3f} ms); the run {trainer['seconds']:.1f} s, the resumed run "
           f"{trainer['resume_seconds']:.1f} s", flush=True)
     print(f"[5] trainer feed-path stage timers: {json.dumps(trainer['stages'])}", flush=True)
+    print(f"[5] {smi}: the trainer with every knob (lthm_train.yaml, context {CTX512}, fused CE, dropout 0.1, "
+          f"accumulation 2, process reader, grouping with a shuffle buffer; run B, one step a dispatch): median "
+          f"step {knobs['median_ms']:.3f} ms over the {knobs['plain_turns']} turns that neither log nor warm up "
+          f"(min {knobs['min_ms']:.3f}, max {knobs['max_ms']:.3f}; all turns "
+          f"{[round(x, 3) for x in knobs['turn_ms']]}); {BATCH / (knobs['median_ms'] / 1e3):.1f} examples/s; "
+          f"waiting for the feed {100 * knobs['feed_wait_share']:.2f}% of the loop after the first turn (the "
+          f"first turn's wait, the spawned reader's start, {knobs['first_wait_ms']:.1f} ms); peak device memory "
+          f"{knobs['peak_mib']:.1f} MiB (run A, two steps a dispatch, checkpoints and profile, turns "
+          f"{[round(x, 3) for x in knobs['turn_a_ms']]}; run B's peak {knobs['peak_b_mib']:.1f} MiB counts "
+          f"run A's state, still held); runs A, B, C "
+          f"{[round(x, 1) for x in knobs['seconds']]} s; the masks kept {knobs['keep_rate']:.6f}", flush=True)
+    print(f"[5] the knobs trainer's feed-path stage timers: {json.dumps(knobs['stages'])}", flush=True)
     paths = {
         **{f"base_{opt}": res["per_step"] for opt, res in base_tables.items()},
         **{f"prod1024_{opt}": res["per_step"] for opt, res in prod_tables.items()},
@@ -2078,6 +2400,7 @@ def main() -> int:
         "prod512_jax_dispatch": ctx512["sdpa"]["per_step"],
         "prod512_per_request": {k: n // PROD_REQUESTS for k, n in ctx512["serve_counts"].items()},
         "trainer_lthm_train_per_step": trainer["per_step"],
+        "trainer_knobs_lthm_train_per_step": knobs["per_step"],
     }
 
     def new_paths(name):
@@ -2108,6 +2431,8 @@ def main() -> int:
             "layer_sweep_t_eq_window": {f"b{b}_t{tl}_{'fused' if f else 'sdpa'}_ms": ms
                                         for (b, tl, f), ms in sweep.items()}} if name == "flash_bias_fwd" else {}),
         "launches_per_step_new_paths": new_paths(name),
+        "knobs_max_abs_err": knobs["bias_errs"][name][0],
+        "knobs_tolerance": knobs["bias_errs"][name][1],
     } for name, (src, line) in bias_kernels.items()]
     ce_replaces = {"ce_row_diag": 82, "ce_fwd": 102, "ce_dq": 135, "ce_dc": 168}
     ce_entries = [{
@@ -2125,6 +2450,8 @@ def main() -> int:
         "n32768": {**ce_times_prod[name], "launches_per_step": prod_training["counts"][name] // PROD_STEPS},
         "n16384": {**ce_times_512[name], "launches_per_step": ctx512["fused"]["per_step"][name]},
         "launches_per_step_new_paths": new_paths(name),
+        "knobs_max_abs_err": knobs["ce_errs"][name],
+        "knobs_tolerance": knobs["ce_tols"][name],
     } for name, line in ce_replaces.items()]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",

@@ -4,7 +4,8 @@ Port of ``recommendations_tpu/config/pipeline_config.py``: the ``model``
 section dispatches on (kind, name) through ``model_registry``,
 ``training_strategy`` on its name through ``training_strategy_registry``,
 and ``trackers`` through the tracker registry; ``model_version`` and
-``run_id`` are made when absent. Unknown top-level keys (``datestr``) are
+``run_id`` are made when absent; a ``stats`` section becomes a
+``pipeline.stats.StatsConfig``. Unknown top-level keys (``datestr``) are
 ignored, as pydantic ignores them.
 """
 
@@ -63,8 +64,13 @@ class TrainerPipelineConfig:
             if ts_cls is None:
                 raise KeyError(f"Unknown training strategy '{name}'; known: {sorted(training_strategy_registry)}")
             d["training_strategy"] = build_fields(ts_cls, ts)
-        if d.get("stats") is not None:
-            raise NotImplementedError("stats (compute_stats) is not ported yet: ROADMAP, port queue item 6b")
+        st = d.get("stats")
+        if isinstance(st, dict):
+            from recommendations_tpu_torch.pipeline.stats import StatsConfig
+
+            if isinstance(st.get("data_loader"), dict):
+                st = dict(st, data_loader=build_fields(DataLoaderConfig, st["data_loader"]))
+            d["stats"] = build_fields(StatsConfig, st)
         trackers = d.get("trackers")
         if trackers is None or isinstance(trackers, dict):
             d["trackers"] = TrainingTrackersConfig.from_dict(trackers or {})

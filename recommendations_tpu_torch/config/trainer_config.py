@@ -3,8 +3,9 @@
 Port of ``recommendations_tpu/config/trainer_config.py`` (pydantic models
 there, dataclasses here), with the same names, defaults and checks. The
 reflection fields (``optimizer_clazz``, ``lr_scheduler_clazz`` and their
-kwargs), which name optax objects, are kept for the config's shape; the
-trainer does not read them yet (ROADMAP, port queue item 4).
+kwargs) name optax objects, as in the JAX package; ``train/optimizers.py``
+maps the names it knows to ``torch.optim`` and a ``LambdaLR`` schedule for
+the parameters no model group claims, and raises on any other name.
 """
 
 from __future__ import annotations
@@ -145,4 +146,4 @@ class DataLoaderConfig:
     macro_batches_multiples: int = 1
     pin_memory: bool = False  # the device copy always goes through pinned memory
     bypass_dataloader: bool = False
-    process_reader: bool = False  # not ported yet (ROADMAP, port queue item 6b)
+    process_reader: bool = False  # the batcher in a spawned child process (data/loader.py)

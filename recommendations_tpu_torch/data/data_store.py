@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from recommendations_tpu_torch.config.trainer_config import FileSystemConfig, FileSystemKind
-from recommendations_tpu_torch.features.transforms import Table
+from recommendations_tpu_torch.features.transforms import Table, num_rows
 
 logger = logging.getLogger(__name__)
 
@@ -68,6 +68,11 @@ class DataStoreInterface(abc.ABC):
     def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
         ...
 
+    def parquet_num_rows(self, path: str) -> Optional[int]:
+        """A file's row count from its metadata, without reading its data,
+        or None where the store cannot tell cheaply."""
+        return None
+
     @staticmethod
     def _is_data_file(name: str) -> bool:
         base = os.path.basename(name)
@@ -102,6 +107,14 @@ class LocalDataStore(DataStoreInterface):
             raise
         except Exception:
             logger.exception("failed reading %s", path)
+            return None
+
+    def parquet_num_rows(self, path):
+        try:
+            import pyarrow.parquet as pq
+
+            return int(pq.read_metadata(path).num_rows)
+        except Exception:
             return None
 
     def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
@@ -147,6 +160,10 @@ class FakeDataStore(DataStoreInterface):
         if table is None:
             return None
         return {c: np.array(table[c], copy=True) for c in (columns or table)}
+
+    def parquet_num_rows(self, path):
+        table = self._tables.get(path)
+        return None if table is None else num_rows(table)
 
     def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
         for root, _, files in os.walk(local_directory):

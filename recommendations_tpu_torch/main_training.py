@@ -4,8 +4,10 @@
         [--device cpu] [--config-dir DIR] [a.b.c=value ...]
 
 Composes the YAML from ``configs/`` (hydra-style defaults and
-interpolation, ``config/yaml_loader.py``), builds the pipeline config, and
-trains, validates, checkpoints and exports on one device: the card unless
+interpolation, ``config/yaml_loader.py``), builds the pipeline config, runs
+the stats job where the config's ``stats`` section asks for it (its result
+goes to the model builder, as in ``main_training.py``), and trains,
+validates, checkpoints and exports on one device: the card unless
 ``--device cpu`` is given; without a card it raises.
 """
 
@@ -19,6 +21,8 @@ from pathlib import Path
 from recommendations_tpu_torch import resolve_device
 from recommendations_tpu_torch.config.yaml_loader import load_config, parse_cli_overrides
 from recommendations_tpu_torch.data.generator import get_data_loader_strategy
+from recommendations_tpu_torch.data.paths import get_train_data_paths
+from recommendations_tpu_torch.pipeline.stats import compute_stats_for_pipeline
 from recommendations_tpu_torch.pipeline.trainer_pipeline import TrainerPipeline
 from recommendations_tpu_torch.train.strategy import get_training_strategy
 
@@ -29,6 +33,9 @@ CONFIG_ROOT = Path(__file__).resolve().parent.parent / "configs"
 
 def build_pipeline(cfg, device="cuda") -> TrainerPipeline:
     device = resolve_device(device)
+    stats = None
+    if getattr(cfg, "stats", None) is not None and cfg.stats.compute_stats:
+        stats = compute_stats_for_pipeline(cfg, get_train_data_paths(cfg.dataset))
     data_loader_strategy = get_data_loader_strategy(
         cfg.data_loader,
         columns=cfg.model.features.get_input_columns(),
@@ -36,7 +43,7 @@ def build_pipeline(cfg, device="cuda") -> TrainerPipeline:
     )
     return TrainerPipeline(
         pipeline_config=cfg,
-        model_builder=cfg.model.get_builder(stats=None, device=device),
+        model_builder=cfg.model.get_builder(stats=stats, device=device),
         training_strategy=get_training_strategy(cfg.training_strategy, device=device),
         data_loader_strategy=data_loader_strategy,
     )

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from recommendations_tpu_torch.core.debug import unchecked
 from recommendations_tpu_torch.nn.functional import l2_normalize_f32acc
 from recommendations_tpu_torch.nn.logq import LogQState, logq_correction, logq_update
 from recommendations_tpu_torch.ops.fused_ce import fused_contrastive_ce
@@ -147,7 +148,8 @@ def _head_loss(
     used = w.sum()
     denom = used.clamp_min(1.0)
     loss = (ce * w).sum() / denom
-    with torch.no_grad():
+    # the median rank of a chunk without a used token is NaN by design
+    with torch.no_grad(), unchecked():
         metrics = {
             "effective_batch_size": used,
             "average_negatives_per_token": (num_neg * w).sum() / denom,
@@ -241,9 +243,10 @@ def contrastive_step(
         rank_all = torch.cat([m.pop("_rank") for m in chunk_metrics])
         w_all = torch.cat([m.pop("_weight") for m in chunk_metrics])
         min_neg = torch.stack([m.pop("_min_neg") for m in chunk_metrics]).min()
-        agg = {
-            key: torch.stack([m[key] for m in chunk_metrics]).mean() for key in chunk_metrics[0]
-        }
+        with unchecked():  # the chunks' metrics, NaN medians among them
+            agg = {
+                key: torch.stack([m[key] for m in chunk_metrics]).mean() for key in chunk_metrics[0]
+            }
 
         total_loss = total_loss + head_loss
         used = w_all.sum().clamp_min(1.0)

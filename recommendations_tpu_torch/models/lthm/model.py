@@ -2,7 +2,9 @@
 
 Port of ``recommendations_tpu/models/lthm/model.py`` with the fresh-table
 branch only. ``forward(batch, training=...)`` serves (the default) or runs
-the training forward, whose only difference here is the dropout guard.
+the training forward, which applies the transformer's dropouts with masks
+drawn from the step's ``dropout_seed`` (``nn/dropout.py``; serving and
+validation draw none).
 
 The dtypes follow the JAX package step by step: parameters are
 float32, matmuls run in ``compute_dtype``, and the residual stream is
@@ -136,7 +138,8 @@ class QueryTower(nn.Module):
         )
 
     def forward(
-        self, inp, target, mask, labels, timestamp, ids, training: bool = False
+        self, inp, target, mask, labels, timestamp, ids, training: bool = False,
+        dropout_seed: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         bsz, orig_s = mask.shape
@@ -159,7 +162,7 @@ class QueryTower(nn.Module):
         pos = cw - torch.arange(cw + 1, device=x.device)
         x = x + self.wpe(pos)[None]  # float32 from here on
 
-        x = self.transformer(x, training=training)
+        x = self.transformer(x, training=training, dropout_seed=dropout_seed)
 
         # outcome conditioning over (labels ++ future outcome 0), (B, S+1)
         outcomes = torch.cat([labels, labels.new_zeros((bsz, 1))], dim=-1)
@@ -215,10 +218,12 @@ class LTHMEncoder(nn.Module):
         batch: Dict[str, torch.Tensor],
         training: bool = False,
         taps: Optional[Dict[str, torch.Tensor]] = None,
+        dropout_seed: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """``taps``: ``{"product_emb_rows": zeros (B, S, k, d)}`` on the
         fused-record table, whose gradient is the gathered rows' (the
-        wrapper's ``make_taps``)."""
+        wrapper's ``make_taps``). ``dropout_seed``: the training step's,
+        which a training forward with a nonzero dropout rate needs."""
         ids = batch[self.ids_key]
         embs = self.product_emb_module(ids, tap=(taps or {}).get("product_emb_rows"))
         inp, target, mask = self.product_tower(ids, embs)
@@ -227,4 +232,4 @@ class LTHMEncoder(nn.Module):
         timestamp = batch[self.timestamp_key].to(torch.int64)
         # flip to left padding (history arrives most-recent-first, right-padded)
         flipped = [torch.flip(t, dims=(1,)) for t in (inp, target, mask, labels, timestamp, ids)]
-        return self.query_tower(*flipped, training=training)
+        return self.query_tower(*flipped, training=training, dropout_seed=dropout_seed)

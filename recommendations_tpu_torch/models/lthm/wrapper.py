@@ -126,14 +126,19 @@ class LTHMModelWrapper:
         offsets=None,
         generator: Optional[torch.Generator] = None,
         taps: Optional[Dict[str, torch.Tensor]] = None,
+        dropout_seed: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Metrics, LTHMAuxState]:
         """Forward (with autograd) and the contrastive loss: (loss, metrics
         under the JAX package's keys, new aux state). ``offsets`` overrides
         the draw of the lookahead offsets from ``generator``; ``taps`` are
-        ``make_taps``'s, on the fused-record table."""
+        ``make_taps``'s, on the fused-record table. The training forward
+        draws its dropout masks from ``dropout_seed`` (the step's forward
+        key; ``generator`` is its loss key, JAX's ``fwd_rng, loss_rng``);
+        serving and validation apply no dropout."""
         cfg = self.config
         with record_function("lthm/forward"):
-            output = self.module(self.format_inputs(batch), training=training, taps=taps)
+            output = self.module(self.format_inputs(batch), training=training, taps=taps,
+                                 dropout_seed=dropout_seed if training else None)
         with record_function("lthm/loss"):
             loss, metrics, new_logq = contrastive_step(
                 output,

@@ -19,8 +19,11 @@ When ``use_flash`` was asked for but attention falls back to ``_sdpa``, the
 layer logs a warning naming the reason, once per (layer name, reasons), as
 the JAX package's ``_warn_fallback`` does.
 
-Dropout is not ported yet: a training forward with a nonzero rate raises,
-and a rate of 0.0 (the LTHM configs' value) trains.
+In training, token dropout masks q, k and v before the kernel is launched,
+on every route (``nn/dropout.py``: three (B, 1, T, 1) masks shared by the
+heads), and flax-style dropout follows the output projection; both draw
+from the block's generator, which a training forward with a nonzero rate
+must pass.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from recommendations_tpu_torch.nn.dropout import dropout, qkv_dropout
 from recommendations_tpu_torch.ops import fused_attention as fa
 
 NEG_INF = -1e9  # additive-mask value
@@ -200,15 +204,22 @@ class _AttentionBase(nn.Module):
             self.n_head, self.pos_bias_window, causal,
         )
 
-    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool, training: bool) -> torch.Tensor:
-        """q (B,T,H*hd), k/v (B,T,kv_heads*hd) -> (B,T,H*hd)."""
-        if training and (self.dropout or self.attn_dropout):
-            raise NotImplementedError(
-                f"dropout in training (dropout={self.dropout}, attn_dropout="
-                f"{self.attn_dropout}): ROADMAP, port queue item 1 (token dropout "
-                "nn/attention.py:87-90,295-316, residual dropout nn/transformer.py:210,355); "
-                "set the rates to 0.0"
+    def _dropout_generator(self, training: bool, generator: Optional[torch.Generator]):
+        """The generator of a training forward with a nonzero rate; None
+        when no mask is drawn."""
+        if not training or not (self.dropout or self.attn_dropout):
+            return None
+        if generator is None:
+            raise ValueError(
+                f"attention layer {self.name!r}: a training forward with dropout (dropout="
+                f"{self.dropout}, attn_dropout={self.attn_dropout}) needs the block's dropout generator"
             )
+        return generator
+
+    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool, generator) -> torch.Tensor:
+        """q (B,T,H*hd), k/v (B,T,kv_heads*hd) -> (B,T,H*hd); token dropout
+        (``generator`` not None) masks q, k and v first, on every route."""
+        q, k, v = qkv_dropout(q, k, v, self.attn_dropout if generator is not None else 0.0, generator)
         b, t, _ = x.shape
         hd = self.head_dim
         if self._flash_eligible(mask, t):
@@ -244,10 +255,13 @@ class MultiQueryAttention(_AttentionBase):
         mask: Optional[torch.Tensor] = None,
         causal: bool = False,
         training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        gen = self._dropout_generator(training, generator)
         q = self.q_proj(x)
         k, v = self.kv_proj(x).split(self.head_dim, dim=-1)
-        return self.out_proj(self._attend(x, q, k, v, 1, mask, causal, training))
+        y = self.out_proj(self._attend(x, q, k, v, 1, mask, causal, gen))
+        return y if gen is None else dropout(y, self.dropout, gen)
 
 
 class MultiHeadAttention(_AttentionBase):
@@ -265,6 +279,9 @@ class MultiHeadAttention(_AttentionBase):
         mask: Optional[torch.Tensor] = None,
         causal: bool = False,
         training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        gen = self._dropout_generator(training, generator)
         q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
-        return self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, training))
+        y = self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, gen))
+        return y if gen is None else dropout(y, self.dropout, gen)

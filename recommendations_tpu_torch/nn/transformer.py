@@ -15,10 +15,15 @@ batched ones (``aten.bmm``, the ``_sdpa`` logits), and both keep the outputs
 (o, lse) of the flash forward, without and with the position bias, so the
 backward does not launch it again.
 
-Not ported yet, and raising: the MoE rotator, the sparse-token keep-sets and
-dropout in training (a rate of 0.0 trains). The rates reach every block's
-attention, whose guard covers the stack's input, attention and residual
-dropouts.
+Dropout in training, as the JAX package places it: on the stack's input,
+token dropout on q, k and v and dropout after the attention's output
+projection (``nn/attention.py``), and after the MLP. The stack takes the
+training step's ``dropout_seed``; the input's masks come from a generator
+seeded with ``fold_seed(seed, 0)`` and block i's from one seeded with
+``fold_seed(seed, i + 1)``, made inside the block, so a block recomputed
+under remat draws its masks again bit for bit.
+
+Not ported yet, and raising: the MoE rotator and the sparse-token keep-sets.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from recommendations_tpu_torch.nn.attention import (
     MultiQueryAttention,
     causal_mask,
 )
+from recommendations_tpu_torch.nn.dropout import dropout, fold_seed, seeded_generator
 from recommendations_tpu_torch.nn.functional import gelu_tanh
 from recommendations_tpu_torch.ops import fused_attention as fa
 
@@ -89,6 +95,7 @@ class TransformerBlock(nn.Module):
             )
         self.is_causal = is_causal
         self.use_flash = use_flash
+        self.dropout, self.attn_dropout = dropout, attn_dropout
         self.pos_bias_window = pos_bias_window
         dev = generator.device
         cls = MultiQueryAttention if attn_type == "multi_query" else MultiHeadAttention
@@ -104,9 +111,20 @@ class TransformerBlock(nn.Module):
         self.c_proj = Dense(hidden, n_embd, generator, use_bias, dtype)
 
     def forward(
-        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None, training: bool = False
+        self,
+        x: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        training: bool = False,
+        dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
+        """``dropout_seed``: this block's seed; a training forward with a
+        nonzero rate draws its masks from a generator made from it here."""
         t = x.shape[1]
+        gen = None
+        if training and (self.dropout or self.attn_dropout):
+            if dropout_seed is None:
+                raise ValueError("a training forward with dropout needs a dropout seed")
+            gen = seeded_generator(dropout_seed, x.device)
         # the flash path masks causally in-kernel; _sdpa takes the additive mask
         flash_ok = (
             self.use_flash
@@ -120,9 +138,10 @@ class TransformerBlock(nn.Module):
             cm = causal_mask(t, x.device)
             attn_mask = cm if attn_mask is None else attn_mask + cm
         x = x + self.attn(
-            self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok, training=training
+            self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok, training=training, generator=gen
         )
-        return x + self.c_proj(gelu_tanh(self.c_fc(self.ln_2(x))))
+        y = self.c_proj(gelu_tanh(self.c_fc(self.ln_2(x))))
+        return x + (y if gen is None else dropout(y, self.dropout, gen))
 
 
 _aten = torch.ops.aten
@@ -162,20 +181,35 @@ class TransformerStack(nn.Module):
             raise ValueError(f"remat_policy {remat_policy!r} not in {sorted(REMAT_SAVED)}")
         self.remat, self.remat_policy = remat, remat_policy
         self.num_layers = num_layers
+        self.dropout = block_kw.get("dropout", 0.0)
         for depth in range(num_layers):
             self.add_module(
                 f"block_{depth}", TransformerBlock(n_embd, n_head, generator, **block_kw)
             )
 
     def forward(
-        self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None, training: bool = False
+        self,
+        x: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        training: bool = False,
+        dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
+        """``dropout_seed``: the training step's; needed when a training
+        forward has a nonzero rate."""
         remat = self.remat and torch.is_grad_enabled()
         context_fn = functools.partial(_remat_context, REMAT_SAVED[self.remat_policy])
+        seeds = [None] * self.num_layers
+        if training and dropout_seed is not None:
+            seeds = [fold_seed(dropout_seed, depth + 1) for depth in range(self.num_layers)]
+            if self.dropout:
+                x = dropout(x, self.dropout, seeded_generator(fold_seed(dropout_seed, 0), x.device))
+        elif training and self.dropout:
+            raise ValueError("a training forward with dropout needs a dropout seed")
         for depth in range(self.num_layers):
             block = getattr(self, f"block_{depth}")
             if remat:
-                x = checkpoint(block, x, attn_mask, training, use_reentrant=False, context_fn=context_fn)
+                x = checkpoint(block, x, attn_mask, training, seeds[depth], use_reentrant=False,
+                               context_fn=context_fn)
             else:
-                x = block(x, attn_mask, training)
+                x = block(x, attn_mask, training, seeds[depth])
         return x

@@ -19,7 +19,9 @@ multi-head attention. The forward returns o (B, T, H*hd) in q's dtype and the
 per-head logsumexp (B, T, H) in float32, which the backward reads.
 
 A wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. Under ``debug_numerics``
+(``core/debug.py``) it checks what the kernel wrote and names the kernel at
+a NaN or Inf, which no dispatch mode sees through ``ctypes``.
 
 Both forwards, without and with the bias, are ``torch.library`` custom ops
 with their backwards registered, so that a selective-recompute policy
@@ -36,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from recommendations_tpu_torch.core.debug import check_kernel_outputs
 from recommendations_tpu_torch.ops.cuda_build import CudaKernel
 
 NEG_INF = -1e30
@@ -231,6 +234,7 @@ def fused_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, t, n_head, kvh, hd, int(causal), int(q.dtype == torch.bfloat16), _stream(q),
     )
+    check_kernel_outputs(FLASH_FWD.name, (o, lse))
     return o, lse
 
 
@@ -301,6 +305,7 @@ def fused_flash_attention_bwd(
         dcol.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, t, n_head, kvh, hd, int(causal), int(q.dtype == torch.bfloat16), _stream(q),
     )
+    check_kernel_outputs(FLASH_BWD.name, (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -507,6 +512,7 @@ def fused_flash_attention_bias_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, t, n_head, kvh, hd, n_table, nk, int(causal), int(q.dtype == torch.bfloat16), _stream(q),
     )
+    check_kernel_outputs(FLASH_BIAS_FWD.name, (o, lse))
     return o, lse
 
 
@@ -560,10 +566,12 @@ def fused_flash_attention_bias_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dcol.data_ptr(),
         table.data_ptr(), dq.data_ptr(), *common,
     )
+    check_kernel_outputs(FLASH_BIAS_DQ.name, (dq,))
     FLASH_BIAS_DKV.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dcol.data_ptr(),
         table.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(), *common,
     )
+    check_kernel_outputs(FLASH_BIAS_DKV.name, (dk, dv, part))
     return dq, dk, dv, part.sum(0)
 
 

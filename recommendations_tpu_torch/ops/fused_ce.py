@@ -31,7 +31,9 @@ kernel compares column i too, its tile product against the separately summed
 diag, and counts the positive itself where the two round apart.
 
 A wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. Under ``debug_numerics``
+(``core/debug.py``) it checks what the kernel wrote and names the kernel at
+a NaN or Inf, which no dispatch mode sees through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Tuple
 import torch
 from torch.profiler import record_function
 
+from recommendations_tpu_torch.core.debug import check_kernel_outputs
 from recommendations_tpu_torch.ops.cuda_build import CudaKernel
 
 BIG_NEG = -1e9
@@ -153,10 +156,13 @@ def ce_forward(q16, c16, v, lq, s: int, inv_t: float, beta: float):
         q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), diag.data_ptr(), m.data_ptr(),
         n, d, inv_t, beta, stream,
     )
+    check_kernel_outputs(CE_ROW_DIAG.name, (diag, m))
     CE_FWD.launch(
         q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), m.data_ptr(), diag.data_ptr(),
         ce.data_ptr(), lse.data_ptr(), rank.data_ptr(), n, d, s, inv_t, beta, stream,
     )
+    # a row whose every candidate is masked has ce = lse = -inf by design
+    check_kernel_outputs(CE_FWD.name, (ce, lse), allow_neg_inf=True)
     return ce, rank, lse
 
 
@@ -199,7 +205,9 @@ def ce_backward(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float):
     args = (q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), lse.data_ptr(), dce.data_ptr())
     stream = _stream(q16)
     CE_DQ.launch(*args, dq.data_ptr(), n, d, s, inv_t, beta, stream)
+    check_kernel_outputs(CE_DQ.name, (dq,))
     CE_DC.launch(*args, dc.data_ptr(), n, d, s, inv_t, beta, stream)
+    check_kernel_outputs(CE_DC.name, (dc,))
     return dq, dc
 
 

@@ -12,6 +12,15 @@ Port of ``train_step`` in ``recommendations_tpu/train/strategy.py`` (as
   ``apply_sparse_table_update`` steps the record's touched rows from the
   taps' gradient (unclipped, as in the JAX package).
 
+With gradient accumulation (``TrainOptimizer.accumulate`` > 1) the
+optimizer steps on every k-th call only, while the lazy and fused table
+updates, the aux state and ``step`` advance on every call, as in the JAX
+package, where they sit outside ``optax.MultiSteps``.
+
+The forward's dropout masks come from ``state.next_dropout_seed()``, one
+draw a step (the JAX step's forward key); the offsets from
+``state.generator`` (its loss key).
+
 Then the new aux state; the metrics ``grad_norm`` (of the raw gradients,
 with the taps' squares summed over every occurrence) and ``params_nan``
 (every parameter but the fused record, whose written rows the update checks
@@ -44,7 +53,8 @@ def train_step(
     state.optimizer.zero_grad()
     taps = wrapper.make_taps(batch) if use_taps else None
     loss, metrics, new_aux = wrapper.loss_and_metrics(
-        batch, state.aux, True, offsets=offsets, generator=state.generator, taps=taps
+        batch, state.aux, True, offsets=offsets, generator=state.generator, taps=taps,
+        dropout_seed=state.next_dropout_seed(),
     )
     with record_function("lthm/backward"):
         loss.backward()

@@ -15,24 +15,42 @@ the JAX package's:
 - every ``checkpoint_every_k_steps`` steps, unless the loss is NaN or above
   ``export_if_loss_within_factor_of_best_model`` times the best loss seen
   after ``best_model_after_k_steps``: a full checkpoint (with
-  ``checkpoint_dir``) and an export through the model checkpointer;
+  ``checkpoint_dir``), the data iterator's snapshot beside it
+  (``data_iter_h0_s<step>.pkl``), and an export through the model
+  checkpointer;
 - the run stops at ``train_steps`` or after ``epochs``;
-- on restart from a checkpoint, the step count continues, and the data
-  position is replayed: the checkpoint's epoch's loader skips the batches
-  already consumed, as the JAX package does without a snapshot.
+- on restart from a checkpoint the step count continues, and the data
+  position is restored in O(1) where it can be: from the snapshot (any
+  pipeline, grouped and shuffle-buffered included, also under
+  ``process_reader``, whose child answers the request), else by the
+  generator's skip by file metadata (no grouping, no shuffle buffer), else
+  by replaying the consumed batches, as the JAX package does;
+- ``steps_per_dispatch`` = k: ``stack_step_groups`` stacks k host batches,
+  one copy to the device for the group, and the k steps run with no host
+  synchronisation between them; the loss and metrics reported are the
+  group's last; the tail runs singly; the cadences above fire when the step
+  count crosses a multiple within a group (JAX's ``_crossed``). A CUDA
+  graph over the group would cut the launches further (later work);
+- ``profile_dir``: ``torch.profiler`` over the steps ``profile_start_step``
+  to ``profile_start_step + profile_num_steps``, its Chrome trace written
+  there (``torch_trace_steps_<a>_<b>.json``);
+- ``debug_numerics``: each step under ``core.debug.checked_step`` (the first
+  NaN or Inf raises, naming its operation or kernel); ``steps_per_dispatch``
+  then falls back to 1 with the JAX package's warning.
 
 The lookahead offsets are drawn from the state's generator (a CPU
 generator); validation draws its own from a generator seeded per cached
 batch. Beside the JAX package's final metrics, ``step_times_s`` holds each
-loop turn's host wall time. What the port does not do yet raises, citing its ROADMAP item: a
-mesh or several hosts (item 10), ``steps_per_dispatch`` above 1, profile
-capture and ``debug_numerics`` (item 6b).
+loop turn's host wall time (a turn is a group of k steps) and
+``feed_wait_s`` each turn's wait for its batch. A mesh or
+several hosts raise, citing ROADMAP item 10.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -42,7 +60,14 @@ import torch
 from recommendations_tpu_torch import resolve_device
 from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
 from recommendations_tpu_torch.config.training_strategy_config import TrainingStrategyConfig
-from recommendations_tpu_torch.data.loader import DevicePrefetcher, StageTimer, get_host_dataloader, to_device
+from recommendations_tpu_torch.core.debug import checked_step, numerics_checked
+from recommendations_tpu_torch.data.loader import (
+    DevicePrefetcher,
+    StageTimer,
+    get_host_dataloader,
+    stack_step_groups,
+    to_device,
+)
 from recommendations_tpu_torch.train.checkpoint import CheckpointManager
 from recommendations_tpu_torch.train.step import train_step
 from recommendations_tpu_torch.train.train_state import TrainState
@@ -89,10 +114,12 @@ class SingleProcessTrainingStrategy:
         ]
         if any(mesh):
             raise NotImplementedError("a device mesh is not ported yet: ROADMAP, port queue item 10 (Multi-device)")
-        if getattr(cfg, "debug_numerics", False):
-            raise NotImplementedError("debug_numerics is not ported yet: ROADMAP, port queue item 6b")
-        if getattr(cfg, "profile_dir", None):
-            raise NotImplementedError("profile capture (profile_dir) is not ported yet: ROADMAP, port queue item 6b")
+
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
 
     def train(
         self,
@@ -106,15 +133,13 @@ class SingleProcessTrainingStrategy:
         train_cfg: ModelTrainConfig = pipeline_config.train
         if train_cfg.num_workers != 1:
             raise NotImplementedError("training on several hosts is not ported yet: ROADMAP, port queue item 10")
-        if train_cfg.steps_per_dispatch > 1:
-            raise NotImplementedError("steps_per_dispatch > 1 is not ported yet: ROADMAP, port queue item 6b")
         wrapper = model_builder.build()
         trackers = pipeline_config.trackers
         features = pipeline_config.model.features
         fs = pipeline_config.dataset.filesystem_config
         feed_timer = StageTimer()
 
-        def make_loader(kind: str, paths: List[str], epoch: int = 0):
+        def make_loader(kind: str, paths: List[str], epoch: int = 0, skip_batches: int = 0, snapshot=None):
             return get_host_dataloader(
                 kind=kind,
                 worker_id=0,
@@ -124,15 +149,33 @@ class SingleProcessTrainingStrategy:
                 data_loader_strategy=data_loader_strategy,
                 features_config=features,
                 fs_config=fs,
+                skip_batches=skip_batches,
                 epoch=epoch,
+                snapshot=snapshot,
                 timer=feed_timer if kind == "train" else None,
             )
 
         state = TrainState.create(wrapper, train_cfg)
+        step_fn = train_step
+        k_dispatch = max(1, int(train_cfg.steps_per_dispatch))
+        if getattr(self.config, "debug_numerics", False):
+            step_fn = checked_step(train_step)
+            if k_dispatch > 1:
+                logger.warning(
+                    "steps_per_dispatch=%d requested but multi-step program unavailable (debug_numerics?); using 1",
+                    k_dispatch,
+                )
+                k_dispatch = 1
 
         ckpt_mgr: Optional[CheckpointManager] = None
         ckpt_dir = pipeline_config.checkpoint_dir
         resume_epoch = resume_batches = 0
+        resume_snapshot: Optional[bytes] = None
+
+        def sidecar_path(step: int) -> str:
+            # the iterator's snapshot beside the checkpoint (host 0: one host)
+            return os.path.join(ckpt_dir, f"data_iter_h0_s{step}.pkl")
+
         if train_cfg.checkpoint_every_k_steps and ckpt_dir:
             ckpt_mgr = CheckpointManager(ckpt_dir)
             restored = ckpt_mgr.restore(state)
@@ -141,6 +184,9 @@ class SingleProcessTrainingStrategy:
                 logger.info("resumed from checkpoint step=%s", state.step)
                 resume_epoch = int(data_iter_state.get("epoch", 0))
                 resume_batches = int(data_iter_state.get("batches_in_epoch", 0))
+                if data_iter_state.get("has_snapshot") and os.path.exists(sidecar_path(state.step)):
+                    with open(sidecar_path(state.step), "rb") as f:
+                        resume_snapshot = f.read()
 
         # the eval cache (reference init_eval_cache, :277-291)
         eval_cache: List[Dict[str, np.ndarray]] = []
@@ -169,53 +215,96 @@ class SingleProcessTrainingStrategy:
         train_start = None
         stop_all = False
         last_loss = None
-        step_times: List[float] = []  # each loop turn's host wall time: feed, step, metrics, checkpoints
-
-        def every(n: Optional[int]) -> bool:
-            return bool(n) and n > 0 and batch_nb % n == 0
+        step_times: List[float] = []  # each loop turn's host wall time: feed, steps, metrics, checkpoints
+        feed_waits: List[float] = []  # each turn's wait for its batch (the first's holds the reader's start)
+        profile_dir = getattr(self.config, "profile_dir", None)
+        profile_start = getattr(self.config, "profile_start_step", 10)
+        profile_steps = getattr(self.config, "profile_num_steps", 5)
+        prof = None
 
         for epoch in range(train_cfg.epochs):
             if stop_all:
                 break
             if epoch < resume_epoch:
                 continue
-            it = iter(make_loader("train", train_data_paths, epoch=epoch))
+            resuming = epoch == resume_epoch and resume_batches > 0
+            snap = resume_snapshot if resuming else None
+            loader = make_loader("train", train_data_paths, epoch=epoch,
+                                 skip_batches=resume_batches if resuming else 0, snapshot=snap)
+            it = iter(loader)
             batches_in_epoch = 0
-            if epoch == resume_epoch and resume_batches > 0:
-                # replay-and-discard: the loader's order is fixed per epoch
-                for _ in range(resume_batches):
-                    if next(it, None) is None:
-                        break
-                logger.info("fast-forwarded data iterator to epoch %d batch %d (replay)", epoch, resume_batches)
+            if resuming:
+                if snap is not None:
+                    # the snapshot restored the iterator; discard the few
+                    # batches between its drain boundary and the checkpoint
+                    for _ in range(loader.discard_batches):
+                        next(it, None)
+                    logger.info("restored data-iterator snapshot at epoch %d batch %d (+%d alignment batches)",
+                                epoch, resume_batches, loader.discard_batches)
+                elif loader.skip_applied:
+                    logger.info("seeked data iterator to epoch %d batch %d (metadata skip)", epoch, resume_batches)
+                else:
+                    # no snapshot and no metadata skip: replay and discard
+                    for _ in range(resume_batches):
+                        if next(it, None) is None:
+                            break
+                    logger.info("fast-forwarded data iterator to epoch %d batch %d (replay)", epoch, resume_batches)
                 batches_in_epoch = resume_batches
             # the next batch's copy runs while this step runs; built after
             # the replay, since it starts consuming the iterator at once
-            dev_it = iter(DevicePrefetcher(it, self.device, depth=2, timer=feed_timer))
+            host_it = stack_step_groups(it, k_dispatch) if k_dispatch > 1 else it
+            dev_it = iter(DevicePrefetcher(host_it, self.device, depth=2, timer=feed_timer))
             t_loop_prev = None
             while not stop_all:
                 t_feed = time.perf_counter()
                 if t_loop_prev is not None:
                     feed_timer.add("step.loop_other", t_feed - t_loop_prev)
-                batch = next(dev_it, None)
-                if batch is None:
+                item = next(dev_it, None)
+                if item is None:
                     break
                 t_disp = time.perf_counter()
-                loss, metrics = train_step(state, batch)
+                if profile_dir and prof is None and batch_nb >= profile_start:
+                    prof = self._profiler()
+                    prof.__enter__()
+                    prof_from = batch_nb
+                if k_dispatch > 1:
+                    tag, batch = item
+                    group = [{k: v[i] for k, v in batch.items()} for i in range(k_dispatch)] if tag == "multi" else [batch]
+                else:
+                    group = [item]
+                for b in group:
+                    loss, metrics = step_fn(state, b)
+                n_new = len(group)
                 feed_timer.add("step.next_batch_wait", t_disp - t_feed)
+                feed_waits.append(t_disp - t_feed)
                 t_loop_prev = time.perf_counter()
                 feed_timer.add("step.dispatch", t_loop_prev - t_disp)
                 last_loss = loss
-                batch_nb += 1
-                batches_in_epoch += 1
+                prev_batch_nb = batch_nb
+                batch_nb += n_new
+                batches_in_epoch += n_new
                 if train_start is None:
                     # the steady-state clock starts after the first step
                     float(loss)
                     train_start = time.time()
                     global_num_samples = 0
-                global_num_samples += train_cfg.batch_size
+                if prof is not None and batch_nb >= profile_start + profile_steps:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    prof.__exit__(None, None, None)
+                    os.makedirs(profile_dir, exist_ok=True)
+                    trace = os.path.join(profile_dir, f"torch_trace_steps_{prof_from}_{batch_nb}.json")
+                    prof.export_chrome_trace(trace)
+                    logger.info("profiler trace written to %s", trace)
+                    prof, profile_dir = None, None
+                global_num_samples += train_cfg.batch_size * n_new
                 loss_val: Optional[float] = None
 
-                if every(train_cfg.train_metrics_every_n_steps):
+                def crossed(every: Optional[int]) -> bool:
+                    # the step count crossed a multiple of ``every`` in this group
+                    return bool(every) and every > 0 and batch_nb // every > prev_batch_nb // every
+
+                if crossed(train_cfg.train_metrics_every_n_steps):
                     host_metrics = _host_metrics(metrics)
                     loss_val = float(loss)
                     avg = dict(host_metrics)
@@ -232,20 +321,25 @@ class SingleProcessTrainingStrategy:
                     if batch_nb >= best_after:
                         best_loss = min(best_loss, loss_val)
 
-                if eval_cache and every(train_cfg.val_metrics_every_n_steps):
+                if eval_cache and crossed(train_cfg.val_metrics_every_n_steps):
                     val_metrics = self._run_val(state, eval_cache, train_cfg)
                     trackers.log_metrics(val_metrics, step=global_num_samples)
                     global_metrics.update(val_metrics)
 
-                if every(train_cfg.checkpoint_every_k_steps):
+                if crossed(train_cfg.checkpoint_every_k_steps):
                     if loss_val is None:
                         loss_val = float(loss)
                     skip = math.isnan(loss_val) or (best_loss > 0.0 and loss_val > loss_factor * best_loss)
                     if not skip:
                         if ckpt_mgr is not None:
+                            snap_blob = loader.snapshot(batches_in_epoch)
+                            if snap_blob is not None:
+                                with open(sidecar_path(batch_nb), "wb") as f:
+                                    f.write(snap_blob)
                             ckpt_mgr.save(
                                 batch_nb, state, {"loss": loss_val},
-                                data_iter_state={"epoch": epoch, "batches_in_epoch": batches_in_epoch},
+                                data_iter_state={"epoch": epoch, "batches_in_epoch": batches_in_epoch,
+                                                 "has_snapshot": snap_blob is not None},
                             )
                         if model_checkpointer is not None:
                             model_checkpointer.checkpoint(state, result_df=dict(global_metrics))
@@ -257,7 +351,13 @@ class SingleProcessTrainingStrategy:
                 step_times.append(time.perf_counter() - t_feed)
             dev_it.close()
             it.close()
+            if hasattr(loader, "close"):
+                loader.close()  # the process reader's child
 
+        if prof is not None:  # the run ended inside the profiled steps
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, f"torch_trace_steps_{prof_from}_{batch_nb}.json"))
         if last_loss is not None:
             float(last_loss)  # the device finishes before the clock is read
         elapsed = max(time.time() - train_start, 1e-9) if train_start else 0.0
@@ -266,6 +366,7 @@ class SingleProcessTrainingStrategy:
         final["train_samples_per_sec"] = global_num_samples / elapsed if elapsed else 0.0
         final["feed_path_stages"] = feed_timer.summary()
         final["step_times_s"] = step_times
+        final["feed_wait_s"] = feed_waits
         feed_timer.log()
         return wrapper, state, final
 
@@ -278,7 +379,11 @@ class SingleProcessTrainingStrategy:
         for i, host_batch in enumerate(eval_cache):
             batch = to_device(host_batch, self.device)
             gen = torch.Generator().manual_seed(VAL_SEED + i)
-            _, metrics, _ = wrapper.loss_and_metrics(batch, state.aux, False, generator=gen)
+            if getattr(self.config, "debug_numerics", False):  # the JAX package checks its val step too
+                with numerics_checked():
+                    _, metrics, _ = wrapper.loss_and_metrics(batch, state.aux, False, generator=gen)
+            else:
+                _, metrics, _ = wrapper.loss_and_metrics(batch, state.aux, False, generator=gen)
             m = _host_metrics(metrics)
             if any(math.isnan(v) for v in m.values()):
                 skipped += 1  # NaN val batches skipped and counted (reference :509-519)

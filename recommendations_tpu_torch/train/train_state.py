@@ -3,11 +3,14 @@
 Port of ``recommendations_tpu/train/train_state.py``. The parameters live in
 the wrapper's module and the optimizer moments in the optimizer, so the
 state holds those two objects beside the model's aux state (the logQ
-estimator), the step count, the generator that draws the lookahead
-offsets (a CPU generator: the offsets are host integers) and the lazy or
-fused table's update state (``train/sparse_table.py``; None on the other
-table paths). ``state_dict`` and ``load_state_dict`` carry all of it for
-``train/checkpoint.py``.
+estimator), the step count, the two generators of the JAX state's ``rng``
+(``generator`` draws the lookahead offsets, the loss's key;
+``dropout_generator`` draws each step's dropout seed, the forward's key,
+from which the step's masks are drawn on the device; both CPU generators:
+their draws are host integers) and the lazy or fused table's update state
+(``train/sparse_table.py``; None on the other table paths).
+``state_dict`` and ``load_state_dict`` carry all of it, the optimizer's
+gradient accumulation included, for ``train/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,15 @@ class TrainState:
     generator: torch.Generator
     step: int = 0
     table_state: Any = None
+    dropout_generator: Optional[torch.Generator] = None
+
+    def __post_init__(self):
+        if self.dropout_generator is None:
+            self.dropout_generator = torch.Generator().manual_seed(self.generator.initial_seed() + 1)
+
+    def next_dropout_seed(self) -> int:
+        """The step's dropout seed (one draw a step, as JAX splits its key)."""
+        return int(torch.randint(0, 2**62, (), generator=self.dropout_generator))
 
     @classmethod
     def create(
@@ -43,23 +55,23 @@ class TrainState:
         )
 
     def state_dict(self) -> dict:
+        opt = self.optimizer.state_dict()
         return {
             "module": self.wrapper.module.state_dict(),
-            "optimizers": [opt.state_dict() for opt in self.optimizer.optimizers()],
+            "optimizers": opt.pop("optimizers"),
+            "accumulation": opt,
             "aux": self.aux,
             "table_state": self.table_state,
             "step": self.step,
             "generator": self.generator.get_state(),
+            "dropout_generator": self.dropout_generator.get_state(),
         }
 
     def load_state_dict(self, sd: dict) -> None:
         self.wrapper.module.load_state_dict(sd["module"])
-        optimizers = self.optimizer.optimizers()
-        if len(optimizers) != len(sd["optimizers"]):
-            raise ValueError(f"{len(sd['optimizers'])} optimizer states for {len(optimizers)} optimizers")
-        for opt, opt_sd in zip(optimizers, sd["optimizers"]):
-            opt.load_state_dict(opt_sd)
+        self.optimizer.load_state_dict({"optimizers": sd["optimizers"], **sd["accumulation"]})
         self.aux = sd["aux"]
         self.table_state = sd["table_state"]
         self.step = int(sd["step"])
         self.generator.set_state(sd["generator"])
+        self.dropout_generator.set_state(sd["dropout_generator"])

@@ -1,8 +1,7 @@
 """The port's LTHM training path (loss_and_metrics, the optimizer, the train
 step, the state converters) against the JAX package's, on the CPU, with the
 same weights, batch and lookahead offsets; and the repairs the training path
-needed (the flash backward, the product tower's stop-gradient, the dropout
-guard).
+needed (the flash backward, the product tower's stop-gradient).
 
 The JAX side runs op by op: compiled, XLA's CPU backend drops the bf16
 storage of the logits GEMM that ``models/lthm/loss.py:63-72`` prescribes
@@ -320,28 +319,11 @@ def test_product_tower_stops_the_table_gradient():
     assert tw.module.product_tower.emb_mapper.weight.grad is not None
 
 
-@pytest.mark.parametrize("rates", [{"dropout": 0.1}, {"attn_dropout": 0.1}])
-def test_dropout_in_training_raises(rates):
-    d = small_config(True)
-    d["transformer_config"]["attn_config"].update(rates)
-    tw = LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cpu", seed=2)
-    batch = tw.format_inputs(small_batch())
-    with pytest.raises(NotImplementedError, match="port queue item 1"):
-        tw.module(batch, training=True)
-    tw.module(batch, training=False)  # serving applies no dropout
-
-
 def test_zero_dropout_trains():
     tw = LTHMModelWrapper(LTHMModelConfig.from_dict(small_config(True)), device="cpu", seed=2)
     state = TrainState.create(tw)
     losses = [float(train_step(state, small_batch(), offsets=[0, 1, 3])[0]) for _ in range(4)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-
-
-def test_gradient_accumulation_raises():
-    tw = LTHMModelWrapper(LTHMModelConfig.from_dict(small_config(False)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TrainState.create(tw, ModelTrainConfig(gradient_accumulation_steps=2))
 
 
 def test_no_silent_cpu_for_training(monkeypatch):

@@ -5,9 +5,15 @@ tracker's keys, the exported config.json; and the port's own run: the loss
 falls, validation is logged, a checkpoint resumes to the same bits, the
 export serves the same vectors, the in-memory store's run needs none of
 pandas, pyarrow, pydantic and xxhash, and the entry point refuses to run
-without a card unless told to run on the CPU."""
+without a card unless told to run on the CPU. Then the rest of the
+trainer's knobs: with dropout (JAX's masks replayed), accumulation, two
+steps a dispatch, the process reader, grouping under a shuffle buffer,
+profile capture and a stats section, the logged losses are JAX's op-by-op
+step's; two steps a dispatch give one's bits; a resume through the
+iterator snapshot gives the uninterrupted run's bits."""
 
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -224,8 +230,9 @@ def test_port_trains_validates_resumes_and_exports(data_root, tmp_path):
     losses = [r["metrics"]["train_loss"] for r in _metric_lines(_jsonl(f"{tmp_path}/a.jsonl"), "train")]
     assert len(losses) == 8 and np.isfinite(losses).all() and np.mean(losses[-2:]) < np.mean(losses[:2])
     assert len(_metric_lines(_jsonl(f"{tmp_path}/a.jsonl"), "val")) == 2
+    # each checkpoint with the data iterator's snapshot beside it
     assert metrics_a["train_steps_total"] == 8 and sorted(os.listdir(f"{tmp_path}/ckpt_a")) == [
-        "step_00000004.pt", "step_00000008.pt"]
+        "data_iter_h0_s4.pkl", "data_iter_h0_s8.pkl", "step_00000004.pt", "step_00000008.pt"]
 
     os.makedirs(f"{tmp_path}/ckpt_b")
     shutil.copy(f"{tmp_path}/ckpt_a/step_00000004.pt", f"{tmp_path}/ckpt_b/")
@@ -281,3 +288,213 @@ def test_entry_point_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main_training.main(["--config-name", "lthm_tiny"])
+
+
+# -- the rest of the trainer's knobs ---------------------------------------------
+
+KNOB_STEPS = 4
+# every knob of the single-process trainer at once (debug_numerics, which
+# turns steps_per_dispatch off, is tests/test_torch_debug.py's): dropout,
+# accumulation, two steps a dispatch, the process reader, grouping by a
+# column of the synth rows with repeated values (product_id, the last item
+# of a history) under a shuffle buffer, profile capture and a stats section
+KNOBS = ("model.transformer_config.attn_config.dropout=0.1", "model.transformer_config.attn_config.attn_dropout=0.1",
+         "train.gradient_accumulation_steps=2", "train.steps_per_dispatch=2", "data_loader.bypass_dataloader=false",
+         "data_loader.process_reader=true", "data_loader.shuffle_buffer_num_mini_batches=2",
+         "model.features.group_dataset={group_by_columns: [product_id], sort_by_columns: [customer_id], "
+         "minimum_group_size: 1}", "stats={compute_stats: true}")
+
+
+def _jax_step_with_masks(jw, optimizer, state, batch, masks):
+    """``_jax_step``, with the dropout masks its forward draws appended to
+    ``masks`` in order (tests/test_torch_dropout.py's recording)."""
+    import flax.linen as fnn
+    from recommendations_tpu.nn import attention as jatt
+
+    real = jatt._token_dropout_mask
+
+    def token_mask(key, rate, b, t):
+        out = real(key, rate, b, t)
+        masks.append(np.asarray(out) > 0)
+        return out
+
+    def interceptor(next_fun, args, kwargs, context):
+        mod = context.module
+        if not isinstance(mod, fnn.Dropout) or context.method_name != "__call__" or \
+                kwargs.get("deterministic", mod.deterministic) or mod.rate in (0.0, 1.0):
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        keep = np.asarray(next_fun(jnp.ones_like(x), *args[1:], **kwargs)) != 0
+        masks.append(keep)
+        return jax.lax.select(jnp.asarray(keep), x / (1.0 - mod.rate), jnp.zeros_like(x))
+
+    jatt._token_dropout_mask = token_mask
+    try:
+        with fnn.intercept_methods(interceptor):
+            return _jax_step(jw, optimizer, state, batch)
+    finally:
+        jatt._token_dropout_mask = real
+
+
+@pytest.fixture(scope="module")
+def knob_runs(data_root, tmp_path_factory):
+    """JAX's first KNOB_STEPS steps under every knob, run op by op on its
+    loader's batches with its dropout masks recorded; and the port's
+    main_training on the same config from JAX's initial variables with
+    JAX's offsets and masks."""
+    from recommendations_tpu_torch.nn import dropout as tdrop
+
+    out = str(tmp_path_factory.mktemp("knob_out"))
+    args = _args(data_root, out, "knobs", KNOB_STEPS, extra=KNOBS + (
+        f"training_strategy.profile_dir={out}/profile", "training_strategy.profile_start_step=1",
+        "training_strategy.profile_num_steps=2"))
+    # JAX's batches from its thread reader: its process reader forks this
+    # multi-threaded process (the port's spawns); both yield the same batches
+    jargs = [a for a in args if a != "data_loader.process_reader=true"]
+    jcfg = jax_load_config(os.path.join(REPO, "configs", "lthm_tiny.yaml"), overrides=jax_parse(jargs),
+                           search_paths=[os.path.join(REPO, "configs")])
+    strategy = jax_strategy(jcfg.data_loader, jcfg.model.features.get_input_columns(), jcfg.model.preprocess_fn)
+
+    def loader(n):
+        return jax_loader("train", 0, jax_train_paths(jcfg.dataset), jcfg.train.batch_size, n, strategy,
+                          jcfg.model.features, jcfg.dataset.filesystem_config)
+
+    example = next(iter(loader(1)))
+    jw = JaxWrapper(jcfg.model)
+    variables = jw.init_variables(jax.random.PRNGKey(0), example)
+    params, constants = variables["params"], variables.get("constants", {})
+    optimizer = jax_build_optimizer(jw, jcfg.train, params)  # optax.MultiSteps(k=2)
+    state = JaxTrainState.create(params, constants, optimizer.init(params), jw.init_aux_state(),
+                                 jax.random.split(jax.random.PRNGKey(0))[1])
+    losses, offsets, masks = [], [], []
+    for batch in loader(KNOB_STEPS):
+        _, sub = jax.random.split(state.rng)
+        offsets.append(np.asarray(jax_sample_offsets(jax.random.split(sub)[1], list(jcfg.model.lookahead))))
+        state, loss = _jax_step_with_masks(jw, optimizer, state, {k: jnp.asarray(v) for k, v in batch.items()
+                                                                   if v.dtype != object}, masks)
+        losses.append(float(loss))
+    assert len(losses) == KNOB_STEPS
+
+    cfg = main_training.load_config(os.path.join(REPO, "configs", "lthm_tiny.yaml"),
+                                    overrides=main_training.parse_cli_overrides(args),
+                                    search_paths=[str(main_training.CONFIG_ROOT)])
+    pipeline = main_training.build_pipeline(cfg, "cpu")
+    pipeline.model_builder = _FromJaxBuilder(pipeline.model_builder, jax.tree_util.tree_map(np.asarray, variables))
+    pending_offsets, pending_masks = list(offsets), list(masks)
+    original_offsets, original_keep = port_loss.sample_offsets, tdrop.dropout_keep
+
+    def jax_offsets(generator, lookahead):  # validation draws its own
+        return torch.from_numpy(pending_offsets.pop(0).copy()) if pending_offsets else \
+            original_offsets(generator, lookahead)
+
+    def jax_keep(generator, keep_prob, shape, device):
+        mask = pending_masks.pop(0)
+        assert tuple(mask.shape) == tuple(shape)
+        return torch.from_numpy(mask.copy())
+
+    port_loss.sample_offsets, tdrop.dropout_keep = jax_offsets, jax_keep
+    try:
+        metrics = pipeline.execute()
+    finally:
+        port_loss.sample_offsets, tdrop.dropout_keep = original_offsets, original_keep
+    assert not pending_offsets and not pending_masks
+    return {"out": out, "jax_losses": losses, "metrics": metrics, "pipeline": pipeline}
+
+
+def test_every_knob_gives_jax_losses(knob_runs):
+    """With dropout (JAX's masks), k = 2 accumulation (optax.MultiSteps), two
+    steps a dispatch, the process reader, grouping and the shuffle buffer,
+    the port's logged losses (one a dispatch group: steps 2 and 4) are JAX's
+    op-by-op step's on the same batches, within 1e-4."""
+    records = _metric_lines(_jsonl(f"{knob_runs['out']}/knobs.jsonl"), "train")
+    assert [r["metrics"]["steps"] for r in records] == [2, 4]
+    got = [r["metrics"]["train_loss"] for r in records]
+    np.testing.assert_allclose(got, [knob_runs["jax_losses"][1], knob_runs["jax_losses"][3]], rtol=0, atol=TOL)
+    assert knob_runs["metrics"]["train_steps_total"] == KNOB_STEPS
+
+
+def test_profile_capture_writes_a_chrome_trace(knob_runs):
+    """profile_dir: torch.profiler over steps 1-3 (a dispatch group of 2
+    crosses step 3), its Chrome trace under profile_dir naming the step's
+    phases."""
+    prof = os.path.join(knob_runs["out"], "profile")
+    files = os.listdir(prof)
+    assert files == ["torch_trace_steps_2_4.json"]
+    with open(os.path.join(prof, files[0])) as f:
+        trace = json.load(f)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"lthm/forward", "lthm/loss", "lthm/backward", "lthm/optimizer"} <= names
+
+
+def _knob_run(root, out, tag, steps, extra=()):
+    argv = ["--config-name", "lthm_tiny", "--device", "cpu",
+            *_args(root, out, tag, steps, extra=KNOBS[:-1] + tuple(extra))]
+    return main_training.main(argv, return_pipeline=True)
+
+
+def _same_state(sa, sb):
+    da, db = sa.state_dict(), sb.state_dict()
+    for name, t in da["module"].items():
+        assert torch.equal(t, db["module"][name]), name
+    for oa, ob in zip(da["optimizers"], db["optimizers"]):
+        for pid, st in oa["state"].items():
+            for k, t in st.items():
+                assert torch.equal(torch.as_tensor(t), torch.as_tensor(ob["state"][pid][k])), k
+    assert da["accumulation"]["mini_step"] == db["accumulation"]["mini_step"]
+    assert torch.equal(sa.aux.logq.b, sb.aux.logq.b) and torch.equal(sa.aux.logq.a, sb.aux.logq.a)
+    assert sa.step == sb.step
+    assert torch.equal(sa.dropout_generator.get_state(), sb.dropout_generator.get_state())
+
+
+def test_two_steps_a_dispatch_equal_one(data_root, tmp_path):
+    """steps_per_dispatch 2 ends on the bits of 1 over the same steps
+    (tests/test_multi_dispatch.py:103); the step count rounds up to a whole
+    group, as JAX's."""
+    pipe_2, m2 = _knob_run(data_root, str(tmp_path), "k2", 5)
+    pipe_1, m1 = _knob_run(data_root, str(tmp_path), "k1", 6, extra=("train.steps_per_dispatch=1",))
+    assert m2["train_steps_total"] == m1["train_steps_total"] == 6
+    _same_state(pipe_2._trained[1], pipe_1._trained[1])
+    assert m2["train_loss"] == m1["train_loss"]
+
+
+def test_resume_through_the_snapshot_equals_the_uninterrupted_run(data_root, tmp_path, caplog):
+    """Grouped, shuffle-buffered, process-read, with dropout and accumulation
+    (a checkpoint at step 4 sits between two accumulations' emits when k
+    is 3): resumed from step 4's checkpoint and its iterator snapshot, the
+    run ends on the uninterrupted run's bits, restoring the snapshot and
+    never replaying (tests/test_trainer_resume.py:190)."""
+    extra = ("train.checkpoint_every_k_steps=4", "train.gradient_accumulation_steps=3")
+    pipe_a, _ = _knob_run(data_root, str(tmp_path), "a", 8, extra=extra + (f"checkpoint_dir={tmp_path}/ckpt_a",))
+    assert sorted(os.listdir(f"{tmp_path}/ckpt_a")) == [
+        "data_iter_h0_s4.pkl", "data_iter_h0_s8.pkl", "step_00000004.pt", "step_00000008.pt"]
+    os.makedirs(f"{tmp_path}/ckpt_b")
+    for name in ("step_00000004.pt", "data_iter_h0_s4.pkl"):
+        shutil.copy(f"{tmp_path}/ckpt_a/{name}", f"{tmp_path}/ckpt_b/")
+    with caplog.at_level(logging.INFO, logger="recommendations_tpu_torch.train.strategy"):
+        pipe_b, _ = _knob_run(data_root, str(tmp_path), "b", 8, extra=extra + (f"checkpoint_dir={tmp_path}/ckpt_b",))
+    messages = [r.message for r in caplog.records]
+    assert any("restored data-iterator snapshot at epoch 0 batch 4" in m for m in messages), messages
+    assert not any("(replay)" in m for m in messages)
+    _same_state(pipe_a._trained[1], pipe_b._trained[1])
+
+
+def test_bypassed_loader_resumes_through_the_metadata_skip(data_root, tmp_path, caplog):
+    """With ``bypass_dataloader`` (lthm_train.yaml's setting) the batcher is
+    the loader; a resume skips the consumed rows by file metadata once and
+    ends on the uninterrupted run's bits. (The JAX package returns the
+    bypassed dataset before marking the skip, so it would replay on top of
+    the skip: ROADMAP section 3.)"""
+    def run(tag, ckpt):
+        argv = ["--config-name", "lthm_tiny", "--device", "cpu", *_args(data_root, str(tmp_path), tag, 6, extra=(
+            "data_loader.bypass_dataloader=true", "train.checkpoint_every_k_steps=3", f"checkpoint_dir={ckpt}"))]
+        return main_training.main(argv, return_pipeline=True)[0]._trained[1]
+
+    full = run("a", f"{tmp_path}/ckpt_a")
+    os.makedirs(f"{tmp_path}/ckpt_b")
+    shutil.copy(f"{tmp_path}/ckpt_a/step_00000003.pt", f"{tmp_path}/ckpt_b/")
+    with caplog.at_level(logging.INFO, logger="recommendations_tpu_torch.train.strategy"):
+        resumed = run("b", f"{tmp_path}/ckpt_b")
+    messages = [r.message for r in caplog.records]
+    assert any("batch 3 (metadata skip)" in m for m in messages), messages
+    assert not any("(replay)" in m for m in messages)
+    _same_state(full, resumed)

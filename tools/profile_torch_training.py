@@ -17,7 +17,9 @@ bias at context 1024, its eager CE) on 16 users of 1032 events.
 ``--context N`` sets the production LTHM's context (and its bias window,
 N + 1; 512 is ``lthm.yaml``'s own); ``--table-optimizer NAME`` trains the
 product-embedding table (``detach_item_tower`` false) with NAME, ``auto``
-included, on LTHM-base or the production LTHM.
+included, on LTHM-base or the production LTHM; ``--dropout RATE`` trains
+with both dropout rates at RATE and ``--accumulate K`` with K-step
+gradient accumulation (steps are then micro-steps).
 Prints the host time per step, the device's busy share of that window
 (kernel time over wall time; one stream, so kernels do not overlap), the
 device time of each phase of the step (the innermost ``lthm/...`` range of
@@ -56,6 +58,9 @@ def main() -> int:
     ap.add_argument("--context", type=int, default=None, help="the production LTHM's context (default 1024)")
     ap.add_argument("--table-optimizer", default=None,
                     help="train the table with this table_optimizer (detach_item_tower false)")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="train with this rate of token dropout (attn_dropout) and residual dropout (dropout)")
+    ap.add_argument("--accumulate", type=int, default=1, help="gradient_accumulation_steps (optax.MultiSteps)")
     args = ap.parse_args()
 
     import torch
@@ -66,6 +71,7 @@ def main() -> int:
         return 1
     from chip_smoke import (BATCH, LONG_BATCH, LONG_CONTEXT, PROD_CONTEXT, bench_config, longseq_config,
                             production_config, request_batch)
+    from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
@@ -87,7 +93,13 @@ def main() -> int:
             label += f", table_optimizer {args.table_optimizer}"
         users, cfg = BATCH, LTHMModelConfig.from_dict(dict(base, fused_ce=not args.eager_ce))
         batch = request_batch(1000, BATCH, context + 8) if args.production else request_batch(1000)
-    state = TrainState.create(LTHMModelWrapper(cfg, device="cuda", seed=0), seed=1)
+    if args.dropout:
+        cfg.transformer_config.attn_config.dropout = cfg.transformer_config.attn_config.attn_dropout = args.dropout
+        label += f", dropout {args.dropout}"
+    if args.accumulate > 1:
+        label += f", gradient accumulation {args.accumulate}"
+    state = TrainState.create(LTHMModelWrapper(cfg, device="cuda", seed=0),
+                              ModelTrainConfig(gradient_accumulation_steps=args.accumulate), seed=1)
     offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
     for _ in range(2):
         train_step(state, batch, offsets=offsets)
