@@ -79,7 +79,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
      CE chunk of this model; the masks' keep rate within 4 binomial standard
      deviations of 0.9; remat on against off with dropout; debug_numerics on
      lthm_tiny (the clean loss unchanged, a planted NaN weight named by
-     operation, a NaN kernel input named by kernel);
+     operation, a NaN kernel input named by kernel); then the MoE LTHM
+     (lthm.yaml at context 512 with an MoE rotator: a gate layer of 128,
+     top-2 of 4 experts of 256) serves 4 requests (16 bias forwards each) and
+     trains a warm-up and 3 steps of 64 users (16 of each bias kernel and 12
+     of each CE kernel a step), its gradients (the expert stacks and gates
+     included) held to the plain bias attention, remat on and off the same
+     bits, a small float32 MoE model on the card held to the CPU; then the
+     long-history path with the sparse keep-sets (512 of 1025 positions a
+     block) serves 4 requests and trains 3 steps of 16 users (6 flash_fwd
+     and 6 flash_bwd a step, all at T = 512), its outputs and gradients held
+     to the plain attention, the skipped positions x + null_connector(x);
+     then main_training on configs/ranker_train.yaml (the factorized DLRM at
+     ranker.yaml's widths, 20 steps of 256 cut from 200, validation and a
+     checkpoint every 10, no kernel launched), resumed from step 10 to the
+     same bits, one step twice the same bits, the export reloaded and
+     scoring the same, and a learning check to train AUC > 0.6;
   5. timing with CUDA events: each kernel, its plain version, its bound
      (and, as a note, the exponential floor of the bias and CE plane
      kernels), one PyTorch library call for the same function as a
@@ -91,8 +106,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      T = window from 2 to 769 at B = 16 and 64 (the measurement behind the
      CUDA dispatch at T == window), the table updates alone, the requests and the
      training steps of every path, the trainer loop's step, its share
-     waiting for the feed and its peak memory (also with every knob on), and
-     the script's own seconds.
+     waiting for the feed and its peak memory (also with every knob on), the
+     MoE and sparse paths' requests and steps, flash_fwd and flash_bwd at the
+     sparse path's T = 512, the ranker trainer's step, and the script's own
+     seconds.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -1269,7 +1286,6 @@ def production_512(fa, fc, kernels):
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
-    from recommendations_tpu_torch.nn.attention import RelativePositionBias
     from recommendations_tpu_torch.train.train_state import TrainState
 
     cfg = LTHMModelConfig.from_dict(production_config(CTX512))
@@ -1281,13 +1297,9 @@ def production_512(fa, fc, kernels):
     # the position-bias tables start at zeros: random bf16 values, so that a
     # bias kernel that ignored the table or read the wrong rows would fail the
     # comparison with _sdpa below
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    tables = [m.bias for m in wrapper.module.modules() if isinstance(m, RelativePositionBias)]
-    if len(tables) != layers:
-        raise AssertionError(f"{len(tables)} position-bias tables in {layers} layers")
-    with torch.no_grad():
-        for table in tables:
-            table.copy_(torch.randn(table.shape, generator=gen, device="cuda").to(torch.bfloat16))
+    n_tables = random_bias_tables(wrapper, 7)
+    if n_tables != layers:
+        raise AssertionError(f"{n_tables} position-bias tables in {layers} layers")
     models = wrapper.inference_models()
     events = CTX512 + 8
     models["user_encoder"](request_batch(500, BATCH, events))  # warm-up
@@ -1806,6 +1818,495 @@ def trainer_knobs(fa, fc, kernels, ce_per_step):
         FakeDataStore.reset()
 
 
+MOE_ROTATOR = {"moe": {"num_experts": 4, "proj_features": 256, "ff_mult_factor": 4, "gate_sizes": [128], "top_k": 2}}
+
+
+def moe_config() -> dict:
+    """The production LTHM at lthm.yaml's own context 512 (16 layers, remat,
+    d=512, MQA 32x16, the bias window 513, fused_ce on) with only its
+    rotator replaced by an MoE one: a gate layer of 128, top-2 of 4 experts
+    of 256, the FFN width 4 x 512."""
+    d = production_config(CTX512)
+    d["transformer_config"]["rotator_config"] = json.loads(json.dumps(MOE_ROTATOR))
+    return d
+
+
+def random_bias_tables(wrapper, seed) -> int:
+    """The position-bias tables start at zeros: random bf16 values, so a
+    bias kernel that ignored the table or read the wrong rows would show.
+    Returns the number of tables."""
+    from recommendations_tpu_torch.nn.attention import RelativePositionBias
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tables = [m.bias for m in wrapper.module.modules() if isinstance(m, RelativePositionBias)]
+    with torch.no_grad():
+        for table in tables:
+            table.copy_(torch.randn(table.shape, generator=gen, device="cuda").to(torch.bfloat16))
+    return len(tables)
+
+
+def moe_path(fa, fc, kernels):
+    """Phases [3] and [4] on the MoE LTHM (``moe_config``, T = 513, random
+    position-bias tables): a warm-up and PROD_REQUESTS requests of 64 users
+    (16 bias forwards a request), a warm-up and PROD_STEPS timed steps of 64
+    users (16 of each bias kernel and 12 of each CE kernel a step), every
+    launch count set to 0 just before and read just after; one step's
+    gradients at PROD_CHECK_BATCH users, the expert stacks and gates
+    included, against the plain bias attention; remat on against off; a
+    small float32 MoE model on the card against the CPU. Returns numbers
+    for phase [5]."""
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.nn.transformer import MoELinear
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    cfg = LTHMModelConfig.from_dict(moe_config())
+    layers, heads, chunks = cfg.transformer_config.num_layers, len(cfg.lookahead), BATCH // cfg.train_mini_batch_size
+    wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    moes = [m for m in wrapper.module.modules() if isinstance(m, MoELinear)]
+    if len(moes) != 2 * layers:
+        raise AssertionError(f"{len(moes)} MoELinear in {layers} layers")
+    random_bias_tables(wrapper, 8)
+    n_params = sum(p.numel() for p in wrapper.module.parameters())
+    print(f"[3] MoE LTHM (lthm.yaml at context {CTX512}, rotator {MOE_ROTATOR['moe']}): {n_params} parameters",
+          flush=True)
+    models = wrapper.inference_models()
+    events = CTX512 + 8
+    models["user_encoder"](request_batch(700, BATCH, events))  # warm-up
+    requests = [request_batch(seed, BATCH, events) for seed in range(701, 701 + PROD_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    request_ms = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        emb = models["user_encoder"](batch)["user_emb"]
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(emb.shape) != (BATCH, cfg.product_tower.product_emb_dim) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError("MoE user_emb: wrong shape or not finite")
+        if (emb.norm(dim=-1) - 1).abs().max().item() > 1e-4:
+            raise AssertionError("MoE user_emb is not unit-norm")
+    serve_counts = {kern.name: kern.launches for kern in kernels}
+    serve_peak = torch.cuda.max_memory_allocated() / 2**20
+    want = {kern.name: (layers * PROD_REQUESTS if kern is fa.FLASH_BIAS_FWD else 0) for kern in kernels}
+    print(f"[3] {PROD_REQUESTS} MoE requests of {BATCH} users ({events} events, T = {CTX512 + 1}): launches "
+          f"{serve_counts} (expected {want})", flush=True)
+    if serve_counts != want:
+        raise AssertionError("the MoE requests did not launch the bias forward once a layer")
+    del models
+
+    state = TrainState.create(wrapper, seed=1)
+    batch = request_batch(2700, BATCH, events)
+    offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    train = timed_train("MoE LTHM, context 512 (fused bias kernels at T = 513, fused CE)", state, batch, offsets,
+                        PROD_STEPS, kernels,
+                        {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers,
+                         **{k.name: heads * chunks for k in fc.KERNELS}})
+
+    # one step's gradients against the plain bias attention: with the top-2
+    # routing, and with the same weights mixing every expert (top_k off)
+    check = request_batch(2701, PROD_CHECK_BATCH, events)
+
+    def against_plain():
+        loss, grads = grads_of(wrapper, check, state.aux, offsets)
+        before = [kern.launches for kern in kernels]
+        with mock.patch.object(fa, "fused_flash_attention_bias_fwd", fa.fused_flash_attention_bias_reference), \
+                mock.patch.object(fa, "fused_flash_attention_bias_bwd", fa.fused_flash_attention_bias_bwd_reference):
+            plain = grads_of(wrapper, check, state.aux, offsets)
+        if [kern.launches for kern in kernels[:5]] != before[:5]:
+            raise AssertionError("the plain bias attention run launched a flash kernel")
+        return loss, grads, plain
+
+    for k in ("moe_fc.w1", "moe_fc.b1", "moe_fc.gate_0.weight", "moe_proj.w2", "moe_proj.gate_out.weight"):
+        if not any(n.endswith(k) for n, p in wrapper.module.named_parameters() if p.requires_grad):
+            raise AssertionError(f"the MoE model has no parameter {k}")
+    for m in moes:
+        m.top_k = None
+    loss_s, grads_s, plain = against_plain()
+    plain_err = held_to(
+        "MoE LTHM with every expert mixed (top_k off), kernel vs plain bias attention", plain, grads_s, loss_s,
+        2**-5, 2**-8 * abs(loss_s),
+        f"one-ulp flips in o, dq, dk, dv travel through {layers} layers of bf16 products: 2**-5 (four ulps), the "
+        "loss 2**-8 relative; the expert stacks, the gate layers and the position-bias tables included")
+    for m in moes:
+        m.top_k = MOE_ROTATOR["moe"]["top_k"]
+    loss_k, grads_k, plain = against_plain()
+    routed_err = held_to(
+        "MoE LTHM with its top-2 routing, kernel vs plain bias attention", plain, grads_k, loss_k, 2**-2,
+        2**-8 * abs(loss_k),
+        "top-k by threshold is a step function of the gates: a token whose 2nd and 3rd gates lie within a bf16 "
+        "ulp takes another expert pair on the other path and moves every gradient by a few percent (about 9% "
+        "at worst, a gate layer); 2**-2, which a gradient of the wrong sign or scale fails")
+    del plain, grads_s
+    stack = wrapper.module.query_tower.transformer
+    stack.remat = False
+    off = grads_of(wrapper, check, state.aux, offsets)
+    stack.remat = True
+    same = off[0] == loss_k and all(torch.equal(grads_k[n], off[1][n]) for n in grads_k)
+    print(f"[4] MoE LTHM, remat on vs off: loss {loss_k:.6f} vs {off[0]:.6f}, every gradient the same bits "
+          f"{same} -> {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("remat changed the MoE gradients")
+    del grads_k, off, state, wrapper
+    torch.cuda.empty_cache()
+
+    # a small float32 MoE model: the card against the CPU
+    small = bench_config()
+    small.update(compute_dtype="float32", context_width=48, lookahead=[0, 2, 4], train_mini_batch_size=3,
+                 log_q_config={"num_buckets": 4096, "hash_offsets": [0, 7]})
+    small["transformer_config"].update(num_layers=2, rotator_config={"moe": {
+        "num_experts": 3, "proj_features": 16, "ff_mult_factor": 2, "gate_sizes": [8], "top_k": 2}})
+    small["transformer_config"]["attn_config"].update(n_head=4, n_embd=64)
+    small["product_tower"].update(out_emb_dim=64, product_emb_dim=32, inp_emb_dim=16)
+    small["product_tower"]["latent_model_config"]["vocab_size_latent"] = 5000
+    small_cfg = LTHMModelConfig.from_dict(small)
+    on_card = LTHMModelWrapper(small_cfg, device="cuda", seed=3)
+    on_cpu = LTHMModelWrapper(small_cfg, device="cpu")
+    on_cpu.module.load_state_dict({k: v.cpu() for k, v in on_card.module.state_dict().items()})
+    sb = request_batch(97, batch=4, events=56)
+    small_offsets = sample_offsets(torch.Generator().manual_seed(3), small_cfg.lookahead)
+    a = on_card.inference_models()["user_encoder"](sb)["user_emb"].cpu()
+    b = on_cpu.inference_models()["user_encoder"](sb)["user_emb"]
+    small_err = (a - b).abs().max().item()
+    lc, gc = grads_of(on_card, sb, on_card.init_aux_state(), small_offsets)
+    lp, gp = grads_of(on_cpu, sb, on_cpu.init_aux_state(), small_offsets)
+    worst = max((rel_err(gc[n].cpu(), gp[n]) / (2**-8 if ".direction_emb_" in n else 2e-4), n) for n in gp)
+    ok = small_err <= 1e-4 and abs(lc - lp) <= 1e-4 and set(gc) == set(gp) and worst[0] <= 1
+    print(f"[4] small f32 MoE model, card vs CPU: user_emb max|err| {small_err:.3e} (tol 1e-04); loss {lc:.6f} vs "
+          f"{lp:.6f} (tol 1e-04); worst gradient {worst[1]} at {worst[0]:.3f} of its tolerance (2e-4 norm-relative, "
+          f"the LSH tables one bf16 ulp) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the card and the CPU disagree on the small MoE model")
+    return {"request_ms": request_ms, "request_median_ms": float(np.median(request_ms)), "serve_peak_mib": serve_peak,
+            "serve_counts": serve_counts, "train": train, "plain_err": plain_err, "routed_err": routed_err}
+
+
+SPARSE_FACTOR = 0.5
+
+
+def sparse_config() -> dict:
+    """The long-history path (``longseq_config``: LTHM-base widths, remat, no
+    position bias, context 1024, T = 1025) with the seeded sparse keep-sets:
+    each block attends over int(0.5 * 1025) = 512 of the 1025 positions."""
+    d = longseq_config()
+    d["transformer_config"].update(is_sparse_attn=True, sparsity_factor=SPARSE_FACTOR, max_block_size=LONG_CONTEXT + 1)
+    return d
+
+
+def sparse_long_history(fa, kernels):
+    """Phases [3] and [4] on the sparse long-history path (``sparse_config``,
+    16 users): a warm-up and LONG_REQUESTS requests (6 flash_fwd each, at
+    T = 512), a warm-up and LONG_STEPS timed steps (6 flash_fwd and 6
+    flash_bwd a step, at T = 512), every launch count set to 0 just before
+    and read just after; the served outputs and one step's gradients against
+    the plain attention; the first block's skipped positions equal
+    x + null_connector(x). Returns numbers for phase [5]."""
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    cfg = LTHMModelConfig.from_dict(sparse_config())
+    layers = cfg.transformer_config.num_layers
+    kept = int(SPARSE_FACTOR * (LONG_CONTEXT + 1))
+    wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    events = LONG_CONTEXT + 8
+    models = wrapper.inference_models()
+    seen_t = []
+    fwd, bwd = fa.fused_flash_attention_fwd, fa.fused_flash_attention_bwd
+
+    def recording_fwd(q, *args, **kw):
+        seen_t.append(q.shape[1])
+        return fwd(q, *args, **kw)
+
+    def recording_bwd(q, *args, **kw):
+        seen_t.append(-q.shape[1])
+        return bwd(q, *args, **kw)
+
+    with mock.patch.object(fa, "fused_flash_attention_fwd", recording_fwd):
+        models["user_encoder"](request_batch(800, LONG_BATCH, events))  # warm-up
+    print(f"[3] sparse long-history LTHM ({layers} layers, remat, context {cfg.context_width}, keep-sets of "
+          f"{SPARSE_FACTOR} x {LONG_CONTEXT + 1}): attention at T = {sorted(set(seen_t))}", flush=True)
+    if set(seen_t) != {kept}:
+        raise AssertionError(f"the sparse blocks did not attend over their {kept} kept positions")
+    requests = [request_batch(seed, LONG_BATCH, events) for seed in range(801, 801 + LONG_REQUESTS)]
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0
+    request_ms = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        emb = models["user_encoder"](batch)["user_emb"]
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(emb.shape) != (LONG_BATCH, cfg.product_tower.product_emb_dim) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError("sparse user_emb: wrong shape or not finite")
+        if (emb.norm(dim=-1) - 1).abs().max().item() > 1e-4:
+            raise AssertionError("sparse user_emb is not unit-norm")
+    serve_counts = {kern.name: kern.launches for kern in kernels}
+    want = {kern.name: (layers * LONG_REQUESTS if kern is fa.FLASH_FWD else 0) for kern in kernels}
+    print(f"[3] {LONG_REQUESTS} sparse long-history requests of {LONG_BATCH} users: launches {serve_counts} "
+          f"(expected {want})", flush=True)
+    if serve_counts != want:
+        raise AssertionError("the sparse requests did not launch flash_fwd once a layer")
+
+    def plain_attention(q, k, v, n_head, causal=True):
+        return fa.fused_flash_attention_reference(q, k, v, n_head, causal)[0]
+
+    check = request_batch(850, LONG_BATCH, events)
+    seq = models["sequence_encoder"](check)["next_token_emb"]
+    with mock.patch.object(fa, "fused_flash_attention", plain_attention):
+        seq_plain = models["sequence_encoder"](check)["next_token_emb"]
+    max_err, max_tol = (seq - seq_plain).abs().max().item(), 2**-6 * seq_plain.abs().max().item()
+    mean_err, mean_tol = (seq - seq_plain).abs().mean().item(), 2**-8 * seq_plain.abs().mean().item()
+    ok = max_err <= max_tol and mean_err <= mean_tol
+    print(f"[3] sparse sequence_encoder, kernel vs plain attention: max|err| {max_err:.3e} (tol {max_tol:.3e}), "
+          f"mean|err| {mean_err:.3e} (tol {mean_tol:.3e}), held as LTHM-base -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the sparse kernel path and the plain-attention path disagree")
+
+    # the first block's skipped positions: x + null_connector(x) of its input
+    block = wrapper.module.query_tower.transformer.block_0
+    seen = {}
+    hook = block.register_forward_hook(lambda m, args, out: seen.update(x=args[0], out=out))
+    models["sequence_encoder"](check)
+    hook.remove()
+    not_idx = torch.as_tensor(block.keep[1], device="cuda")
+    with torch.no_grad():
+        skipped = seen["x"].index_select(1, not_idx)
+        want_skipped = skipped + block.null_connector(skipped)
+    same = torch.equal(seen["out"].index_select(1, not_idx), want_skipped)
+    print(f"[3] sparse block 0: its {not_idx.numel()} skipped positions equal x + null_connector(x) "
+          f"{same} -> {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("the skipped positions are not x + null_connector(x)")
+    del models, seen
+
+    state = TrainState.create(wrapper, seed=1)
+    batch = request_batch(3100, LONG_BATCH, events)
+    offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    seen_t.clear()
+    with mock.patch.object(fa, "fused_flash_attention_fwd", recording_fwd), \
+            mock.patch.object(fa, "fused_flash_attention_bwd", recording_bwd):
+        loss_k, grads_k = grads_of(wrapper, batch, state.aux, offsets)
+    if set(seen_t) != {kept, -kept}:
+        raise AssertionError(f"the sparse step's attention ran at {sorted(set(seen_t))}, not T = {kept}")
+    with mock.patch.object(fa, "fused_flash_attention_fwd", fa.fused_flash_attention_reference), \
+            mock.patch.object(fa, "fused_flash_attention_bwd", fa.fused_flash_attention_bwd_reference):
+        plain = grads_of(wrapper, batch, state.aux, offsets)
+    if not any(n.endswith("null_connector.weight") for n in grads_k):
+        raise AssertionError("no gradient reached the null connectors")
+    plain_err = held_to("sparse long-history, kernel vs plain attention", plain, grads_k, loss_k, 2**-5,
+                        2**-8 * abs(loss_k), f"as LTHM-base: one-ulp flips through {layers} layers of bf16 products")
+    del plain, grads_k
+    train = timed_train(f"sparse long-history (T = {kept} a block, remat, eager CE)", state, batch, offsets,
+                        LONG_STEPS, kernels, {"flash_fwd": layers, "flash_bwd": layers})
+    del state, wrapper
+    torch.cuda.empty_cache()
+    return {"request_ms": request_ms, "request_median_ms": float(np.median(request_ms)), "serve_counts": serve_counts,
+            "train": train, "kept": kept, "plain_err": plain_err, "max_err": max_err}
+
+
+RANKER_STEPS, RANKER_ROWS_PER_FILE = 20, 4096  # ranker_train.yaml's 200 steps cut to 20
+LEARN_STEPS = 120
+
+
+def ranker_batch(config, seed, n):
+    """``n`` rows of the port's make_ranking_log through the config's feature
+    pipeline, as the trainer's loader gives them."""
+    from recommendations_tpu_torch.tools.synth_data import make_ranking_log
+
+    table = config.features.default_data_mapper(make_ranking_log(num_rows=n, seed=seed))
+    return {k: np.asarray(v) for k, v in table.items() if np.asarray(v).dtype != object}
+
+
+def ranker_path(kernels):
+    """Phase [4] on the ranker: main_training on configs/ranker_train.yaml at
+    its own widths (ranker.yaml), on the port's synth ranking logs in the
+    in-memory store, for RANKER_STEPS steps (the YAML's 200 cut to 20) with
+    validation (the YAML's 4 batches) and a checkpoint every 10 steps and a
+    jsonl tracker; batch inference after training (ROADMAP item 11) is
+    skipped. The launch counts are set to 0 before the run and read after:
+    the ranker launches no kernel of the port (its products are plain
+    matmuls, as the JAX package computes them outside Pallas). Then a run
+    resumed from step 10 ends on the same bits; one train_step from two
+    wrappers of one seed gives the same bits; the export reloads in a fresh
+    wrapper and scores the same; and a learning check mirroring
+    tests/test_ranker.py::test_ranker_learns_signal (Adam 3e-3, 120 steps over
+    4 cycled batches of 256) reaches train AUC > 0.6. Returns numbers for
+    phase [5]."""
+    import shutil
+    import tempfile
+
+    from recommendations_tpu_torch import main_training
+    from recommendations_tpu_torch.data.data_store import FakeDataStore
+    from recommendations_tpu_torch.models.ranker.config import RankerModelConfig
+    from recommendations_tpu_torch.models.ranker.wrapper import RankerModelWrapper
+    from recommendations_tpu_torch.pipeline.export import load_exported_wrapper
+    from recommendations_tpu_torch.tools.synth_data import write_ranking_dataset
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    FakeDataStore.reset()
+    write_ranking_dataset(None, ["20240101", "20240102"], files_per_date=2, rows_per_file=RANKER_ROWS_PER_FILE,
+                          fake_store=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranker_")
+    try:
+        def run(tag, ckpt_dir):
+            argv = ["--config-name", "ranker_train", "dataset.filesystem_config.kind=fake",
+                    f"train.train_steps={RANKER_STEPS}", "train.val_metrics_every_n_steps=10",
+                    "train.checkpoint_every_k_steps=10", f"checkpoint_dir={ckpt_dir}",
+                    f"export.filesystem_config.local_dir_prefix={tmp}/export_{tag}",
+                    f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]", f"model_version={tag}",
+                    f"run_id=chip_smoke_{tag}", "inference.skip_inference=true"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels:
+                kern.launches = 0
+            t1 = time.perf_counter()
+            pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            torch.cuda.synchronize()
+            counts = {kern.name: kern.launches for kern in kernels}
+            return pipeline, metrics, counts, torch.cuda.max_memory_allocated() / 2**20, time.perf_counter() - t1
+
+        pipe_a, met_a, counts_a, peak_a, secs_a = run("a", f"{tmp}/ckpt_a")
+        wrapper, state_a = pipe_a._trained
+        cfg = wrapper.config
+        n_params = sum(p.numel() for p in wrapper.module.parameters())
+        batch_size = cfg_batch(pipe_a)
+        print(f"[4] main_training on ranker_train.yaml (ranker.yaml: emb_dim {cfg.emb_dim}, towers "
+              f"{list(cfg.tower_hidden)}, top {list(cfg.top_hidden)}, {cfg.num_embeddings_default}-row QR tables, "
+              f"{len(cfg.task_list)} tasks, {n_params} parameters; {RANKER_STEPS} steps of {batch_size}, cut from "
+              f"the YAML's 200): launches {counts_a} (the ranker's products are plain matmuls)", flush=True)
+        if any(counts_a.values()):
+            raise AssertionError("the ranker launched a kernel of the LTHM path")
+        if not isinstance(wrapper, RankerModelWrapper) or state_a.step != RANKER_STEPS:
+            raise AssertionError(f"the ranker trainer stopped at step {state_a.step}")
+        with open(f"{tmp}/a.jsonl") as f:
+            lines = [r["metrics"] for r in map(json.loads, f) if r["event"] == "metrics"]
+        train_lines = [m for m in lines if "train_loss" in m]
+        val_lines = [m for m in lines if "val_loss" in m]
+        tasks = [t.name for t in cfg.task_list]
+        want_train = ({f"train_{k}_{t}" for k in ("auc", "pos_rate", "loss") for t in tasks}
+                      | {"train_loss", "grad_norm", "params_nan", "training speed - samples per second", "epoch",
+                         "steps"})
+        want_val = ({f"val_{k}_{t}" for k in ("auc", "pos_rate", "loss") for t in tasks}
+                    | {"val_loss", "val_batches_skipped_nan", "eval speed - samples per second", "RAM Available - GB"})
+        if [m["steps"] for m in train_lines] != [10, 20] or len(val_lines) != 2:
+            raise AssertionError(f"ranker jsonl: train lines at {[m.get('steps') for m in train_lines]}, "
+                                 f"{len(val_lines)} validation lines")
+        for m in train_lines:
+            if set(m) != want_train:
+                raise AssertionError(f"ranker jsonl train keys differ: {sorted(set(m) ^ want_train)}")
+        for m in val_lines:
+            if set(m) != want_val:
+                raise AssertionError(f"ranker jsonl val keys differ: {sorted(set(m) ^ want_val)}")
+        losses = [m[k] for m in lines for k in m if k.endswith("_loss")]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"a logged ranker loss is not finite: {losses}")
+        print(f"[4] ranker jsonl: {len(train_lines)} train and {len(val_lines)} validation lines under the JAX "
+              f"package's keys; train_loss {[round(m['train_loss'], 5) for m in train_lines]}, val_loss "
+              f"{[round(m['val_loss'], 5) for m in val_lines]}, val AUC click "
+              f"{[round(m['val_auc_click'], 4) for m in val_lines]}", flush=True)
+
+        os.makedirs(f"{tmp}/ckpt_b")
+        shutil.copy(f"{tmp}/ckpt_a/step_00000010.pt", f"{tmp}/ckpt_b/step_00000010.pt")
+        pipe_b, _, _, _, secs_b = run("b", f"{tmp}/ckpt_b")
+        state_b = pipe_b._trained[1]
+        sa, sb = state_a.state_dict(), state_b.state_dict()
+        differ = [n for n, t in sa["module"].items() if not torch.equal(t, sb["module"][n])]
+        for i, (oa, ob) in enumerate(zip(sa["optimizers"], sb["optimizers"])):
+            for pid, st in oa["state"].items():
+                differ += [f"optimizer{i}.{pid}.{k}" for k, t in st.items()
+                           if torch.is_tensor(t) and not torch.equal(t, ob["state"][pid][k])]
+        print(f"[4] ranker resumed from the step-10 checkpoint, steps 11-{RANKER_STEPS} again: "
+              f"{'bit-equal to the uninterrupted run' if not differ else 'DIFFERS: ' + ', '.join(differ[:8])}",
+              flush=True)
+        if differ or state_b.step != RANKER_STEPS:
+            raise AssertionError("the resumed ranker run differs from the uninterrupted run")
+        del pipe_b, state_b, sb
+
+        # one step from two wrappers of one seed: the same bits (duplicate QR rows summed in a fixed order)
+        batch = ranker_batch(cfg, 11, batch_size)
+        after = []
+        for _ in range(2):
+            w = RankerModelWrapper(cfg, device="cuda", seed=5)
+            st = TrainState.create(w, pipe_a.pipeline_config.train)
+            train_step(st, batch)
+            after.append({n: p.detach().clone() for n, p in w.module.named_parameters()})
+        repeat_same = all(torch.equal(after[0][n], after[1][n]) for n in after[0])
+        print(f"[4] ranker, one train_step from two wrappers of one seed: every parameter the same bits "
+              f"{repeat_same} -> {'ok' if repeat_same else 'FAIL'}", flush=True)
+        if not repeat_same:
+            raise AssertionError("two ranker steps from the same state gave different bits")
+        del after
+
+        export_dir = pipe_a.export_dir()
+        fresh = load_exported_wrapper(export_dir, device="cuda")
+        score_batch = ranker_batch(cfg, 12, batch_size)
+        want = wrapper.inference_models()["ranker_scorer"](score_batch)
+        got = fresh.inference_models()["ranker_scorer"](score_batch)
+        same = isinstance(fresh, RankerModelWrapper) and all(torch.equal(want[k], got[k]) for k in want)
+        print(f"[4] ranker export ({export_dir}) loaded into a fresh {type(fresh).__name__}: ranker_scorer on "
+              f"{batch_size} rows {'bit-equal to the trained model' if same else 'DIFFERS'}", flush=True)
+        if not same:
+            raise AssertionError("the exported ranker scores otherwise than the trained one")
+        del fresh
+
+        # the learning check of tests/test_ranker.py at its config, on the card
+        learn_cfg = RankerModelConfig.from_dict(dict(
+            emb_dim=16, tower_hidden=[32], tower_dim=16, top_hidden=[32], num_embeddings_default=10007, lr=3e-3,
+            tasks=[{"name": "click", "kind": "numerical", "num_labels": 1, "weight": 1.0}],
+            features={
+                "defaults": {"categorical_features": {"default_dtype": "string", "transform_value_to_lowercase": False,
+                                                      "value_to_number_mapper": {"kind": "xxhash"}}},
+                "categorical_features": [
+                    {"name": "product_id", "kind": "categorical", "tower_name": "product"},
+                    {"name": "customer_id", "kind": "categorical", "tower_name": "user"},
+                    {"name": "search_query", "kind": "categorical", "tower_name": "query"}],
+                "numerical_features": [
+                    {"name": "price", "kind": "numerical", "tower_name": "product"},
+                    {"name": "position", "kind": "numerical", "tower_name": "query"},
+                    {"name": "click", "kind": "numerical", "tower_name": "other"}],
+                "bool_features": [{"name": "is_returning_user", "kind": "bool", "tower_name": "user"}],
+                "timestamp_features": [{"name": "event_ts", "kind": "timestamp", "tower_name": "query"}],
+            }))
+        learner = RankerModelWrapper(learn_cfg, device="cuda", seed=0)
+        lst = TrainState.create(learner, seed=2)
+        batches = [ranker_batch(learn_cfg, seed, 256) for seed in range(4)]
+        t1 = time.perf_counter()
+        for i in range(LEARN_STEPS):
+            _, metrics = train_step(lst, batches[i % 4])
+        auc = float(metrics["train_auc_click"])
+        learn_s = time.perf_counter() - t1
+        print(f"[4] ranker learning check (tests/test_ranker.py's config, AdamW at 3e-3 without decay = Adam, "
+              f"{LEARN_STEPS} steps over 4 cycled batches of 256): train AUC {auc:.4f} (must exceed 0.6), "
+              f"{learn_s:.2f} s -> {'ok' if auc > 0.6 else 'FAIL'}", flush=True)
+        if not auc > 0.6:
+            raise AssertionError(f"the ranker did not learn: train AUC {auc}")
+
+        turns = met_a["step_times_s"]
+        plain = [x for i, x in enumerate(turns, start=1) if i > 1 and i % 10]
+        stages = met_a["feed_path_stages"]
+        wait = stages.get("step.next_batch_wait", {}).get("total_s", 0.0)
+        direct_ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            train_step(state_a, batch)
+            torch.cuda.synchronize()
+            direct_ms.append((time.perf_counter() - t1) * 1e3)
+        return {"turn_ms": [x * 1e3 for x in turns], "median_ms": float(np.median(plain)) * 1e3,
+                "plain_turns": len(plain), "peak_mib": peak_a, "feed_wait_share": wait / sum(turns),
+                "seconds": secs_a, "resume_seconds": secs_b, "batch": batch_size, "auc": auc,
+                "direct_ms": direct_ms, "n_params": n_params}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        FakeDataStore.reset()
+
+
 def cfg_batch(pipeline) -> int:
     return pipeline.pipeline_config.train.batch_size
 
@@ -2200,6 +2701,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     knobs = trainer_knobs(fa, fc, kernels, ctx512["fused"]["per_step"])
     torch.cuda.empty_cache()
+    moe = moe_path(fa, fc, kernels)
+    sparse = sparse_long_history(fa, kernels)
+    ranker = ranker_path(kernels)
+    torch.cuda.empty_cache()
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -2268,6 +2773,7 @@ def main() -> int:
     bwd_times = time_flash_bwd(b, t, 8, 5)
     bwd_t450 = time_flash_bwd(32, 450, 10, 3)
     bwd_t1025 = time_flash_bwd(16, 1025, 11, 2)
+    bwd_t512 = time_flash_bwd(LONG_BATCH, sparse["kept"], 15, 3)  # the sparse long-history path's shape
 
     # the forward at T > 512 (the no-bias _fwd_kernel_grid's lengths)
     lb, lt = 16, 1025
@@ -2282,7 +2788,19 @@ def main() -> int:
     print(f"[5] flash_fwd at B={lb} T={lt} MQA {h}x{hd} bf16 causal: kernel {long_ms:.4f} ms, "
           f"plain {long_plain_ms:.4f} ms, scaled_dot_product_attention {long_library_ms:.4f} ms, "
           f"bound {long_bound_ms:.4f} ms ({long_bound_by})", flush=True)
-    del q, k, v, qh, kh, vh
+    # and at the sparse long-history path's T = 512
+    sq, sk, sv = randn_qkv(LONG_BATCH, sparse["kept"], h, hd, 1, dt, seed=16)
+    s512 = {"ms": cuda_ms(lambda: fa.fused_flash_attention_fwd(sq, sk, sv, h, True), 20),
+            "plain_ms": cuda_ms(lambda: fa.fused_flash_attention_reference(sq, sk, sv, h, True), 3, warmup=1)}
+    sqh = sq.view(LONG_BATCH, -1, h, hd).transpose(1, 2)
+    skh = sk.view(LONG_BATCH, -1, 1, hd).transpose(1, 2).expand(-1, h, -1, -1)
+    svh = sv.view(LONG_BATCH, -1, 1, hd).transpose(1, 2).expand(-1, h, -1, -1)
+    s512["library_ms"] = cuda_ms(lambda: sdpa(sqh, skh, svh, is_causal=True), 20)
+    s512["bound_ms"], s512["bound_by"], _, _ = flash_bound(LONG_BATCH, sparse["kept"], h, hd, 1, dt, True)
+    print(f"[5] flash_fwd at B={LONG_BATCH} T={sparse['kept']} MQA {h}x{hd} bf16 causal (the sparse long-history "
+          f"path): kernel {s512['ms']:.4f} ms, plain {s512['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{s512['library_ms']:.4f} ms, bound {s512['bound_ms']:.4f} ms ({s512['bound_by']})", flush=True)
+    del q, k, v, qh, kh, vh, sq, sk, sv, sqh, skh, svh
     torch.cuda.empty_cache()
 
     # the CE kernels at the path's shape (one 32-user chunk, beta as
@@ -2393,6 +2911,22 @@ def main() -> int:
           f"run A's state, still held); runs A, B, C "
           f"{[round(x, 1) for x in knobs['seconds']]} s; the masks kept {knobs['keep_rate']:.6f}", flush=True)
     print(f"[5] the knobs trainer's feed-path stage timers: {json.dumps(knobs['stages'])}", flush=True)
+    for label, res, users in (("MoE LTHM (context 512, T = 513, fused CE)", moe, BATCH),
+                              (f"sparse long-history (T = {sparse['kept']} a block of {LONG_CONTEXT + 1})", sparse,
+                               LONG_BATCH)):
+        tr = res["train"]
+        print(f"[5] {smi}: {label} request ({users} users): median {res['request_median_ms']:.3f} ms "
+              f"({[round(x, 3) for x in res['request_ms']]}), {users / (res['request_median_ms'] / 1e3):.1f} users/s; "
+              f"training step: median {tr['median_ms']:.3f} ms ({[round(x, 3) for x in tr['step_ms']]}), "
+              f"{users / (tr['median_ms'] / 1e3):.1f} examples/s, peak device memory {tr['peak_mib']:.1f} MiB",
+              flush=True)
+    print(f"[5] {smi}: the ranker trainer (main_training on ranker_train.yaml, {ranker['batch']} rows a step, "
+          f"{ranker['n_params']} parameters): median step {ranker['median_ms']:.3f} ms over the "
+          f"{ranker['plain_turns']} turns that neither log, validate nor checkpoint, after the first (all turns "
+          f"{[round(x, 3) for x in ranker['turn_ms']]}); {ranker['batch'] / (ranker['median_ms'] / 1e3):.1f} "
+          f"examples/s; waiting for the feed {100 * ranker['feed_wait_share']:.2f}% of the loop; peak device memory "
+          f"{ranker['peak_mib']:.1f} MiB; train_step called directly {[round(x, 3) for x in ranker['direct_ms']]} ms; "
+          f"the run {ranker['seconds']:.1f} s, the resumed run {ranker['resume_seconds']:.1f} s", flush=True)
     paths = {
         **{f"base_{opt}": res["per_step"] for opt, res in base_tables.items()},
         **{f"prod1024_{opt}": res["per_step"] for opt, res in prod_tables.items()},
@@ -2401,6 +2935,10 @@ def main() -> int:
         "prod512_per_request": {k: n // PROD_REQUESTS for k, n in ctx512["serve_counts"].items()},
         "trainer_lthm_train_per_step": trainer["per_step"],
         "trainer_knobs_lthm_train_per_step": knobs["per_step"],
+        "moe_prod512_per_step": moe["train"]["per_step"],
+        "moe_prod512_per_request": {k: n // PROD_REQUESTS for k, n in moe["serve_counts"].items()},
+        "sparse_long_history_per_step": sparse["train"]["per_step"],
+        "sparse_long_history_per_request": {k: n // LONG_REQUESTS for k, n in sparse["serve_counts"].items()},
     }
 
     def new_paths(name):
@@ -2475,6 +3013,8 @@ def main() -> int:
                   "launches_per_request": long_json["launches_per_request"],
                   "launches_per_step": long_json["launches_per_step"]["flash_fwd"]},
         "long_history": long_json,
+        "t512_sparse": {**s512, "launches_per_request": sparse["serve_counts"]["flash_fwd"] // LONG_REQUESTS,
+                        "launches_per_step": sparse["train"]["per_step"]["flash_fwd"]},
         "launches_per_step_new_paths": new_paths("flash_fwd"),
     }, {
         "name": "flash_bwd",
@@ -2488,6 +3028,7 @@ def main() -> int:
         **bwd_times,
         "t450": bwd_t450,
         "t1025": {**bwd_t1025, "launches_per_step": long_json["launches_per_step"]["flash_bwd"]},
+        "t512_sparse": {**bwd_t512, "launches_per_step": sparse["train"]["per_step"]["flash_bwd"]},
         "launches_per_step_new_paths": new_paths("flash_bwd"),
     }, *bias_entries, *ce_entries]}))
     print(f"[5] chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)

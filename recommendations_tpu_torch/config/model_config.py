@@ -3,27 +3,23 @@
 Port of ``recommendations_tpu/config/model_config.py``. A model config
 class enters ``model_registry`` through ``register_model_config``, under the
 defaults of its ``kind`` and ``name`` fields; the lookup tries the YAML's
-(kind, name) and then falls back to a match on the kind alone. The ranker
-is not ported yet: its kind raises.
+(kind, name) and then falls back to a match on the kind alone.
 """
 
 from __future__ import annotations
 
-import enum
 import importlib
 from typing import Any, Dict
 
 from recommendations_tpu_torch.features.transforms import Table
 
 
-class ModelKind(str, enum.Enum):
-    RANKER = "ranker"
-    LTHM = "lthm"
-
-
 model_registry: Dict[str, type] = {}
 
-_MODEL_PACKAGES = ("recommendations_tpu_torch.models.lthm.config",)
+_MODEL_PACKAGES = (
+    "recommendations_tpu_torch.models.lthm.config",
+    "recommendations_tpu_torch.models.ranker.config",
+)
 
 
 def register_model_config(cls):
@@ -33,10 +29,6 @@ def register_model_config(cls):
 
 
 def resolve_model_config(kind: str, name: str) -> type:
-    if kind == ModelKind.RANKER.value:
-        raise NotImplementedError(
-            "the ranker model is not ported yet: ROADMAP, port queue item 9 (Ranker)"
-        )
     key = f"{kind}/{name}"
     if key not in model_registry:
         for pkg in _MODEL_PACKAGES:

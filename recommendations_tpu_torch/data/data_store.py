@@ -88,6 +88,13 @@ class LocalDataStore(DataStoreInterface):
             self.base = config.dbfs_base.replace("dbfs:/", "/dbfs/")
         else:
             self.base = config.local_dir_prefix or "."
+        # the parquet reader is imported here, in the thread that makes the
+        # store: first imported in a reader thread that then exits, pyarrow
+        # (25.0.0) crashes the next thread that reads a file
+        try:
+            import pyarrow.parquet  # noqa: F401
+        except ImportError:
+            pass
 
     def _date_dir(self, date: str) -> str:
         template = self.config.path_template or "date={date}"

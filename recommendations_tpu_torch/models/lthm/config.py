@@ -8,6 +8,7 @@ the config is registered under (lthm, lthm) for the pipeline config.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
@@ -112,8 +113,22 @@ class SelfAttentionConfig:
 
 
 @dataclass
+class MoEConfig:
+    num_experts: int
+    proj_features: int
+    ff_mult_factor: float
+    gate_sizes: Optional[Tuple[int, ...]] = None
+    top_k: Optional[int] = None
+
+
+@dataclass
+class MLPConfig:
+    ff_mult: float
+
+
+@dataclass
 class TransformerConfig:
-    rotator_config: Any  # {'ff_mult': f} | float | an MoE spec dict
+    rotator_config: Any  # MoEConfig | MLPConfig | {'ff_mult': f} | float | an MoE dict, flat or under 'moe'
     attn_config: SelfAttentionConfig
     is_causal: bool = False
     max_block_size: Optional[int] = None
@@ -132,17 +147,30 @@ class TransformerConfig:
         d["attn_config"] = SelfAttentionConfig.from_dict(d["attn_config"])
         return _build(cls, d)
 
-    def rotator(self) -> float:
-        """The MLP hidden multiplier; the MoE rotator is not ported yet."""
+    def rotator(self):
+        """``rotator_config`` as the block takes it: the MLP hidden
+        multiplier (a float) or an ``MoESpec``, read as the JAX package
+        reads it; anything else is the default multiplier 4."""
+        from recommendations_tpu_torch.nn.transformer import MoESpec
+
         rc = self.rotator_config
         if isinstance(rc, (int, float)):
             return float(rc)
+        if isinstance(rc, MLPConfig):
+            return float(rc.ff_mult)
+        if isinstance(rc, MoEConfig):
+            rc = dataclasses.asdict(rc)
         if isinstance(rc, dict):
             if "ff_mult" in rc:
                 return float(rc["ff_mult"])
-            if "num_experts" in rc.get("moe", rc):
-                raise NotImplementedError(
-                    "MoE rotator (MoELinear): ROADMAP, port queue 'Attention and transformer'"
+            moe = rc.get("moe", rc)
+            if "num_experts" in moe:
+                return MoESpec(
+                    num_experts=moe["num_experts"],
+                    proj_features=moe["proj_features"],
+                    ff_mult_factor=moe["ff_mult_factor"],
+                    gate_sizes=tuple(moe.get("gate_sizes") or ()),
+                    top_k=moe.get("top_k"),
                 )
         return 4.0
 

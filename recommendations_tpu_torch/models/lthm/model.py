@@ -126,6 +126,9 @@ class QueryTower(nn.Module):
             pos_bias_window=acfg.pos_bias.context_window if acfg.pos_bias else None,
             rotator=tcfg.rotator(),
             is_sparse_attn=tcfg.is_sparse_attn,
+            max_block_size=tcfg.max_block_size,
+            sparsity_factor=tcfg.sparsity_factor,
+            n_cls=1,
             use_flash=tcfg.use_flash_attention,
             dtype=dt,
             dropout=acfg.dropout,

@@ -29,6 +29,7 @@ import torch
 from torch.profiler import record_function
 
 from recommendations_tpu_torch import resolve_device
+from recommendations_tpu_torch.models.base import BaseModelWrapper
 from recommendations_tpu_torch.models.lthm.config import (
     TABLE_OPT_SPARSE_FUSED_MIN_ROWS,
     LTHMModelConfig,
@@ -58,7 +59,7 @@ class LTHMAuxState(NamedTuple):
     batch_idx: torch.Tensor  # float32 scalar batch counter
 
 
-class LTHMModelWrapper:
+class LTHMModelWrapper(BaseModelWrapper):
     """``device`` defaults to the card; without one it raises unless the
     caller passes ``device="cpu"``."""
 
@@ -182,6 +183,9 @@ class LTHMModelWrapper:
 
     def _table(self) -> torch.nn.Parameter:
         return self.module.product_emb_module.embedding
+
+    def lazy_table(self) -> Optional[torch.nn.Parameter]:
+        return self._table() if self.uses_lazy_table() else None
 
     def _row_indices(self, batch: Mapping[str, Any]) -> torch.Tensor:
         lm = self.config.product_tower.latent_model_config

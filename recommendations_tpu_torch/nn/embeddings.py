@@ -1,8 +1,10 @@
 """Hash-embedding layers.
 
-Port of ``recommendations_tpu/nn/embeddings.py``: FlatEmbedding,
-KShiftEmbedding (a dense table, or the fused (V, 128) record of
-``train/sparse_table.py``), HistogramEmbedding and PatternFromTimelocal.
+Port of ``recommendations_tpu/nn/embeddings.py``, every layer of it:
+FlatEmbedding, QREmbedding, KShiftEmbedding (a dense table, or the fused
+(V, 128) record of ``train/sparse_table.py``), HistogramEmbedding,
+PatternFromTimelocal, NAImputationPlusQuantileEmbedding and the QuickGELU
+MLP.
 
 Ids are int64 over the full range. The KShift hash uses an unsigned 64-bit
 rotation and an unsigned mod; PyTorch's uint64 support is partial, so both
@@ -13,18 +15,20 @@ package's one-hot matmul lookup does. When a gradient is taken the lookup is
 that one-hot matmul, whose backward is a matmul too (the backward of
 indexing serializes the many repeated rows of a small table, a 4-row table
 read 16k times per batch); otherwise it is indexing, which gives the same
-rows in fewer launches.
+rows in fewer launches. A larger table's gather (``gather_rows``) sums a
+row's duplicate gradients in their order of occurrence, on every device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from recommendations_tpu_torch.nn.functional import l2_normalize, sorted_segment_sum
+from recommendations_tpu_torch.nn.attention import Dense
+from recommendations_tpu_torch.nn.functional import l2_normalize, quick_gelu, sorted_segment_sum
 from recommendations_tpu_torch.train.sparse_table import fused_record_init
 
 # Tables up to this many rows are looked up by a one-hot matmul; larger ones
@@ -52,7 +56,7 @@ def small_table_lookup(
     in that dtype when the table's gradient is taken."""
     n = table.shape[0]
     if n > ONEHOT_LOOKUP_MAX_ROWS:
-        return table[idx]
+        return gather_rows(table, idx)
     ct = compute_dtype or table.dtype
     if not (torch.is_grad_enabled() and table.requires_grad):
         return table[idx].to(ct).to(table.dtype)
@@ -124,6 +128,38 @@ class _GatherRowsLowp(torch.autograd.Function):
         acc = torch.zeros((ctx.num_rows, d), dtype=g.dtype, device=g.device)
         acc[rows] = sums  # distinct rows: no accumulation
         return acc.to(ctx.table_dtype), None, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``, whose table gradient sums a row's duplicates in a
+    fixed order (``_GatherRowsLowp`` at the table's own dtype)."""
+    return _GatherRowsLowp.apply(table, idx, table.dtype)
+
+
+class QREmbedding(nn.Module):
+    """Quotient-remainder embedding: two tables of isqrt(N) rows, ``emb_q``
+    read at (x // div) mod div and ``emb_r`` at x mod div, x = id mod div**2,
+    the two rows summed; optionally L2-normalized."""
+
+    def __init__(
+        self,
+        num_embeddings: int,
+        features: int,
+        generator: torch.Generator,
+        normalize_output: bool = False,
+    ):
+        super().__init__()
+        self.div = math.isqrt(num_embeddings)
+        self.normalize_output = normalize_output
+        self.emb_q = init_param((self.div, features), 1.0, generator)
+        self.emb_r = init_param((self.div, features), 1.0, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        _check_int(ids)
+        div = self.div
+        x = ids.to(torch.int64).remainder(div * div)
+        out = gather_rows(self.emb_q, (x // div).remainder(div)) + gather_rows(self.emb_r, x.remainder(div))
+        return l2_normalize(out) if self.normalize_output else out
 
 
 class KShiftEmbedding(nn.Module):
@@ -230,3 +266,52 @@ class PatternFromTimelocal(nn.Module):
         if self.features <= 0:
             return idx.to(torch.int32)
         return small_table_lookup(self.embedding, idx, self.compute_dtype)
+
+
+class NAImputationPlusQuantileEmbedding(nn.Module):
+    """A learned scalar per quantile bucket (initialized to the centred
+    bucket fractions), bucketized by counting the quantiles below x; values
+    with ``x - na_value < eps`` map to the learned ``na_param``. The NA test
+    is the JAX package's, one-sided: every x below ``na_value`` counts as NA
+    too (ROADMAP section 3)."""
+
+    def __init__(self, na_value: float, quantiles: Tuple[float, ...], eps: float = 1e-6, device=None):
+        super().__init__()
+        n = len(quantiles)
+        self.na_value, self.eps = na_value, eps
+        self.register_buffer("quantiles", torch.tensor(quantiles, dtype=torch.float32, device=device), persistent=False)
+        self.embedding = nn.Parameter((torch.arange(0, n - 1, dtype=torch.float32, device=device) / n - 0.5)[:, None])
+        self.na_param = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        n = self.quantiles.shape[0]
+        idx = (self.quantiles < x[..., None]).sum(-1).clamp(0, n - 2)
+        y = self.embedding[idx]
+        is_na = (x - self.na_value) < self.eps
+        return torch.where(is_na[..., None], self.na_param, y)
+
+
+class MLP(nn.Module):
+    """QuickGELU-gated MLP: a Dense and quick-GELU per ``gate_sizes``, then
+    a Dense to ``out_dim``; flax's auto names ``Dense_{i}``."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_dim: int,
+        generator: torch.Generator,
+        gate_sizes: Sequence[int] = (),
+        use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        widths = [in_features, *gate_sizes, out_dim]
+        self.n = len(widths) - 1
+        for i in range(self.n):
+            self.add_module(f"Dense_{i}", Dense(widths[i], widths[i + 1], generator, use_bias, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n - 1):
+            x = quick_gelu(getattr(self, f"Dense_{i}")(x))
+        return getattr(self, f"Dense_{self.n - 1}")(x)

@@ -1,10 +1,20 @@
-"""Pre-LN transformer block and the residual stack.
+"""Pre-LN transformer block, the MoE feed-forward, and the residual stack.
 
-Port of ``recommendations_tpu/nn/transformer.py`` for the MLP rotator. As in
-the JAX package, the stack applies ``x = block(x)`` with standard pre-LN
-residual blocks, which fixes the reference's double residual
-(``x = x + block(x)`` around a block that already adds x, doubling the
-stream every layer).
+Port of ``recommendations_tpu/nn/transformer.py``. As in the JAX package,
+the stack applies ``x = block(x)`` with standard pre-LN residual blocks,
+which fixes the reference's double residual (``x = x + block(x)`` around a
+block that already adds x, doubling the stream every layer).
+
+The rotator is an MLP hidden multiplier (``c_fc``, ``c_proj``) or an
+:class:`MoESpec`: ``moe_fc`` and ``moe_proj``, two :class:`MoELinear`
+(a softmax gate over experts, each expert a two-layer MLP computed densely
+as two products over the stacked expert weights, then the gated mix).
+
+Sparse-token keep-sets (``is_sparse_attn``): block i keeps a fixed
+pseudo-random subset of the positions (``_sparse_keep_sets``, a numpy
+permutation seeded with i, the first ``n_cls`` always kept), attends and
+runs its MLP over those only, in their order, and passes every other
+position through ``x + null_connector(x)``.
 
 Per-block recomputation (remat, the JAX stack's ``nn.remat`` per block) runs
 each block under ``torch.utils.checkpoint`` when a gradient is taken; serving
@@ -22,15 +32,16 @@ training step's ``dropout_seed``; the input's masks come from a generator
 seeded with ``fold_seed(seed, 0)`` and block i's from one seeded with
 ``fold_seed(seed, i + 1)``, made inside the block, so a block recomputed
 under remat draws its masks again bit for bit.
-
-Not ported yet, and raising: the MoE rotator and the sparse-token keep-sets.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional
+import math
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -65,8 +76,107 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype or torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """The MoE rotator's settings (the JAX package's ``MoESpec``)."""
+
+    num_experts: int
+    proj_features: int
+    ff_mult_factor: float
+    gate_sizes: Tuple[int, ...] = ()
+    top_k: Optional[int] = None
+
+
+def lecun_normal_(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled to variance 1 / fan_in, where fan_in counts every
+    axis but the last (the expert axis of a stacked kernel included)."""
+    fan_in = math.prod(shape[:-1])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the truncated normal's own std
+    t = torch.empty(shape, device=generator.device)
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class MoELinear(nn.Module):
+    """Softmax-gated mixture of expert two-layer MLPs, every expert computed.
+
+    The gate is ``gate_{i}`` Dense + tanh-GELU per ``gate_sizes``, then
+    ``gate_out``, divided by sqrt(in) (the root taken in float32 and cast to
+    the gate's dtype); with ``top_k``, every gate below the k-th largest
+    becomes -inf, so experts tied at the k-th value all stay; a float32
+    softmax cast to the input's dtype. The experts are stacked weights
+    ``w1`` (E, in, proj), ``b1``, ``w2`` (E, proj, out), ``b2``: each
+    product accumulates in float32, is rounded to the input's dtype and its
+    bias added there. The mix of the E outputs is taken in float32 and
+    rounded once."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        proj_features: int,
+        num_experts: int,
+        generator: torch.Generator,
+        use_bias: bool = True,
+        top_k: Optional[int] = None,
+        gate_sizes: Tuple[int, ...] = (),
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.in_features, self.num_experts, self.top_k = in_features, num_experts, top_k
+        self.gate_sizes = tuple(gate_sizes)
+        width = in_features
+        for i, g in enumerate(self.gate_sizes):
+            self.add_module(f"gate_{i}", Dense(width, g, generator, use_bias, dtype))
+            width = g
+        self.gate_out = Dense(width, num_experts, generator, use_bias, dtype)
+        dev = generator.device
+        self.w1 = nn.Parameter(lecun_normal_((num_experts, in_features, proj_features), generator))
+        self.b1 = nn.Parameter(torch.zeros((num_experts, proj_features), device=dev))
+        self.w2 = nn.Parameter(lecun_normal_((num_experts, proj_features, out_features), generator))
+        self.b2 = nn.Parameter(torch.zeros((num_experts, out_features), device=dev))
+
+    def gates(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., E) mixing weights in the input's dtype."""
+        g = x
+        for i in range(len(self.gate_sizes)):
+            g = gelu_tanh(getattr(self, f"gate_{i}")(g))
+        g = self.gate_out(g)
+        g = g / torch.sqrt(torch.tensor(float(self.in_features))).to(g.dtype)
+        if self.top_k is not None:
+            k = min(self.top_k, self.num_experts)
+            thresh = torch.topk(g, k, dim=-1).values[..., -1:]
+            g = torch.where(g < thresh, float("-inf"), g)
+        return torch.softmax(g.float(), dim=-1).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        gates = self.gates(x)
+        h = torch.einsum("...i,eij->...ej", x, self.w1.to(dt)) + self.b1.to(dt)
+        h = gelu_tanh(h)
+        out = torch.einsum("...ej,ejo->...eo", h, self.w2.to(dt)) + self.b2.to(dt)
+        return torch.sum(gates.float().unsqueeze(-1) * out.float(), dim=-2).to(dt)
+
+
+def _sparse_keep_sets(
+    max_block_size: int, sparsity_factor: float, seed: int, n_cls: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The kept and the skipped positions of a block, each sorted: a
+    permutation of ``max_block_size`` from ``RandomState(seed)``, its first
+    ``n_cls`` entries replaced by the first positions, the first
+    ``int(sparsity_factor * max_block_size)`` of it kept."""
+    n_non_zeros = int(sparsity_factor * max_block_size)
+    perm = np.random.RandomState(seed).permutation(max_block_size)
+    full = np.concatenate([np.arange(n_cls, dtype=np.int64), perm[n_cls:]])
+    return np.sort(full[:n_non_zeros]), np.sort(full[n_non_zeros:])
+
+
 class TransformerBlock(nn.Module):
-    """Pre-LN residual block: x + attn(ln_1(x)); then + mlp(ln_2(x))."""
+    """Pre-LN residual block: x + attn(ln_1(x)); then + mlp(ln_2(x)).
+    ``rotator`` is the MLP hidden multiplier or an :class:`MoESpec`; with
+    ``is_sparse_attn`` the block runs over its keep-set (seeded with
+    ``sparse_seed``) and passes the other positions through
+    ``null_connector``."""
 
     def __init__(
         self,
@@ -77,22 +187,20 @@ class TransformerBlock(nn.Module):
         is_causal: bool = False,
         use_bias: bool = True,
         pos_bias_window: Optional[int] = None,
-        rotator: float = 4.0,
+        rotator: Union[float, MoESpec] = 4.0,
         is_sparse_attn: bool = False,
+        max_block_size: Optional[int] = None,
+        sparsity_factor: float = 0.5,
+        sparse_seed: int = 0,
+        n_cls: int = 0,
         use_flash: bool = False,
         dtype: Optional[torch.dtype] = None,
         dropout: float = 0.0,
         attn_dropout: float = 0.0,
     ):
         super().__init__()
-        if not isinstance(rotator, (int, float)):
-            raise NotImplementedError(
-                "MoE rotator (MoELinear): ROADMAP, port queue 'Attention and transformer'"
-            )
-        if is_sparse_attn:
-            raise NotImplementedError(
-                "sparse-token keep-sets (is_sparse_attn): ROADMAP, port queue 'Attention and transformer'"
-            )
+        if not isinstance(rotator, (int, float, MoESpec)):
+            raise NotImplementedError(f"rotator: an MLP multiplier or an MoESpec, got {type(rotator).__name__}")
         self.is_causal = is_causal
         self.use_flash = use_flash
         self.dropout, self.attn_dropout = dropout, attn_dropout
@@ -106,9 +214,27 @@ class TransformerBlock(nn.Module):
             dropout=dropout, attn_dropout=attn_dropout, name="attn",
         )
         self.ln_2 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
-        hidden = int(float(rotator) * n_embd)
-        self.c_fc = Dense(n_embd, hidden, generator, use_bias, dtype)
-        self.c_proj = Dense(hidden, n_embd, generator, use_bias, dtype)
+        self.moe = isinstance(rotator, MoESpec)
+        if self.moe:
+            hidden = int(rotator.ff_mult_factor * n_embd)
+            moe_kw = dict(use_bias=use_bias, top_k=rotator.top_k, gate_sizes=tuple(rotator.gate_sizes), dtype=dtype)
+            self.moe_fc = MoELinear(n_embd, hidden, rotator.proj_features, rotator.num_experts, generator, **moe_kw)
+            self.moe_proj = MoELinear(hidden, n_embd, rotator.proj_features, rotator.num_experts, generator, **moe_kw)
+        else:
+            hidden = int(float(rotator) * n_embd)
+            self.c_fc = Dense(n_embd, hidden, generator, use_bias, dtype)
+            self.c_proj = Dense(hidden, n_embd, generator, use_bias, dtype)
+        self.keep = None
+        if is_sparse_attn:
+            if max_block_size is None:
+                raise ValueError("is_sparse_attn needs max_block_size")
+            self.keep = _sparse_keep_sets(max_block_size, sparsity_factor, sparse_seed, n_cls)
+            self.null_connector = Dense(n_embd, n_embd, generator, use_bias, dtype)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        if self.moe:
+            return self.moe_proj(gelu_tanh(self.moe_fc(x)))
+        return self.c_proj(gelu_tanh(self.c_fc(x)))
 
     def forward(
         self,
@@ -119,6 +245,15 @@ class TransformerBlock(nn.Module):
     ) -> torch.Tensor:
         """``dropout_seed``: this block's seed; a training forward with a
         nonzero rate draws its masks from a generator made from it here."""
+        x_orig = x
+        if self.keep is not None:
+            t_full = x.shape[1]
+            idx, not_idx = (torch.as_tensor(a[a < t_full], device=x.device) for a in self.keep)
+            if idx.numel() <= 1:
+                return x + self.null_connector(x)
+            x = x.index_select(1, idx)
+            if attn_mask is not None:
+                attn_mask = attn_mask.index_select(2, idx).index_select(3, idx)
         t = x.shape[1]
         gen = None
         if training and (self.dropout or self.attn_dropout):
@@ -140,8 +275,13 @@ class TransformerBlock(nn.Module):
         x = x + self.attn(
             self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok, training=training, generator=gen
         )
-        y = self.c_proj(gelu_tanh(self.c_fc(self.ln_2(x))))
-        return x + (y if gen is None else dropout(y, self.dropout, gen))
+        y = self._mlp(self.ln_2(x))
+        x = x + (y if gen is None else dropout(y, self.dropout, gen))
+        if self.keep is None:
+            return x
+        skipped = x_orig.index_select(1, not_idx)
+        out = torch.zeros_like(x_orig).index_copy(1, idx, x.to(x_orig.dtype))
+        return out.index_copy(1, not_idx, (skipped + self.null_connector(skipped)).to(x_orig.dtype))
 
 
 _aten = torch.ops.aten
@@ -163,8 +303,9 @@ def _remat_context(saved: frozenset):
 
 
 class TransformerStack(nn.Module):
-    """N transformer blocks, named ``block_{i}`` as in the JAX package; with
-    ``remat``, each block recomputed in the backward under ``remat_policy``."""
+    """N transformer blocks, named ``block_{i}`` as in the JAX package, block
+    i's keep-set seeded with i; with ``remat``, each block recomputed in the
+    backward under ``remat_policy``."""
 
     def __init__(
         self,
@@ -184,7 +325,7 @@ class TransformerStack(nn.Module):
         self.dropout = block_kw.get("dropout", 0.0)
         for depth in range(num_layers):
             self.add_module(
-                f"block_{depth}", TransformerBlock(n_embd, n_head, generator, **block_kw)
+                f"block_{depth}", TransformerBlock(n_embd, n_head, generator, sparse_seed=depth, **block_kw)
             )
 
     def forward(

@@ -9,7 +9,8 @@ Port of the first two parts of ``recommendations_tpu/pipeline/export.py``
 
 The traced inference programs (StableHLO in the JAX package) are not ported
 yet (ROADMAP, port queue item 11); ``load_exported_wrapper`` builds a
-serving wrapper from the two files.
+serving wrapper from the two files, of the model the config's ``kind``
+names.
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ def export_model_artifacts(wrapper, directory: str, export_config_str: bool = Tr
 
 
 def load_exported_wrapper(directory: str, device="cuda"):
-    """A fresh ``LTHMModelWrapper`` from an export's ``config.json`` and weights."""
-    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
-    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    """A fresh wrapper (LTHM or ranker, by the config's ``kind`` and
+    ``name``) from an export's ``config.json`` and weights."""
+    from recommendations_tpu_torch.config.model_config import resolve_model_config
 
     with open(os.path.join(directory, "config.json")) as f:
-        config = LTHMModelConfig.from_dict(json.load(f))
-    wrapper = LTHMModelWrapper(config, device=device)
+        d = json.load(f)
+    config = resolve_model_config(str(d.get("kind", "")), str(d.get("name", ""))).from_dict(d)
+    wrapper = config.get_builder(device=device).build()
     wrapper.module.load_state_dict(torch.load(os.path.join(directory, PARAMS), map_location=wrapper.device))
     return wrapper

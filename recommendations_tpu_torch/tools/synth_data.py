@@ -1,19 +1,23 @@
-"""Synthetic click logs for the LTHM configs, with no JAX and no pandas.
+"""Synthetic click logs for the LTHM configs and impression logs for the
+ranker, with no JAX and no pandas.
 
-Port of ``make_click_log`` and ``write_synthetic_dataset`` of
-``recommendations_tpu/tools/synth_data.py``: for a seed, the same users,
-histories, labels and timestamps, as a table of numpy columns
+Port of ``make_click_log``, ``write_synthetic_dataset``, ``make_ranking_log``
+and ``write_ranking_dataset`` of ``recommendations_tpu/tools/synth_data.py``:
+for a seed, the same rows, value for value, as a table of numpy columns
 (``features/transforms.py``) where the JAX package builds a DataFrame.
 Users belong to latent taste clusters and browse within a cluster in a ring
-order, so the next item is predictable from the history. The ranking logs
-wait for the ranker (ROADMAP, port queue item 9).
+order, so the next item is predictable from the history; an impression's
+click and conversion depend on the product's latent quality and the user's
+affinity to it, so a ranker's AUC can rise above 0.5.
 
     python -m recommendations_tpu_torch.tools.synth_data --root DIR \\
         --dates 20240101 20240102 --history-len 64
 
-writes ``DIR/date=YYYYMMDD/part-N.parquet`` (needs pyarrow);
+writes ``DIR/date=YYYYMMDD/part-N.parquet`` (needs pyarrow; ``--ranking``
+the ranker's impression logs);
 ``write_synthetic_dataset(..., fake_store=True)`` puts the same tables into
-``data.data_store.FakeDataStore`` instead, under ``date=YYYYMMDD/part-N.parquet``.
+``data.data_store.FakeDataStore`` instead, under ``date=YYYYMMDD/part-N.parquet``;
+``write_ranking_dataset`` likewise for the impression logs.
 """
 
 from __future__ import annotations
@@ -141,6 +145,77 @@ def write_synthetic_dataset(
     return paths
 
 
+def make_ranking_log(
+    num_rows: int = 4096,
+    num_products: int = 500,
+    num_users: int = 200,
+    seed: int = 0,
+    structure_seed: int = 777,
+) -> Table:
+    """Columns product_id, customer_id, search_query (strings), price,
+    position, is_returning_user (float32), event_ts (int64), click and
+    conversion (float32). The latent quality, user bias and affinity come
+    from ``structure_seed``, shared by every file; ``seed`` draws the rows,
+    in the JAX package's order (the queries last, one draw a row)."""
+    struct = np.random.RandomState(structure_seed)
+    quality = struct.randn(num_products) * 1.2
+    user_bias = struct.randn(num_users) * 0.6
+    affinity = struct.randn(num_users, 8) @ struct.randn(8, num_products) * 0.15
+    rng = np.random.RandomState(seed)
+    p_idx = rng.randint(0, num_products, num_rows)
+    u_idx = rng.randint(0, num_users, num_rows)
+    price = np.abs(rng.randn(num_rows) * 40 + 30).astype(np.float32)
+    position = rng.randint(0, 20, num_rows)
+    logits = (
+        quality[p_idx] + user_bias[u_idx] + affinity[u_idx, p_idx]
+        - 0.08 * position - 0.004 * price - 1.0
+    )
+    click = (rng.rand(num_rows) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    conv = click * (rng.rand(num_rows) < 1 / (1 + np.exp(-(logits - 1.0)))).astype(np.float32)
+    ts = 1_700_000_000 + rng.randint(0, 86400 * 7, num_rows)
+    queries = [f"query_{rng.randint(50)}" for _ in range(num_rows)]
+    return {
+        "product_id": objects(f"sku_{p}" for p in p_idx),
+        "customer_id": objects(f"user_{u}" for u in u_idx),
+        "search_query": objects(queries),
+        "price": price,
+        "position": position.astype(np.float32),
+        "is_returning_user": (u_idx % 3 == 0).astype(np.float32),
+        "event_ts": ts.astype(np.int64),
+        "click": click,
+        "conversion": conv,
+    }
+
+
+def write_ranking_dataset(
+    root: Optional[str],
+    dates: Optional[List[str]] = None,
+    files_per_date: int = 2,
+    rows_per_file: int = 4096,
+    seed: int = 0,
+    fake_store: bool = False,
+) -> List[str]:
+    """Date-partitioned impression logs ``root/date=YYYYMMDD/part-N.parquet``,
+    or, with ``fake_store``, the same tables in ``FakeDataStore``; returns
+    their paths."""
+    paths = []
+    i = 0
+    for date in dates or ["20240101"]:
+        day_dir = f"date={date}" if fake_store else os.path.join(root, f"date={date}")
+        if not fake_store:
+            os.makedirs(day_dir, exist_ok=True)
+        for p in range(files_per_date):
+            table = make_ranking_log(num_rows=rows_per_file, seed=seed + i)
+            path = f"{day_dir}/part-{p:05d}.parquet"
+            if fake_store:
+                FakeDataStore.put_table(path, table)
+            else:
+                write_parquet_table(table, path)
+            paths.append(path)
+            i += 1
+    return paths
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -151,8 +226,12 @@ if __name__ == "__main__":
     ap.add_argument("--users-per-file", type=int, default=512)
     ap.add_argument("--history-len", type=int, default=32)
     ap.add_argument("--num-products", type=int, default=2000)
+    ap.add_argument("--ranking", action="store_true", help="the ranker's impression logs (4096 rows a file)")
     args = ap.parse_args()
-    out = write_synthetic_dataset(
-        args.root, args.dates, args.files_per_date, args.users_per_file, args.history_len, args.num_products,
-    )
+    if args.ranking:
+        out = write_ranking_dataset(args.root, args.dates, args.files_per_date)
+    else:
+        out = write_synthetic_dataset(
+            args.root, args.dates, args.files_per_date, args.users_per_file, args.history_len, args.num_products,
+        )
     print(f"wrote {len(out)} files under {args.root}")

@@ -1,7 +1,9 @@
 """The single-GPU training step.
 
 Port of ``train_step`` in ``recommendations_tpu/train/strategy.py`` (as
-``bench.py`` times it), with its three table paths:
+``bench.py`` times it). It calls the wrapper only through the contract of
+``models/base.py``, so a wrapper without a table (the ranker) trains on
+the dense path. The three table paths:
 
 - dense (``frozen``, ``adamw``, ``rowwise_adam``): forward, loss and
   backward, then the optimizer step over every group;
@@ -34,13 +36,14 @@ costs a few microseconds.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 from torch.profiler import record_function
 
-from recommendations_tpu_torch.models.lthm.loss import Metrics
 from recommendations_tpu_torch.train.train_state import TrainState
+
+Metrics = Dict[str, torch.Tensor]
 
 
 def train_step(
@@ -67,7 +70,7 @@ def train_step(
             squares += [g.float().square().sum() for g in taps.values()]
         metrics["grad_norm"] = torch.stack(squares).sum().sqrt()
         if wrapper.uses_lazy_table():
-            table = wrapper.module.product_emb_module.embedding
+            table = wrapper.lazy_table()
             grad = table.grad if table.grad is not None else torch.zeros_like(table)
             # before the optimizer step, whose clipping scales the gradients in place
             state.table_state = wrapper.apply_lazy_table_update(grad, state.table_state, batch)

@@ -368,6 +368,4 @@ def test_transformer_unported_options_raise():
     with pytest.raises(ValueError, match="remat_policy"):
         ttr.TransformerStack(1, 32, 4, _gen(), remat=True, remat_policy="everything")
     with pytest.raises(NotImplementedError):
-        ttr.TransformerBlock(32, 4, _gen(), is_sparse_attn=True)
-    with pytest.raises(NotImplementedError):
         ttr.TransformerBlock(32, 4, _gen(), rotator=object())

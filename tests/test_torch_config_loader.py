@@ -71,8 +71,6 @@ def test_resolvers_and_overrides_as_jax():
 
 
 def test_unported_configs_raise_with_their_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_config(CONFIG_ROOT / "ranker_train.yaml", search_paths=[str(CONFIG_ROOT)])
     with pytest.raises(NotImplementedError, match="item 11"):
         load_config(CONFIG_ROOT / "joint_train.yaml", search_paths=[str(CONFIG_ROOT)])
     with pytest.raises(NotImplementedError, match="item 6b"):

@@ -267,10 +267,8 @@ def test_format_inputs_rejects_float_ids():
         {"shard_embedding_rows": True},
         {"product_tower.model_init_metadata": {"embedding_module_path": "x"}},
         {"transformer_config.sequence_parallel": True},
-        {"transformer_config.is_sparse_attn": True},
-        # (remat, enable_gradient_checkpointing, is ported: tests/test_torch_production.py)
-        {"transformer_config.rotator_config": {"moe": {"num_experts": 2, "proj_features": 8, "ff_mult_factor": 1.0}}},
-        {"transformer_config.rotator_config": {"num_experts": 2, "proj_features": 8, "ff_mult_factor": 1.0}},
+        # (remat, enable_gradient_checkpointing, is ported: tests/test_torch_production.py;
+        # the sparse keep-sets and the MoE rotator: tests/test_torch_moe.py)
     ],
 )
 def test_unported_branches_raise(change):

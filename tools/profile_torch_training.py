@@ -1,7 +1,7 @@
 """Where the time of an LTHM training step goes on the card.
 
     python3 tools/profile_torch_training.py [--steps 3] [--out traces/training_trace.json]
-                                            [--eager-ce] [--production | --long-history]
+                                            [--eager-ce] [--production | --long-history | --moe | --sparse]
                                             [--context N] [--table-optimizer NAME]
 
 Builds the LTHM-base model and training config that ``chip_smoke.py`` trains
@@ -13,7 +13,10 @@ of ``configs/model/lthm.yaml`` at context 1024 (``chip_smoke.production_config``
 16 layers with remat, the position-bias kernels) on 64 users of 1032 events;
 ``--long-history`` the long-history path of ``tools/bench_longseq.py``
 (``chip_smoke.longseq_config``: LTHM-base widths with remat and no position
-bias at context 1024, its eager CE) on 16 users of 1032 events.
+bias at context 1024, its eager CE) on 16 users of 1032 events; ``--sparse``
+that path with the sparse keep-sets (``chip_smoke.sparse_config``: 512 of
+the 1025 positions a block); ``--moe`` the MoE LTHM (``chip_smoke.moe_config``:
+``lthm.yaml`` at context 512 with an MoE rotator) on 64 users of 520 events.
 ``--context N`` sets the production LTHM's context (and its bias window,
 N + 1; 512 is ``lthm.yaml``'s own); ``--table-optimizer NAME`` trains the
 product-embedding table (``detach_item_tower`` false) with NAME, ``auto``
@@ -53,6 +56,8 @@ def main() -> int:
     ap.add_argument("--eager-ce", action="store_true", help="profile the step with fused_ce off")
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--production", action="store_true", help="profile the production LTHM at context 1024")
+    which.add_argument("--moe", action="store_true", help="profile the MoE LTHM at context 512")
+    which.add_argument("--sparse", action="store_true", help="profile the long-history path with the keep-sets")
     which.add_argument("--long-history", action="store_true",
                        help="profile tools/bench_longseq.py's path (context 1024, 16 users)")
     ap.add_argument("--context", type=int, default=None, help="the production LTHM's context (default 1024)")
@@ -69,8 +74,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import (BATCH, LONG_BATCH, LONG_CONTEXT, PROD_CONTEXT, bench_config, longseq_config,
-                            production_config, request_batch)
+    from chip_smoke import (BATCH, CTX512, LONG_BATCH, LONG_CONTEXT, PROD_CONTEXT, bench_config, longseq_config,
+                            moe_config, production_config, request_batch, sparse_config)
     from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
@@ -80,9 +85,13 @@ def main() -> int:
     from recommendations_tpu_torch.train.step import train_step
     from recommendations_tpu_torch.train.train_state import TrainState
 
-    if args.long_history:
-        label, users, cfg = "long-history LTHM at context 1024", LONG_BATCH, LTHMModelConfig.from_dict(longseq_config())
+    if args.long_history or args.sparse:
+        label = "long-history LTHM at context 1024" + (", sparse keep-sets" if args.sparse else "")
+        users, cfg = LONG_BATCH, LTHMModelConfig.from_dict(sparse_config() if args.sparse else longseq_config())
         batch = request_batch(1000, users, LONG_CONTEXT + 8)
+    elif args.moe:
+        label, users, cfg = f"MoE LTHM at context {CTX512}", BATCH, LTHMModelConfig.from_dict(moe_config())
+        batch = request_batch(1000, users, CTX512 + 8)
     else:
         context = args.context or PROD_CONTEXT
         base = production_config(context) if args.production else bench_config()
