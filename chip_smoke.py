@@ -92,9 +92,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
      to the plain attention, the skipped positions x + null_connector(x);
      then main_training on configs/ranker_train.yaml (the factorized DLRM at
      ranker.yaml's widths, 20 steps of 256 cut from 200, validation and a
-     checkpoint every 10, no kernel launched), resumed from step 10 to the
+     checkpoint every 10, no kernel launched, and its batch inference: a
+     score per validation impression), resumed from step 10 to the
      same bits, one step twice the same bits, the export reloaded and
-     scoring the same, and a learning check to train AUC > 0.6;
+     scoring the same, and a learning check to train AUC > 0.6; then the
+     pipeline extras of configs/lthm_train.yaml at full width:
+     main_training for 4 steps with the KNN eval (a parquet catalog of 1.5M
+     string ids, two chunks of the running top-k merge), the batch
+     inference and the traced export (16 bias forwards a step, a
+     validation and a KNN query batch, and an inference batch through each
+     of the two entry points), the KNN merge held to
+     one full product and torch.topk on the card and its queries to the
+     plain bias attention, the inference parquet to direct user_encoder
+     calls bit for bit, the two .pt2 programs loaded in a fresh process that
+     imports only recommendations_tpu_torch.ops (16 bias forwards a call, the
+     eager bits), the compression job on 200000 128-wide vectors and
+     lthm_train.yaml on its artifact serving and training a step with the
+     frozen buffers untouched, and main_training --config-name joint_train,
+     cut, running both ranking arms;
   5. timing with CUDA events: each kernel, its plain version, its bound
      (and, as a note, the exponential floor of the bias and CE plane
      kernels), one PyTorch library call for the same function as a
@@ -108,8 +123,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      training steps of every path, the trainer loop's step, its share
      waiting for the feed and its peak memory (also with every knob on), the
      MoE and sparse paths' requests and steps, flash_fwd and flash_bwd at the
-     sparse path's T = 512, the ranker trainer's step, and the script's own
-     seconds.
+     sparse path's T = 512, the ranker trainer's step, the pipeline extras'
+     times (the KNN eval, the catalog encode, inference users/s, the
+     export's trace and save, a .pt2 call against the eager request, the
+     compression job's epochs), and the script's own seconds.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -2128,8 +2145,8 @@ def ranker_path(kernels):
     its own widths (ranker.yaml), on the port's synth ranking logs in the
     in-memory store, for RANKER_STEPS steps (the YAML's 200 cut to 20) with
     validation (the YAML's 4 batches) and a checkpoint every 10 steps and a
-    jsonl tracker; batch inference after training (ROADMAP item 11) is
-    skipped. The launch counts are set to 0 before the run and read after:
+    jsonl tracker, and the YAML's batch inference after training (a score
+    per validation impression and task in the export). The launch counts are set to 0 before the run and read after:
     the ranker launches no kernel of the port (its products are plain
     matmuls, as the JAX package computes them outside Pallas). Then a run
     resumed from step 10 ends on the same bits; one train_step from two
@@ -2161,7 +2178,7 @@ def ranker_path(kernels):
                     "train.checkpoint_every_k_steps=10", f"checkpoint_dir={ckpt_dir}",
                     f"export.filesystem_config.local_dir_prefix={tmp}/export_{tag}",
                     f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]", f"model_version={tag}",
-                    f"run_id=chip_smoke_{tag}", "inference.skip_inference=true"]
+                    f"run_id=chip_smoke_{tag}"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             for kern in kernels:
@@ -2183,6 +2200,14 @@ def ranker_path(kernels):
               f"the YAML's 200): launches {counts_a} (the ranker's products are plain matmuls)", flush=True)
         if any(counts_a.values()):
             raise AssertionError("the ranker launched a kernel of the LTHM path")
+        import pyarrow.parquet as pq
+
+        scores = pq.read_table(os.path.join(pipe_a.export_dir(), "inference", "inference_results.parquet"))
+        score_cols = [f"ranker_scorer.{t.name}" for t in cfg.task_list]
+        print(f"[4] the ranker's batch inference: {scores.num_rows} validation impressions scored, columns "
+              f"{scores.column_names}", flush=True)
+        if scores.num_rows != 2 * RANKER_ROWS_PER_FILE or not set(score_cols) <= set(scores.column_names):
+            raise AssertionError("the ranker's batch inference did not score every validation impression")
         if not isinstance(wrapper, RankerModelWrapper) or state_a.step != RANKER_STEPS:
             raise AssertionError(f"the ranker trainer stopped at step {state_a.step}")
         with open(f"{tmp}/a.jsonl") as f:
@@ -2302,6 +2327,366 @@ def ranker_path(kernels):
                 "plain_turns": len(plain), "peak_mib": peak_a, "feed_wait_share": wait / sum(turns),
                 "seconds": secs_a, "resume_seconds": secs_b, "batch": batch_size, "auc": auc,
                 "direct_ms": direct_ms, "n_params": n_params}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        FakeDataStore.reset()
+
+
+PIPE_STEPS = 4  # lthm_train.yaml's 20000 steps cut to 4
+PIPE_KNN_BATCHES = 2  # eval.max_eval_steps: the KNN eval's query batches of 32 users
+PIPE_CATALOG = 1_500_000  # string product ids: two chunks of knn_catalog_chunk_rows = 1 << 20
+PIPE_PRODUCTS = 200_000  # the compression job's input table
+PIPE_RECON_EPOCHS, PIPE_MASK_EPOCHS = 3, 2  # the job's 50 and 20 cut
+PIPE_INFER_PASSES = 5  # run_inference passes over the val stream, timed one by one
+TIE_EPS = 1e-6  # scores of unit vectors this close rank either way between two products
+PROGRAM_SCRIPT = r"""
+import json, statistics, sys, time
+import torch
+root, export, trace_path, out_path = sys.argv[1:5]
+sys.path.insert(0, root)
+import recommendations_tpu_torch.ops
+from recommendations_tpu_torch.ops import fused_attention as fa
+
+batch = torch.load(trace_path)
+variables = torch.load(export + "/params/state_dict.pt", map_location="cuda")
+res, outs = {}, {}
+for name in ("user_encoder", "sequence_encoder"):
+    program = torch.export.load(export + "/" + name + ".pt2").module()
+    before = fa.FLASH_BIAS_FWD.launches
+    with torch.no_grad():
+        out = program(variables, batch)
+    torch.cuda.synchronize()
+    res[name + "_launches"] = fa.FLASH_BIAS_FWD.launches - before
+    outs[name] = {k: v.cpu() for k, v in out.items()}
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            program(variables, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res[name + "_ms"] = statistics.median(ms)
+res["modules"] = sorted(m for m in sys.modules if m.startswith("recommendations_tpu"))
+torch.save(outs, out_path)
+print(json.dumps(res))
+"""
+
+
+def pipeline_extras(fa, kernels, smi):
+    """Phase [4] on the pipeline extras of configs/lthm_train.yaml at full
+    width (16 layers, MQA 32x16 bf16, the position bias, T = 513 = the
+    window, the 10M x 32 table): main_training for PIPE_STEPS steps of 64 on
+    the in-memory store (2 files of 320 users, 768 events) with
+    eval.skip_eval=false eval.skip_knn_eval=false inference.skip_inference=false
+    export.trace=true, a catalog of PIPE_CATALOG string ids (a parquet file,
+    read into the store) and one validation batch. The launch counts are set
+    to 0 just before the run and read just after: 16 bias forwards a
+    training step, a validation batch and a KNN query batch, 16 an inference
+    batch through each entry point (user_encoder and sequence_encoder, as
+    the JAX package runs both), and 16 of each bias backward kernel a step. Then: the KNN eval's
+    chunked merge against one full product and torch.topk on the card, and
+    its queries on the kernel route against the plain bias attention; the
+    inference parquet against direct user_encoder calls, bit for bit; the
+    two .pt2 programs loaded in a fresh process that imports only
+    recommendations_tpu_torch.ops, against the eager wrapper bit for bit,
+    each call 16 bias forwards; the compression job on PIPE_PRODUCTS
+    128-wide vectors, and lthm_train.yaml on its artifact serving and
+    training a step with the buffers untouched; main_training --config-name
+    joint_train, cut. Returns numbers for phase [5]."""
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from recommendations_tpu_torch import main_training
+    from recommendations_tpu_torch.config.yaml_loader import load_config, parse_cli_overrides
+    from recommendations_tpu_torch.data.data_store import FakeDataStore, read_parquet_table
+    from recommendations_tpu_torch.data.generator import get_data_loader_strategy
+    from recommendations_tpu_torch.data.loader import get_host_dataloader
+    from recommendations_tpu_torch.data.paths import get_val_data_paths
+    from recommendations_tpu_torch.models.lthm.pretrained import PretrainedProductEmbedding
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.pipeline import knn_eval
+    from recommendations_tpu_torch.pipeline.inference import run_inference
+    from recommendations_tpu_torch.pipeline.export import program_inputs
+    from recommendations_tpu_torch.tools import embedding_module_gen
+    from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    FakeDataStore.reset()
+    try:
+        write_synthetic_dataset(None, ["20240101"], files_per_date=2, users_per_file=TRAINER_USERS_PER_FILE,
+                                history_len=TRAINER_HISTORY, fake_store=True)
+        n_users = 2 * TRAINER_USERS_PER_FILE
+        t0 = time.perf_counter()
+        skus = [f"sku_{i}" for i in range(PIPE_CATALOG)]
+        pq.write_table(pa.table({"product_id": skus}), f"{tmp}/catalog.parquet")
+        FakeDataStore.put_table("catalog/products.parquet", read_parquet_table(f"{tmp}/catalog.parquet"))
+        catalog_write_s = time.perf_counter() - t0
+        argv = ["--config-name", "lthm_train", "datestr=20240101", "dataset.filesystem_config.kind=fake",
+                f"train.train_steps={PIPE_STEPS}", "train.validation_steps=1",
+                f"train.val_metrics_every_n_steps={PIPE_STEPS}", f"train.train_metrics_every_n_steps={PIPE_STEPS}",
+                "eval.skip_eval=false", "eval.skip_knn_eval=false", "inference.skip_inference=false",
+                "export.trace=true", "eval.knn_catalog_table_path=catalog/products.parquet",
+                f"eval.max_eval_steps={PIPE_KNN_BATCHES}", f"export.filesystem_config.local_dir_prefix={tmp}/export",
+                f"trackers.trackers=[{{kind: jsonl, path: {tmp}/p.jsonl}}]", "model_version=pipe",
+                "run_id=chip_smoke_pipe"]
+        export_calls = {"trace": [], "save": []}
+
+        def clocked(fn, kind):  # the export's torch.export.export and .save calls, timed
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                export_calls[kind].append(time.perf_counter() - t0)
+                return result
+            return run
+
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        t1 = time.perf_counter()
+        with mock.patch.object(torch.export, "export", clocked(torch.export.export, "trace")), \
+                mock.patch.object(torch.export, "save", clocked(torch.export.save, "save")):
+            pipe, metrics = main_training.main(argv, return_pipeline=True)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t1
+        counts = {kern.name: kern.launches for kern in kernels}
+        wrapper, state = pipe._trained
+        cfg = pipe.pipeline_config
+        layers = cfg.model.transformer_config.num_layers
+        infer_batches = -(-n_users // cfg.inference.inference_batch_size)
+        entries = len(wrapper.inference_models())  # each runs its forward on every inference batch, as JAX's
+        want = {kern.name: 0 for kern in kernels}
+        want.update({"flash_bias_fwd": layers * (PIPE_STEPS + 1 + PIPE_KNN_BATCHES + entries * infer_batches),
+                     "flash_bias_dq": layers * PIPE_STEPS, "flash_bias_dkv": layers * PIPE_STEPS})
+        print(f"[4] main_training on lthm_train.yaml with the KNN eval, the batch inference and the traced export "
+              f"({PIPE_STEPS} steps of {cfg_batch(pipe)}, 1 validation batch, {PIPE_KNN_BATCHES} KNN query batches "
+              f"of {cfg.eval.eval_batch_size}, {infer_batches} inference batches of {cfg.inference.inference_batch_size}"
+              f"; the catalog parquet of {PIPE_CATALOG} ids written and read in {catalog_write_s:.1f} s): launches "
+              f"{counts} (expected {want}: {layers} bias forwards a step, a validation and a KNN query batch, and an "
+              f"inference batch through each of the {entries} entry points; the trace launches none); the run "
+              f"{out['seconds']:.1f} s", flush=True)
+        if counts != want or state.step != PIPE_STEPS:
+            raise AssertionError("the pipeline's steps, eval and inference did not launch the bias kernels as expected")
+        out.update(counts=counts, layers=layers)
+        export_dir = pipe.export_dir()
+        for f in ("knn_eval.csv", "inference/inference_results.parquet", "user_encoder.pt2", "sequence_encoder.pt2"):
+            if not os.path.exists(os.path.join(export_dir, f)):
+                raise AssertionError(f"the pipeline's export lacks {f}")
+        with open(os.path.join(export_dir, "knn_eval.csv")) as f:
+            csv_rows = f.read().splitlines()
+
+        # -- the KNN eval: its time and recall, the two routes
+        t1 = time.perf_counter()
+        rows = knn_eval.run_knn_eval(wrapper, cfg)
+        torch.cuda.synchronize()
+        out["knn_s"] = time.perf_counter() - t1
+        out["recall"] = {r["k"]: r["recall"] for r in rows}
+        if csv_rows != ["k,recall,queries"] + [f"{r['k']},{r['recall']},{r['queries']}" for r in rows]:
+            raise AssertionError(f"knn_eval.csv {csv_rows} differs from a second run's {rows}")
+        feats = cfg.model.features
+        strategy = get_data_loader_strategy(cfg.data_loader, feats.get_input_columns(),
+                                            lambda kind: feats.default_data_mapper)
+        query = next(iter(get_host_dataloader("val", 0, get_val_data_paths(cfg.dataset), cfg.eval.eval_batch_size,
+                                              PIPE_KNN_BATCHES, strategy, feats, cfg.dataset.filesystem_config)))
+        t1 = time.perf_counter()
+        cat_ids = knn_eval.load_catalog_ids(cfg)
+        hash_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cat_emb = knn_eval.encode_catalog(wrapper, cat_ids)
+        torch.cuda.synchronize()
+        out["encode_ms_per_8192"] = (time.perf_counter() - t1) * 1e3 * 8192 / len(cat_ids)
+        max_k = max(cfg.eval.knn_top_k_list)
+        before = fa.FLASH_BIAS_FWD.launches
+        qe, _, _ = knn_eval.knn_query(wrapper, query)
+        torch.cuda.synchronize()
+        out["knn_query_launches"] = fa.FLASH_BIAS_FWD.launches - before
+        v_c, i_c = knn_eval.chunked_topk(
+            qe, knn_eval._catalog_chunks(cat_emb, cat_ids, cfg.eval.knn_catalog_chunk_rows, wrapper.device), max_k)
+        v_1, idx_1 = (qe @ torch.from_numpy(cat_emb).cuda().T).topk(max_k, dim=1)
+        v = v_1.cpu().numpy()
+        # v descends along a row: a score more than TIE_EPS from both neighbours is not tied
+        untied = (-np.diff(v, axis=1, prepend=np.inf) > TIE_EPS) & (-np.diff(v, axis=1, append=-np.inf) > TIE_EPS)
+        ids_1 = cat_ids[idx_1.cpu().numpy()]
+        id_miss = int((i_c.cpu().numpy() != ids_1)[untied].sum())
+        score_err = (v_c - v_1).abs().max().item()
+
+        def plain_bias(q, k, v, table, n_head, nk, causal=True):
+            return fa.fused_flash_attention_bias_reference(q, k, v, table, n_head, nk, causal)[0]
+
+        with mock.patch.object(fa, "fused_flash_attention_bias", plain_bias):
+            before = fa.FLASH_BIAS_FWD.launches
+            qe_plain, _, _ = knn_eval.knn_query(wrapper, query)
+            if fa.FLASH_BIAS_FWD.launches != before:
+                raise AssertionError("the plain bias attention query launched the kernel")
+        q_err, q_mean = (qe - qe_plain).abs().max().item(), (qe - qe_plain).abs().mean().item()
+        q_tol, q_mean_tol = 2**-6 * qe_plain.abs().max().item(), 2**-8 * qe_plain.abs().mean().item()
+        out.update(knn_id_miss=id_miss, knn_score_err=score_err, knn_query_err=q_err, knn_query_tol=q_tol)
+        print(f"[4] {smi}: the KNN eval (a second run, {len(cat_ids)} catalog ids in chunks of "
+              f"{cfg.eval.knn_catalog_chunk_rows}, {rows[0]['queries']} queries): {out['knn_s']:.2f} s, recall "
+              f"{out['recall']}; the catalog hashed in {hash_s:.2f} s and encoded at "
+              f"{out['encode_ms_per_8192']:.3f} ms per 8192 ids ({cat_emb.nbytes / 2**20:.0f} MiB of f32 on the "
+              f"host); the first query batch's top-{max_k}, chunked merge vs one (B, N) product and torch.topk on the "
+              f"card: {id_miss} differing ids outside ties (of {int(untied.sum())}), scores max|diff| "
+              f"{score_err:.3e}; the query batch {out['knn_query_launches']} flash_bias_fwd launches (expected "
+              f"{layers}); its queries, kernel vs plain bias attention: max|err| {q_err:.3e} (tol {q_tol:.3e}), "
+              f"mean|err| {q_mean:.3e} (tol {q_mean_tol:.3e})", flush=True)
+        if id_miss or not untied.any() or score_err > TIE_EPS or q_err > q_tol or q_mean > q_mean_tol:
+            raise AssertionError("the KNN eval's routes disagree")
+        if out["knn_query_launches"] != layers:
+            raise AssertionError("a KNN query batch did not run every layer through flash_bias_fwd")
+        del cat_emb, v_1, idx_1
+
+        # -- the batch inference: one row a real user, the direct call's bits
+        table = pq.read_table(os.path.join(export_dir, "inference", "inference_results.parquet"))
+        got = np.stack(table.column("user_encoder.user_emb").to_numpy(zero_copy_only=False))
+        first = next(iter(get_host_dataloader("val", 0, get_val_data_paths(cfg.dataset),
+                                              cfg.inference.inference_batch_size, None, strategy, feats,
+                                              cfg.dataset.filesystem_config, drop_remainder=False)))
+        before = fa.FLASH_BIAS_FWD.launches
+        direct = wrapper.inference_models()["user_encoder"](program_inputs(first, "cuda"))["user_emb"].cpu().numpy()
+        out["entry_launches"] = fa.FLASH_BIAS_FWD.launches - before
+        same = table.num_rows == n_users and np.array_equal(got[: len(direct)], direct)
+        rates, same_again = [], True
+        for i in range(PIPE_INFER_PASSES):
+            t1 = time.perf_counter()
+            again = run_inference(wrapper, cfg, f"{tmp}/inference_again_{i}")
+            torch.cuda.synchronize()
+            rates.append(n_users / (time.perf_counter() - t1))
+            same_again = same_again and pq.read_table(again).equals(table)
+        out["inference_users_per_s"] = float(np.median(rates))
+        print(f"[4] {smi}: the batch inference: {table.num_rows} rows ({n_users} users), columns "
+              f"{table.column_names}; the first batch's user_emb {'bit-equal to' if same else 'DIFFERS from'} a "
+              f"direct user_encoder call ({out['entry_launches']} flash_bias_fwd launches, expected {layers}); "
+              f"{PIPE_INFER_PASSES} more runs {'write the same table' if same_again else 'DIFFER'}, "
+              f"{out['inference_users_per_s']:.1f} users/s median of the runs (host clock, each over the "
+              f"{n_users} users: {', '.join(f'{r:.1f}' for r in rates)})", flush=True)
+        if not (same and same_again) or out["entry_launches"] != layers:
+            raise AssertionError("the batch inference's vectors are not the model's, or not through the kernel")
+
+        # -- the traced programs, in a fresh process
+        trace = program_inputs(pipe._trace_batch, "cuda")
+        torch.save(trace, f"{tmp}/trace.pt")
+        root = os.path.dirname(os.path.abspath(__file__))
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", PROGRAM_SCRIPT, root, export_dir, f"{tmp}/trace.pt",
+                               f"{tmp}/program_out.pt"], capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"the .pt2 programs failed in a fresh process:\n{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        prog_out = torch.load(f"{tmp}/program_out.pt")
+        allowed = {"recommendations_tpu_torch", "recommendations_tpu_torch.ops", "recommendations_tpu_torch.ops.cuda_build",
+                   "recommendations_tpu_torch.ops.fused_attention", "recommendations_tpu_torch.core",
+                   "recommendations_tpu_torch.core.debug"}
+        eager_ms, bits = {}, {}
+        for name in ("user_encoder", "sequence_encoder"):
+            fn = wrapper.inference_models()[name]
+            want_out = fn(trace)
+            bits[name] = all(torch.equal(prog_out[name][k], want_out[k].cpu()) for k in want_out)
+            ms = []
+            for _ in range(10):
+                t2 = time.perf_counter()
+                fn(trace)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t2) * 1e3)
+            eager_ms[name] = float(np.median(ms))
+        names = list(wrapper.inference_models())
+        if [len(export_calls[k]) for k in ("trace", "save")] != [len(names)] * 2:
+            raise AssertionError(f"the export traced and saved {export_calls}, not once for each of {names}")
+        secs = {f"{n}.{kind}_s": export_calls[kind][i] for i, n in enumerate(names) for kind in ("trace", "save")}
+        out.update(export_seconds=secs, program_ms={n: res[f"{n}_ms"] for n in eager_ms}, eager_ms=eager_ms,
+                   program_launches={n: res[f"{n}_launches"] for n in eager_ms})
+        print(f"[4] {smi}: the traced export (trace batch of {len(next(iter(trace.values())))} users): trace/save "
+              f"s {json.dumps({k: round(v, 2) for k, v in secs.items()})}; in a fresh process importing "
+              f"{res['modules']} ({sub_s:.1f} s): flash_bias_fwd launches a call {out['program_launches']} (expected "
+              f"{layers}), outputs {'bit-equal to' if all(bits.values()) else 'DIFFERENT from'} the eager wrapper "
+              f"{bits}; a call {json.dumps({k: round(v, 3) for k, v in out['program_ms'].items()})} ms against the "
+              f"eager request's {json.dumps({k: round(v, 3) for k, v in eager_ms.items()})} ms", flush=True)
+        if (not all(bits.values()) or set(res["modules"]) - allowed
+                or any(n != layers for n in out["program_launches"].values())):
+            raise AssertionError("the exported programs do not reproduce the model through the bias kernel")
+        del pipe, wrapper, state, trace, prog_out
+        torch.cuda.empty_cache()
+
+        # -- the compression job and the pretrained module
+        rs = np.random.RandomState(3)
+        vectors = rs.randn(PIPE_PRODUCTS, 128).astype(np.float32)
+        values = pa.array(vectors.reshape(-1))
+        offsets = pa.array(np.arange(0, vectors.size + 1, 128, dtype=np.int32))
+        pq.write_table(pa.table({"product_id": [f"sku_{i}" for i in range(PIPE_PRODUCTS)],
+                                 "emb_128": pa.ListArray.from_arrays(offsets, values)}), f"{tmp}/embs.parquet")
+        k_shift = cfg.model.product_tower.latent_model_config.num_shifts_latent
+        job = embedding_module_gen.execute(f"{tmp}/embs.parquet", f"{tmp}/artifact", dim=32, k_shift=k_shift,
+                                           recon_epochs=PIPE_RECON_EPOCHS, mask_epochs=PIPE_MASK_EPOCHS,
+                                           device="cuda")
+        out["job"] = job
+        rows_art = int(1.15 * PIPE_PRODUCTS)
+        pcfg = load_config(main_training.CONFIG_ROOT / "lthm_train.yaml", overrides=parse_cli_overrides(
+            [f"model.product_tower.model_init_metadata={{embedding_module_path: {tmp}/artifact}}",
+             f"model.product_tower.latent_model_config.vocab_size_latent={rows_art}", "datestr=20240101"]),
+            search_paths=[str(main_training.CONFIG_ROOT)])
+        pw = LTHMModelWrapper(pcfg.model, device="cuda", seed=0)
+        emb_mod = pw.module.product_emb_module
+        art = embedding_module_gen.load_artifact(f"{tmp}/artifact")
+        loaded = isinstance(emb_mod, PretrainedProductEmbedding) and all(
+            np.array_equal(getattr(emb_mod, k).cpu().numpy(), v) for k, v in art.items())
+        for kern in kernels:
+            kern.launches = 0
+        served = pw.inference_models()["user_encoder"](request_batch(900, BATCH, TRAINER_HISTORY))["user_emb"]
+        serve_counts = fa.FLASH_BIAS_FWD.launches
+        before = {k: v.clone() for k, v in emb_mod.named_buffers()}
+        pstate = TrainState.create(pw, pcfg.train)
+        loss, _ = train_step(pstate, request_batch(901, BATCH, TRAINER_HISTORY), offsets=[0, 5, 6, 12, 24, 30])
+        kept = all(torch.equal(v, before[k]) and v.grad is None and not v.requires_grad
+                   for k, v in emb_mod.named_buffers()) and not list(emb_mod.parameters())
+        ok = (loaded and bool(torch.isfinite(served).all()) and serve_counts == layers
+              and bool(torch.isfinite(loss)) and kept and fa.FLASH_BIAS_DKV.launches == layers)
+        print(f"[4] {smi}: the compression job on {PIPE_PRODUCTS} 128-wide vectors (dim 32, {rows_art} rows, k "
+              f"{k_shift}): reconstruction {job['reconstruction_s'] / PIPE_RECON_EPOCHS:.3f} s an epoch "
+              f"({PIPE_RECON_EPOCHS}), mask model {job['mask_s'] / PIPE_MASK_EPOCHS:.3f} s an epoch "
+              f"({PIPE_MASK_EPOCHS}), read {job['read_s']:.2f} s; lthm_train.yaml on its artifact: the buffers "
+              f"{'hold the artifact' if loaded else 'DO NOT hold the artifact'}, a request of {BATCH} users "
+              f"({serve_counts} bias forwards) and a training step (loss {loss.item():.5f}), the buffers "
+              f"{'untouched and without a gradient' if kept else 'CHANGED or took a gradient'}", flush=True)
+        if not ok:
+            raise AssertionError("the pretrained module did not serve and train as a frozen module")
+        del pw, pstate, emb_mod, before
+        torch.cuda.empty_cache()
+
+        # -- the joint pipeline, cut
+        jroot = f"{tmp}/joint"
+        jargs = ["--config-name", "joint_train", f"enriched_dir={jroot}/enriched", f"synth.root={jroot}/data",
+                 "synth.users=512", "synth.files_per_date=2", "synth.train_rows=8192", "synth.val_rows=2048"]
+        for stage, src, test, steps, batch_size, val in (
+                ("retrieval", "clicks/*/*.parquet", "clicks/*/part-00000.parquet", 40, 64, 0),
+                ("ranking", "impressions/*/*.parquet", "impressions_val/*/*.parquet", 60, 256, 4)):
+            o = f"{stage}.overrides"
+            jargs += [f"{o}.dataset.filesystem_config.local_dir_prefix={jroot}/data",
+                      f"{o}.dataset.path_glob_train={jroot}/data/{src}", f"{o}.dataset.path_glob_test={jroot}/data/{test}",
+                      f"{o}.train.train_steps={steps}", f"{o}.train.batch_size={batch_size}",
+                      f"{o}.train.validation_steps={val}", f"{o}.train.train_metrics_every_n_steps={steps}",
+                      f"{o}.train.val_metrics_every_n_steps={steps if val else 0}"]
+        for kern in kernels:
+            kern.launches = 0
+        t1 = time.perf_counter()
+        _, jm = main_training.main(jargs, return_pipeline=True)
+        torch.cuda.synchronize()
+        out["joint_s"] = time.perf_counter() - t1
+        jcounts = {kern.name: kern.launches for kern in kernels}
+        out["auc_uplift_click"] = jm.get("auc_uplift_click")
+        print(f"[4] {smi}: main_training --config-name joint_train (512 users, lthm_tiny 40 steps of 64, the ranker "
+              f"60 of 256 a arm; cut from 6000 and 10000): {out['joint_s']:.1f} s; launches {jcounts} (lthm_tiny: 4 "
+              f"heads, no flash attention in its YAML); val AUC with the embeddings "
+              f"{jm['ranking'].get('val_auc_click')}, ablated {jm['ranking_ablated'].get('val_auc_click')}, "
+              f"auc_uplift_click {out['auc_uplift_click']} (not gated at this length)", flush=True)
+        if out["auc_uplift_click"] is None or not np.isfinite(out["auc_uplift_click"]):
+            raise AssertionError("the joint pipeline did not run both ranking arms")
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         FakeDataStore.reset()
@@ -2705,6 +3090,8 @@ def main() -> int:
     sparse = sparse_long_history(fa, kernels)
     ranker = ranker_path(kernels)
     torch.cuda.empty_cache()
+    extras = pipeline_extras(fa, kernels, smi)
+    torch.cuda.empty_cache()
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -2927,6 +3314,17 @@ def main() -> int:
           f"examples/s; waiting for the feed {100 * ranker['feed_wait_share']:.2f}% of the loop; peak device memory "
           f"{ranker['peak_mib']:.1f} MiB; train_step called directly {[round(x, 3) for x in ranker['direct_ms']]} ms; "
           f"the run {ranker['seconds']:.1f} s, the resumed run {ranker['resume_seconds']:.1f} s", flush=True)
+    job = extras["job"]
+    print(f"[5] {smi}: the pipeline extras of lthm_train.yaml (context {CTX512}): main_training with the KNN eval, "
+          f"the batch inference and the traced export {extras['seconds']:.1f} s; the KNN eval {extras['knn_s']:.2f} s, "
+          f"recall {extras['recall']}; catalog encode {extras['encode_ms_per_8192']:.3f} ms per 8192 ids; inference "
+          f"{extras['inference_users_per_s']:.1f} users/s; export trace/save "
+          f"{json.dumps({k: round(v, 2) for k, v in extras['export_seconds'].items()})} s; a .pt2 call "
+          f"{json.dumps({k: round(v, 3) for k, v in extras['program_ms'].items()})} ms against the eager "
+          f"{json.dumps({k: round(v, 3) for k, v in extras['eager_ms'].items()})} ms; the compression job "
+          f"{job['reconstruction_s'] / PIPE_RECON_EPOCHS:.3f} s a reconstruction epoch, "
+          f"{job['mask_s'] / PIPE_MASK_EPOCHS:.3f} s a mask epoch; joint_train (cut) {extras['joint_s']:.1f} s, "
+          f"auc_uplift_click {extras['auc_uplift_click']}", flush=True)
     paths = {
         **{f"base_{opt}": res["per_step"] for opt, res in base_tables.items()},
         **{f"prod1024_{opt}": res["per_step"] for opt, res in prod_tables.items()},
@@ -2971,6 +3369,11 @@ def main() -> int:
         "launches_per_step_new_paths": new_paths(name),
         "knobs_max_abs_err": knobs["bias_errs"][name][0],
         "knobs_tolerance": knobs["bias_errs"][name][1],
+        **({"pipeline_extras": {"launches": extras["counts"][name],
+                                "per_inference_batch_and_entry_point": extras["entry_launches"],
+                                "per_knn_query_batch": extras["knn_query_launches"],
+                                "per_pt2_call": extras["program_launches"]}} if name == "flash_bias_fwd" else
+           {"pipeline_extras": {"launches": extras["counts"][name]}}),
     } for name, (src, line) in bias_kernels.items()]
     ce_replaces = {"ce_row_diag": 82, "ce_fwd": 102, "ce_dq": 135, "ce_dc": 168}
     ce_entries = [{

@@ -11,8 +11,9 @@ Port of ``recommendations_tpu/config/yaml_loader.py``, with the same rules:
   ``${mul:a,b}`` (no ``eval``);
 - ``a.b.c=value`` command-line overrides, each value read as YAML.
 
-The joint pipeline's config (``joint: true``) is not ported yet (ROADMAP,
-port queue item 11).
+A config with ``joint: true`` becomes the joint pipeline's config
+(``pipeline/joint_pipeline.py``), its stages composed from the configs they
+name.
 """
 
 from __future__ import annotations
@@ -137,14 +138,25 @@ def load_config(
     overrides: Optional[Dict[str, Any]] = None,
     search_paths: Optional[List[Union[str, Path]]] = None,
 ):
-    """Compose the YAML, then build the root pipeline config."""
+    """Compose the YAML, then build the root pipeline config. A top-level
+    ``joint: true`` selects the two-stage retrieval -> ranking config
+    (``pipeline/joint_pipeline.py``), whose stages may name a single-model
+    config (``{config_name: lthm_tiny, overrides: {...}}``), composed with the
+    same search paths."""
     from recommendations_tpu_torch.config.pipeline_config import TrainerPipelineConfig
 
     data = compose_config(config_path, overrides, search_paths)
     if data.get("joint"):
-        raise NotImplementedError(
-            "the joint retrieval-ranking pipeline is not ported yet: ROADMAP, port queue item 11"
-        )
+        from recommendations_tpu_torch.pipeline.joint_pipeline import JointPipelineConfig
+
+        base_dir = Path(config_path).parent
+        for stage in ("retrieval", "ranking"):
+            sec = data.get(stage)
+            if isinstance(sec, dict) and "config_name" in sec:
+                composed = compose_config(base_dir / f"{sec['config_name']}.yaml", sec.get("overrides"), search_paths)
+                composed.pop("joint", None)
+                data[stage] = composed
+        return JointPipelineConfig.from_dict(data)
     return TrainerPipelineConfig.from_dict(data)
 
 

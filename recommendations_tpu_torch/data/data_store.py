@@ -45,12 +45,15 @@ def sample_paths(paths: List[str], data_ratio: float, seed: Optional[int] = 17) 
 
 def read_parquet_table(source, columns: Optional[List[str]] = None) -> Table:
     """A parquet file (a path or a file object) as numpy columns: list and
-    string columns become object arrays, as pandas reads them."""
+    string columns become object arrays, as pandas reads them. The file's own
+    columns only: no partition column is read from a ``date=...`` directory
+    (some pyarrow versions add one, which a file written back there then
+    holds twice, and cannot be read)."""
     try:
         import pyarrow.parquet as pq
     except ImportError as e:
         raise ImportError("reading parquet needs pyarrow, which is not installed") from e
-    table = pq.read_table(source, columns=columns)
+    table = pq.read_table(source, columns=columns, partitioning=None)
     names = columns if columns is not None else table.column_names
     return {name: table.column(name).combine_chunks().to_numpy(zero_copy_only=False) for name in names}
 

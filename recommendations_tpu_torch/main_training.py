@@ -7,8 +7,11 @@ Composes the YAML from ``configs/`` (hydra-style defaults and
 interpolation, ``config/yaml_loader.py``), builds the pipeline config, runs
 the stats job where the config's ``stats`` section asks for it (its result
 goes to the model builder, as in ``main_training.py``), and trains,
-validates, checkpoints and exports on one device: the card unless
-``--device cpu`` is given; without a card it raises.
+validates, checkpoints and exports (and, where the config asks, runs the
+KNN eval, the batch inference and the traced export programs) on one
+device: the card unless ``--device cpu`` is given; without a card it
+raises. A config with ``joint: true`` (``--config-name joint_train``) runs
+the retrieval -> ranking pipeline (``pipeline/joint_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from recommendations_tpu_torch import resolve_device
 from recommendations_tpu_torch.config.yaml_loader import load_config, parse_cli_overrides
 from recommendations_tpu_torch.data.generator import get_data_loader_strategy
 from recommendations_tpu_torch.data.paths import get_train_data_paths
+from recommendations_tpu_torch.pipeline.joint_pipeline import JointPipelineConfig, JointTrainerPipeline
 from recommendations_tpu_torch.pipeline.stats import compute_stats_for_pipeline
 from recommendations_tpu_torch.pipeline.trainer_pipeline import TrainerPipeline
 from recommendations_tpu_torch.train.strategy import get_training_strategy
@@ -60,8 +64,15 @@ def main(argv=None, return_pipeline: bool = False):
 
     config_path = Path(args.config_dir) / f"{args.config_name}.yaml"
     cfg = load_config(config_path, overrides=parse_cli_overrides(args.overrides), search_paths=[args.config_dir])
-    logger.info("model=%s/%s strategy=%s device=%s", cfg.model.kind, cfg.model.name, cfg.training_strategy.name, device)
-    pipeline = build_pipeline(cfg, device)
+    if isinstance(cfg, JointPipelineConfig):
+        # the two-stage retrieval -> ranking product path (BASELINE config 4)
+        logger.info("joint pipeline: retrieval=%s ranking=%s device=%s", cfg.retrieval.model.name,
+                    cfg.ranking.model.name, device)
+        pipeline = JointTrainerPipeline(cfg, device)
+    else:
+        logger.info("model=%s/%s strategy=%s device=%s", cfg.model.kind, cfg.model.name, cfg.training_strategy.name,
+                    device)
+        pipeline = build_pipeline(cfg, device)
     metrics = pipeline.execute()
     logger.info("final metrics: %s", {k: round(v, 5) for k, v in metrics.items() if isinstance(v, float)})
     return (pipeline, metrics) if return_pipeline else 0

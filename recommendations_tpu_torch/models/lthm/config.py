@@ -16,6 +16,7 @@ import numpy as np
 
 from recommendations_tpu_torch.config.base import build_fields
 from recommendations_tpu_torch.config.model_config import ModelConfig, register_model_config
+from recommendations_tpu_torch.config.trainer_config import FileSystemConfig
 from recommendations_tpu_torch.features.feature_config import FeaturesConfig
 from recommendations_tpu_torch.features.transforms import Table, take_rows
 
@@ -54,6 +55,15 @@ class LatentModelConfig:
 
 
 @dataclass
+class ModelInitMetadata:
+    """Where the pretrained product-embedding module's artifact lies (the
+    output of ``tools/embedding_module_gen.py``)."""
+
+    embedding_module_path: str
+    filesystem_config: Optional[FileSystemConfig] = None
+
+
+@dataclass
 class ProductTowerConfig:
     inp_emb_dim: int = 32
     out_emb_dim: int = 512
@@ -63,7 +73,7 @@ class ProductTowerConfig:
     norm_threshold: float = 0.05
     norm_bins: int = 20
     cosine_lsh_config: List[CosineLSHSpec] = field(default_factory=list)
-    model_init_metadata: Optional[Any] = None
+    model_init_metadata: Optional[ModelInitMetadata] = None
     latent_model_config: LatentModelConfig = field(default_factory=LatentModelConfig)
 
     @classmethod
@@ -75,6 +85,7 @@ class ProductTowerConfig:
         # "???" is hydra's missing-value sentinel
         if d.get("model_init_metadata") in ("???", {}, ""):
             d["model_init_metadata"] = None
+        d["model_init_metadata"] = _build(ModelInitMetadata, d.get("model_init_metadata"))
         d["cosine_lsh_config"] = [_build(CosineLSHSpec, s) for s in d.get("cosine_lsh_config", [])]
         if "latent_model_config" in d:
             d["latent_model_config"] = _build(LatentModelConfig, d["latent_model_config"])

@@ -1,7 +1,9 @@
 """LTHM network: KShift product embedding -> ProductTower -> QueryTower.
 
-Port of ``recommendations_tpu/models/lthm/model.py`` with the fresh-table
-branch only. ``forward(batch, training=...)`` serves (the default) or runs
+Port of ``recommendations_tpu/models/lthm/model.py``: the fresh KShift table
+(dense or the fused record) or the frozen pretrained module
+(``model_init_metadata``); the row-sharded table waits for the
+multi-device port. ``forward(batch, training=...)`` serves (the default) or runs
 the training forward, which applies the transformer's dropouts with masks
 drawn from the step's ``dropout_seed`` (``nn/dropout.py``; serving and
 validation draw none).
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+from recommendations_tpu_torch.models.lthm.pretrained import PretrainedProductEmbedding
 from recommendations_tpu_torch.nn.attention import Dense
 from recommendations_tpu_torch.nn.embeddings import (
     FlatEmbedding,
@@ -184,7 +187,9 @@ class QueryTower(nn.Module):
 
 class LTHMEncoder(nn.Module):
     """Full LTHM forward with a fresh KShift product-embedding table (a
-    dense table, or the fused record when ``cfg.uses_fused_table()``)."""
+    dense table, or the fused record when ``cfg.uses_fused_table()``), or
+    with the frozen pretrained module when the product tower names one
+    (``model_init_metadata``)."""
 
     def __init__(
         self,
@@ -196,23 +201,28 @@ class LTHMEncoder(nn.Module):
     ):
         super().__init__()
         tc = cfg.product_tower
-        if tc.model_init_metadata is not None:
-            raise NotImplementedError(
-                "pretrained product-embedding module: ROADMAP, port queue 'Pipeline extras'"
-            )
-        if cfg.shard_embedding_rows:
+        if cfg.shard_embedding_rows and tc.model_init_metadata is None:
             raise NotImplementedError(
                 "row-sharded product-embedding table: ROADMAP, port queue 'Multi-device'"
             )
         self.ids_key, self.labels_key, self.timestamp_key = ids_key, labels_key, timestamp_key
         lm = tc.latent_model_config
-        self.product_emb_module = KShiftEmbedding(
-            lm.vocab_size_latent, tc.inp_emb_dim, generator,
-            num_shifts=lm.num_shifts_latent,
-            normalize_output=lm.normalize_embedding,
-            compute_dtype=compute_dtype(cfg),
-            fused_record=cfg.uses_fused_table(),
-        )
+        if tc.model_init_metadata is not None:
+            # frozen buffers; the wrapper loads the artifact into them
+            self.product_emb_module = PretrainedProductEmbedding(
+                lm.vocab_size_latent, tc.inp_emb_dim, generator,
+                num_shifts=lm.num_shifts_latent,
+                normalize_output=lm.normalize_embedding,
+                compute_dtype=compute_dtype(cfg),
+            )
+        else:
+            self.product_emb_module = KShiftEmbedding(
+                lm.vocab_size_latent, tc.inp_emb_dim, generator,
+                num_shifts=lm.num_shifts_latent,
+                normalize_output=lm.normalize_embedding,
+                compute_dtype=compute_dtype(cfg),
+                fused_record=cfg.uses_fused_table(),
+            )
         self.product_tower = ProductTower(cfg, generator)
         self.query_tower = QueryTower(cfg, generator)
 

@@ -17,7 +17,9 @@ Port of ``recommendations_tpu/models/lthm/wrapper.py``: ``format_inputs``,
   ``apply_sparse_table_update``.
 
 Weights come from a seeded ``torch.Generator`` or, through
-``load_jax_variables``, from the JAX package's variables.
+``load_jax_variables``, from the JAX package's variables; a pretrained
+product-embedding module (``model_init_metadata``) loads its artifact at
+construction.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from recommendations_tpu_torch.models.lthm.config import (
 from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
 from recommendations_tpu_torch.models.lthm.loss import Metrics, contrastive_step
 from recommendations_tpu_torch.models.lthm.model import LTHMEncoder
+from recommendations_tpu_torch.models.lthm.pretrained import load_pretrained_constants
 from recommendations_tpu_torch.nn.embeddings import kshift_row_indices
 from recommendations_tpu_torch.nn.functional import l2_normalize
 from recommendations_tpu_torch.nn.logq import LogQState, init_logq_state
@@ -68,6 +71,13 @@ class LTHMModelWrapper(BaseModelWrapper):
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.module = LTHMEncoder(config, gen).eval()
+        meta = config.product_tower.model_init_metadata
+        if meta is not None:
+            # the trained compressed-embedding module into its frozen buffers
+            # (the JAX wrapper's init_variables)
+            from recommendations_tpu_torch.tools.embedding_module_gen import load_artifact
+
+            load_pretrained_constants(self.module, load_artifact(meta.embedding_module_path))
         # the JAX wrapper's two warnings, in its words
         if (
             config.uses_fused_table()
@@ -164,8 +174,10 @@ class LTHMModelWrapper(BaseModelWrapper):
     # ----- the table's optimizer ---------------------------------------------
 
     def _uses_rowwise_table(self) -> bool:
-        """The table is its own group (every table optimizer but adamw)."""
-        return self.config.resolved_table_optimizer() != "adamw"
+        """The table is its own group (every table optimizer but adamw); a
+        pretrained module has no table parameter."""
+        cfg = self.config
+        return cfg.resolved_table_optimizer() != "adamw" and cfg.product_tower.model_init_metadata is None
 
     def uses_sparse_taps(self) -> bool:
         """The fused-record table: the step takes the gradient of
@@ -271,10 +283,10 @@ class LTHMModelWrapper(BaseModelWrapper):
         }
         if t == "frozen" or self.uses_lazy_table() or self.uses_sparse_taps():
             groups[TABLE_GROUP] = None
-            if cfg.product_tower.detach_item_tower:
+            if cfg.product_tower.detach_item_tower and self._uses_rowwise_table():
                 # no gradient reaches it: none is taken
                 self._table().requires_grad_(False)
-        elif t == "rowwise_adam":
+        elif t == "rowwise_adam" and self._uses_rowwise_table():
             groups[TABLE_GROUP] = dict(optimizer="rowwise_adam", lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8)
         return groups
 

@@ -27,7 +27,10 @@ Both forwards, without and with the bias, are ``torch.library`` custom ops
 with their backwards registered, so that a selective-recompute policy
 (``nn/transformer.py``) can keep their outputs (o, lse) instead of running
 them again, as the JAX package names them saveable (``flash_out``,
-``flash_lse``).
+``flash_lse``). Each op also has a fake implementation (the shapes and
+dtypes of o and lse), so that ``torch.export`` traces a forward that holds
+it; a traced forward always goes through the op, and the exported program
+launches the kernel (and counts it) each time it runs on the card.
 """
 
 from __future__ import annotations
@@ -335,6 +338,12 @@ def _backward(ctx, do, _dlse):
     return dq, dk, dv, None, None
 
 
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, n_head, causal):
+    b, t, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, t, n_head), dtype=torch.float32)
+
+
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 FLASH_OP = torch.ops.recommendations_tpu_torch.flash_attention.default
 
@@ -344,8 +353,11 @@ def fused_flash_attention(
 ) -> torch.Tensor:
     """Folded-head flash attention; returns o (B, T, H*hd), differentiable
     with respect to q, k and v. Without a gradient to take (serving) the
-    forward runs alone, outside the operator's autograd bookkeeping."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    forward runs alone, outside the operator's autograd bookkeeping; traced
+    (``torch.export``), it is the operator."""
+    if torch.compiler.is_compiling() or (
+        torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    ):
         return flash_attention_op(q, k, v, n_head, causal)[0]
     return fused_flash_attention_fwd(q, k, v, n_head, causal)[0]
 
@@ -602,6 +614,12 @@ def _bias_backward(ctx, do, _dlse):
     return dq, dk, dv, dtable, None, None, None
 
 
+@flash_attention_bias_op.register_fake
+def _flash_attention_bias_fake(q, k, v, table, n_head, nk, causal):
+    b, t, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, t, n_head), dtype=torch.float32)
+
+
 flash_attention_bias_op.register_autograd(_bias_backward, setup_context=_bias_setup_context)
 FLASH_BIAS_OP = torch.ops.recommendations_tpu_torch.flash_attention_bias.default
 
@@ -614,7 +632,9 @@ def fused_flash_attention_bias(
     table[q - k + nk, h] (``table`` (L, n_head) float32, applied at bf16
     precision); returns o (B, T, H*hd), differentiable with respect to q, k,
     v and the table. Without a gradient to take (serving) the forward runs
-    alone."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, table)):
+    alone; traced (``torch.export``), it is the operator."""
+    if torch.compiler.is_compiling() or (
+        torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, table))
+    ):
         return flash_attention_bias_op(q, k, v, table, n_head, nk, causal)[0]
     return fused_flash_attention_bias_fwd(q, k, v, table, n_head, nk, causal)[0]

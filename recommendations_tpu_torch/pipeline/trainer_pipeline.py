@@ -1,12 +1,14 @@
-"""The top-level pipeline: trackers -> data paths -> train -> export.
+"""The top-level pipeline: trackers -> data paths -> train -> export -> eval
+-> inference.
 
 Port of ``recommendations_tpu/pipeline/trainer_pipeline.py`` (reference
 ``commons/pipeline/trainer_pipeline.py:43-224``): log every config section
-as flattened params, resolve the train and validation paths, run the
-training strategy, export the final model (and, through the model
-checkpointer, at each checkpoint), upload the artifacts. The KNN eval, the
-batch inference and the traced export programs are not ported yet (ROADMAP,
-port queue item 11): a config that asks for one raises.
+as flattened params, resolve the train and validation paths, capture the
+trace batch for the exported programs (``export.trace``), run the training
+strategy (or, with ``skip_train``, build the untrained wrapper), export the
+final model (and, through the model checkpointer, at each checkpoint), run
+the KNN eval (``knn_eval.csv`` in the export) and the batch inference
+(uploaded under ``<path_prefix>/<model_version>/inference``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 import logging
 import os
 import tempfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from recommendations_tpu_torch.config.base import model_dump
 from recommendations_tpu_torch.config.pipeline_config import TrainerPipelineConfig
@@ -28,9 +30,6 @@ from recommendations_tpu_torch.pipeline.model_checkpointer import ModelCheckpoin
 
 logger = logging.getLogger(__name__)
 
-_ITEM_11 = "ROADMAP, port queue item 11 (Pipeline extras)"
-
-
 @dataclasses.dataclass
 class EvalResult:
     """The metric rows an export writes next to the model (the JAX
@@ -38,16 +37,22 @@ class EvalResult:
 
     result_df: Optional[Dict[str, Any]] = None
     result_extra_day_df: Optional[Dict[str, Any]] = None
+    knn_eval_result: Optional[List[Dict[str, Any]]] = None
+
+
+def _write_rows(rows: List[Dict[str, Any]], path: str) -> None:
+    """The rows as CSV, a header of their keys, as ``DataFrame.to_csv(index=False)``."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(rows[0])
+        for row in rows:
+            w.writerow(row.values())
 
 
 def _write_row(metrics: Dict[str, Any], path: str) -> None:
     """One CSV row of the scalar metrics, as the JAX package's
     ``DataFrame.to_csv(index=False)`` of a one-row frame."""
-    scalars = {k: v for k, v in metrics.items() if not isinstance(v, (dict, list))}
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(scalars)
-        w.writerow(scalars.values())
+    _write_rows([{k: v for k, v in metrics.items() if not isinstance(v, (dict, list))}], path)
 
 
 class TrainerPipeline:
@@ -70,22 +75,9 @@ class TrainerPipeline:
             )
         )
         self._trained = None  # (wrapper, state)
-
-    def _refuse_unported(self) -> None:
-        cfg = self.pipeline_config
-        if cfg.export is not None and cfg.export.trace:
-            raise NotImplementedError(f"traced export programs (export.trace) are not ported yet: {_ITEM_11}")
-        if cfg.eval is not None and not cfg.eval.skip_eval:
-            raise NotImplementedError(f"the KNN eval (eval.skip_eval: false) is not ported yet: {_ITEM_11}")
-        if cfg.inference is not None and not cfg.inference.skip_inference:
-            raise NotImplementedError(
-                f"batch inference (inference.skip_inference: false) is not ported yet: {_ITEM_11}"
-            )
-        if cfg.train.skip_train:
-            raise NotImplementedError(f"skip_train serves only eval and inference, which are not ported yet: {_ITEM_11}")
+        self._trace_batch = None  # the example the exported programs are traced on
 
     def execute(self) -> Dict[str, Any]:
-        self._refuse_unported()
         cfg = self.pipeline_config
         trackers = cfg.trackers
         trackers.start_run()
@@ -99,18 +91,91 @@ class TrainerPipeline:
         val_paths = get_val_data_paths(cfg.dataset)
         logger.info("train paths: %d, val paths: %d", len(train_paths), len(val_paths))
 
-        wrapper, state, metrics = self.training_strategy.train(
-            self.model_builder,
-            self.data_loader_strategy,
-            train_paths,
-            val_paths,
-            cfg,
-            self.model_checkpointer,
-        )
-        self._trained = (wrapper, state)
-        self.export_model(state=state, eval_result=None, training_done=True)
+        if cfg.export is not None and cfg.export.trace:
+            self._capture_trace_batch(train_paths)
+
+        metrics: Dict[str, Any] = {}
+        if not cfg.train.skip_train:
+            wrapper, state, metrics = self.training_strategy.train(
+                self.model_builder,
+                self.data_loader_strategy,
+                train_paths,
+                val_paths,
+                cfg,
+                self.model_checkpointer,
+            )
+            self._trained = (wrapper, state)
+            self.export_model(state=state, eval_result=None, training_done=True)
+        else:
+            logger.info("skip_train: building untrained model")
+            self._trained = (self.model_builder.build(), None)
+
+        if cfg.eval is not None and not cfg.eval.skip_eval:
+            eval_result = self.eval_model()
+            self.export_model(state=None, eval_result=eval_result, training_done=True)
+
+        if cfg.inference is not None and not cfg.inference.skip_inference:
+            self.run_inference()
+
         trackers.end_run()
         return metrics
+
+    def _capture_trace_batch(self, train_paths: List[str]) -> None:
+        """The first batch (at most 32 rows) of the train paths, for tracing
+        the exported programs; the loader kind is ``val`` (no shuffle buffer,
+        a fixed order) and its batch ``data_loader.mini_batch_size``."""
+        try:
+            from recommendations_tpu_torch.data.loader import get_host_dataloader
+
+            cfg = self.pipeline_config
+            loader = get_host_dataloader(
+                kind="val",
+                worker_id=0,
+                paths=train_paths,
+                batch_size=cfg.data_loader.mini_batch_size,
+                num_steps=1,
+                data_loader_strategy=self.data_loader_strategy,
+                features_config=cfg.model.features,
+                fs_config=cfg.dataset.filesystem_config,
+            )
+            batch = next(iter(loader), None)
+            if batch is not None:
+                self._trace_batch = {k: v[:32] for k, v in batch.items()}
+        except Exception:
+            logger.exception("trace-batch capture failed; exporting without")
+
+    def run_inference(self) -> Optional[str]:
+        """Batch inference to parquet, uploaded beside the export."""
+        if self._trained is None or self._trained[1] is None:
+            return None
+        from recommendations_tpu_torch.pipeline.inference import run_inference
+
+        wrapper = self._trained[0]
+        cfg = self.pipeline_config
+        with tempfile.TemporaryDirectory() as tmp:
+            path = run_inference(wrapper, cfg, tmp)
+            if path and cfg.export is not None:
+                store = DataStoreAccessor.get_instance(cfg.export.filesystem_config)
+                store.upload_dir_recursive(tmp, f"{cfg.export.path_prefix}/{cfg.model_version}/inference")
+            return path
+
+    def eval_model(self) -> Optional[EvalResult]:
+        """The offline KNN retrieval eval (the reference configures it and
+        leaves ``eval_model`` as ``pass``). A failure is logged, and raised
+        only with ``fail_on_eval_error``."""
+        if self._trained is None or self._trained[1] is None:
+            return None
+        try:
+            from recommendations_tpu_torch.pipeline.knn_eval import run_knn_eval
+
+            rows = run_knn_eval(self._trained[0], self.pipeline_config)
+            return EvalResult(knn_eval_result=rows)
+        except Exception:
+            logger.exception("knn eval failed")
+            ev = self.pipeline_config.eval
+            if ev is not None and ev.fail_on_eval_error:
+                raise
+            return None
 
     def export_dir(self) -> Optional[str]:
         """Where the export of this run lands in a local store."""
@@ -130,7 +195,12 @@ class TrainerPipeline:
                     _write_row(eval_result.result_df, os.path.join(tmp, "results.csv"))
                 if eval_result.result_extra_day_df is not None:
                     _write_row(eval_result.result_extra_day_df, os.path.join(tmp, "results_extra_day.csv"))
+                if eval_result.knn_eval_result:
+                    _write_rows(eval_result.knn_eval_result, os.path.join(tmp, "knn_eval.csv"))
             if state is not None:
-                export_model_artifacts(state.wrapper, tmp, export_config_str=cfg.export.export_config_str)
+                export_model_artifacts(
+                    state.wrapper, tmp, export_config_str=cfg.export.export_config_str,
+                    trace_batch=self._trace_batch,
+                )
             store.upload_dir_recursive(local_directory=tmp, folder=f"{cfg.export.path_prefix}/{cfg.model_version}")
             cfg.trackers.log_artifacts(tmp)

@@ -1,8 +1,10 @@
 """Synthetic click logs for the LTHM configs and impression logs for the
 ranker, with no JAX and no pandas.
 
-Port of ``make_click_log``, ``write_synthetic_dataset``, ``make_ranking_log``
-and ``write_ranking_dataset`` of ``recommendations_tpu/tools/synth_data.py``:
+Port of ``make_click_log``, ``write_synthetic_dataset``, ``make_ranking_log``,
+``write_ranking_dataset`` and the joint pipeline's cluster-match impressions
+(``product_clusters``, ``user_cluster_map``, ``make_cluster_ranking_log``)
+of ``recommendations_tpu/tools/synth_data.py``:
 for a seed, the same rows, value for value, as a table of numpy columns
 (``features/transforms.py``) where the JAX package builds a DataFrame.
 Users belong to latent taste clusters and browse within a cluster in a ring
@@ -214,6 +216,51 @@ def write_ranking_dataset(
             paths.append(path)
             i += 1
     return paths
+
+
+def product_clusters(num_products: int, num_clusters: int, structure_seed: int = 777) -> np.ndarray:
+    """The synthetic catalog's fixed product -> cluster map (make_click_log's
+    structure seed, so both logs share the catalog)."""
+    struct = np.random.RandomState(structure_seed)
+    return struct.randint(0, num_clusters, size=num_products)
+
+
+def user_cluster_map(click_table: Table, num_products: int, num_clusters: int) -> dict:
+    """user -> the majority cluster of the history (the generator's latent
+    draw: histories are about 97% in-cluster)."""
+    cop = product_clusters(num_products, num_clusters)
+    out = {}
+    for uid, history in zip(click_table["customer_id"], click_table["product_ids"]):
+        pids = [int(p.split("_")[1]) for p in history if p]
+        if pids:
+            out[uid] = int(np.bincount(cop[pids], minlength=num_clusters).argmax())
+    return out
+
+
+def make_cluster_ranking_log(user_cluster: dict, users: list, num_products: int, num_clusters: int,
+                             num_rows: int, seed: int = 0, match_coef: float = 4.0):
+    """Impressions whose click depends on whether the user's cluster is the
+    product's: quality and price are learnable without the user signal, the
+    match only through the retrieval encoder's embeddings. Returns (table,
+    refs), refs the Bayes and product-only logits."""
+    cop = product_clusters(num_products, num_clusters)
+    quality = np.random.RandomState(778).randn(num_products) * 0.8
+    rng = np.random.RandomState(seed)
+    u_idx = rng.randint(0, len(users), num_rows)
+    p_idx = rng.randint(0, num_products, num_rows)
+    u_cl = np.array([user_cluster[users[u]] for u in u_idx])
+    match = (u_cl == cop[p_idx]).astype(np.float32)
+    price = np.abs(rng.randn(num_rows) * 40 + 30).astype(np.float32)
+    logits = quality[p_idx] + match_coef * match - 0.004 * price - 1.8
+    click = (rng.rand(num_rows) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    table = {
+        "product_id": objects(f"sku_{p}" for p in p_idx),
+        "customer_id": objects(users[u] for u in u_idx),
+        "price": price,
+        "click": click,
+    }
+    refs = {"true_logit": logits, "product_only_logit": quality[p_idx] - 0.004 * price}
+    return table, refs
 
 
 if __name__ == "__main__":

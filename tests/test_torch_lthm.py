@@ -265,9 +265,9 @@ def test_format_inputs_rejects_float_ids():
         # sharding, which is not, it still raises
         {"table_optimizer": "sparse_fused_adam", "shard_embedding_rows": True},
         {"shard_embedding_rows": True},
-        {"product_tower.model_init_metadata": {"embedding_module_path": "x"}},
         {"transformer_config.sequence_parallel": True},
-        # (remat, enable_gradient_checkpointing, is ported: tests/test_torch_production.py;
+        # (the pretrained module, model_init_metadata: tests/test_torch_embedding_module_gen.py;
+        # remat, enable_gradient_checkpointing, is ported: tests/test_torch_production.py;
         # the sparse keep-sets and the MoE rotator: tests/test_torch_moe.py)
     ],
 )

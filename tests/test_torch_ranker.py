@@ -384,9 +384,7 @@ def _run(tmp, tag, ckpt_dir):
             f"train.train_steps={STEPS}", "train.validation_steps=2", "train.val_metrics_every_n_steps=3",
             "train.train_metrics_every_n_steps=3", "train.checkpoint_every_k_steps=3", f"checkpoint_dir={ckpt_dir}",
             f"export.filesystem_config.local_dir_prefix={tmp}/export_{tag}",
-            f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]", f"model_version={tag}", "run_id=r1",
-            # batch inference after training is ROADMAP item 11, which raises in the port
-            "inference.skip_inference=true"]
+            f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]", f"model_version={tag}", "run_id=r1"]
     return main_training.main(argv, return_pipeline=True)
 
 
@@ -435,6 +433,14 @@ def test_main_training_on_ranker_train_yaml(tmp_path):
             for pid, st in oa["state"].items():
                 for k, t in st.items():
                     assert torch.equal(t, ob["state"][pid][k]), (pid, k)
+
+        # the YAML's batch inference ran after training (tests/test_torch_export_inference.py
+        # holds it to JAX's run_inference): a score a validation impression
+        import pyarrow.parquet as pq
+
+        scores = pq.read_table(os.path.join(pipe_a.export_dir(), "inference", "inference_results.parquet"))
+        assert scores.num_rows == 2 * 1024 and {"ranker_scorer.click", "ranker_scorer.conversion"} <= set(
+            scores.column_names)
 
         fresh = load_exported_wrapper(pipe_a.export_dir(), device="cpu")
         assert isinstance(fresh, RankerModelWrapper)
