@@ -128,6 +128,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
      export's trace and save, a .pt2 call against the eager request, the
      compression job's epochs), and the script's own seconds.
 
+  6. the multi-device layers: two processes on the one card joined by a
+     gloo group (NCCL refuses two ranks on one card; gloo moves every
+     tensor through the host, so nothing here measures NCCL across cards)
+     at full width: (a) data-parallel training of the production LTHM at
+     context 512 (fused CE, frozen table), 2 x 32 users, step 1's loss and
+     summed gradients held to one process's on the 64 users, a warm-up and
+     3 steps (16 of each bias kernel and 6 of each CE kernel a rank and
+     step), the same parameter bits on both ranks, the step's time and the
+     gradient all-reduce's share; (b) lthm.yaml's 10M-row table at model =
+     2, both schedules' forward and table gradient held to the dense
+     lookup, the overflow count at capacity factor 0.05; (c) ring attention
+     at MQA 32x16 with the bias window, T = 513 and 1025, held to the bias
+     kernels; (d) the MoE LTHM at expert = 2 held to one process; then (e)
+     (a)'s step through a one-rank NCCL group in this process. Each group
+     has a 60 s timeout and the ranks a time limit.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 card, and without the repo beside it.
@@ -2729,6 +2745,428 @@ def bias_sweep(fa):
     return out
 
 
+# -- 6. the multi-device layers on one card ------------------------------------------------
+
+DP_WORLD = 2  # ranks of phase [6], on the one card, joined by a gloo group
+DP_USERS = 32  # users a rank in (a): 2 x 32 = 64 global
+DP_STEPS = 3
+TABLE_USERS = 64  # (b)'s ids: 64 users of 512 events
+RING_BATCH = 8  # (c)
+EP_USERS = 16  # (d)
+PHASE6_TIMEOUT_S = 420
+
+
+def _phase6_dp(kernels):
+    """(a): the production LTHM at lthm.yaml's context 512 (fused CE, frozen
+    table) over a data axis of DP_WORLD ranks, DP_USERS users each: step 1's
+    loss and summed gradients held to one process's step on the 64 users
+    (same weights), a warm-up and DP_STEPS timed steps with the launch
+    counts and the reduction's time, and a digest of the parameters after
+    them."""
+    import hashlib
+
+    from recommendations_tpu_torch.core.mesh import MeshConfig, build_mesh
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train import step as step_mod
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    cfg = LTHMModelConfig.from_dict(production_config(CTX512))
+    mesh = build_mesh(MeshConfig(data=DP_WORLD), device="cuda")
+    batch = request_batch(600, DP_WORLD * DP_USERS, CTX512 + 8)
+    start = mesh.index("data") * DP_USERS
+    local = {k: v[start:start + DP_USERS] for k, v in batch.items()}
+    offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+    one = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    random_bias_tables(one, 7)
+    one_loss, one_grads = grads_of(one, batch, one.init_aux_state(), offsets)
+    del one
+    torch.cuda.empty_cache()
+    wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    random_bias_tables(wrapper, 7)
+    wrapper.bind_mesh(mesh)
+    loss, metrics, _ = wrapper.loss_and_metrics(local, wrapper.init_aux_state(), True, offsets=offsets)
+    loss.backward()
+    step_mod.reduce_gradients(wrapper)
+    grads = {n: p.grad for n, p in wrapper.module.named_parameters() if p.grad is not None}
+    if set(grads) != set(one_grads):
+        raise AssertionError("(a): the two steps gave gradients for different parameters")
+    worst = max((rel_err(grads[n], one_grads[n]), n) for n in grads)
+    dp_loss = metrics["train_loss"].item()
+    wrapper.module.zero_grad(set_to_none=True)
+    del one_grads, grads
+    state = TrainState.create(wrapper, seed=1)
+    real_reduce, reduce_ms = step_mod.reduce_gradients, []
+
+    def timed_reduce(w):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(w)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    step_mod.reduce_gradients = timed_reduce
+    try:
+        step_mod.train_step(state, local, offsets=offsets)  # warm-up
+        torch.cuda.synchronize()
+        reduce_ms.clear()
+        for kern in kernels:
+            kern.launches = 0
+        step_ms, losses = [], []
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            loss_t, _ = step_mod.train_step(state, local, offsets=offsets)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss_t.item())
+        counts = {kern.name: kern.launches for kern in kernels}
+    finally:
+        step_mod.reduce_gradients = real_reduce
+    digest = hashlib.sha256()
+    for name, p in sorted(wrapper.module.named_parameters()):
+        digest.update(name.encode() + p.detach().cpu().numpy().tobytes())
+    out = {"loss": dp_loss, "one_loss": one_loss, "worst": worst, "step_ms": step_ms, "reduce_ms": reduce_ms,
+           "losses": losses, "counts": counts, "digest": digest.hexdigest(),
+           "layers": cfg.transformer_config.num_layers, "heads": len(cfg.lookahead)}
+    del state, wrapper
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase6_table():
+    """(b): lthm.yaml's 10M-row table (d = 32, 8 shifts, normalized) at
+    model = DP_WORLD (5M rows a rank): both schedules' forward and table
+    gradient held to the dense lookup on float32 rows (the JAX tests'
+    arithmetic), and the overflow count at a capacity factor of 0.05."""
+    from recommendations_tpu_torch.core.mesh import MeshConfig, build_mesh
+    from recommendations_tpu_torch.nn.embeddings import KShiftEmbedding
+    from recommendations_tpu_torch.parallel.sharded_embedding import ShardedKShiftEmbedding
+
+    tc = production_config(CTX512)["product_tower"]
+    rows, dim = tc["latent_model_config"]["vocab_size_latent"], tc["inp_emb_dim"]
+    shifts = tc["latent_model_config"]["num_shifts_latent"]
+    mesh = build_mesh(MeshConfig(data=1, model=DP_WORLD), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dense = KShiftEmbedding(rows, dim, gen, num_shifts=shifts, normalize_output=True)
+    per = rows // mesh.size("model")
+    lo = mesh.index("model") * per
+    ids = torch.from_numpy(request_batch(700, TABLE_USERS, CTX512)["product_ids"]).cuda()
+    target = torch.randn((*ids.shape, dim), generator=gen, device="cuda")
+    want = dense(ids)
+    ((want - target) ** 2).sum().backward()
+    want_grad = dense.embedding.grad[lo:lo + per]
+    out = {"rows": rows, "rows_per_rank": per, "dim": dim, "tokens": ids.numel()}
+    for schedule, cf in (("psum", 2.0), ("alltoall", 2.0), ("alltoall_low", 0.05)):
+        emb = ShardedKShiftEmbedding(dense.embedding.detach()[lo:lo + per].clone(), rows, mesh, num_shifts=shifts,
+                                     normalize_output=True, schedule=schedule.split("_")[0], capacity_factor=cf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = emb(ids)
+        ((got - target) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        out[schedule] = {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "fwd_err": (got - want).abs().max().item(),
+            "grad_err": (emb.embedding.grad - want_grad).abs().max().item(),
+            "grad_max": want_grad.abs().max().item(),
+            "overflow": None if emb.overflow is None else emb.overflow.item(),
+            "zero_rows": int((got.detach().abs().sum(-1) == 0).sum().item()),
+        }
+        del emb
+    del dense, want_grad
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase6_ring(fa):
+    """(c): ring attention over DP_WORLD ranks at lthm.yaml's widths (MQA
+    32x16, the bias window = T) at T = 513 and T = 1025 (both padded to the
+    ring), outputs and gradients (the table's included) held to the one-rank
+    bias kernels (flash_bias_fwd, flash_bias_dq, flash_bias_dkv) on the same
+    bf16 inputs and a bf16-valued table. Tolerance: the kernels round p and
+    dS to bf16 before their products, the ring keeps them in float32, so
+    each output may move by 2**-8 of its terms' sum: norm-relative 2**-7."""
+    from recommendations_tpu_torch.core.mesh import MeshConfig, build_mesh
+    from recommendations_tpu_torch.parallel.ring_attention import ring_attention_padded
+
+    mesh = build_mesh(MeshConfig(data=1, model=DP_WORLD), device="cuda")
+    heads, hd, out = 32, 16, {}
+    for t in (CTX512 + 1, PROD_CONTEXT + 1):
+        g = torch.Generator(device="cuda").manual_seed(t)
+        q, k, v = randn_qkv(RING_BATCH, t, heads, hd, 1, torch.bfloat16, seed=t)
+        table = torch.randn(2 * t + 1, heads, generator=g, device="cuda").bfloat16().float()
+        do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+        ins = [x.detach().clone().requires_grad_() for x in (q, k, v, table)]
+        ref = fa.fused_flash_attention_bias(*ins, heads, t, True)
+        ref.backward(do)
+        rin = [x.detach().clone().requires_grad_() for x in (q, k, v, table)]
+        qh = rin[0].reshape(RING_BATCH, t, heads, hd).transpose(1, 2)
+        kh, vh = (x.reshape(RING_BATCH, t, 1, hd).transpose(1, 2) for x in rin[1:3])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ring_attention_padded(qh, kh, vh, mesh.group("model"), causal=True, bias_table=rin[3], nk=t)
+        got = got.transpose(1, 2).reshape(RING_BATCH, t, heads * hd)
+        got.backward(do)
+        torch.cuda.synchronize()
+        errs = {"o": rel_err(got.detach(), ref.detach())}
+        errs.update({n: rel_err(a.grad, b.grad) for n, a, b in zip(("dq", "dk", "dv", "dtable"), rin, ins)})
+        out[t] = {"errs": errs, "ms": (time.perf_counter() - t0) * 1e3,
+                  "finite": all(bool(torch.isfinite(x.grad).all()) for x in rin)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase6_experts():
+    """(d): the MoE LTHM of phases [3]/[4] (4 experts, top-2) at expert =
+    DP_WORLD: the loss and every gradient of one training forward on
+    EP_USERS users held to one process's (this rank's block of the expert
+    stacks), with every expert mixed (top-k off) and with the top-2
+    routing, as phase [4] holds the MoE path to plain attention: the split
+    sums the float32 mix in another order, so a bf16 rounding may flip and
+    travel through the layers (2**-5, four ulps); with routing, a token
+    whose 2nd and 3rd gates lie within an ulp may take another expert pair
+    (2**-2)."""
+    from recommendations_tpu_torch.nn.transformer import MoELinear
+    from recommendations_tpu_torch.core.mesh import MeshConfig, build_mesh
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+
+    cfg = LTHMModelConfig.from_dict(moe_config())
+    mesh = build_mesh(MeshConfig(data=1, expert=DP_WORLD), device="cuda")
+    batch = request_batch(800, EP_USERS, CTX512 + 8)
+    offsets = sample_offsets(torch.Generator().manual_seed(6), cfg.lookahead)
+    one = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    ep = LTHMModelWrapper(cfg, device="cuda", seed=0)
+    for w in (one, ep):
+        random_bias_tables(w, 7)
+    ep.bind_mesh(mesh)
+    experts, n = ep.sharded_params(), mesh.size("expert")
+    out = {"sharded": len(experts), "stack_shape": list(ep.module.query_tower.transformer.block_0.moe_fc.w1.shape)}
+    for label, top_k in (("mixed", None), ("routed", cfg.transformer_config.rotator().top_k)):
+        for w in (one, ep):
+            for m in w.module.modules():
+                if isinstance(m, MoELinear):
+                    m.top_k = top_k
+        one_loss, one_grads = grads_of(one, batch, one.init_aux_state(), offsets)
+        loss, grads = grads_of(ep, batch, ep.init_aux_state(), offsets)
+        for name in experts:
+            per = one_grads[name].shape[0] // n
+            one_grads[name] = one_grads[name][mesh.index("expert") * per:(mesh.index("expert") + 1) * per]
+        out[label] = {"loss": loss, "one_loss": one_loss,
+                      "worst": max((rel_err(grads[k], one_grads[k]), k) for k in one_grads)}
+        del grads, one_grads
+    del one, ep
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase6_rank(argv) -> int:
+    """A rank of phase [6] (``python chip_smoke.py --phase6-rank RANK WORLD
+    PORT OUT``): joins the gloo group on the one card, runs (a)-(d) and
+    writes its results to OUT/rank<RANK>.json."""
+    import torch.distributed as dist
+
+    from recommendations_tpu_torch.core.mesh import init_distributed
+    from recommendations_tpu_torch.ops import fused_attention as fa
+    from recommendations_tpu_torch.ops import fused_ce as fc
+
+    rank, world, port, out_dir = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_distributed("cuda", backend="gloo", init_method=f"tcp://127.0.0.1:{port}", world=world, rank=rank)
+    kernels = (*fa.KERNELS, *fc.KERNELS)
+    for kern in kernels:
+        kern.build()  # the parent's builds, found by their hash
+    t0 = time.perf_counter()
+    res = {"backend": dist.get_backend()}
+    res["dp"] = _phase6_dp(kernels)
+    res["table"] = _phase6_table()
+    res["ring"] = _phase6_ring(fa)
+    res["experts"] = _phase6_experts()
+    res["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _phase6_nccl(kernels):
+    """(e): (a)'s step through a one-rank NCCL group in this process: every
+    collective of the data-parallel step (the loss's gathers and metric
+    reductions, the gradient all-reduce, the NaN flag) runs on NCCL on the
+    card, moving no data."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from recommendations_tpu_torch.core.mesh import Mesh
+    from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+    from recommendations_tpu_torch.models.lthm.loss import sample_offsets
+    from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60), device_id=torch.device("cuda", 0))
+    try:
+        cfg = LTHMModelConfig.from_dict(production_config(CTX512))
+        wrapper = LTHMModelWrapper(cfg, device="cuda", seed=0)
+        random_bias_tables(wrapper, 7)
+        wrapper.bind_mesh(Mesh.one_rank(dist.group.WORLD, "cuda"))
+        state = TrainState.create(wrapper, seed=1)
+        batch = request_batch(610, DP_USERS, CTX512 + 8)
+        offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
+        train_step(state, batch, offsets=offsets)  # warm-up
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        loss, metrics = train_step(state, batch, offsets=offsets)
+        torch.cuda.synchronize()
+        out = {"backend": dist.get_backend(), "ms": (time.perf_counter() - t0) * 1e3, "loss": loss.item(),
+               "grad_norm": metrics["grad_norm"].item(), "params_nan": metrics["params_nan"].item(),
+               "counts": {kern.name: kern.launches for kern in kernels}}
+        del state, wrapper
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def distributed_phase(kernels, smi):
+    """Phase [6]: DP_WORLD processes on the one card joined by a gloo group
+    (NCCL refuses two ranks on one GPU) run (a)-(d) at full width, then (e)
+    runs (a)'s step here through a one-rank NCCL group. Neither measures
+    NCCL across cards: the gloo group moves every tensor through the host.
+    Returns the numbers for the kernels line."""
+    import subprocess
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_phase6_")
+    port = _free_port()
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w") for r in range(DP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase6-rank", str(r), str(DP_WORLD),
+                               str(port), out_dir], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DP_WORLD)]
+    try:
+        for r, p in enumerate(procs):
+            left = PHASE6_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rc = p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                logs[r].flush()
+                with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                    print(f.read()[-6000:], flush=True)
+                raise AssertionError(f"[6] rank {r} {'hung' if rc is None else f'exited {rc}'}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ok = all(res["backend"] == "gloo" for res in ranks)
+
+    # (a) data-parallel training
+    dp = [res["dp"] for res in ranks]
+    layers, heads = dp[0]["layers"], dp[0]["heads"]
+    want = {k.name: 0 for k in kernels}
+    want.update({n: layers for n in ("flash_bias_fwd", "flash_bias_dq", "flash_bias_dkv")})
+    want.update({k: heads for k in ("ce_row_diag", "ce_fwd", "ce_dq", "ce_dc")})  # one 32-user chunk a head
+    per_step = [{k: n // DP_STEPS for k, n in d["counts"].items()} for d in dp]
+    counts_ok = all(ps == want for ps in per_step)
+    same_bits = len({d["digest"] for d in dp}) == 1 and len({tuple(d["losses"]) for d in dp}) == 1
+    grad_ok = all(d["worst"][0] <= 2**-6 and abs(d["loss"] - d["one_loss"]) <= 1e-3 * abs(d["one_loss"]) for d in dp)
+    finite = all(math.isfinite(x) for d in dp for x in d["losses"])
+    step_ms = [x for d in dp for x in d["step_ms"]]
+    share = sum(sum(d["reduce_ms"]) for d in dp) / sum(step_ms)
+    print(f"[6] {smi}: {DP_WORLD} ranks on one card, backends {[res['backend'] for res in ranks]} (gloo through "
+          f"the host, not NCCL)", flush=True)
+    print(f"[6] (a) data-parallel lthm.yaml (context 512, fused CE, frozen table), {DP_WORLD} x {DP_USERS} users: "
+          f"step 1 loss {dp[0]['loss']:.6f} vs one process on {DP_WORLD * DP_USERS} users {dp[0]['one_loss']:.6f}, "
+          f"worst gradient {dp[0]['worst'][1]} at norm-relative {max(d['worst'][0] for d in dp):.3e} (tol 2**-6: "
+          f"bf16 products over 32 rows against 64 may round apart, the ranks' parts summed in another order); "
+          f"launches a rank and step {per_step[0]} (want {want}); losses {dp[0]['losses']}; parameters the same "
+          f"bits on every rank {same_bits} -> {'ok' if counts_ok and same_bits and grad_ok and finite else 'FAIL'}",
+          flush=True)
+    print(f"[6] (a) {smi}: step {[round(x, 3) for x in step_ms]} ms, gradient all-reduce "
+          f"{[round(x, 3) for d in dp for x in d['reduce_ms']]} ms, its share {100 * share:.1f}% (gloo through the "
+          f"host, not NCCL)", flush=True)
+    ok &= counts_ok and same_bits and grad_ok and finite
+
+    # (b) the row-sharded table
+    for r, res in enumerate(ranks):
+        tb = res["table"]
+        b_ok = all(tb[s]["fwd_err"] <= 2e-5 and tb[s]["grad_err"] <= 2e-4 * max(1.0, tb[s]["grad_max"])
+                   and tb[s]["overflow"] in (None, 0.0) and tb[s]["zero_rows"] == 0 for s in ("psum", "alltoall"))
+        b_ok &= tb["alltoall_low"]["overflow"] > 0 and tb["alltoall_low"]["zero_rows"] > 0
+        print(f"[6] (b) rank {r}: the {tb['rows']}-row table at model = {DP_WORLD} ({tb['rows_per_rank']} rows a "
+              f"rank, d = {tb['dim']}, {tb['tokens']} tokens): " + "; ".join(
+                  f"{s} forward {tb[s]['fwd_err']:.2e} (tol 2e-5), table gradient {tb[s]['grad_err']:.2e} (tol 2e-4 "
+                  f"x max(1, {tb[s]['grad_max']:.2e})), {tb[s]['ms']:.1f} ms" for s in ("psum", "alltoall"))
+              + f"; capacity factor 0.05: overflow {tb['alltoall_low']['overflow']:.0f} requests, "
+              f"{tb['alltoall_low']['zero_rows']} tokens read zero rows -> {'ok' if b_ok else 'FAIL'}", flush=True)
+        ok &= b_ok
+
+    # (c) ring attention
+    for r, res in enumerate(ranks):
+        for t, rg in res["ring"].items():
+            c_ok = rg["finite"] and all(e <= 2**-7 for e in rg["errs"].values())
+            print(f"[6] (c) rank {r}: ring attention over {DP_WORLD} ranks, B={RING_BATCH} T={t} MQA 32x16, the bias "
+                  f"window {t}: norm-relative " + ", ".join(f"{n} {e:.2e}" for n, e in rg["errs"].items())
+                  + f" against flash_bias_fwd/dq/dkv (tol 2**-7: the kernels round p and dS to bf16); "
+                  f"{rg['ms']:.1f} ms -> {'ok' if c_ok else 'FAIL'}", flush=True)
+            ok &= c_ok
+
+    # (d) expert parallelism
+    for r, res in enumerate(ranks):
+        ex = res["experts"]
+        d_ok = ex["stack_shape"][0] == 4 // DP_WORLD and ex["sharded"] > 0
+        for label, tol in (("mixed", 2**-5), ("routed", 2**-2)):
+            e = ex[label]
+            d_ok &= e["worst"][0] <= tol and abs(e["loss"] - e["one_loss"]) <= 2**-8 * abs(e["one_loss"])
+        print(f"[6] (d) rank {r}: the MoE LTHM at expert = {DP_WORLD} ({ex['sharded']} expert stacks split, "
+              f"w1 {ex['stack_shape']}), {EP_USERS} users, against one process: " + "; ".join(
+                  f"{text} loss {ex[key]['loss']:.6f} vs {ex[key]['one_loss']:.6f}, worst gradient "
+                  f"{ex[key]['worst'][1]} at norm-relative {ex[key]['worst'][0]:.3e} (tol {tol_s})"
+                  for key, text, tol_s in (("mixed", "every expert mixed", "2**-5"),
+                                           ("routed", "top-2 routed", "2**-2")))
+              + f" -> {'ok' if d_ok else 'FAIL'}", flush=True)
+        ok &= d_ok
+
+    # (e) the NCCL path, one rank
+    nc = _phase6_nccl(kernels)
+    e_ok = (nc["backend"] == "nccl" and nc["counts"] == want and math.isfinite(nc["loss"])
+            and nc["params_nan"] == 0.0)
+    print(f"[6] (e) {smi}: (a)'s step through a one-rank {nc['backend']} group ({DP_USERS} users; its collectives "
+          f"move no data): loss {nc['loss']:.6f}, grad norm {nc['grad_norm']:.4f}, launches {nc['counts']}, "
+          f"{nc['ms']:.3f} ms -> {'ok' if e_ok else 'FAIL'}", flush=True)
+    ok &= e_ok
+    seconds = time.perf_counter() - t0
+    print(f"[6] the phase took {seconds:.1f} s (ranks' own work {max(res['seconds'] for res in ranks):.1f} s)",
+          flush=True)
+    if not ok:
+        raise AssertionError("[6] the multi-device phase failed")
+    return {"per_rank_step": per_step[0], "step_ms": step_ms, "reduce_share": share, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3394,6 +3832,9 @@ def main() -> int:
         "knobs_max_abs_err": knobs["ce_errs"][name],
         "knobs_tolerance": knobs["ce_tols"][name],
     } for name, line in ce_replaces.items()]
+    multi = distributed_phase(kernels, smi)
+    for entry in (*bias_entries, *ce_entries):
+        entry["launches_per_rank_step_data_parallel"] = multi["per_rank_step"][entry["name"]]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -3445,4 +3886,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase6-rank":
+        sys.exit(phase6_rank(sys.argv[2:]))
     sys.exit(main())

@@ -2,10 +2,9 @@
 
 Port of ``recommendations_tpu/config/training_strategy_config.py``. Both
 names the JAX package registers are kept: ``pjit`` (which both training
-YAMLs set) and ``single_device``. In the port both run the single-process
-strategy (``train/strategy.py``) on one device; the fields of a mesh, of
-multi-host runs, of profile capture and of the sanitizer mode are kept for
-the config's shape, and the strategy refuses the values it cannot honour.
+YAMLs set) and ``single_device``. In the port both run the strategy of
+``train/strategy.py``: on one device, or over the ``mesh_*`` fields' mesh of
+the ranks ``torchrun`` starts (``core/mesh.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ class TrainingStrategyConfig:
 @_registered
 @dataclass
 class PjitTrainingStrategyConfig(TrainingStrategyConfig):
-    """A mesh-parallel jit strategy in the JAX package; one device here."""
+    """The mesh-parallel strategy (a mesh of ranks here)."""
 
     name: str = "pjit"
     precision: str = "bf16"

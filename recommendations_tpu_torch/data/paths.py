@@ -2,10 +2,10 @@
 excluded dates and block chunks.
 
 Port of ``recommendations_tpu/data/paths.py`` (reference
-``commons/data/dataset_generator_utils.py``) for one process: the
-per-host split (``get_paths_for_worker``) waits for the multi-host trainer
-(ROADMAP, port queue item 10), and the extra-day validation set, which
-nothing reads in the JAX package, is left out.
+``commons/data/dataset_generator_utils.py``): the per-node split of the
+files (``get_paths_for_worker``; a node is a JAX host, each reading its
+own files), the date ranges and the chunks. The extra-day validation set,
+which nothing reads in the JAX package, is left out.
 """
 
 from __future__ import annotations
@@ -17,6 +17,21 @@ import numpy as np
 
 from recommendations_tpu_torch.config.trainer_config import TrainDatasetConfig
 from recommendations_tpu_torch.data.data_store import DataStoreAccessor, get_date_range_str
+
+
+def get_paths_for_worker(
+    worker_id: int, data_paths: List[str], num_workers: int, seed: Optional[int] = None
+) -> List[str]:
+    """Contiguous split with the remainder to the first workers."""
+    data_paths = sorted(data_paths)
+    if seed is not None:
+        rng = np.random.RandomState(seed)
+        data_paths = list(np.array(data_paths)[rng.permutation(len(data_paths))])
+    total = len(data_paths)
+    per, rem = total // num_workers, total % num_workers
+    count = per + (1 if rem > worker_id else 0)
+    start = worker_id * per + min(rem, worker_id)
+    return data_paths[start:min(total, start + count)]
 
 
 def get_path_chunks(

@@ -12,6 +12,16 @@ KNN eval, the batch inference and the traced export programs) on one
 device: the card unless ``--device cpu`` is given; without a card it
 raises. A config with ``joint: true`` (``--config-name joint_train``) runs
 the retrieval -> ranking pipeline (``pipeline/joint_pipeline.py``).
+
+Over several ranks, as ``main_training.py`` calls ``init_distributed``:
+
+    torchrun --nproc_per_node=N -m recommendations_tpu_torch.main_training \
+        --config-name lthm_tiny [--device cpu] training_strategy.mesh_data=N
+
+forms the process group from ``torchrun``'s environment (NCCL on cards,
+each rank on ``cuda:{LOCAL_RANK}``; gloo with ``--device cpu``) and trains
+over the config's mesh (``train/strategy.py``); rank 0 logs, checkpoints,
+exports, evaluates and runs the inference.
 """
 
 from __future__ import annotations
@@ -21,7 +31,11 @@ import logging
 import sys
 from pathlib import Path
 
+import torch
+import torch.distributed as dist
+
 from recommendations_tpu_torch import resolve_device
+from recommendations_tpu_torch.core.mesh import init_distributed, local_device
 from recommendations_tpu_torch.config.yaml_loader import load_config, parse_cli_overrides
 from recommendations_tpu_torch.data.generator import get_data_loader_strategy
 from recommendations_tpu_torch.data.paths import get_train_data_paths
@@ -61,6 +75,10 @@ def main(argv=None, return_pipeline: bool = False):
     parser.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    init_distributed(device)  # torchrun's environment; one process forms no group
+    device = local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
 
     config_path = Path(args.config_dir) / f"{args.config_name}.yaml"
     cfg = load_config(config_path, overrides=parse_cli_overrides(args.overrides), search_paths=[args.config_dir])
@@ -80,4 +98,9 @@ def main(argv=None, return_pipeline: bool = False):
 
 if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s", force=True)
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    sys.exit(code)

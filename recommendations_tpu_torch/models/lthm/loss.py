@@ -18,6 +18,20 @@ Offsets: the JAX package draws them from ``jax.random``, whose bits a
 ``torch.Generator`` does not give, so ``contrastive_step`` takes them as an
 argument (``offsets=``) or draws them with the same distribution from a
 generator.
+
+Over a data-parallel group (``data_group``) the loss is JAX's over the
+whole batch, each rank holding its rows' part:
+
+- the logQ update reads every rank's ids and mask (gathered), so each rank
+  holds the one process's state;
+- the chunks of ``train_mini_batch_size`` users are cut from the whole
+  batch; each rank computes the chunks that hold its rows, on its own rows
+  where a chunk lies within them, else on the group's rows gathered with
+  their gradient (``collectives.all_gather``: each rank's gradient is then
+  its own rows' share of the chunk's);
+- the returned loss is this rank's part of the whole loss, whose gradients
+  summed over the group are the one process's; the metrics (the loss
+  among them) are the whole batch's, reduced over the group.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from recommendations_tpu_torch.core.debug import unchecked
 from recommendations_tpu_torch.nn.functional import l2_normalize_f32acc
 from recommendations_tpu_torch.nn.logq import LogQState, logq_correction, logq_update
 from recommendations_tpu_torch.ops.fused_ce import fused_contrastive_ce
+from recommendations_tpu_torch.parallel import collectives as col
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -181,6 +196,7 @@ def contrastive_step(
     fused_ce: bool = False,
     offsets=None,
     generator: Optional[torch.Generator] = None,
+    data_group=None,
 ) -> Tuple[torch.Tensor, Metrics, LogQState]:
     """Loss over the macro batch, the metrics under the JAX package's keys,
     and the new logQ state (updated in training only).
@@ -188,19 +204,23 @@ def contrastive_step(
     ``offsets`` (one int per head) overrides the draw from ``generator``.
     Chunks of ``train_mini_batch_size`` users (training only) each give an
     (N, N) tile; the loss and metrics are averaged over chunks, as the JAX
-    package's scan does."""
+    package's scan does. ``data_group``: the ranks that hold the other rows
+    of the batch (see the module docstring)."""
     out_emb = l2_normalize_f32acc(output["next_token_emb"])
     in_emb = l2_normalize_f32acc(output["current_token_emb"])
     mask = output["current_token_mask"]
     ids = output["current_token_ids"]
 
-    b, s = mask.shape
+    b_local, s = mask.shape
+    n_ranks, r = col.group_size(data_group), col.group_rank(data_group)
+    b, row0 = b_local * n_ranks, r * b_local
     k_heads = len(lookahead)
     if out_emb.shape[1] != s + 1 or out_emb.shape[2] != k_heads:
-        raise ValueError(f"next_token_emb {tuple(out_emb.shape)} does not fit mask {(b, s)}")
+        raise ValueError(f"next_token_emb {tuple(out_emb.shape)} does not fit mask {(b_local, s)}")
 
     if training:
-        logq_state = logq_update(logq_state, ids, ~mask, batch_idx, alpha=alpha)
+        all_ids, all_mask = (col.all_gather_tensor(t, data_group) for t in (ids, mask))
+        logq_state = logq_update(logq_state, all_ids, ~all_mask, batch_idx, alpha=alpha)
     logq = logq_correction(logq_state, ids)
 
     if offsets is None:
@@ -214,7 +234,17 @@ def contrastive_step(
     prefix = "train" if training else "val"
     chunk = train_mini_batch_size if (training and train_mini_batch_size > 0) else b
     chunk = min(chunk, b)
-    starts = range(0, b, chunk)
+    bounds = [(cs, min(cs + chunk, b)) for cs in range(0, b, chunk)]
+    # the chunks that hold this rank's rows; a chunk is reported by the rank
+    # of its first row
+    mine = [(cs, ce) for cs, ce in bounds if cs < row0 + b_local and ce > row0]
+    local = all(cs // b_local == (ce - 1) // b_local for cs, ce in bounds)
+    if not local:
+        out_emb, in_emb, mask, logq = (
+            col.all_gather(out_emb, data_group), col.all_gather(in_emb, data_group),
+            col.all_gather_tensor(mask, data_group), col.all_gather_tensor(logq, data_group),
+        )
+    base = row0 if local else 0  # global row of the tensors' row 0
 
     dev = out_emb.device
     total_loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -223,6 +253,7 @@ def contrastive_step(
         f"{prefix}_seq_len": torch.tensor(float(s), device=dev),
     }
     pos = torch.arange(s, device=dev)[None, :]
+    heads = []
     for i, off in enumerate(offsets):
         # roll the candidate stream so slot (b, j) pairs with token (b, j+off)
         cand = torch.roll(in_emb, -off, dims=1)
@@ -231,31 +262,48 @@ def contrastive_step(
         valid = ~cand_mask & (pos < s - off)
         query = out_emb[:, :s, i, :]
 
-        losses, chunk_metrics = [], []
-        for cs in starts:
-            sl = slice(cs, cs + chunk)
+        losses, reported, ranks, weights, min_negs = [], [], [], [], []
+        for cs, ce in mine:
+            sl = slice(cs - base, ce - base)
             loss_c, m = _head_loss(
                 query[sl], cand[sl], valid[sl], cand_logq[sl], temperature, beta, fused_ce
             )
             losses.append(loss_c)
-            chunk_metrics.append(m)
-        head_loss = torch.stack(losses).mean()
-        rank_all = torch.cat([m.pop("_rank") for m in chunk_metrics])
-        w_all = torch.cat([m.pop("_weight") for m in chunk_metrics])
-        min_neg = torch.stack([m.pop("_min_neg") for m in chunk_metrics]).min()
-        with unchecked():  # the chunks' metrics, NaN medians among them
-            agg = {
-                key: torch.stack([m[key] for m in chunk_metrics]).mean() for key in chunk_metrics[0]
-            }
-
+            # this rank's rows of the chunk
+            own = slice((max(cs, row0) - cs) * s, (min(ce, row0 + b_local) - cs) * s)
+            ranks.append(m.pop("_rank")[own])
+            weights.append(m.pop("_weight")[own])
+            min_negs.append(m.pop("_min_neg"))
+            if cs >= row0:
+                reported.append(m)
+        head_loss = torch.stack(losses).sum() / len(bounds)
         total_loss = total_loss + head_loss
-        used = w_all.sum().clamp_min(1.0)
-        for k in metrics_k_all:
-            hit = (rank_all < torch.clamp(min_neg, max=k)).float()
-            agg[f"hit_rate_at_{k}"] = (hit * w_all).sum() / used
-        agg["offset"] = torch.tensor(float(off), device=dev)
-        for key, val in agg.items():
-            metrics[f"{prefix}_{key}_lookahead_{i}"] = val
+        heads.append((off, reported, torch.cat(ranks), torch.cat(weights), torch.stack(min_negs).min()))
 
-    metrics[f"{prefix}_loss"] = total_loss.detach()
+    # the whole batch's metrics: chunk means, the hit rates over every row
+    with torch.no_grad(), unchecked():
+        keys = ["effective_batch_size", "average_negatives_per_token", "used_tokens", "loss_all_tokens",
+                "average_hit_position", "median_hit_position"]
+        min_neg = torch.stack([h[4] for h in heads])
+        col.all_reduce_(min_neg, data_group, op=torch.distributed.ReduceOp.MIN)
+        sums = []
+        for (off, reported, rank_all, w_all, _), mn in zip(heads, min_neg):
+            chunk_sums = [torch.stack([m[key] for m in reported]).sum() if reported
+                          else torch.zeros((), device=dev) for key in keys]
+            hits = [((rank_all < torch.clamp(mn, max=k)).float() * w_all).sum() for k in metrics_k_all]
+            sums.append(torch.stack([*chunk_sums, *hits, w_all.sum()]).float())
+        sums = torch.stack(sums)
+        col.all_reduce_(sums, data_group)
+        for i, (off, *_), row in zip(range(k_heads), heads, sums):
+            agg = {key: row[j] / len(bounds) for j, key in enumerate(keys)}
+            used = row[-1].clamp_min(1.0)
+            for j, k in enumerate(metrics_k_all):
+                agg[f"hit_rate_at_{k}"] = row[len(keys) + j] / used
+            agg["offset"] = torch.tensor(float(off), device=dev)
+            for key, val in agg.items():
+                metrics[f"{prefix}_{key}_lookahead_{i}"] = val
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for row in sums:  # the heads' losses added in order, as the step adds them
+            loss_sum = loss_sum + row[keys.index("loss_all_tokens")] / len(bounds)
+        metrics[f"{prefix}_loss"] = loss_sum
     return total_loss, metrics, logq_state

@@ -2,8 +2,14 @@
 
 Port of ``recommendations_tpu/models/lthm/model.py``: the fresh KShift table
 (dense or the fused record) or the frozen pretrained module
-(``model_init_metadata``); the row-sharded table waits for the
-multi-device port. ``forward(batch, training=...)`` serves (the default) or runs
+(``model_init_metadata``). ``bind_mesh`` lays the encoder over a device
+mesh as the JAX encoder built with a mesh is: with ``shard_embedding_rows``
+the table becomes this rank's row block
+(``parallel/sharded_embedding.ShardedKShiftEmbedding``, a pretrained
+module taking precedence), with ``sequence_parallel`` the transformer
+splits the sequence over the ``model`` axis and attends by the ring, and
+over an ``expert`` axis of more than one rank each ``MoELinear`` keeps its
+share of the experts. ``forward(batch, training=...)`` serves (the default) or runs
 the training forward, which applies the transformer's dropouts with masks
 drawn from the step's ``dropout_seed`` (``nn/dropout.py``; serving and
 validation draw none).
@@ -17,7 +23,7 @@ returns float32, and each block adds its compute-dtype outputs to it).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,7 +40,7 @@ from recommendations_tpu_torch.nn.embeddings import (
 )
 from recommendations_tpu_torch.nn.functional import l2_normalize
 from recommendations_tpu_torch.nn.lsh import CosineVectorEmbedding
-from recommendations_tpu_torch.nn.transformer import TransformerStack
+from recommendations_tpu_torch.nn.transformer import MoELinear, TransformerStack
 
 
 def compute_dtype(cfg: LTHMModelConfig) -> torch.dtype:
@@ -105,10 +111,6 @@ class QueryTower(nn.Module):
     def __init__(self, cfg: LTHMModelConfig, generator: torch.Generator):
         super().__init__()
         tcfg, acfg = cfg.transformer_config, cfg.transformer_config.attn_config
-        if tcfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel (ring attention): ROADMAP, port queue 'Multi-device'"
-            )
         self.cfg = cfg
         d = cfg.emb_dim
         dt = self.dtype = compute_dtype(cfg)
@@ -145,7 +147,7 @@ class QueryTower(nn.Module):
 
     def forward(
         self, inp, target, mask, labels, timestamp, ids, training: bool = False,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[int] = None, batch_shard: Optional[Tuple[int, int]] = None,
     ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         bsz, orig_s = mask.shape
@@ -168,7 +170,7 @@ class QueryTower(nn.Module):
         pos = cw - torch.arange(cw + 1, device=x.device)
         x = x + self.wpe(pos)[None]  # float32 from here on
 
-        x = self.transformer(x, training=training, dropout_seed=dropout_seed)
+        x = self.transformer(x, training=training, dropout_seed=dropout_seed, batch_shard=batch_shard)
 
         # outcome conditioning over (labels ++ future outcome 0), (B, S+1)
         outcomes = torch.cat([labels, labels.new_zeros((bsz, 1))], dim=-1)
@@ -201,10 +203,7 @@ class LTHMEncoder(nn.Module):
     ):
         super().__init__()
         tc = cfg.product_tower
-        if cfg.shard_embedding_rows and tc.model_init_metadata is None:
-            raise NotImplementedError(
-                "row-sharded product-embedding table: ROADMAP, port queue 'Multi-device'"
-            )
+        self.cfg = cfg
         self.ids_key, self.labels_key, self.timestamp_key = ids_key, labels_key, timestamp_key
         lm = tc.latent_model_config
         if tc.model_init_metadata is not None:
@@ -226,17 +225,45 @@ class LTHMEncoder(nn.Module):
         self.product_tower = ProductTower(cfg, generator)
         self.query_tower = QueryTower(cfg, generator)
 
+    def bind_mesh(self, mesh) -> None:
+        """Lay the encoder over ``mesh`` (see the module docstring); the
+        parameters it shards keep this rank's block."""
+        from recommendations_tpu_torch.parallel.sharded_embedding import ShardedKShiftEmbedding
+
+        cfg, tc = self.cfg, self.cfg.product_tower
+        if cfg.shard_embedding_rows and tc.model_init_metadata is None:
+            lm, dense = tc.latent_model_config, self.product_emb_module
+            n = mesh.size("model")
+            if lm.vocab_size_latent % n:
+                raise ValueError(f"vocab_size_latent {lm.vocab_size_latent} not divisible by model={n}")
+            per = lm.vocab_size_latent // n
+            shard = dense.embedding.detach().narrow(0, mesh.index("model") * per, per).clone()
+            self.product_emb_module = ShardedKShiftEmbedding(
+                shard, lm.vocab_size_latent, mesh, num_shifts=lm.num_shifts_latent,
+                normalize_output=lm.normalize_embedding, compute_dtype=compute_dtype(cfg),
+                schedule=cfg.embedding_lookup_schedule,
+            )
+        stack = self.query_tower.transformer
+        if cfg.transformer_config.sequence_parallel:
+            stack.bind_sequence_parallel(mesh.group("model"))
+        for m in stack.modules():
+            if isinstance(m, MoELinear):
+                m.bind_experts(mesh.group("expert"))
+
     def forward(
         self,
         batch: Dict[str, torch.Tensor],
         training: bool = False,
         taps: Optional[Dict[str, torch.Tensor]] = None,
         dropout_seed: Optional[int] = None,
+        batch_shard: Optional[Tuple[int, int]] = None,
     ) -> Dict[str, torch.Tensor]:
         """``taps``: ``{"product_emb_rows": zeros (B, S, k, d)}`` on the
         fused-record table, whose gradient is the gathered rows' (the
         wrapper's ``make_taps``). ``dropout_seed``: the training step's,
-        which a training forward with a nonzero dropout rate needs."""
+        which a training forward with a nonzero dropout rate needs.
+        ``batch_shard``: (first row, rows) of this rank's rows in the whole
+        batch, for the dropout draws."""
         ids = batch[self.ids_key]
         embs = self.product_emb_module(ids, tap=(taps or {}).get("product_emb_rows"))
         inp, target, mask = self.product_tower(ids, embs)
@@ -245,4 +272,4 @@ class LTHMEncoder(nn.Module):
         timestamp = batch[self.timestamp_key].to(torch.int64)
         # flip to left padding (history arrives most-recent-first, right-padded)
         flipped = [torch.flip(t, dims=(1,)) for t in (inp, target, mask, labels, timestamp, ids)]
-        return self.query_tower(*flipped, training=training, dropout_seed=dropout_seed)
+        return self.query_tower(*flipped, training=training, dropout_seed=dropout_seed, batch_shard=batch_shard)

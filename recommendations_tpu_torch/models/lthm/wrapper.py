@@ -20,6 +20,13 @@ Weights come from a seeded ``torch.Generator`` or, through
 ``load_jax_variables``, from the JAX package's variables; a pretrained
 product-embedding module (``model_init_metadata``) loads its artifact at
 construction.
+
+``bind_mesh`` lays the model over a device mesh (``core/mesh.py``) as the
+JAX wrapper's does: the encoder shards what ``partition_rules`` shards (the
+table's rows over ``model``, the MoE stacks over ``expert``), the loss
+reads the whole batch of the ``data`` group (``models/lthm/loss.py``), and
+``param_grad_axes`` tells the strategy over which axes each parameter's
+gradient is summed.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from torch.profiler import record_function
 
 from recommendations_tpu_torch import resolve_device
+from recommendations_tpu_torch.core.partitioning import P, PartitionRules
 from recommendations_tpu_torch.models.base import BaseModelWrapper
 from recommendations_tpu_torch.models.lthm.config import (
     TABLE_OPT_SPARSE_FUSED_MIN_ROWS,
@@ -43,6 +51,7 @@ from recommendations_tpu_torch.models.lthm.pretrained import load_pretrained_con
 from recommendations_tpu_torch.nn.embeddings import kshift_row_indices
 from recommendations_tpu_torch.nn.functional import l2_normalize
 from recommendations_tpu_torch.nn.logq import LogQState, init_logq_state
+from recommendations_tpu_torch.parallel import collectives as col
 from recommendations_tpu_torch.train.sparse_table import (
     FusedTableState,
     init_lazy_row_state,
@@ -69,6 +78,7 @@ class LTHMModelWrapper(BaseModelWrapper):
     def __init__(self, config: LTHMModelConfig, device="cuda", seed: int = 0):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = None
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.module = LTHMEncoder(config, gen).eval()
         meta = config.product_tower.model_init_metadata
@@ -100,6 +110,66 @@ class LTHMModelWrapper(BaseModelWrapper):
                 "decays every row's moments each step, the fused path only "
                 "touched rows'."
             )
+
+    # ----- the mesh ------------------------------------------------------------
+
+    def bind_mesh(self, mesh) -> None:
+        """Lay the model over ``mesh``: each sharded parameter keeps this
+        rank's block (call before building the optimizer)."""
+        self.mesh = mesh
+        self.module.bind_mesh(mesh)
+
+    def partition_rules(self) -> PartitionRules:
+        """The JAX wrapper's rules: the table's rows over ``model`` (with
+        ``shard_embedding_rows``), the expert stacks and their biases over
+        ``expert``, everything else replicated."""
+        rules = []
+        if self.config.shard_embedding_rows:
+            rules.append((r".*product_emb_module/embedding", P("model", None)))
+        rules.append((r".*moe_(fc|proj)/(w1|w2)", P("expert", None, None)))
+        rules.append((r".*moe_(fc|proj)/(b1|b2)", P("expert", None)))
+        rules.append((r".*", P()))
+        return PartitionRules(rules)
+
+    def sharded_params(self) -> Dict[str, str]:
+        """Parameter name -> the mesh axis its first dimension is split over,
+        for the parameters this rank holds a block of."""
+        if self.mesh is None:
+            return {}
+        specs = self.partition_rules().tree_specs(dict(self.module.named_parameters()))
+        return {k: spec[0] for k, spec in specs.items() if spec and spec[0] and self.mesh.size(spec[0]) > 1}
+
+    def param_grad_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Parameter name -> the mesh axes its gradient is summed over: every
+        rank of the ``data`` axis holds other rows, and under
+        ``sequence_parallel`` every rank of ``model`` another block of the
+        sequence, whose share of the transformer's gradients it holds."""
+        if self.mesh is None:
+            return {}
+        ring = self.module.query_tower.transformer.ring_group is not None
+        return {
+            name: ("data", "model") if ring and name.startswith("query_tower.transformer.") else ("data",)
+            for name, _ in self.module.named_parameters()
+        }
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The module's state with every sharded parameter gathered whole
+        (a collective: every rank of the mesh calls it)."""
+        sd = self.module.state_dict()
+        for name, axis in self.sharded_params().items():
+            sd[name] = col.all_gather_tensor(sd[name].detach(), self.mesh.group(axis))
+        return sd
+
+    def unbind_mesh(self) -> None:
+        """Gather the sharded parameters and go back to one device's module
+        (no ring, every expert, the dense table): what the export, the
+        evaluation and the inference after training run on. A collective."""
+        if self.mesh is None:
+            return
+        full = self.full_state_dict()
+        module = LTHMEncoder(self.config, torch.Generator(device=self.device).manual_seed(0)).eval()
+        module.load_state_dict(full)
+        self.module, self.mesh = module, None
 
     def load_jax_variables(self, variables: Mapping[str, Any]) -> None:
         """Load the JAX package's variables (nested dicts of numpy arrays)."""
@@ -147,9 +217,15 @@ class LTHMModelWrapper(BaseModelWrapper):
         key; ``generator`` is its loss key, JAX's ``fwd_rng, loss_rng``);
         serving and validation apply no dropout."""
         cfg = self.config
+        data_group = None if self.mesh is None else self.mesh.group("data")
+        inputs = self.format_inputs(batch)
+        rows = inputs[self.module.ids_key].shape[0]
+        batch_shard = None
+        if data_group is not None:
+            batch_shard = (col.group_rank(data_group) * rows, col.group_size(data_group) * rows)
         with record_function("lthm/forward"):
-            output = self.module(self.format_inputs(batch), training=training, taps=taps,
-                                 dropout_seed=dropout_seed if training else None)
+            output = self.module(inputs, training=training, taps=taps,
+                                 dropout_seed=dropout_seed if training else None, batch_shard=batch_shard)
         with record_function("lthm/loss"):
             loss, metrics, new_logq = contrastive_step(
                 output,
@@ -165,7 +241,12 @@ class LTHMModelWrapper(BaseModelWrapper):
                 fused_ce=cfg.fused_ce,
                 offsets=offsets,
                 generator=generator,
+                data_group=data_group,
             )
+        overflow = getattr(self.module.product_emb_module, "overflow", None)
+        if overflow is not None:
+            # dropped all-to-all requests come back as zero rows: alarm on any
+            metrics["embedding_alltoall_overflow"] = overflow
         new_aux = LTHMAuxState(
             logq=new_logq, batch_idx=aux_state.batch_idx + (1.0 if training else 0.0)
         )
@@ -229,10 +310,17 @@ class LTHMModelWrapper(BaseModelWrapper):
         (new table state, rows_nan)."""
         cfg = self.config
         g = tap_grads["product_emb_rows"]
+        rows = self._row_indices(batch).reshape(-1)
+        g = g.reshape(-1, g.shape[-1])
+        if self.mesh is not None:
+            # every rank's (row, gradient) pairs in the whole batch's order:
+            # the update sums each row's in the one process's order
+            rows = col.all_gather_tensor(rows, self.mesh.group("data"))
+            g = col.all_gather_tensor(g, self.mesh.group("data"))
         return sparse_fused_adam_update(
             self._table().data,
-            self._row_indices(batch).reshape(-1),
-            g.reshape(-1, g.shape[-1]),
+            rows,
+            g,
             table_state,
             learning_rate=cfg.lr,
             b1=cfg.betas[0],
@@ -286,7 +374,9 @@ class LTHMModelWrapper(BaseModelWrapper):
             if cfg.product_tower.detach_item_tower and self._uses_rowwise_table():
                 # no gradient reaches it: none is taken
                 self._table().requires_grad_(False)
-        elif t == "rowwise_adam" and self._uses_rowwise_table():
+        elif self._uses_rowwise_table():
+            # rowwise_adam, and a row-sharded table under lazy_rowwise_adam or
+            # sparse_fused_adam (the JAX wrapper's dense fallback)
             groups[TABLE_GROUP] = dict(optimizer="rowwise_adam", lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8)
         return groups
 

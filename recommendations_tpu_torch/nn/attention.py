@@ -13,9 +13,16 @@ tensor the bias kernels also take every T == window
 a shorter sequence (a short request) takes ``_sdpa`` as in the JAX package,
 since below the window the two paths read different table rows. The flash paths
 are differentiable through their backward kernels (the bias path also with
-respect to the table); ``_sdpa`` differentiates through autograd. Ring
-attention is not ported yet and raises rather than fall back to ``_sdpa``.
-When ``use_flash`` was asked for but attention falls back to ``_sdpa``, the
+respect to the table); ``_sdpa`` differentiates through autograd.
+
+Ring attention (``use_ring``, ``parallel/ring_attention.py``) runs when the
+layer is bound to a ring group of more than one rank (``bind_ring``), the
+attention is causal and there is no additive mask; the position bias rides
+the ring with nk = window. Bound by a sequence-parallel stack the layer
+holds one block of the sequence (``local_blocks``); bound alone it takes
+the whole sequence, pads it to the ring and gathers the blocks back, as
+the JAX layer's ``ring_attention_padded`` does. When ``use_flash`` or
+``use_ring`` was asked for but attention falls back to ``_sdpa``, the
 layer logs a warning naming the reason, once per (layer name, reasons), as
 the JAX package's ``_warn_fallback`` does.
 
@@ -39,6 +46,7 @@ from torch import nn
 
 from recommendations_tpu_torch.nn.dropout import dropout, qkv_dropout
 from recommendations_tpu_torch.ops import fused_attention as fa
+from recommendations_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_padded
 
 NEG_INF = -1e9  # additive-mask value
 
@@ -148,11 +156,8 @@ class _AttentionBase(nn.Module):
     ):
         super().__init__()
         self.name = name  # as the JAX module's name, in the fallback warning
-        if use_ring:
-            raise NotImplementedError(
-                "ring attention (parallel/ring_attention): ROADMAP, port queue "
-                "'Multi-device'"
-            )
+        self.use_ring = use_ring
+        self.ring_group, self.ring_local = None, False
         self.n_embd, self.n_head = n_embd, n_head
         self.head_dim = n_embd // n_head
         self.pos_bias_window = pos_bias_window
@@ -165,6 +170,28 @@ class _AttentionBase(nn.Module):
             else None
         )
 
+    def bind_ring(self, group, local_blocks: bool = False) -> None:
+        """The ring's process group (None: one rank, no ring); with
+        ``local_blocks`` the layer's input is this rank's sequence block."""
+        self.ring_group, self.ring_local = group, local_blocks
+
+    def _ring_eligible(self, mask, causal: bool) -> bool:
+        return self.use_ring and self.ring_group is not None and mask is None and causal
+
+    def _ring(self, q, k, v, kv_heads: int) -> torch.Tensor:
+        """Ring attention on folded q (B,T,H*hd), k/v (B,T,kv_heads*hd),
+        the position bias (if any) applied at q - k + window."""
+        b, t, _ = q.shape
+        hd = self.head_dim
+        qh = q.reshape(b, t, self.n_head, hd).transpose(1, 2)
+        kh = k.reshape(b, t, kv_heads, hd).transpose(1, 2)
+        vh = v.reshape(b, t, kv_heads, hd).transpose(1, 2)
+        table = None if self.pos_bias is None else self.pos_bias.bias
+        nk = 0 if self.pos_bias is None else self.pos_bias_window
+        fn = ring_attention if self.ring_local else ring_attention_padded
+        y = fn(qh, kh, vh, self.ring_group, causal=True, bias_table=table, nk=nk)
+        return y.transpose(1, 2).reshape(b, t, self.n_embd)
+
     def _flash_eligible(self, mask, seq_len: int) -> bool:
         if not self.use_flash or mask is not None or self.pos_bias_window is not None:
             return False
@@ -175,13 +202,24 @@ class _AttentionBase(nn.Module):
             return False
         return fa.fused_flash_bias_taken(seq_len, self.pos_bias_window, on_cuda)
 
-    def _warn_fallback(self, mask, seq_len: int) -> None:
-        """Name the reason a requested flash path fell back to ``_sdpa``, with
-        the JAX package's reasons (there: a silent fall-through hid a 5x
-        production-step regression)."""
+    def _warn_fallback(self, mask, seq_len: int, causal: bool) -> None:
+        """Name the reason a requested ring or flash path fell back to
+        ``_sdpa``, with the JAX package's reasons (there: a silent
+        fall-through hid a 5x production-step regression)."""
         reasons = []
         if mask is not None:
             reasons.append("an explicit additive mask")
+        if self.use_ring:
+            if not causal:
+                reasons.append("non-causal attention (ring requires causal)")
+            if self.ring_group is None:
+                reasons.append("no mesh axis 'model' > 1")
+            _warn_once(
+                f"ring:{self.name}:{','.join(reasons)}",
+                f"attention layer {self.name!r}: use_ring requested but falling back to XLA attention "
+                f"because of {'; '.join(reasons) or 'kernel limits'}",
+            )
+            return
         if self.pos_bias_window is not None and seq_len > self.pos_bias_window:
             reasons.append(f"seq {seq_len} exceeds the pos-bias window {self.pos_bias_window}")
         if self.pos_bias_window is not None and not fa.fused_flash_bias_recommended(seq_len):
@@ -216,20 +254,23 @@ class _AttentionBase(nn.Module):
             )
         return generator
 
-    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool, generator) -> torch.Tensor:
+    def _attend(self, x, q, k, v, kv_heads: int, mask, causal: bool, generator, shard=None) -> torch.Tensor:
         """q (B,T,H*hd), k/v (B,T,kv_heads*hd) -> (B,T,H*hd); token dropout
-        (``generator`` not None) masks q, k and v first, on every route."""
-        q, k, v = qkv_dropout(q, k, v, self.attn_dropout if generator is not None else 0.0, generator)
+        (``generator`` not None) masks q, k and v first, on every route
+        (``shard``: this rank's block of the batch's draw)."""
+        q, k, v = qkv_dropout(q, k, v, self.attn_dropout if generator is not None else 0.0, generator, shard)
         b, t, _ = x.shape
         hd = self.head_dim
+        if self._ring_eligible(mask, causal):
+            return self._ring(q.to(x.dtype), k.to(x.dtype), v.to(x.dtype), kv_heads)
         if self._flash_eligible(mask, t):
             return fa.fused_flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), self.n_head, causal
             )
         if self._flash_bias_eligible(mask, t, x.is_cuda):
             return self._fused_flash_bias(q, k, v, causal)
-        if self.use_flash:
-            self._warn_fallback(mask, t)
+        if self.use_flash or self.use_ring:
+            self._warn_fallback(mask, t, causal)
         qh = q.reshape(b, t, self.n_head, hd).transpose(1, 2).to(x.dtype)
         kh = k.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)
         vh = v.reshape(b, t, kv_heads, hd).transpose(1, 2).to(x.dtype)
@@ -256,12 +297,13 @@ class MultiQueryAttention(_AttentionBase):
         causal: bool = False,
         training: bool = False,
         generator: Optional[torch.Generator] = None,
+        shard=None,
     ) -> torch.Tensor:
         gen = self._dropout_generator(training, generator)
         q = self.q_proj(x)
         k, v = self.kv_proj(x).split(self.head_dim, dim=-1)
-        y = self.out_proj(self._attend(x, q, k, v, 1, mask, causal, gen))
-        return y if gen is None else dropout(y, self.dropout, gen)
+        y = self.out_proj(self._attend(x, q, k, v, 1, mask, causal, gen, shard))
+        return y if gen is None else dropout(y, self.dropout, gen, shard)
 
 
 class MultiHeadAttention(_AttentionBase):
@@ -280,8 +322,9 @@ class MultiHeadAttention(_AttentionBase):
         causal: bool = False,
         training: bool = False,
         generator: Optional[torch.Generator] = None,
+        shard=None,
     ) -> torch.Tensor:
         gen = self._dropout_generator(training, generator)
         q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
-        y = self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, gen))
-        return y if gen is None else dropout(y, self.dropout, gen)
+        y = self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, gen, shard))
+        return y if gen is None else dropout(y, self.dropout, gen, shard)

@@ -19,11 +19,17 @@ that ``torch.utils.checkpoint`` runs again in the backward builds the same
 generator from the same seed and draws the same masks (``checkpoint``
 restores only the default generators, so a generator carried across the
 recomputation would draw other masks and give a wrong gradient).
+
+Over several ranks a draw takes a ``shard``: ``(batch_start, batch_rows,
+seq_start, seq_len)``, the place of this rank's rows (data parallelism) and
+sequence block (sequence parallelism) in the whole batch. The mask is drawn
+for the whole batch's shape and this rank keeps its block, so R ranks apply
+the masks of one process (JAX draws from one key for the global array).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,30 +55,48 @@ def dropout_keep(generator: torch.Generator, keep_prob: float, shape: Sequence[i
     return torch.rand(tuple(shape), generator=generator, device=device) < keep_prob
 
 
-def token_dropout_mask(generator: torch.Generator, rate: float, batch: int, seq: int, device) -> torch.Tensor:
+Shard = Optional[Tuple[int, int, int, int]]
+
+
+def _keep(generator: torch.Generator, keep_prob: float, shape: Sequence[int], device, seq_dim: int,
+          shard: Shard) -> torch.Tensor:
+    """``dropout_keep`` of ``shape``, or this rank's block of the whole
+    batch's draw under ``shard``."""
+    if shard is None:
+        return dropout_keep(generator, keep_prob, shape, device)
+    b0, b_all, t0, t_all = shard
+    full = list(shape)
+    full[0], full[seq_dim] = b_all, t_all
+    keep = dropout_keep(generator, keep_prob, full, device)
+    return keep.narrow(0, b0, shape[0]).narrow(seq_dim, t0, shape[seq_dim])
+
+
+def token_dropout_mask(generator: torch.Generator, rate: float, batch: int, seq: int, device,
+                       shard: Shard = None) -> torch.Tensor:
     """Inverted token-dropout mask, float32 (B, 1, T, 1)."""
-    keep = dropout_keep(generator, 1.0 - rate, (batch, 1, seq, 1), device)
+    keep = _keep(generator, 1.0 - rate, (batch, 1, seq, 1), device, 2, shard)
     return keep.float() / torch.full((), 1.0 - rate, dtype=torch.float32, device=device)
 
 
-def qkv_dropout(q, k, v, rate: float, generator: Optional[torch.Generator]):
+def qkv_dropout(q, k, v, rate: float, generator: Optional[torch.Generator], shard: Shard = None):
     """Token dropout on the folded (B, T, C) q, k and v: three masks, drawn
     in that order, each (B, 1, T, 1) applied as (B, T, 1)."""
     if not rate:
         return q, k, v
     b, t = q.shape[0], q.shape[1]
     return tuple(
-        (x.float() * token_dropout_mask(generator, rate, b, t, x.device)[:, 0]).to(x.dtype) for x in (q, k, v)
+        (x.float() * token_dropout_mask(generator, rate, b, t, x.device, shard)[:, 0]).to(x.dtype)
+        for x in (q, k, v)
     )
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout(rate)(x, deterministic=False)``."""
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], shard: Shard = None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)(x, deterministic=False)`` on (B, T, ...)."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = dropout_keep(generator, keep_prob, x.shape, x.device)
+    keep = _keep(generator, keep_prob, x.shape, x.device, 1, shard)
     scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))

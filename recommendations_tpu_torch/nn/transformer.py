@@ -25,6 +25,23 @@ batched ones (``aten.bmm``, the ``_sdpa`` logits), and both keep the outputs
 (o, lse) of the flash forward, without and with the position bias, so the
 backward does not launch it again.
 
+Sequence parallelism (``bind_sequence_parallel``, the JAX stack's
+``use_ring`` over the mesh's ``model`` axis): the stack pads T to a
+multiple of the ring at the end, each rank keeps its block of the sequence
+(``collectives.scatter_to_group``), every positionwise operation runs on
+the block, attention runs the ring (``parallel/ring_attention.py``) with
+global positions, and the blocks are gathered back at the exit
+(``collectives.all_gather``). The gradients of the blocks' parameters are
+then each rank's partial, which the training strategy sums over the ring
+(``param_grad_axes``).
+
+Expert parallelism (``MoELinear.bind_experts``, the JAX rules that shard
+the expert stacks over ``expert``): each rank of the expert group holds
+E/n experts' stacks and biases and runs only those; the gates stay
+replicated, and the gate-weighted float32 partial mix is summed over the
+group (``collectives.psum``), the gates and the experts' input passing
+through ``copy_to_group`` so that their gradients are whole on every rank.
+
 Dropout in training, as the JAX package places it: on the stack's input,
 token dropout on q, k and v and dropout after the attention's output
 projection (``nn/attention.py``), and after the MLP. The stack takes the
@@ -56,6 +73,7 @@ from recommendations_tpu_torch.nn.attention import (
 from recommendations_tpu_torch.nn.dropout import dropout, fold_seed, seeded_generator
 from recommendations_tpu_torch.nn.functional import gelu_tanh
 from recommendations_tpu_torch.ops import fused_attention as fa
+from recommendations_tpu_torch.parallel import collectives as col
 
 
 class LayerNorm(nn.Module):
@@ -135,6 +153,21 @@ class MoELinear(nn.Module):
         self.b1 = nn.Parameter(torch.zeros((num_experts, proj_features), device=dev))
         self.w2 = nn.Parameter(lecun_normal_((num_experts, proj_features, out_features), generator))
         self.b2 = nn.Parameter(torch.zeros((num_experts, out_features), device=dev))
+        self.expert_group, self.first_expert = None, 0
+
+    def bind_experts(self, group) -> None:
+        """Keep this rank's E/n experts of the group's (their stacks and
+        biases sliced in place); None leaves every expert here."""
+        n = col.group_size(group)
+        if n == 1:
+            return
+        if self.num_experts % n:
+            raise ValueError(f"{self.num_experts} experts not divisible by expert={n}")
+        per = self.num_experts // n
+        self.expert_group, self.first_expert = group, col.group_rank(group) * per
+        for name in ("w1", "b1", "w2", "b2"):
+            p = getattr(self, name)
+            p.data = p.data.narrow(0, self.first_expert, per).clone()
 
     def gates(self, x: torch.Tensor) -> torch.Tensor:
         """(..., E) mixing weights in the input's dtype."""
@@ -152,10 +185,15 @@ class MoELinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         gates = self.gates(x)
+        g = self.expert_group
+        if g is not None:
+            gates = col.copy_to_group(gates, g).narrow(-1, self.first_expert, self.w1.shape[0])
+            x = col.copy_to_group(x, g)
         h = torch.einsum("...i,eij->...ej", x, self.w1.to(dt)) + self.b1.to(dt)
         h = gelu_tanh(h)
         out = torch.einsum("...ej,ejo->...eo", h, self.w2.to(dt)) + self.b2.to(dt)
-        return torch.sum(gates.float().unsqueeze(-1) * out.float(), dim=-2).to(dt)
+        mix = torch.sum(gates.float().unsqueeze(-1) * out.float(), dim=-2)
+        return col.psum(mix, g).to(dt)
 
 
 def _sparse_keep_sets(
@@ -194,6 +232,7 @@ class TransformerBlock(nn.Module):
         sparse_seed: int = 0,
         n_cls: int = 0,
         use_flash: bool = False,
+        use_ring: bool = False,
         dtype: Optional[torch.dtype] = None,
         dropout: float = 0.0,
         attn_dropout: float = 0.0,
@@ -210,7 +249,7 @@ class TransformerBlock(nn.Module):
         self.ln_1 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
         self.attn = cls(
             n_embd, n_head, generator, use_bias=use_bias,
-            pos_bias_window=pos_bias_window, use_flash=use_flash, dtype=dtype,
+            pos_bias_window=pos_bias_window, use_flash=use_flash, use_ring=use_ring, dtype=dtype,
             dropout=dropout, attn_dropout=attn_dropout, name="attn",
         )
         self.ln_2 = LayerNorm(n_embd, dev, use_bias=use_bias, dtype=dtype)
@@ -242,11 +281,15 @@ class TransformerBlock(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         training: bool = False,
         dropout_seed: Optional[int] = None,
+        shard=None,
     ) -> torch.Tensor:
         """``dropout_seed``: this block's seed; a training forward with a
-        nonzero rate draws its masks from a generator made from it here."""
+        nonzero rate draws its masks from a generator made from it here
+        (``shard``: this rank's block of the whole batch's draw)."""
         x_orig = x
         if self.keep is not None:
+            if self.attn.ring_group is not None:
+                raise ValueError("the sparse keep-sets select positions of the whole sequence: not with the ring")
             t_full = x.shape[1]
             idx, not_idx = (torch.as_tensor(a[a < t_full], device=x.device) for a in self.keep)
             if idx.numel() <= 1:
@@ -261,7 +304,7 @@ class TransformerBlock(nn.Module):
                 raise ValueError("a training forward with dropout needs a dropout seed")
             gen = seeded_generator(dropout_seed, x.device)
         # the flash path masks causally in-kernel; _sdpa takes the additive mask
-        flash_ok = (
+        flash_ok = self.attn._ring_eligible(attn_mask, self.is_causal) or (
             self.use_flash
             and attn_mask is None
             and (
@@ -273,10 +316,11 @@ class TransformerBlock(nn.Module):
             cm = causal_mask(t, x.device)
             attn_mask = cm if attn_mask is None else attn_mask + cm
         x = x + self.attn(
-            self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok, training=training, generator=gen
+            self.ln_1(x), mask=attn_mask, causal=self.is_causal and flash_ok, training=training, generator=gen,
+            shard=shard,
         )
         y = self._mlp(self.ln_2(x))
-        x = x + (y if gen is None else dropout(y, self.dropout, gen))
+        x = x + (y if gen is None else dropout(y, self.dropout, gen, shard))
         if self.keep is None:
             return x
         skipped = x_orig.index_select(1, not_idx)
@@ -323,10 +367,23 @@ class TransformerStack(nn.Module):
         self.remat, self.remat_policy = remat, remat_policy
         self.num_layers = num_layers
         self.dropout = block_kw.get("dropout", 0.0)
+        self.is_causal = block_kw.get("is_causal", False)
+        self.pos_bias_window = block_kw.get("pos_bias_window")
+        self.ring_group = None
         for depth in range(num_layers):
             self.add_module(
                 f"block_{depth}", TransformerBlock(n_embd, n_head, generator, sparse_seed=depth, **block_kw)
             )
+
+    def bind_sequence_parallel(self, group) -> None:
+        """Split the sequence over ``group`` (the mesh's ``model`` axis) and
+        run every block's attention as the ring; a group of one rank (None)
+        leaves the stack whole, as the JAX stack does below two ranks."""
+        self.ring_group = group
+        for depth in range(self.num_layers):
+            attn = getattr(self, f"block_{depth}").attn
+            attn.use_ring = group is not None
+            attn.bind_ring(group, local_blocks=True)
 
     def forward(
         self,
@@ -334,23 +391,44 @@ class TransformerStack(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         training: bool = False,
         dropout_seed: Optional[int] = None,
+        batch_shard: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """``dropout_seed``: the training step's; needed when a training
-        forward has a nonzero rate."""
+        forward has a nonzero rate. ``batch_shard``: (first row, rows) of
+        this rank's rows in the whole batch, where the dropout masks are
+        drawn for the whole batch."""
+        group = self.ring_group
+        t_orig = x.shape[1]
+        b0, b_all = batch_shard if batch_shard is not None else (0, x.shape[0])
+        t0, t_all = 0, t_orig
+        if group is not None:
+            if attn_mask is not None or not self.is_causal:
+                raise ValueError("sequence_parallel requires attn_mask=None and is_causal")
+            if self.pos_bias_window is not None and t_orig > self.pos_bias_window:
+                raise ValueError(f"seq {t_orig} exceeds the pos-bias table window {self.pos_bias_window}")
+            # pad T to the ring at the end (no real query reads a pad key
+            # under causal masking), keep this rank's block
+            n = col.group_size(group)
+            t_all = ((t_orig + n - 1) // n) * n
+            x = col.scatter_to_group(F.pad(x, (0, 0, 0, t_all - t_orig)), group, dim=1)
+            t0 = col.group_rank(group) * x.shape[1]
+        shard = None if (b_all, t_all) == tuple(x.shape[:2]) else (b0, b_all, t0, t_all)
         remat = self.remat and torch.is_grad_enabled()
         context_fn = functools.partial(_remat_context, REMAT_SAVED[self.remat_policy])
         seeds = [None] * self.num_layers
         if training and dropout_seed is not None:
             seeds = [fold_seed(dropout_seed, depth + 1) for depth in range(self.num_layers)]
             if self.dropout:
-                x = dropout(x, self.dropout, seeded_generator(fold_seed(dropout_seed, 0), x.device))
+                x = dropout(x, self.dropout, seeded_generator(fold_seed(dropout_seed, 0), x.device), shard)
         elif training and self.dropout:
             raise ValueError("a training forward with dropout needs a dropout seed")
         for depth in range(self.num_layers):
             block = getattr(self, f"block_{depth}")
             if remat:
-                x = checkpoint(block, x, attn_mask, training, seeds[depth], use_reentrant=False,
+                x = checkpoint(block, x, attn_mask, training, seeds[depth], shard, use_reentrant=False,
                                context_fn=context_fn)
             else:
-                x = block(x, attn_mask, training, seeds[depth])
+                x = block(x, attn_mask, training, seeds[depth], shard)
+        if group is not None:
+            x = col.all_gather(x, group, dim=1)[:, :t_orig]
         return x

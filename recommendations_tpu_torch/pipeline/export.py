@@ -100,13 +100,19 @@ def export_programs(wrapper, directory: str, trace_batch: Mapping[str, object]) 
 
 def export_model_artifacts(wrapper, directory: str, export_config_str: bool = True,
                            trace_batch: Optional[Mapping[str, object]] = None) -> None:
+    """The weights (``wrapper.export_weights`` where the training strategy
+    set them: a model laid over a mesh, its sharded parameters gathered,
+    whose forward one rank cannot trace alone), the config and the traced
+    programs."""
     os.makedirs(os.path.join(directory, "params"), exist_ok=True)
-    weights = {k: v.detach().cpu() for k, v in wrapper.module.state_dict().items()}
+    gathered = getattr(wrapper, "export_weights", None)
+    state = wrapper.module.state_dict() if gathered is None else gathered
+    weights = {k: v.detach().cpu() for k, v in state.items()}
     torch.save(weights, os.path.join(directory, PARAMS))
     if export_config_str:
         with open(os.path.join(directory, "config.json"), "w") as f:
             json.dump(to_json_value(model_dump(wrapper.config)), f, indent=2)
-    if trace_batch is not None:
+    if trace_batch is not None and gathered is None:
         export_programs(wrapper, directory, trace_batch)
 
 

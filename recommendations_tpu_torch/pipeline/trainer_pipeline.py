@@ -20,6 +20,8 @@ import os
 import tempfile
 from typing import Any, Dict, List, Optional
 
+import torch.distributed as dist
+
 from recommendations_tpu_torch.config.base import model_dump
 from recommendations_tpu_torch.config.pipeline_config import TrainerPipelineConfig
 from recommendations_tpu_torch.data.data_store import DataStoreAccessor
@@ -78,14 +80,19 @@ class TrainerPipeline:
         self._trace_batch = None  # the example the exported programs are traced on
 
     def execute(self) -> Dict[str, Any]:
+        """Over several ranks every rank trains; rank 0 alone runs the
+        trackers, the export, the evaluation and the inference (on the
+        trained model's one-device module)."""
         cfg = self.pipeline_config
         trackers = cfg.trackers
-        trackers.start_run()
-        for section in ("dataset", "train", "inference", "eval", "export", "training_strategy", "data_loader"):
-            obj = getattr(cfg, section, None)
-            if obj is not None:
-                trackers.log_params_flatten(section, model_dump(obj))
-        trackers.log_params({"model_version": cfg.model_version})
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        if rank0:
+            trackers.start_run()
+            for section in ("dataset", "train", "inference", "eval", "export", "training_strategy", "data_loader"):
+                obj = getattr(cfg, section, None)
+                if obj is not None:
+                    trackers.log_params_flatten(section, model_dump(obj))
+            trackers.log_params({"model_version": cfg.model_version})
 
         train_paths = get_train_data_paths(cfg.dataset)
         val_paths = get_val_data_paths(cfg.dataset)
@@ -105,10 +112,14 @@ class TrainerPipeline:
                 self.model_checkpointer,
             )
             self._trained = (wrapper, state)
+            if not rank0:
+                return metrics
             self.export_model(state=state, eval_result=None, training_done=True)
         else:
             logger.info("skip_train: building untrained model")
             self._trained = (self.model_builder.build(), None)
+            if not rank0:
+                return metrics
 
         if cfg.eval is not None and not cfg.eval.skip_eval:
             eval_result = self.eval_model()

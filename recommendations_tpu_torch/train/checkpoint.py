@@ -37,12 +37,13 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state, metrics: Optional[dict] = None, data_iter_state: Optional[dict] = None) -> None:
-        """The state after ``step`` steps, written whole before it replaces
-        any file of that name; then the oldest files past ``max_to_keep``
-        go."""
+    def save(self, step: int, state, metrics: Optional[dict] = None, data_iter_state: Optional[dict] = None,
+             state_dict: Optional[dict] = None) -> None:
+        """The state after ``step`` steps (``state_dict``, else
+        ``state.state_dict()``), written whole before it replaces any file
+        of that name; then the oldest files past ``max_to_keep`` go."""
         payload = {
-            "state": state.state_dict(),
+            "state": state.state_dict() if state_dict is None else state_dict,
             "metrics": {k: float(v) for k, v in (metrics or {}).items()},
             "data_iter": dict(data_iter_state or {}),
         }
@@ -52,13 +53,14 @@ class CheckpointManager:
         for old in self.steps()[: -self.max_to_keep]:
             os.remove(self.path(old))
 
-    def restore(self, state, step: Optional[int] = None) -> Optional[Tuple[object, dict]]:
+    def restore(self, state, step: Optional[int] = None, prepare=None) -> Optional[Tuple[object, dict]]:
         """Loads the checkpoint of ``step`` (the latest by default) into
-        ``state``: (state, data-iterator state), or None without one."""
+        ``state``, through ``prepare`` where given (a rank's cut of a whole
+        state): (state, data-iterator state), or None without one."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         # our own files: they hold the aux state's named tuples
         payload = torch.load(self.path(step), weights_only=False)
-        state.load_state_dict(payload["state"])
+        state.load_state_dict(payload["state"] if prepare is None else prepare(payload["state"]))
         return state, payload["data_iter"]

@@ -42,15 +42,36 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
+from recommendations_tpu_torch.parallel import collectives as col
 from recommendations_tpu_torch.train.sparse_table import bias_corrections
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+def global_norm(grads: List[torch.Tensor], sharded: Optional[Dict[int, object]] = None) -> torch.Tensor:
+    """The norm of every gradient together. ``sharded`` maps ``id`` of a
+    gradient that is this rank's block of a parameter split over a process
+    group to that group: its squares are summed over the group, the others'
+    counted once."""
+    sharded = sharded or {}
+    squares = [g.float().square().sum() for g in grads if id(g) not in sharded]
+    by_group: Dict[object, List[torch.Tensor]] = {}
+    for g in grads:
+        if id(g) in sharded:
+            by_group.setdefault(sharded[id(g)], []).append(g.float().square().sum())
+    for group, sq in by_group.items():
+        total = torch.stack(sq).sum()
+        col.all_reduce_(total, group)
+        squares.append(total)
+    return torch.stack(squares).sum().sqrt()
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded: Optional[Dict[int, object]] = None) -> None:
     """``optax.clip_by_global_norm``, in place: every gradient scaled by
-    max_norm / ||g|| when the global norm ||g|| is at least max_norm."""
+    max_norm / ||g|| when the global norm ||g|| is at least max_norm
+    (``sharded`` as for ``global_norm``)."""
     if not grads:
         return
-    g_norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    g_norm = global_norm(grads, sharded)
     keep = g_norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / g_norm.to(g.dtype) * max_norm))
@@ -238,8 +259,14 @@ class TrainOptimizer:
             torch.optim.lr_scheduler.LambdaLR(default, schedule) if default is not None and schedule else None
         )
         self.accumulate = max(1, int(accumulate or 1))
+        # parameters split over a process group -> that group, for the norm
+        self.sharded_params: Dict[torch.nn.Parameter, object] = {}
         self.mini_step = 0  # optax.MultiSteps' mini_step
         self.acc: Dict[int, torch.Tensor] = {}  # parameter index -> running mean of its gradient
+
+    def sharded_grads(self) -> Dict[int, object]:
+        """``id`` of each sharded parameter's gradient -> its group."""
+        return {id(p.grad): g for p, g in self.sharded_params.items() if p.grad is not None}
 
     def optimizers(self) -> List[torch.optim.Optimizer]:
         return [opt for opt in (self.inner, self.table, self.default) if opt is not None]
@@ -280,7 +307,7 @@ class TrainOptimizer:
             return
         grads = [p.grad for p in self.clip_params if p.grad is not None]
         if self.clip_norm:
-            clip_by_global_norm(grads, self.clip_norm)
+            clip_by_global_norm(grads, self.clip_norm, self.sharded_grads())
         if self.clip_value:
             clip_by_value(grads, self.clip_value)
         for opt in self.optimizers():

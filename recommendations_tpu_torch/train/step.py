@@ -28,6 +28,15 @@ with the taps' squares summed over every occurrence) and ``params_nan``
 (every parameter but the fused record, whose written rows the update checks
 itself: its ``rows_nan`` is folded in); ``step += 1``.
 
+On a mesh (the wrapper's ``mesh``, ``core/mesh.py``) each rank holds its
+rows' part of the whole batch's loss, so after the backward every
+parameter's gradient is summed over the axes ``param_grad_axes`` names
+(``reduce_gradients``: one all-reduce per set of axes over the gradients
+laid end to end), before the lazy table update, the norm and the clipping;
+the fused record's (row, gradient) pairs are gathered by the wrapper's
+update instead. The norm counts each sharded parameter's blocks once
+(``optimizers.global_norm``), and ``params_nan`` is any rank's.
+
 The phases run inside ``torch.profiler.record_function`` ranges named
 ``lthm/...`` (forward and loss in the wrapper, the CE backward in the loss),
 which ``tools/profile_torch_training.py`` reads; outside a profiler a range
@@ -41,9 +50,31 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 from torch.profiler import record_function
 
+from recommendations_tpu_torch.parallel import collectives as col
+from recommendations_tpu_torch.train.optimizers import global_norm
 from recommendations_tpu_torch.train.train_state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
+
+
+def reduce_gradients(wrapper) -> None:
+    """Sum each parameter's gradient over its ``param_grad_axes``, in place."""
+    mesh = wrapper.mesh
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    grad_axes = wrapper.param_grad_axes()
+    for name, p in wrapper.module.named_parameters():
+        axes = grad_axes.get(name, ())
+        if p.grad is not None and mesh.group(*axes) is not None:
+            by_axes.setdefault(axes, []).append(p.grad)
+    for axes, grads in by_axes.items():
+        for dtype in {g.dtype for g in grads}:
+            same = [g for g in grads if g.dtype == dtype]
+            flat = torch.cat([g.reshape(-1) for g in same])
+            col.all_reduce_(flat, mesh.group(*axes))
+            offset = 0
+            for g in same:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
 
 def train_step(
@@ -62,13 +93,26 @@ def train_step(
     with record_function("lthm/backward"):
         loss.backward()
     params = list(wrapper.module.parameters())
+    mesh = getattr(wrapper, "mesh", None)
     with record_function("lthm/optimizer"), torch.no_grad():
-        squares = [p.grad.float().square().sum() for p in params if p.grad is not None]
+        if mesh is not None:
+            reduce_gradients(wrapper)
+        grads = [p.grad for p in params if p.grad is not None]
         if use_taps:
             # a tap's gradient is None when the product tower detaches it
             taps = {k: t.grad if t.grad is not None else torch.zeros_like(t) for k, t in taps.items()}
-            squares += [g.float().square().sum() for g in taps.values()]
-        metrics["grad_norm"] = torch.stack(squares).sum().sqrt()
+        if mesh is None:
+            squares = [g.float().square().sum() for g in grads]
+            if use_taps:
+                squares += [g.float().square().sum() for g in taps.values()]
+            metrics["grad_norm"] = torch.stack(squares).sum().sqrt()
+        else:
+            # each rank's taps are its own rows': summed over the data group
+            sharded = state.optimizer.sharded_grads()
+            if use_taps:
+                sharded.update({id(g): mesh.group("data") for g in taps.values()})
+                grads += list(taps.values())
+            metrics["grad_norm"] = global_norm(grads, sharded)
         if wrapper.uses_lazy_table():
             table = wrapper.lazy_table()
             grad = table.grad if table.grad is not None else torch.zeros_like(table)
@@ -81,6 +125,9 @@ def train_step(
         nan = torch.stack([p.isnan().any() for p in wrapper.nan_check_params().values() if p.is_floating_point()])
         params_nan = nan.any() if rows_nan is None else nan.any() | rows_nan
         metrics["params_nan"] = params_nan.float()
+        if mesh is not None:
+            col.all_reduce_(metrics["params_nan"], mesh.group(*mesh.axis_names), op=torch.distributed.ReduceOp.MAX)
     state.aux = new_aux
     state.step += 1
-    return loss.detach(), metrics
+    # the whole batch's loss (on a mesh, ``loss`` is this rank's part of it)
+    return (loss.detach() if mesh is None else metrics["train_loss"]), metrics

@@ -1,10 +1,10 @@
-"""The single-process training strategy: the train loop, validation,
-checkpoints and the best-model export gate.
+"""The training strategy: the train loop, validation, checkpoints and the
+best-model export gate, on one device or over a mesh of ranks.
 
 Port of ``train`` (``:334-754``) and ``_run_val`` (``:755``) of
-``recommendations_tpu/train/strategy.py``, on one device. Both strategy
-names the YAMLs use, ``pjit`` and ``single_device``, run it. The loop is
-the JAX package's:
+``recommendations_tpu/train/strategy.py``. Both strategy names the YAMLs
+use, ``pjit`` and ``single_device``, run it. The loop is the JAX
+package's:
 
 - the eval cache: the first ``validation_steps`` validation batches, kept
   on the host and run every ``val_metrics_every_n_steps`` steps;
@@ -39,15 +39,36 @@ the JAX package's:
   then falls back to 1 with the JAX package's warning.
 
 The lookahead offsets are drawn from the state's generator (a CPU
-generator); validation draws its own from a generator seeded per cached
-batch. Beside the JAX package's final metrics, ``step_times_s`` holds each
-loop turn's host wall time (a turn is a group of k steps) and
-``feed_wait_s`` each turn's wait for its batch. A mesh or
-several hosts raise, citing ROADMAP item 10.
+generator, seeded alike on every rank); validation draws its own from a
+generator seeded per cached batch. Beside the JAX package's final metrics,
+``step_times_s`` holds each loop turn's host wall time (a turn is a group
+of k steps) and ``feed_wait_s`` each turn's wait for its batch.
+
+Over several ranks (``torchrun``, the process group formed by
+``core.mesh.init_distributed``) the strategy builds the mesh of the config's
+``mesh_*`` fields (``core/mesh.py``) and binds the model to it; a node is a
+JAX host:
+
+- each node reads its own files (``data/paths.get_paths_for_worker``) and
+  ``batch_size`` rows a step; each rank keeps its ``local_batch_slice`` of
+  the node's rows, so the same files give JAX's global batch;
+- the step sums the gradients of the whole batch's loss over the mesh
+  (``train/step.py``), so every rank holds the one process's parameters;
+- before each step one all-reduce of a flag on a gloo group of the hosts
+  tells every rank whether any rank's shard ran out (the cooperative stop;
+  the JAX package gathers its flags once a round of steps, but here each
+  step holds collectives, so no rank may step alone);
+- metrics to the trackers, checkpoints and exports come from rank 0 (the
+  sharded parameters, and their optimizer moments, gathered whole first);
+  each rank writes its own iterator snapshot; a resume slices the whole
+  checkpoint back to each rank;
+- after training the wrapper goes back to one device's module
+  (``unbind_mesh``) for the export, the evaluation and the inference.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -60,7 +81,9 @@ import torch
 from recommendations_tpu_torch import resolve_device
 from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
 from recommendations_tpu_torch.config.training_strategy_config import TrainingStrategyConfig
+from recommendations_tpu_torch.core import mesh as mesh_lib
 from recommendations_tpu_torch.core.debug import checked_step, numerics_checked
+from recommendations_tpu_torch.core.partitioning import shard_slice
 from recommendations_tpu_torch.data.loader import (
     DevicePrefetcher,
     StageTimer,
@@ -68,6 +91,8 @@ from recommendations_tpu_torch.data.loader import (
     stack_step_groups,
     to_device,
 )
+from recommendations_tpu_torch.data.paths import get_paths_for_worker
+from recommendations_tpu_torch.parallel import collectives as col
 from recommendations_tpu_torch.train.checkpoint import CheckpointManager
 from recommendations_tpu_torch.train.step import train_step
 from recommendations_tpu_torch.train.train_state import TrainState
@@ -98,22 +123,76 @@ def _host_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(keys, vals))
 
 
+def _slice_rows(batch: Dict[str, np.ndarray], start: int, size: int) -> Dict[str, np.ndarray]:
+    return {k: v[start:start + size] for k, v in batch.items()}
+
+
+def _sharded_optimizer_states(state: TrainState):
+    """(state entry, mesh axis) of each optimizer-state entry of a sharded
+    parameter, in ``state.state_dict()``'s layout: the optimizers'
+    per-parameter states, then the accumulation's running means."""
+    sharded = state.wrapper.sharded_params()
+    axis_of = {p: sharded[n] for n, p in state.wrapper.module.named_parameters() if n in sharded}
+    for opt_i, opt in enumerate(state.optimizer.optimizers()):
+        plist = [p for g in opt.param_groups for p in g["params"]]
+        for idx, p in enumerate(plist):
+            if p in axis_of:
+                yield ("optimizers", opt_i, idx), axis_of[p]
+    for i, p in enumerate(state.optimizer.clip_params):
+        if p in axis_of:
+            yield ("accumulation", i), axis_of[p]
+
+
+def _map_sharded(sd: dict, state: TrainState, fn) -> dict:
+    """``sd`` (a ``state.state_dict()``) with ``fn(tensor, axis)`` applied
+    to each row-major tensor of a sharded parameter's entries."""
+    sd = dict(sd, module=dict(sd["module"]), optimizers=list(sd["optimizers"]),
+              accumulation=dict(sd["accumulation"], acc=dict(sd["accumulation"]["acc"])))
+    for name, axis in state.wrapper.sharded_params().items():
+        sd["module"][name] = fn(sd["module"][name], axis)
+    for where, axis in _sharded_optimizer_states(state):
+        if where[0] == "optimizers":
+            opt_sd = sd["optimizers"][where[1]] = dict(sd["optimizers"][where[1]])
+            opt_sd["state"] = dict(opt_sd["state"])
+            entry = opt_sd["state"].get(where[2])
+            if entry is not None:
+                opt_sd["state"][where[2]] = {
+                    k: fn(v, axis) if torch.is_tensor(v) and v.ndim else v for k, v in entry.items()
+                }
+        elif where[1] in sd["accumulation"]["acc"]:
+            sd["accumulation"]["acc"][where[1]] = fn(sd["accumulation"]["acc"][where[1]], axis)
+    return sd
+
+
 class SingleProcessTrainingStrategy:
+    """The strategy of one process, or of one rank among several (the
+    config's mesh over the process group)."""
+
     def __init__(self, training_strategy_config: TrainingStrategyConfig, device="cuda"):
         self.config = training_strategy_config
         self.device = resolve_device(device)
-        self._refuse_unported()
+        self.mesh = None
 
-    def _refuse_unported(self) -> None:
-        cfg = self.config
-        mesh = [
-            getattr(cfg, "mesh_data", -1) not in (-1, 1),
-            getattr(cfg, "mesh_model", 1) != 1,
-            getattr(cfg, "mesh_expert", 1) != 1,
-            getattr(cfg, "mesh_dcn_data", None) not in (None, 1),
-        ]
-        if any(mesh):
-            raise NotImplementedError("a device mesh is not ported yet: ROADMAP, port queue item 10 (Multi-device)")
+    def _build_mesh(self):
+        """The mesh over the process group's ranks; None in one process
+        whose mesh is one device."""
+        cfg = mesh_lib.mesh_config(self.config)
+        if mesh_lib.world_size() == 1:
+            cfg.resolved_shape(1)  # the JAX package's error for a mesh larger than the devices
+            return None
+        return mesh_lib.build_mesh(cfg, device=self.device)
+
+    def _full_state(self, state: TrainState) -> dict:
+        """The train state with the sharded parameters' blocks gathered (a
+        collective)."""
+        mesh = self.mesh
+        return _map_sharded(state.state_dict(), state,
+                            lambda t, axis: col.all_gather_tensor(t, mesh.group(axis)))
+
+    def _local_state(self, sd: dict, state: TrainState) -> dict:
+        """A whole checkpoint's state cut to this rank's blocks."""
+        mesh = self.mesh
+        return _map_sharded(sd, state, lambda t, axis: shard_slice(t, (axis,), mesh))
 
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -131,9 +210,22 @@ class SingleProcessTrainingStrategy:
         model_checkpointer=None,
     ) -> Tuple[object, TrainState, Dict[str, float]]:
         train_cfg: ModelTrainConfig = pipeline_config.train
-        if train_cfg.num_workers != 1:
-            raise NotImplementedError("training on several hosts is not ported yet: ROADMAP, port queue item 10")
+        # num_workers is the reference's count of hosts: the JAX strategy
+        # reads the hosts from its runtime, this one from the process group
+        mesh = self.mesh = self._build_mesh()
         wrapper = model_builder.build()
+        rank = 0 if mesh is None else mesh.rank
+        node, n_nodes = (0, 1) if mesh is None else (mesh_lib.node_index(), mesh_lib.num_nodes())
+        rows = None  # this rank's (first row, rows) of its node's batch
+        if mesh is not None:
+            wrapper.bind_mesh(mesh)
+            start, size = mesh_lib.local_batch_slice(mesh, train_cfg.batch_size * n_nodes)
+            rows = (start - node * train_cfg.batch_size, size)
+            if not 0 <= rows[0] <= train_cfg.batch_size - size:
+                raise ValueError(f"rank {rank}'s rows {start}..{start + size} are not on its node {node}")
+            train_data_paths = get_paths_for_worker(node, train_data_paths, n_nodes)
+            val_data_paths = get_paths_for_worker(node, val_data_paths, n_nodes) if val_data_paths else []
+            flags_group = mesh.host_group
         trackers = pipeline_config.trackers
         features = pipeline_config.model.features
         fs = pipeline_config.dataset.filesystem_config
@@ -142,7 +234,7 @@ class SingleProcessTrainingStrategy:
         def make_loader(kind: str, paths: List[str], epoch: int = 0, skip_batches: int = 0, snapshot=None):
             return get_host_dataloader(
                 kind=kind,
-                worker_id=0,
+                worker_id=node,
                 paths=paths,
                 batch_size=train_cfg.batch_size,
                 num_steps=None,
@@ -156,6 +248,11 @@ class SingleProcessTrainingStrategy:
             )
 
         state = TrainState.create(wrapper, train_cfg)
+        if mesh is not None:
+            sharded = wrapper.sharded_params()
+            state.optimizer.sharded_params = {
+                p: mesh.group(sharded[n]) for n, p in wrapper.module.named_parameters() if n in sharded
+            }
         step_fn = train_step
         k_dispatch = max(1, int(train_cfg.steps_per_dispatch))
         if getattr(self.config, "debug_numerics", False):
@@ -173,12 +270,15 @@ class SingleProcessTrainingStrategy:
         resume_snapshot: Optional[bytes] = None
 
         def sidecar_path(step: int) -> str:
-            # the iterator's snapshot beside the checkpoint (host 0: one host)
-            return os.path.join(ckpt_dir, f"data_iter_h0_s{step}.pkl")
+            # each rank's iterator snapshot beside the checkpoint
+            return os.path.join(ckpt_dir, f"data_iter_h{rank}_s{step}.pkl")
 
         if train_cfg.checkpoint_every_k_steps and ckpt_dir:
             ckpt_mgr = CheckpointManager(ckpt_dir)
-            restored = ckpt_mgr.restore(state)
+            prepare = None
+            if mesh is not None and wrapper.sharded_params():
+                prepare = functools.partial(self._local_state, state=state)
+            restored = ckpt_mgr.restore(state, prepare=prepare)
             if restored is not None:
                 state, data_iter_state = restored
                 logger.info("resumed from checkpoint step=%s", state.step)
@@ -192,7 +292,7 @@ class SingleProcessTrainingStrategy:
         eval_cache: List[Dict[str, np.ndarray]] = []
         if train_cfg.validation_steps > 0 and val_data_paths:
             for b in make_loader("val", val_data_paths):
-                eval_cache.append(b)
+                eval_cache.append(b if rows is None else _slice_rows(b, *rows))
                 if len(eval_cache) >= train_cfg.validation_steps:
                     break
 
@@ -252,7 +352,8 @@ class SingleProcessTrainingStrategy:
                 batches_in_epoch = resume_batches
             # the next batch's copy runs while this step runs; built after
             # the replay, since it starts consuming the iterator at once
-            host_it = stack_step_groups(it, k_dispatch) if k_dispatch > 1 else it
+            host_it = it if rows is None else (_slice_rows(b, *rows) for b in it)
+            host_it = stack_step_groups(host_it, k_dispatch) if k_dispatch > 1 else host_it
             dev_it = iter(DevicePrefetcher(host_it, self.device, depth=2, timer=feed_timer))
             t_loop_prev = None
             while not stop_all:
@@ -260,6 +361,11 @@ class SingleProcessTrainingStrategy:
                 if t_loop_prev is not None:
                     feed_timer.add("step.loop_other", t_feed - t_loop_prev)
                 item = next(dev_it, None)
+                if mesh is not None:
+                    # no rank steps alone: any rank out of data ends the epoch
+                    (exhausted,) = col.any_rank([item is None], flags_group)
+                    if exhausted:
+                        break
                 if item is None:
                     break
                 t_disp = time.perf_counter()
@@ -297,7 +403,7 @@ class SingleProcessTrainingStrategy:
                     prof.export_chrome_trace(trace)
                     logger.info("profiler trace written to %s", trace)
                     prof, profile_dir = None, None
-                global_num_samples += train_cfg.batch_size * n_new
+                global_num_samples += train_cfg.batch_size * n_nodes * n_new
                 loss_val: Optional[float] = None
 
                 def crossed(every: Optional[int]) -> bool:
@@ -312,7 +418,8 @@ class SingleProcessTrainingStrategy:
                     avg["training speed - samples per second"] = speed
                     avg["epoch"] = epoch
                     avg["steps"] = batch_nb
-                    trackers.log_metrics(avg, step=global_num_samples)
+                    if rank == 0:
+                        trackers.log_metrics(avg, step=global_num_samples)
                     logger.info("epoch %d step %d loss %.5f %.1f samples/s", epoch, batch_nb, loss_val, speed)
                     global_metrics.update(avg)
                     # the NaN watchdog (reference :374-398)
@@ -323,7 +430,8 @@ class SingleProcessTrainingStrategy:
 
                 if eval_cache and crossed(train_cfg.val_metrics_every_n_steps):
                     val_metrics = self._run_val(state, eval_cache, train_cfg)
-                    trackers.log_metrics(val_metrics, step=global_num_samples)
+                    if rank == 0:
+                        trackers.log_metrics(val_metrics, step=global_num_samples)
                     global_metrics.update(val_metrics)
 
                 if crossed(train_cfg.checkpoint_every_k_steps):
@@ -331,18 +439,34 @@ class SingleProcessTrainingStrategy:
                         loss_val = float(loss)
                     skip = math.isnan(loss_val) or (best_loss > 0.0 and loss_val > loss_factor * best_loss)
                     if not skip:
+                        # the sharded parameters gathered whole, on every rank
+                        full = None
+                        if mesh is not None and wrapper.sharded_params() and (ckpt_mgr or model_checkpointer):
+                            full = self._full_state(state)
                         if ckpt_mgr is not None:
                             snap_blob = loader.snapshot(batches_in_epoch)
                             if snap_blob is not None:
                                 with open(sidecar_path(batch_nb), "wb") as f:
                                     f.write(snap_blob)
-                            ckpt_mgr.save(
-                                batch_nb, state, {"loss": loss_val},
-                                data_iter_state={"epoch": epoch, "batches_in_epoch": batches_in_epoch,
-                                                 "has_snapshot": snap_blob is not None},
-                            )
-                        if model_checkpointer is not None:
-                            model_checkpointer.checkpoint(state, result_df=dict(global_metrics))
+                            if rank == 0:
+                                ckpt_mgr.save(
+                                    batch_nb, state, {"loss": loss_val},
+                                    data_iter_state={"epoch": epoch, "batches_in_epoch": batches_in_epoch,
+                                                     "has_snapshot": snap_blob is not None},
+                                    state_dict=full,
+                                )
+                        if model_checkpointer is not None and rank == 0:
+                            # a forward over the mesh is a collective: no
+                            # traced programs from rank 0 alone (the final
+                            # export, on one device's module, traces them)
+                            wrapper.export_weights = None if mesh is None else (
+                                full["module"] if full is not None else wrapper.module.state_dict())
+                            try:
+                                model_checkpointer.checkpoint(state, result_df=dict(global_metrics))
+                            finally:
+                                wrapper.export_weights = None
+                        if mesh is not None:
+                            col.barrier(mesh.host_group)
                     else:
                         logger.info("skip checkpoint at %d (loss %.4f best %.4f)", batch_nb, loss_val, best_loss)
 
@@ -361,6 +485,8 @@ class SingleProcessTrainingStrategy:
         if last_loss is not None:
             float(last_loss)  # the device finishes before the clock is read
         elapsed = max(time.time() - train_start, 1e-9) if train_start else 0.0
+        if mesh is not None:
+            wrapper.unbind_mesh()
         final: Dict[str, object] = dict(global_metrics)
         final["train_steps_total"] = batch_nb
         final["train_samples_per_sec"] = global_num_samples / elapsed if elapsed else 0.0
@@ -393,7 +519,9 @@ class SingleProcessTrainingStrategy:
             n += 1
         out: Dict[str, float] = {k: v / max(n, 1) for k, v in agg.items()}
         out["val_batches_skipped_nan"] = skipped
-        out["eval speed - samples per second"] = len(eval_cache) * train_cfg.batch_size / max(time.time() - t0, 1e-9)
+        nodes = 1 if self.mesh is None else mesh_lib.num_nodes()
+        out["eval speed - samples per second"] = (
+            len(eval_cache) * train_cfg.batch_size * nodes / max(time.time() - t0, 1e-9))
         ram = _ram_available_gb()
         if ram is not None:
             out["RAM Available - GB"] = ram

@@ -255,12 +255,12 @@ def test_flash_fallback_warns_once_per_reason_as_jax(case, caplog, monkeypatch):
         assert len(messages["torch"]) == 1 and want in messages["torch"][0]
 
 
-def test_fused_bias_kernel_and_ring_raise(monkeypatch):
+def test_fused_bias_kernel_taken_at_t_eq_window(monkeypatch):
     """The fused bias path (T = 768 = the window) is taken and agrees with
     _sdpa on the same weights at a bf16-representable table (the kernel
-    applies the table at bf16); ring attention still raises. (At T below the
-    window the two paths read different table rows, in the JAX package as
-    here: _sdpa indexes q - k + T, the fused path q - k + window.)"""
+    applies the table at bf16). (At T below the window the two paths read
+    different table rows, in the JAX package as here: _sdpa indexes
+    q - k + T, the fused path q - k + window.)"""
     x = torch.from_numpy(np.random.RandomState(8).randn(1, 768, 32).astype(np.float32))
     m = tatt.MultiQueryAttention(32, 4, _gen(), use_flash=True, pos_bias_window=768)
     with torch.no_grad():
@@ -274,8 +274,6 @@ def test_fused_bias_kernel_and_ring_raise(monkeypatch):
         got, want = m(x, causal=True), sdpa_path(x, causal=True)
     assert len(calls) == 1
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.MultiQueryAttention(32, 4, _gen(), use_ring=True)
 
 
 def test_causal_mask_and_dispatch_knobs():

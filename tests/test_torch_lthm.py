@@ -258,26 +258,27 @@ def test_format_inputs_rejects_float_ids():
         tw.format_inputs(batch)
 
 
-@pytest.mark.parametrize(
-    "change",
-    [
-        # the fused record is ported (tests/test_torch_table.py); with row
-        # sharding, which is not, it still raises
-        {"table_optimizer": "sparse_fused_adam", "shard_embedding_rows": True},
-        {"shard_embedding_rows": True},
-        {"transformer_config.sequence_parallel": True},
-        # (the pretrained module, model_init_metadata: tests/test_torch_embedding_module_gen.py;
-        # remat, enable_gradient_checkpointing, is ported: tests/test_torch_production.py;
-        # the sparse keep-sets and the MoE rotator: tests/test_torch_moe.py)
-    ],
-)
-def test_unported_branches_raise(change):
+def test_sharded_sparse_fused_adam_falls_back_to_rowwise_adam_and_warns(caplog):
+    """With shard_embedding_rows the fused record is not used: the wrapper
+    gives the JAX wrapper's warning and the table trains in its own group on
+    the dense RowwiseAdam (the JAX wrapper's fallback)."""
+    from recommendations_tpu_torch.train.optimizers import RowwiseAdam
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
     d = small_config(False, "float32")
-    for path, val in change.items():
-        node = d
-        *parents, leaf = path.split(".")
-        for p in parents:
-            node = node[p]
-        node[leaf] = val
-    with pytest.raises(NotImplementedError):
-        LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cpu")
+    d.update(table_optimizer="sparse_fused_adam", shard_embedding_rows=True)
+    d["product_tower"]["detach_item_tower"] = False
+    with caplog.at_level("WARNING"):
+        tw = LTHMModelWrapper(LTHMModelConfig.from_dict(d), device="cpu")
+    assert "falls back to dense rowwise_adam" in caplog.text
+    assert not tw.uses_sparse_taps() and not tw.uses_lazy_table()
+    table = tw.module.product_emb_module.embedding
+    before = table.detach().clone()
+    state = TrainState.create(tw)
+    assert isinstance(state.optimizer.table, RowwiseAdam)
+    assert any(p is table for g in state.optimizer.table.param_groups for p in g["params"])
+    loss, metrics = train_step(state, small_batch(), offsets=np.asarray([0, 1, 3]))
+    assert np.isfinite(float(loss)) and float(metrics["params_nan"]) == 0.0
+    moved = (table.detach() != before).any(dim=1)
+    assert 0 < int(moved.sum()) < table.shape[0]
