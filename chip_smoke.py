@@ -1408,7 +1408,7 @@ def expected_metric_keys(model_cfg, prefix: str) -> set:
     return keys
 
 
-def trainer_path(fa, kernels):
+def trainer_path(fa, kernels, smi):
     """Phase [4]: the port's entry point, ``main_training``, on
     configs/lthm_train.yaml (the production LTHM at context 512, T = 513 =
     the bias window, eager CE, frozen 10M-row table) at batch 64, on data
@@ -1418,10 +1418,13 @@ def trainer_path(fa, kernels):
     an export every 4 steps, metrics every 4 steps to a jsonl tracker. The
     launch counts are set to 0 just before the run and read just after: 16
     of each bias kernel a trained step, and 16 bias forwards a validation
-    batch. Then the step-4 checkpoint resumes in a second run, whose steps
-    5-8 must give the same bits as the first run's; and the export loads
-    into a fresh wrapper that serves the same user vectors. Returns the
-    numbers for phase [5]."""
+    batch. Then the step-4 checkpoint (written by the checkpoint manager's
+    background thread) resumes in a second run, whose steps 5-8 must give
+    the same bits as the first run's, and whose checkpoint is on disk
+    before its turn ends (``wait()`` right after ``save``): the checkpoint
+    turns of both runs and the save's host copy are printed. The export
+    loads into a fresh wrapper that serves the same user vectors. Returns
+    the numbers for phase [5]."""
     import shutil
     import tempfile
 
@@ -1429,6 +1432,7 @@ def trainer_path(fa, kernels):
     from recommendations_tpu_torch.data.data_store import FakeDataStore
     from recommendations_tpu_torch.pipeline.export import load_exported_wrapper
     from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
+    from recommendations_tpu_torch.train import checkpoint as ckpt_mod
 
     t0 = time.perf_counter()
     FakeDataStore.reset()
@@ -1437,8 +1441,20 @@ def trainer_path(fa, kernels):
     synth_s = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     bias = (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)
+    save_ms = {"a": [], "b": []}  # each CheckpointManager.save call's host time, by run
+    real_save = ckpt_mod.CheckpointManager.save
     try:
-        def run(tag, ckpt_dir):
+        def run(tag, ckpt_dir, sync=False):
+            """One main_training run; with ``sync`` each checkpoint is on
+            disk before its turn ends (``wait()`` right after ``save``)."""
+            def timed_save(mgr, *a, **kw):
+                t = time.perf_counter()
+                real_save(mgr, *a, **kw)
+                save_ms[tag].append((time.perf_counter() - t) * 1e3)
+                if sync:
+                    mgr.wait()
+
+            ckpt_mod.CheckpointManager.save = timed_save
             argv = ["--config-name", "lthm_train", "datestr=20240101", "dataset.filesystem_config.kind=fake",
                     f"train.train_steps={TRAINER_STEPS}", f"train.validation_steps={TRAINER_VAL_BATCHES}",
                     "train.val_metrics_every_n_steps=4", "train.checkpoint_every_k_steps=4",
@@ -1451,7 +1467,10 @@ def trainer_path(fa, kernels):
             for kern in kernels:
                 kern.launches = 0
             t1 = time.perf_counter()
-            pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            try:
+                pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            finally:
+                ckpt_mod.CheckpointManager.save = real_save
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t1
             counts = {kern.name: kern.launches for kern in kernels}
@@ -1499,7 +1518,7 @@ def trainer_path(fa, kernels):
         # resume: the step-4 checkpoint, steps 5-8 again
         os.makedirs(f"{tmp}/ckpt_b")
         shutil.copy(f"{tmp}/ckpt_a/step_00000004.pt", f"{tmp}/ckpt_b/step_00000004.pt")
-        pipe_b, met_b, counts_b, _, secs_b = run("b", f"{tmp}/ckpt_b")
+        pipe_b, met_b, counts_b, _, secs_b = run("b", f"{tmp}/ckpt_b", sync=True)
         state_b = pipe_b._trained[1]
         resumed = TRAINER_STEPS - 4
         want_b = {kern.name: 0 for kern in kernels}
@@ -1524,6 +1543,21 @@ def trainer_path(fa, kernels):
         if differ:
             raise AssertionError("the resumed run's state differs from the uninterrupted run's")
         del pipe_b, state_b, sd_b
+
+        # the checkpoint turns: run a's (steps 4 and 8) write in the background,
+        # run b's (step 8) waits for its write; both also validate, log and export
+        async_turns = [met_a["step_times_s"][i - 1] * 1e3 for i in (4, 8)]
+        sync_turns = [met_b["step_times_s"][TRAINER_STEPS - 4 - 1] * 1e3]
+        gb = sum(t.numel() * t.element_size() for t in state_a.state_dict()["module"].values()) / 1e9
+        print(f"[4] {smi}: checkpoint turns (lthm_train.yaml: the module's state {gb:.2f} GB, the AdamW "
+              f"moments beside it): written in the background, turns 4 and 8 {[round(x, 3) for x in async_turns]} ms "
+              f"(median {float(np.median(async_turns)):.3f}); save() on the loop's thread (the host copy) "
+              f"{[round(x, 3) for x in save_ms['a']]} ms; written before the turn ends (wait() right after save, "
+              f"the resumed run), turn 8 {[round(x, 3) for x in sync_turns]} ms (median "
+              f"{float(np.median(sync_turns)):.3f}), its save() and wait() {[round(x, 3) for x in save_ms['b']]} "
+              f"ms; the resume above read run a's background-written step-4 checkpoint", flush=True)
+        if len(save_ms["a"]) != 2 or len(save_ms["b"]) != 1:
+            raise AssertionError(f"checkpoint saves {save_ms}: expected 2 in run a and 1 in run b")
 
         # the export serves the same user vectors in a fresh wrapper
         export_dir = pipe_a.export_dir()
@@ -1550,13 +1584,15 @@ def trainer_path(fa, kernels):
         # the turns that neither validate, checkpoint nor log, the first (warm-up) left out
         plain = [x for i, x in enumerate(turns, start=1) if i > 1 and i % 4]
         wait = stages.get("step.next_batch_wait", {}).get("total_s", 0.0)
-        return {"turn_ms": [x * 1e3 for x in turns], "median_ms": float(np.median(plain)) * 1e3,
+        return {"ckpt_turn_async_ms": async_turns, "ckpt_turn_sync_ms": sync_turns, "ckpt_save_ms": save_ms,
+                "turn_ms": [x * 1e3 for x in turns], "median_ms": float(np.median(plain)) * 1e3,
                 "plain_turns": len(plain), "all_median_ms": float(np.median(turns)) * 1e3, "direct": direct,
                 "peak_mib": peak_a, "feed_wait_share": wait / sum(turns), "stages": stages,
                 "seconds": secs_a, "resume_seconds": secs_b, "counts": counts_a,
                 "per_step": {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers},
                 "batch": cfg_batch(pipe_a)}
     finally:
+        ckpt_mod.CheckpointManager.save = real_save
         shutil.rmtree(tmp, ignore_errors=True)
         FakeDataStore.reset()
 
@@ -2753,6 +2789,10 @@ DP_STEPS = 3
 TABLE_USERS = 64  # (b)'s ids: 64 users of 512 events
 RING_BATCH = 8  # (c)
 EP_USERS = 16  # (d)
+RANKER_DP_STEPS = 4  # (f): steps of ranker_train.yaml's batch over the data axis
+RANKER_DP_PAD = 37  # (f): pad rows at the global batch's end, all on the last rank
+RANKER_DP_LOSS_TOL = 1e-5  # tests/test_torch_ranker_mesh.py's: the loss and the metrics
+RANKER_DP_PARAM_TOL = 2e-4  # and the parameters after the steps, norm-relative
 PHASE6_TIMEOUT_S = 420
 
 
@@ -2962,10 +3002,93 @@ def _phase6_experts():
     return out
 
 
+def _ranker_dp_inputs():
+    """(f)'s config (ranker_train.yaml at ranker.yaml's widths) and global
+    batch (the YAML's batch size, the last RANKER_DP_PAD rows padding)."""
+    from recommendations_tpu_torch import main_training
+
+    cfg = main_training.load_config(main_training.CONFIG_ROOT / "ranker_train.yaml",
+                                    search_paths=[str(main_training.CONFIG_ROOT)])
+    n = cfg.train.batch_size
+    batch = ranker_batch(cfg.model, 900, n)
+    batch["_pad_mask"] = np.arange(n) >= n - RANKER_DP_PAD
+    return cfg, batch
+
+
+def _ranker_dp_steps(cfg, wrapper, batch, kernels):
+    """RANKER_DP_STEPS train steps of ``wrapper`` on ``batch`` (a rank's rows
+    on a mesh): each step's loss and host time (synchronized), the
+    gradient all-reduce's times, the launch counts, the parameters after."""
+    from recommendations_tpu_torch.train import step as step_mod
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    state = TrainState.create(wrapper, cfg.train)
+    real_reduce, reduce_ms = step_mod.reduce_gradients, []
+
+    def timed_reduce(w):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(w)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for kern in kernels:
+        kern.launches = 0
+    step_mod.reduce_gradients = timed_reduce
+    losses, step_ms = [], []
+    try:
+        for _ in range(RANKER_DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, metrics = step_mod.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+    finally:
+        step_mod.reduce_gradients = real_reduce
+    params = {n: p.detach().clone() for n, p in wrapper.module.named_parameters()}
+    return {"losses": losses, "step_ms": step_ms, "reduce_ms": reduce_ms, "params": params,
+            "metrics": {k: v.item() for k, v in metrics.items()},
+            "counts": {kern.name: kern.launches for kern in kernels}}
+
+
+def _phase6_ranker(kernels):
+    """(f): the ranker of ranker_train.yaml over a data axis of DP_WORLD
+    ranks, each its rows of the global batch (the pad rows all on the last
+    rank), against one process on the whole batch from the same weights:
+    each step's loss and the parameters after RANKER_DP_STEPS steps, the
+    launch counts (the ranker launches none), a rank's step time and the
+    all-reduce's share."""
+    import hashlib
+
+    from recommendations_tpu_torch.core.mesh import MeshConfig, build_mesh
+    from recommendations_tpu_torch.models.ranker.wrapper import RankerModelWrapper
+
+    cfg, batch = _ranker_dp_inputs()
+    one = _ranker_dp_steps(cfg, RankerModelWrapper(cfg.model, device="cuda", seed=0), batch, kernels)
+    mesh = build_mesh(MeshConfig(data=DP_WORLD), device="cuda")
+    per = cfg.train.batch_size // DP_WORLD
+    start = mesh.index("data") * per
+    wrapper = RankerModelWrapper(cfg.model, device="cuda", seed=0)
+    wrapper.bind_mesh(mesh)
+    dp = _ranker_dp_steps(cfg, wrapper, {k: v[start:start + per] for k, v in batch.items()}, kernels)
+    digest = hashlib.sha256()
+    for name, p in sorted(dp["params"].items()):
+        digest.update(name.encode() + p.cpu().numpy().tobytes())
+    worst = max((rel_err(dp["params"][n], one["params"][n]), n) for n in one["params"])
+    out = {k: dp[k] for k in ("losses", "step_ms", "reduce_ms", "counts", "metrics")}
+    out.update(one_losses=one["losses"], one_metrics=one["metrics"], worst=worst, digest=digest.hexdigest(),
+               rows=per, pad=int(batch["_pad_mask"][start:start + per].sum()), batch=cfg.train.batch_size,
+               n_params=sum(p.numel() for p in dp["params"].values()))
+    del wrapper, one, dp
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase6_rank(argv) -> int:
     """A rank of phase [6] (``python chip_smoke.py --phase6-rank RANK WORLD
-    PORT OUT``): joins the gloo group on the one card, runs (a)-(d) and
-    writes its results to OUT/rank<RANK>.json."""
+    PORT OUT``): joins the gloo group on the one card, runs (a)-(d) and (f)
+    and writes its results to OUT/rank<RANK>.json."""
     import torch.distributed as dist
 
     from recommendations_tpu_torch.core.mesh import init_distributed
@@ -2985,6 +3108,7 @@ def phase6_rank(argv) -> int:
     res["table"] = _phase6_table()
     res["ring"] = _phase6_ring(fa)
     res["experts"] = _phase6_experts()
+    res["ranker"] = _phase6_ranker(kernels)
     res["seconds"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -3004,7 +3128,8 @@ def _phase6_nccl(kernels):
     """(e): (a)'s step through a one-rank NCCL group in this process: every
     collective of the data-parallel step (the loss's gathers and metric
     reductions, the gradient all-reduce, the NaN flag) runs on NCCL on the
-    card, moving no data."""
+    card, moving no data; then (f)'s ranker steps the same way, against one
+    process without a mesh."""
     import datetime
 
     import torch.distributed as dist
@@ -3037,6 +3162,19 @@ def _phase6_nccl(kernels):
                "grad_norm": metrics["grad_norm"].item(), "params_nan": metrics["params_nan"].item(),
                "counts": {kern.name: kern.launches for kern in kernels}}
         del state, wrapper
+        torch.cuda.empty_cache()
+        # (f)'s ranker step on the whole batch through the same group, against one process
+        from recommendations_tpu_torch.models.ranker.wrapper import RankerModelWrapper
+
+        rcfg, rbatch = _ranker_dp_inputs()
+        one = _ranker_dp_steps(rcfg, RankerModelWrapper(rcfg.model, device="cuda", seed=0), rbatch, kernels)
+        ranker = RankerModelWrapper(rcfg.model, device="cuda", seed=0)
+        ranker.bind_mesh(Mesh.one_rank(dist.group.WORLD, "cuda"))
+        got = _ranker_dp_steps(rcfg, ranker, rbatch, kernels)
+        out["ranker"] = {"losses": got["losses"], "one_losses": one["losses"], "step_ms": got["step_ms"],
+                         "reduce_ms": got["reduce_ms"], "counts": got["counts"],
+                         "worst": max(rel_err(got["params"][n], one["params"][n]) for n in one["params"])}
+        del one, got, ranker
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3151,6 +3289,31 @@ def distributed_phase(kernels, smi):
               + f" -> {'ok' if d_ok else 'FAIL'}", flush=True)
         ok &= d_ok
 
+    # (f) the ranker over the mesh
+    rk = [res["ranker"] for res in ranks]
+    r0 = rk[0]
+    f_loss = max(abs(a - b) for a, b in zip(r0["losses"], r0["one_losses"]))
+    f_metrics = max(abs(r0["metrics"][k] - r0["one_metrics"][k]) for k in r0["one_metrics"]
+                    if k not in ("grad_norm", "params_nan"))
+    f_ok = (f_loss <= RANKER_DP_LOSS_TOL and f_metrics <= RANKER_DP_LOSS_TOL
+            and all(d["worst"][0] <= RANKER_DP_PARAM_TOL for d in rk) and len({d["digest"] for d in rk}) == 1
+            and all(not any(d["counts"].values()) for d in rk)
+            and all(math.isfinite(x) for d in rk for x in d["losses"]))
+    f_step = [x for d in rk for x in d["step_ms"][1:]]  # each rank's first step warms up
+    f_share = sum(sum(d["reduce_ms"][1:]) for d in rk) / sum(f_step)
+    print(f"[6] (f) the ranker of ranker_train.yaml ({r0['n_params']} parameters) over data = {DP_WORLD}, "
+          f"{r0['rows']} of the batch's {r0['batch']} rows a rank ({[d['pad'] for d in rk]} of them padding): "
+          f"losses {[round(x, 6) for x in r0['losses']]} vs one process {[round(x, 6) for x in r0['one_losses']]} "
+          f"(worst {f_loss:.2e}, the last step's metrics {f_metrics:.2e}, tol {RANKER_DP_LOSS_TOL}), parameters "
+          f"after {RANKER_DP_STEPS} steps: worst {r0['worst'][1]} at norm-relative "
+          f"{max(d['worst'][0] for d in rk):.2e} (tol {RANKER_DP_PARAM_TOL}), the same bits on every rank "
+          f"{len({d['digest'] for d in rk}) == 1}, launches {r0['counts']} (the ranker's products are plain "
+          f"matmuls) -> {'ok' if f_ok else 'FAIL'}", flush=True)
+    print(f"[6] (f) {smi}: a rank's step {[round(x, 3) for x in f_step]} ms (after one warm-up step), gradient "
+          f"all-reduce {[round(x, 3) for d in rk for x in d['reduce_ms'][1:]]} ms, its share "
+          f"{100 * f_share:.1f}% (gloo through the host, not NCCL)", flush=True)
+    ok &= f_ok
+
     # (e) the NCCL path, one rank
     nc = _phase6_nccl(kernels)
     e_ok = (nc["backend"] == "nccl" and nc["counts"] == want and math.isfinite(nc["loss"])
@@ -3159,12 +3322,22 @@ def distributed_phase(kernels, smi):
           f"move no data): loss {nc['loss']:.6f}, grad norm {nc['grad_norm']:.4f}, launches {nc['counts']}, "
           f"{nc['ms']:.3f} ms -> {'ok' if e_ok else 'FAIL'}", flush=True)
     ok &= e_ok
+    nr = nc["ranker"]
+    e_ranker = max(abs(a - b) for a, b in zip(nr["losses"], nr["one_losses"]))
+    ef_ok = (e_ranker <= RANKER_DP_LOSS_TOL and nr["worst"] <= RANKER_DP_PARAM_TOL and not any(nr["counts"].values()))
+    print(f"[6] (e) {smi}: (f)'s ranker through the one-rank {nc['backend']} group on the whole batch: losses "
+          f"{[round(x, 6) for x in nr['losses']]} vs one process without a mesh (worst {e_ranker:.2e}, tol "
+          f"{RANKER_DP_LOSS_TOL}), parameters at norm-relative {nr['worst']:.2e} (tol {RANKER_DP_PARAM_TOL}), "
+          f"launches {nr['counts']}; step {[round(x, 3) for x in nr['step_ms'][1:]]} ms, all-reduce "
+          f"{[round(x, 3) for x in nr['reduce_ms'][1:]]} ms -> {'ok' if ef_ok else 'FAIL'}", flush=True)
+    ok &= ef_ok
     seconds = time.perf_counter() - t0
     print(f"[6] the phase took {seconds:.1f} s (ranks' own work {max(res['seconds'] for res in ranks):.1f} s)",
           flush=True)
     if not ok:
         raise AssertionError("[6] the multi-device phase failed")
-    return {"per_rank_step": per_step[0], "step_ms": step_ms, "reduce_share": share, "seconds": seconds}
+    return {"per_rank_step": per_step[0], "step_ms": step_ms, "reduce_share": share, "seconds": seconds,
+            "ranker_step_ms": f_step, "ranker_reduce_share": f_share, "ranker_nccl_step_ms": nr["step_ms"][1:]}
 
 
 def main() -> int:
@@ -3520,7 +3693,7 @@ def main() -> int:
     base_tables = trainable_base(fa, fc, kernels)
     prod_tables = trainable_production(fa, fc, kernels)
     ctx512 = production_512(fa, fc, kernels)
-    trainer = trainer_path(fa, kernels)
+    trainer = trainer_path(fa, kernels, smi)
     torch.cuda.empty_cache()
     knobs = trainer_knobs(fa, fc, kernels, ctx512["fused"]["per_step"])
     torch.cuda.empty_cache()

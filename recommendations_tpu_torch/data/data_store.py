@@ -1,11 +1,14 @@
-"""Storage: one interface over the local file system and an in-memory store.
+"""Storage: one interface over the local file system, S3 and an in-memory
+store.
 
 Port of ``recommendations_tpu/data/data_store.py``: list a date range's data
 files, read one parquet file into a table of numpy columns
-(``features/transforms.py``), upload artifacts. ``LocalDataStore`` reads
-parquet through ``pyarrow``, imported by the reader only; ``FakeDataStore``
-holds numpy tables in memory (the JAX package's ``FileSystemKind.FAKE``).
-``S3DataStore`` is not ported yet and raises (ROADMAP, port queue item 6b).
+(``features/transforms.py``), read a file's bytes, upload artifacts.
+``LocalDataStore`` reads parquet through ``pyarrow``, imported by the
+reader only; ``S3DataStore`` through ``boto3`` (imported when the store is
+made; without it the store raises ``ImportError``), every request retried
+with a doubling backoff; ``FakeDataStore`` holds numpy tables in memory
+(the JAX package's ``FileSystemKind.FAKE``).
 """
 
 from __future__ import annotations
@@ -13,10 +16,12 @@ from __future__ import annotations
 import abc
 import datetime
 import glob
+import io
 import logging
 import os
 import random
 import shutil
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,6 +70,10 @@ class DataStoreInterface(abc.ABC):
 
     @abc.abstractmethod
     def read_single_parquet_file(self, path: str, columns: Optional[List[str]] = None) -> Optional[Table]:
+        ...
+
+    @abc.abstractmethod
+    def get_file_from_path(self, path: str) -> bytes:
         ...
 
     @abc.abstractmethod
@@ -127,6 +136,10 @@ class LocalDataStore(DataStoreInterface):
         except Exception:
             return None
 
+    def get_file_from_path(self, path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
     def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
         target = os.path.join(self.base, folder)
         os.makedirs(target, exist_ok=True)
@@ -175,6 +188,9 @@ class FakeDataStore(DataStoreInterface):
         table = self._tables.get(path)
         return None if table is None else num_rows(table)
 
+    def get_file_from_path(self, path: str) -> bytes:
+        return self._files[path]
+
     def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
         for root, _, files in os.walk(local_directory):
             for name in files:
@@ -183,11 +199,72 @@ class FakeDataStore(DataStoreInterface):
                     self._files[f"{folder}/{os.path.relpath(src, local_directory)}"] = f.read()
 
 
-class S3DataStore:
-    """Not ported yet: the JAX package's S3 store (boto3, retries)."""
+class S3DataStore(DataStoreInterface):
+    """S3 through ``boto3`` (its resource lists, its client reads and
+    uploads), each request retried up to ``max_retries`` times with a
+    doubling delay plus up to a second of jitter, the last failure raised.
+    Paths are ``s3://<bucket>/<key>``, the keys under the config's
+    ``path_template`` of each date."""
 
-    def __init__(self, config: FileSystemConfig):
-        raise NotImplementedError("S3DataStore is not ported yet: ROADMAP, port queue item 6b")
+    def __init__(self, config: FileSystemConfig, max_retries: int = 5):
+        try:
+            import boto3  # type: ignore
+        except ImportError as e:
+            raise ImportError("boto3 is required for S3DataStore but is not installed") from e
+        self.config = config
+        self.bucket_name = config.s3_bucket_path
+        self._s3 = boto3.resource("s3")
+        self._client = boto3.client("s3")
+        self.max_retries = max_retries
+        try:  # in the thread that makes the store (see LocalDataStore)
+            import pyarrow.parquet  # noqa: F401
+        except ImportError:
+            pass
+
+    def _retry(self, fn, *args, **kw):
+        delay = 1.0
+        for attempt in range(self.max_retries):
+            try:
+                return fn(*args, **kw)
+            except Exception:
+                if attempt == self.max_retries - 1:
+                    raise
+                time.sleep(delay + random.random())
+                delay *= 2
+
+    def get_training_data_paths_for_dates(self, data_dates, data_ratio=1.0):
+        template = self.config.path_template or "date={date}"
+        bucket = self._s3.Bucket(self.bucket_name)
+        paths: List[str] = []
+        for date in data_dates:
+            prefix = template.format(date=date)
+            objs = self._retry(lambda p=prefix: list(bucket.objects.filter(Prefix=p)))
+            paths.extend(f"s3://{self.bucket_name}/{o.key}" for o in objs if self._is_data_file(o.key))
+        return sample_paths(sorted(paths), data_ratio)
+
+    def _strip(self, path: str) -> str:
+        prefix = f"s3://{self.bucket_name}/"
+        return path[len(prefix):] if path.startswith(prefix) else path
+
+    def read_single_parquet_file(self, path, columns=None):
+        try:
+            return read_parquet_table(io.BytesIO(self.get_file_from_path(path)), columns)
+        except ImportError:
+            raise
+        except Exception:
+            logger.exception("failed reading %s", path)
+            return None
+
+    def get_file_from_path(self, path: str) -> bytes:
+        obj = self._retry(self._client.get_object, Bucket=self.bucket_name, Key=self._strip(path))
+        return obj["Body"].read()
+
+    def upload_dir_recursive(self, local_directory: str, folder: str) -> None:
+        for root, _, files in os.walk(local_directory):
+            for name in files:
+                src = os.path.join(root, name)
+                key = f"{folder}/{os.path.relpath(src, local_directory)}"
+                self._retry(self._client.upload_file, src, self.bucket_name, key)
 
 
 class DataStoreAccessor:

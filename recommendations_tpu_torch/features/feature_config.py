@@ -609,6 +609,10 @@ class FeaturesConfig:
     def get_input_columns(self) -> List[str]:
         return self.input_columns
 
+    def get_features_map(self) -> Dict[str, Feature]:
+        """Feature name -> feature, for every feature read from an input."""
+        return self.features_map
+
     def _get_typed(self, key, kind, cls):
         feature = self.features_map.get(key)
         if feature is not None and feature.kind == kind and isinstance(feature, cls):
@@ -630,6 +634,11 @@ class FeaturesConfig:
     def is_do_not_convert_to_platform_type(self, key) -> bool:
         feature = self.features_map.get(key)
         return feature is not None and feature.do_not_convert_to_platform_type
+
+    def get_transformers(self) -> List[Callable[[Table], None]]:
+        """The compiled transforms, in the order ``default_data_mapper``
+        applies them, each changing a column dict in place."""
+        return self.transformers
 
     def default_data_mapper(self, batch: Table) -> Table:
         """The compiled transforms applied to a copy of ``batch``'s column

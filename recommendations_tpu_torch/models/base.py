@@ -18,13 +18,19 @@ strategy falls back to where a wrapper lacks the hook
 - ``param_labels`` and ``optimizers_for_param_groups``: every parameter in
   ``DEFAULT_OPTIM_GROUP``, which no group claims, so the trainer config's
   optimizer steps it;
+- the mesh hooks: ``bind_mesh`` keeps the mesh, and every parameter is
+  replicated over it (the JAX package's ``REPLICATED`` partition rules):
+  ``sharded_params`` is empty, ``param_grad_axes`` sums every gradient
+  over ``data`` and ``unbind_mesh`` drops the mesh. A wrapper that shards
+  parameters (LTHM) overrides them; one whose loss is a mean over the
+  global batch (the ranker) also reads ``mesh`` in its loss;
 - ``inference_models``: the serving entry points by name ({}).
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -34,6 +40,7 @@ DEFAULT_OPTIM_GROUP = "DEFAULT_OPTIM_GROUP"
 class BaseModelWrapper(abc.ABC):
     module: torch.nn.Module
     device: torch.device
+    mesh = None  # the ``core.mesh.Mesh`` bound by ``bind_mesh``
 
     @abc.abstractmethod
     def loss_and_metrics(self, batch: Mapping[str, Any], aux_state: Any, training: bool, **step):
@@ -68,6 +75,25 @@ class BaseModelWrapper(abc.ABC):
     def optimizers_for_param_groups(self) -> Optional[Dict[str, Optional[dict]]]:
         """Group -> optimizer settings; None: the trainer config's optimizer."""
         return None
+
+    # ----- the mesh --------------------------------------------------------------
+
+    def bind_mesh(self, mesh) -> None:
+        self.mesh = mesh
+
+    def sharded_params(self) -> Dict[str, str]:
+        """Parameter name -> the mesh axis its rows are split over: none."""
+        return {}
+
+    def param_grad_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Parameter name -> the mesh axes its gradient is summed over: each
+        rank of ``data`` holds other rows of the batch."""
+        if self.mesh is None:
+            return {}
+        return {name: ("data",) for name, _ in self.module.named_parameters()}
+
+    def unbind_mesh(self) -> None:
+        self.mesh = None
 
     # ----- export --------------------------------------------------------------
 

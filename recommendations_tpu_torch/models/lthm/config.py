@@ -272,6 +272,11 @@ class LTHMModelConfig(ModelConfig):
     def export_tokens(self) -> int:
         return len(self.lookahead)
 
+    @property
+    def export_span(self) -> int:
+        """The positions an exported query spans: the farthest lookahead + 1."""
+        return max(self.lookahead) + 1
+
     def resolved_table_optimizer(self) -> str:
         """'auto' resolved as the JAX package resolves it."""
         t = self.table_optimizer

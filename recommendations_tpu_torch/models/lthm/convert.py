@@ -52,6 +52,19 @@ def state_dict_from_jax(variables: dict, module: nn.Module) -> Dict[str, torch.T
     return _convert(flat, module.state_dict())
 
 
+def lsh_state_dict_from_jax(variables: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The variables of one of ``nn/lsh.py``'s layers (its ``params`` and
+    its ``constants``, the fixed projections) -> the layer's state_dict,
+    names one to one (``q_<name>``, ``emb_<i>``, ``proj``, ``emb``,
+    ``mean``, ``projection_mat``; a Dense ``kernel`` transposed into
+    ``weight``). Strict: any other collection, and any missing, unused or
+    misshapen entry, raises."""
+    other = sorted(set(variables) - {"params", "constants"})
+    if other:
+        raise KeyError(f"collections an LSH layer does not hold: {other}")
+    return state_dict_from_jax(variables, module)
+
+
 def _convert(
     flat: Dict[Tuple[str, ...], np.ndarray], expected: Dict[str, torch.Tensor]
 ) -> Dict[str, torch.Tensor]:

@@ -38,7 +38,7 @@ from recommendations_tpu_torch.nn.embeddings import (
     PatternFromTimelocal,
     init_param,
 )
-from recommendations_tpu_torch.nn.functional import l2_normalize
+from recommendations_tpu_torch.nn.functional import cast_param, l2_normalize
 from recommendations_tpu_torch.nn.lsh import CosineVectorEmbedding
 from recommendations_tpu_torch.nn.transformer import MoELinear, TransformerStack
 
@@ -163,7 +163,7 @@ class QueryTower(nn.Module):
             + self.time_how(timestamp)
             + self.time_dow(timestamp)
         ).to(self.dtype)
-        x = torch.where(mask[..., None], self.pad.to(x.dtype), x)
+        x = torch.where(mask[..., None], cast_param(self.pad, x.dtype), x)
 
         # CLS column + reverse positions (most recent event = position 0)
         x = torch.cat([x.new_zeros((bsz, 1, x.shape[-1])), x], dim=1)

@@ -28,6 +28,7 @@ from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
 from recommendations_tpu_torch.models.ranker.config import RankerModelConfig
 from recommendations_tpu_torch.models.ranker.metrics import binary_auc
 from recommendations_tpu_torch.models.ranker.model import FactorizedDLRM
+from recommendations_tpu_torch.parallel import collectives as col
 
 MAIN_GROUP = "USE_OPTIM"
 
@@ -79,35 +80,51 @@ class RankerModelWrapper(BaseModelWrapper):
     ) -> Tuple[torch.Tensor, Metrics, Any]:
         """(loss, metrics, aux_state). The training step's keywords (offsets,
         generator, taps, dropout_seed) are not used: the ranker draws
-        nothing and has no table of its own."""
+        nothing and has no table of its own.
+
+        On a mesh (``bind_mesh``) the batch is this rank's rows of the
+        global batch, and each mean is over the global batch, as JAX's one
+        program computes it: the valid count is summed over ``data``, and
+        the loss returned is this rank's rows' share of the global loss
+        (the step sums the gradients over ``data``). The metrics are the
+        global batch's: the sums over ``data``, and the AUC from the whole
+        batch's logits, labels and mask gathered in row order."""
         inputs = self.format_inputs(batch)
         output = self.module(inputs)
+        group = None if self.mesh is None else self.mesh.group("data")
+
+        def total(x: torch.Tensor) -> torch.Tensor:
+            """The sum over ``data`` of a detached value."""
+            return x.detach() if group is None else col.all_reduce_(x.detach().clone(), group)
+
         prefix = "train" if training else "val"
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         metrics: Metrics = {}
         pad = inputs.get("_pad_mask")
+        first = self.config.task_list[0].name
+        w = (~pad.bool()).float() if pad is not None else torch.ones(output[first].shape[0], device=self.device)
+        denom = torch.clamp_min(total(w.sum()), 1.0)
         for task in self.config.task_list:
             logits = output[task.name].float()
             labels = inputs[task.name].float()
-            w = (~pad.bool()).float() if pad is not None else torch.ones(logits.shape[0], device=self.device)
-            denom = torch.clamp_min(w.sum(), 1.0)
             if task.num_labels == 1:
                 logit = logits.reshape(-1)
                 per_ex = sigmoid_binary_cross_entropy(logit, labels.reshape(-1))
                 task_loss = (per_ex * w).sum() / denom
                 with torch.no_grad():
-                    metrics[f"{prefix}_auc_{task.name}"] = binary_auc(logit.detach(), labels.reshape(-1), valid=w > 0)
-                    metrics[f"{prefix}_pos_rate_{task.name}"] = (labels.reshape(-1) * w).sum() / denom
+                    gathered = [col.all_gather_tensor(x, group) for x in (logit.detach(), labels.reshape(-1), w)]
+                    metrics[f"{prefix}_auc_{task.name}"] = binary_auc(*gathered[:2], valid=gathered[2] > 0)
+                    metrics[f"{prefix}_pos_rate_{task.name}"] = total((labels.reshape(-1) * w).sum()) / denom
             else:
                 ints = labels.to(torch.int32).reshape(-1).to(torch.int64)
                 per_ex = softmax_cross_entropy_with_integer_labels(logits, ints)
                 task_loss = (per_ex * w).sum() / denom
                 with torch.no_grad():
                     acc = (torch.argmax(logits, -1) == ints).float()
-                    metrics[f"{prefix}_acc_{task.name}"] = (acc * w).sum() / denom
-            metrics[f"{prefix}_loss_{task.name}"] = task_loss.detach()
+                    metrics[f"{prefix}_acc_{task.name}"] = total((acc * w).sum()) / denom
+            metrics[f"{prefix}_loss_{task.name}"] = total(task_loss)
             loss = loss + task.weight * task_loss
-        metrics[f"{prefix}_loss"] = loss.detach()
+        metrics[f"{prefix}_loss"] = total(loss)
         return loss, metrics, aux_state
 
     def param_labels(self) -> Dict[str, str]:

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from recommendations_tpu_torch.nn.dropout import dropout, qkv_dropout
+from recommendations_tpu_torch.nn.functional import cast_param
 from recommendations_tpu_torch.ops import fused_attention as fa
 from recommendations_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_padded
 
@@ -84,8 +85,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        b = None if self.bias is None else cast_param(self.bias, dt)
+        return F.linear(x.to(dt), cast_param(self.weight, dt), b)
 
 
 def causal_mask(seq_len: int, device=None) -> torch.Tensor:

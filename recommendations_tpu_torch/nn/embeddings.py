@@ -28,7 +28,13 @@ import torch
 from torch import nn
 
 from recommendations_tpu_torch.nn.attention import Dense
-from recommendations_tpu_torch.nn.functional import l2_normalize, quick_gelu, sorted_segment_sum
+from recommendations_tpu_torch.nn.functional import (
+    cast_param,
+    l2_normalize,
+    note_product_dtype,
+    quick_gelu,
+    sorted_segment_sum,
+)
 from recommendations_tpu_torch.train.sparse_table import fused_record_init
 
 # Tables up to this many rows are looked up by a one-hot matmul; larger ones
@@ -61,7 +67,7 @@ def small_table_lookup(
     if not (torch.is_grad_enabled() and table.requires_grad):
         return table[idx].to(ct).to(table.dtype)
     onehot = (idx[..., None] == torch.arange(n, device=idx.device)).to(ct)
-    return (onehot @ table.to(ct)).to(table.dtype)
+    return (onehot @ cast_param(table, ct)).to(table.dtype)
 
 
 def kshift_row_indices(ids: torch.Tensor, num_embeddings: int, num_shifts: int) -> torch.Tensor:
@@ -206,6 +212,7 @@ class KShiftEmbedding(nn.Module):
             if tap is not None:
                 rows = rows + tap.to(rows.dtype)
         elif self.compute_dtype is not None and self.compute_dtype != self.embedding.dtype:
+            note_product_dtype(self.embedding, self.compute_dtype)
             rows = _GatherRowsLowp.apply(self.embedding, idx, self.compute_dtype)
         else:
             rows = self.embedding[idx]  # (..., k, d)

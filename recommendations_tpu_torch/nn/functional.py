@@ -1,6 +1,7 @@
 """Stateless ops shared across the layer library.
 
-Port of ``recommendations_tpu/nn/functional.py``.
+Port of ``recommendations_tpu/nn/functional.py``, and ``cast_param``,
+the cast of a parameter for a product in a lower precision.
 """
 
 from __future__ import annotations
@@ -49,3 +50,41 @@ def sorted_segment_sum(idx: torch.Tensor, rows: torch.Tensor):
     uniq, counts = torch.unique_consecutive(sorted_idx, return_counts=True)
     sums = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0, unsafe=True)
     return uniq, sums
+
+
+class _CapGradients(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / torch.clamp_min(torch.linalg.vector_norm(g), 1e-12)
+
+
+def cap_gradients(x: torch.Tensor) -> torch.Tensor:
+    """The identity forward; the backward divides the cotangent by its L2
+    norm over the whole tensor (at least 1e-12), as the JAX package's
+    ``jnp.linalg.norm(g)``: used to balance the gradients flowing into a
+    shared trunk under multi-task losses."""
+    return _CapGradients.apply(x)
+
+
+def note_product_dtype(p: torch.Tensor, dtype: torch.dtype) -> None:
+    """Note on a parameter that its gradient comes out of a product in the
+    narrower float ``dtype``, rounded to it (``cast_param``)."""
+    if (dtype != p.dtype and dtype.is_floating_point and dtype.itemsize < p.dtype.itemsize
+            and isinstance(p, torch.nn.Parameter) and p.requires_grad):
+        p.product_dtype = dtype
+
+
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p.to(dtype)``, for a product in ``dtype``. A parameter cast to a
+    narrower float gets its gradient out of that product rounded to
+    ``dtype``; over a mesh, the JAX package's gradient (XLA's partitioned
+    backward, compiled or op by op) is each device's rounded partial,
+    summed, and rounded to ``dtype`` once more. The parameter keeps
+    ``dtype`` as ``product_dtype``, from which ``train.step.reduce_gradients``
+    rounds the sum over the ranks."""
+    note_product_dtype(p, dtype)
+    return p.to(dtype)

@@ -71,7 +71,7 @@ from recommendations_tpu_torch.nn.attention import (
     causal_mask,
 )
 from recommendations_tpu_torch.nn.dropout import dropout, fold_seed, seeded_generator
-from recommendations_tpu_torch.nn.functional import gelu_tanh
+from recommendations_tpu_torch.nn.functional import cast_param, gelu_tanh
 from recommendations_tpu_torch.ops import fused_attention as fa
 from recommendations_tpu_torch.parallel import collectives as col
 
@@ -189,9 +189,9 @@ class MoELinear(nn.Module):
         if g is not None:
             gates = col.copy_to_group(gates, g).narrow(-1, self.first_expert, self.w1.shape[0])
             x = col.copy_to_group(x, g)
-        h = torch.einsum("...i,eij->...ej", x, self.w1.to(dt)) + self.b1.to(dt)
+        h = torch.einsum("...i,eij->...ej", x, cast_param(self.w1, dt)) + cast_param(self.b1, dt)
         h = gelu_tanh(h)
-        out = torch.einsum("...ej,ejo->...eo", h, self.w2.to(dt)) + self.b2.to(dt)
+        out = torch.einsum("...ej,ejo->...eo", h, cast_param(self.w2, dt)) + cast_param(self.b2, dt)
         mix = torch.sum(gates.float().unsqueeze(-1) * out.float(), dim=-2)
         return col.psum(mix, g).to(dt)
 

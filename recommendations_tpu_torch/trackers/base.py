@@ -38,3 +38,6 @@ class Tracker:
 
     def log_artifacts(self, local_dir: str) -> None:
         pass
+
+    def watch(self, model: Any, log_graph: bool = False) -> None:
+        pass

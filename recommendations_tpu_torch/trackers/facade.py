@@ -1,8 +1,8 @@
 """Fan-out tracker facade, each tracker's failures kept from the run.
 
 Port of ``recommendations_tpu/trackers/facade.py`` (reference
-``commons/configs/tracker_config.py:18-88``). The ``mlflow`` kind is not
-ported yet (ROADMAP, port queue item 6b).
+``commons/configs/tracker_config.py:18-88``). The ``mlflow`` kind's module
+(``trackers/mlflow_tracker.py``) is imported when a config names it.
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ class TrainingTrackersConfig:
         for t in d.get("trackers") or []:
             if isinstance(t, dict):
                 kind = t.get("kind", "")
-                if kind == "mlflow":
-                    raise NotImplementedError("the mlflow tracker is not ported yet: ROADMAP, port queue item 6b")
+                if kind == "mlflow" and kind not in trackers_registry:
+                    from recommendations_tpu_torch.trackers import mlflow_tracker  # noqa: F401  (registers)
                 tcls = trackers_registry.get(kind)
                 if tcls is None:
                     raise KeyError(f"Unknown tracker kind {kind!r}")
@@ -76,3 +76,6 @@ class TrainingTrackersConfig:
 
     def log_artifacts(self, local_dir: str) -> None:
         self._each("log_artifacts", local_dir)
+
+    def watch(self, model: Any, log_graph: bool = False) -> None:
+        self._each("watch", model, log_graph=log_graph)

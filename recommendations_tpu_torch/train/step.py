@@ -32,9 +32,11 @@ On a mesh (the wrapper's ``mesh``, ``core/mesh.py``) each rank holds its
 rows' part of the whole batch's loss, so after the backward every
 parameter's gradient is summed over the axes ``param_grad_axes`` names
 (``reduce_gradients``: one all-reduce per set of axes over the gradients
-laid end to end), before the lazy table update, the norm and the clipping;
-the fused record's (row, gradient) pairs are gathered by the wrapper's
-update instead. The norm counts each sharded parameter's blocks once
+laid end to end; the sum of a gradient that comes out of a bf16 product
+rounded to bf16 again, as JAX's partitioned backward rounds it), before
+the lazy table update, the norm and the clipping; the fused record's
+(row, gradient) pairs are gathered by the wrapper's update instead. The
+norm counts each sharded parameter's blocks once
 (``optimizers.global_norm``), and ``params_nan`` is any rank's.
 
 The phases run inside ``torch.profiler.record_function`` ranges named
@@ -58,22 +60,28 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def reduce_gradients(wrapper) -> None:
-    """Sum each parameter's gradient over its ``param_grad_axes``, in place."""
+    """Sum each parameter's gradient over its ``param_grad_axes``, in place;
+    a parameter cast for a product in a narrower float (``product_dtype``,
+    ``nn.functional.cast_param``) has the sum rounded to that float."""
     mesh = wrapper.mesh
     by_axes: Dict[Tuple[str, ...], list] = {}
     grad_axes = wrapper.param_grad_axes()
     for name, p in wrapper.module.named_parameters():
         axes = grad_axes.get(name, ())
         if p.grad is not None and mesh.group(*axes) is not None:
-            by_axes.setdefault(axes, []).append(p.grad)
-    for axes, grads in by_axes.items():
-        for dtype in {g.dtype for g in grads}:
-            same = [g for g in grads if g.dtype == dtype]
-            flat = torch.cat([g.reshape(-1) for g in same])
+            by_axes.setdefault(axes, []).append(p)
+    for axes, params in by_axes.items():
+        # in the parameters' order, the same on every rank
+        for dtype in dict.fromkeys(p.grad.dtype for p in params):
+            same = [p for p in params if p.grad.dtype == dtype]
+            flat = torch.cat([p.grad.reshape(-1) for p in same])
             col.all_reduce_(flat, mesh.group(*axes))
             offset = 0
-            for g in same:
-                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            for p in same:
+                g = p.grad
+                total = flat[offset:offset + g.numel()].view_as(g)
+                narrow = getattr(p, "product_dtype", None)
+                g.copy_(total if narrow is None else total.to(narrow))
                 offset += g.numel()
 
 

@@ -15,9 +15,11 @@ package's:
 - every ``checkpoint_every_k_steps`` steps, unless the loss is NaN or above
   ``export_if_loss_within_factor_of_best_model`` times the best loss seen
   after ``best_model_after_k_steps``: a full checkpoint (with
-  ``checkpoint_dir``), the data iterator's snapshot beside it
-  (``data_iter_h0_s<step>.pkl``), and an export through the model
-  checkpointer;
+  ``checkpoint_dir``; copied to host memory in the loop and written by the
+  manager's background thread, which the loop waits for before a NaN stop
+  and at the end of training, so before the final export), the data
+  iterator's snapshot beside it (``data_iter_h0_s<step>.pkl``), and an
+  export through the model checkpointer;
 - the run stops at ``train_steps`` or after ``epochs``;
 - on restart from a checkpoint the step count continues, and the data
   position is restored in O(1) where it can be: from the snapshot (any
@@ -424,6 +426,8 @@ class SingleProcessTrainingStrategy:
                     global_metrics.update(avg)
                     # the NaN watchdog (reference :374-398)
                     if math.isnan(loss_val) or host_metrics.get("params_nan", 0.0) > 0:
+                        if ckpt_mgr is not None:
+                            ckpt_mgr.wait()  # the last good checkpoint on disk
                         raise ValueError("Stopping: NaN in loss or parameters at step %d" % batch_nb)
                     if batch_nb >= best_after:
                         best_loss = min(best_loss, loss_val)
@@ -482,6 +486,9 @@ class SingleProcessTrainingStrategy:
             prof.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, f"torch_trace_steps_{prof_from}_{batch_nb}.json"))
+        if ckpt_mgr is not None:
+            ckpt_mgr.wait()
+            ckpt_mgr.close()
         if last_loss is not None:
             float(last_loss)  # the device finishes before the clock is read
         elapsed = max(time.time() - train_start, 1e-9) if train_start else 0.0

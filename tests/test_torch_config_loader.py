@@ -71,14 +71,36 @@ def test_resolvers_and_overrides_as_jax():
 
 
 def test_unported_configs_raise_with_their_item():
-    # (joint_train.yaml loads: tests/test_torch_joint_pipeline.py::test_joint_config_as_jax)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=parse_cli_overrides(
-            ["trackers.trackers=[{kind: mlflow}]"]), search_paths=[str(CONFIG_ROOT)])
-    s3 = load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=parse_cli_overrides(
-        ["dataset.filesystem_config={kind: s3, s3_bucket_path: b}"]), search_paths=[str(CONFIG_ROOT)])
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        get_train_data_paths(s3.dataset)
+    """The two configs the port once refused (item 6b) now load as JAX's: an
+    mlflow tracker of JAX's fields, and an S3 dataset whose store, without
+    boto3, raises ImportError when the paths are listed, as JAX's does
+    (``tests/test_torch_trackers_stores.py`` drives both under stand-ins)."""
+    import sys
+
+    from recommendations_tpu.data.paths import get_train_data_paths as jax_train_paths
+
+    over = ["trackers.trackers=[{kind: mlflow}]"]
+    t = load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=parse_cli_overrides(over),
+                    search_paths=[str(CONFIG_ROOT)]).trackers.trackers
+    j = jax_load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=jax_parse(over),
+                        search_paths=[str(CONFIG_ROOT)]).trackers.trackers
+    assert [type(x).__name__ for x in t] == [type(x).__name__ for x in j] == ["MlflowTracker"]
+    assert (t[0].kind, t[0].tracking_uri, t[0].experiment_name) == (j[0].kind, j[0].tracking_uri,
+                                                                     j[0].experiment_name)
+    over = ["dataset.filesystem_config={kind: s3, s3_bucket_path: b}"]
+    s3 = load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=parse_cli_overrides(over), search_paths=[str(CONFIG_ROOT)])
+    js3 = jax_load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=jax_parse(over), search_paths=[str(CONFIG_ROOT)])
+    saved = sys.modules.get("boto3")
+    sys.modules["boto3"] = None  # not importable: an optional dependency
+    try:
+        for paths, dataset in ((get_train_data_paths, s3.dataset), (jax_train_paths, js3.dataset)):
+            with pytest.raises(ImportError, match="boto3"):
+                paths(dataset)
+    finally:
+        if saved is None:
+            sys.modules.pop("boto3", None)
+        else:
+            sys.modules["boto3"] = saved
 
 
 def test_filesystem_config_checks_as_jax():

@@ -1,26 +1,37 @@
 """Data-parallel training in the port: ``main_training`` on lthm_tiny.yaml
 over 2 gloo worker processes (one node, 16 of its 32 rows a rank) against
-the JAX package's train step (op by op) on the same global batch, from the
-same initial weights and lookahead offsets, with the loss chunk spanning
-both ranks (``train_mini_batch_size`` -1): the first step's loss (1e-4)
-and its gradients summed over the ranks (2e-4), and the losses of the next
-steps (1e-4) and the parameters after three (2e-4). With chunks of 16
-within each rank, one step is held to the port's one-process step
-(chunked, JAX's scan is compiled on the CPU, so ``tests/test_torch_loss.py``
-holds the chunked loss to JAX op by op).
+the JAX package's train step (op by op) on a 2-device CPU mesh
+(``jax.devices()[:2]``, the batch split over ``data``, each operation run
+partitioned) on the same global batch, from the same initial weights and
+lookahead offsets, with the loss chunk spanning both ranks
+(``train_mini_batch_size`` -1): the first step's loss (1e-4) and its
+gradients summed over the ranks (2e-4), and the losses of the next steps
+(1e-4) and the parameters after three (2e-4). With chunks of 16 within
+each rank, one step is held to the port's one-process step (chunked,
+JAX's scan is compiled on the CPU, so ``tests/test_torch_loss.py`` holds
+the chunked loss to JAX op by op).
 
-Limits of parity (ROADMAP section 3). The LSH direction tables take their
-gradients from bf16 one-hot products (JAX ``nn/lsh.py``, bf16 even at a
-float32 compute dtype): each rank rounds its rows' partial sum to bf16
-and the ranks add the partials, where one process rounds the whole sum
-once, so those gradients agree to two bf16 roundings (BF16_GRAD_RTOL), as
-JAX's own step over two devices would. Adam's first update moves each
-element by lr * g / (|g| + eps), so an element whose gradient cancels to
-rounding noise (the LSH direction tables' gradients come from bf16
-products, whose partial sums the ranks round apart) moves by up to lr
-either way. Such elements (|g| below NOISE in JAX's first gradient) are
-left out of the parameter comparison; where one of them flips, the next
-losses move by up to LR_FLIP_LOSS, and the run says how many flipped.
+The LSH direction tables take their gradients from bf16 one-hot products
+(JAX ``nn/lsh.py``, bf16 even at a float32 compute dtype). JAX's 2-device
+step rounds each device's partial product to bf16, sums the partials and
+rounds the sum to bf16 again; so do the port's ranks
+(``train.step.reduce_gradients``), where one process rounds the whole sum
+once. The test runs that step: op by op and compiled, its gradients are
+bf16 values, and the compiled program converts each device's partial to
+bf16 before its all-reduce. Against it the port's 2 ranks hold those
+gradients to one bf16 rounding (TWO_DEVICE_BF16_GRAD_RTOL, 2**-8), as bf16
+values of which at least SAME_BITS are JAX's bits, and every loss to 1e-4. JAX's own
+2-device step differs from its one-device step by two bf16 roundings
+there (BF16_GRAD_RTOL, 2**-7), and its later losses by up to 5e-4: the
+limits of parity of the port's ranks against one process (ROADMAP section
+3), held by the test of chunks within the ranks. Adam's first update moves
+each element by lr * g / (|g| + eps), so an element whose gradient cancels
+to rounding noise moves by up to lr either way: one rank's bf16 partial
+rounded to the other side of an edge is enough (in JAX's 2-device step
+too). Such elements (|g| below NOISE in the reference's first gradient)
+are left out of the parameter comparison; against one process, where one
+of them flips, the next losses move by up to LR_FLIP_LOSS, and the run
+says how many flipped.
 
 Then the strategy's
 cooperative parts: rank 0 alone logs and checkpoints while each rank
@@ -32,6 +43,7 @@ runs out."""
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +51,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 from recommendations_tpu.config.yaml_loader import load_config as jax_load_config
 from recommendations_tpu.config.yaml_loader import parse_cli_overrides as jax_parse
@@ -63,9 +76,11 @@ LOSS_TOL = 1e-4  # tests/test_torch_trainer.py's
 GRAD_TOL = 2e-4
 PARAM_TOL = 2e-4
 BF16_GRAD = "product_tower.direction_emb_"  # gradients of bf16 products
-BF16_GRAD_RTOL = 2.0 ** -7  # two bf16 roundings
+TWO_DEVICE_BF16_GRAD_RTOL = 2.0 ** -8  # one bf16 rounding: 2 ranks against JAX's 2 devices
+BF16_GRAD_RTOL = 2.0 ** -7  # two bf16 roundings: 2 ranks (or JAX's 2 devices) against one process
+SAME_BITS = 0.95  # the share of those gradients' elements that are JAX's 2-device bits (measured 0.984)
 NOISE = 1e-5  # a first gradient this small: Adam's first step is rounding's sign
-LR_FLIP_LOSS = 1e-3  # lthm_tiny's lr: what one flipped element can move a loss by
+LR_FLIP_LOSS = 1e-3  # lthm_tiny's lr: what one flipped element can move a loss by (against one process)
 
 
 def _args(root, out, tag, steps, extra=()):
@@ -108,28 +123,41 @@ def _jax_start(cfg):
     return variables, offsets, strategy
 
 
-def _jax_steps(cfg, variables, strategy, steps):
+def _jax_steps(cfg, variables, strategy, steps, mesh=None):
     """JAX's train step, op by op, on the global batches: losses, the first
     step's gradients and the parameters after the steps. With chunks of
     the batch its loss scans them, which compiles: then ``jax.disable_jit``
     (compiled on the CPU, XLA drops the bf16 logits storage, ROADMAP
-    section 3)."""
+    section 3). With ``mesh`` (a JAX mesh of one ``data`` axis) the
+    state is replicated and each batch split over ``data``: each operation
+    then runs partitioned over the devices, as in JAX's own multi-device
+    step."""
     if cfg.model.train_mini_batch_size > 0:
         with jax.disable_jit():
-            return _jax_steps_op_by_op(cfg, variables, strategy, steps)
-    return _jax_steps_op_by_op(cfg, variables, strategy, steps)
+            return _jax_steps_op_by_op(cfg, variables, strategy, steps, mesh)
+    return _jax_steps_op_by_op(cfg, variables, strategy, steps, mesh)
 
 
-def _jax_steps_op_by_op(cfg, variables, strategy, steps):
+def _placement(mesh):
+    """(replicate a tree, split an array's rows over ``data``) on ``mesh``;
+    identities without one."""
+    if mesh is None:
+        return (lambda tree: tree), (lambda x: x)
+    return (lambda tree: jax.device_put(tree, NamedSharding(mesh, PartitionSpec())),
+            lambda x: jax.device_put(x, NamedSharding(mesh, PartitionSpec("data", *([None] * (x.ndim - 1))))))
+
+
+def _jax_steps_op_by_op(cfg, variables, strategy, steps, mesh=None):
+    replicate, split = _placement(mesh)
     jw = JaxWrapper(cfg.model)
-    params, constants = variables["params"], variables.get("constants", {})
+    params, constants = replicate(variables["params"]), replicate(variables.get("constants", {}))
     optimizer = jax_build_optimizer(jw, cfg.train, params)
-    state = JaxTrainState.create(params, constants, optimizer.init(params), jw.init_aux_state(),
-                                 jax.random.split(jax.random.PRNGKey(0))[1])
+    state = JaxTrainState.create(params, constants, optimizer.init(params), replicate(jw.init_aux_state()),
+                                 replicate(jax.random.split(jax.random.PRNGKey(0))[1]))
     losses = []
     for batch in jax_loader("train", 0, jax_train_paths(cfg.dataset), cfg.train.batch_size, steps, strategy,
                             cfg.model.features, cfg.dataset.filesystem_config):
-        b = {k: jnp.asarray(v) for k, v in batch.items() if v.dtype != object}
+        b = {k: split(jnp.asarray(v)) for k, v in batch.items() if v.dtype != object}
         rng, sub = jax.random.split(state.rng)
 
         def loss_fn(p):
@@ -145,6 +173,26 @@ def _jax_steps_op_by_op(cfg, variables, strategy, steps):
         losses.append(float(loss))
     return losses, first, {"params": jax.tree_util.tree_map(np.asarray, state.params),
                            "constants": jax.tree_util.tree_map(np.asarray, state.constants)}
+
+
+def _jax_first_grads_compiled(cfg, variables, strategy, mesh):
+    """JAX's first gradient compiled over ``mesh`` (the batch split over
+    ``data``), and the compiled program's text."""
+    replicate, split = _placement(mesh)
+    jw = JaxWrapper(cfg.model)
+    batch = next(iter(jax_loader("train", 0, jax_train_paths(cfg.dataset), cfg.train.batch_size, 1, strategy,
+                                 cfg.model.features, cfg.dataset.filesystem_config)))
+    b = {k: split(jnp.asarray(v)) for k, v in batch.items() if v.dtype != object}
+    sub = jax.random.split(jax.random.split(jax.random.PRNGKey(0))[1])[1]
+
+    def grads(params, constants, aux, b):
+        return jax.grad(lambda p: jw.loss_and_metrics(p, constants, aux, b, sub, True)[0])(params)
+
+    args = (*replicate((variables["params"], variables.get("constants", {}), jw.init_aux_state())), b)
+    compiled = jax.jit(grads).lower(*args).compile()
+    out = jax.tree_util.tree_map(np.asarray, compiled(*args))
+    zeros = jax.tree_util.tree_map(lambda c: np.zeros_like(np.asarray(c)), variables.get("constants", {}))
+    return {"params": out, "constants": zeros}, compiled.as_text()
 
 
 @pytest.fixture(scope="module")
@@ -183,14 +231,18 @@ def runs(tmp_path_factory):
             env={"LOCAL_WORLD_SIZE": "1"})),
     ]
     workers = start_workers(jobs, WORLD, timeout=240)
-    spans = _jax_steps(spans_cfg, variables, strategy, STEPS)
+    two_devices = Mesh(np.array(jax.devices()[:2]), ("data",))
+    spans = _jax_steps(spans_cfg, variables, strategy, STEPS, two_devices)
+    spans_one_device = _jax_steps(spans_cfg, variables, strategy, STEPS)
+    compiled = _jax_first_grads_compiled(spans_cfg, variables, strategy, two_devices)
     one = torch_dist_worker.CASES["train"](args=["--config-name", "lthm_tiny", *_args(
         root, out, "within_one", 1, ["model.train_mini_batch_size=16"])], variables=np_vars, offsets=offsets)
     ranks = workers.results()
-    return {"ranks": ranks, "out": out, "ckpt": ckpt, "jax": {"spans": spans}, "one": one, "uneven": uneven}
+    return {"ranks": ranks, "out": out, "ckpt": ckpt, "one": one, "uneven": uneven,
+            "jax": {"spans": spans, "spans_one_device": spans_one_device, "compiled": compiled}}
 
 
-def _held_to(runs, run, losses, first, want):
+def _held_to(runs, run, losses, first, want, bf16_rtol=BF16_GRAD_RTOL, flip_loss=LR_FLIP_LOSS):
     """``run``'s first summed gradients, parameters (both ranks' bits equal)
     and jsonl losses held to a reference's (see the module docstring)."""
     r0, r1 = (r[run] for r in runs["ranks"])
@@ -198,7 +250,7 @@ def _held_to(runs, run, losses, first, want):
         np.testing.assert_array_equal(r0["params"][k], r1["params"][k], err_msg=k)
     for k, g in r0["first_grads"].items():
         if g is not None:
-            rtol = BF16_GRAD_RTOL if k.startswith(BF16_GRAD) else GRAD_TOL
+            rtol = bf16_rtol if k.startswith(BF16_GRAD) else GRAD_TOL
             np.testing.assert_allclose(g, first[k], rtol=rtol, atol=GRAD_TOL, err_msg=k)
     assert set(want) == set(r0["params"])
     flipped = 0
@@ -210,15 +262,60 @@ def _held_to(runs, run, losses, first, want):
     logged = _train_losses(os.path.join(runs["out"], f"{run}.jsonl"))
     assert len(logged) == len(losses)  # rank 0's lines only
     np.testing.assert_allclose(logged[0], losses[0], rtol=0, atol=LOSS_TOL)
-    np.testing.assert_allclose(logged[1:], losses[1:], rtol=0, atol=LR_FLIP_LOSS if flipped else LOSS_TOL,
+    np.testing.assert_allclose(logged[1:], losses[1:], rtol=0, atol=flip_loss if flipped else LOSS_TOL,
                                err_msg=f"{flipped} noise-level elements took the other Adam step")
 
 
 def test_chunk_spanning_the_ranks_matches_jax(runs):
-    """lthm_tiny's whole-batch chunk over 2 ranks: JAX's losses of 3 steps,
-    its first gradients and its parameters after them."""
+    """lthm_tiny's whole-batch chunk over 2 ranks: the losses of 3 steps of
+    JAX's step on 2 devices, its first gradients (the LSH tables' to one
+    bf16 rounding) and its parameters after them; the later losses at
+    1e-4, also where a noise-level element took the other Adam step."""
+    import ml_dtypes
+
     losses, jax_first, jax_state = runs["jax"]["spans"]
-    _held_to(runs, "spans", losses, _by_port_key(jax_first), _by_port_key(jax_state))
+    first = _by_port_key(jax_first)
+    _held_to(runs, "spans", losses, first, _by_port_key(jax_state),
+             bf16_rtol=TWO_DEVICE_BF16_GRAD_RTOL, flip_loss=LOSS_TOL)
+    # the LSH tables' summed gradients are bf16 values, as JAX's, and mostly its bits
+    for k, g in runs["ranks"][0]["spans"]["first_grads"].items():
+        if k.startswith(BF16_GRAD) and g is not None:
+            np.testing.assert_array_equal(g.astype(ml_dtypes.bfloat16).astype(np.float32), g, err_msg=k)
+            assert np.mean(g == first[k]) >= SAME_BITS, k
+
+
+def test_jax_two_device_step_rounds_the_lsh_gradients_as_the_ranks(runs):
+    """JAX's own step on 2 devices against its one-device step: the LSH
+    tables' first gradients are bf16 values on both, and apart (each
+    device's partial rounded) by up to two bf16 roundings; every other
+    gradient at 2e-4 and the later losses within LR_FLIP_LOSS. Compiled,
+    the 2-device program keeps the roundings: its LSH gradients are bf16
+    values, and the gradient product's output is converted to bf16 before
+    the all-reduce."""
+    import ml_dtypes
+
+    losses2, first2, _ = runs["jax"]["spans"]
+    losses1, first1, _ = runs["jax"]["spans_one_device"]
+    g2, g1 = _by_port_key(first2), _by_port_key(first1)
+    compiled, hlo = runs["jax"]["compiled"]
+    compiled = _by_port_key(compiled)
+    lsh = [k for k in g2 if k.startswith(BF16_GRAD) and k.endswith("embedding")]
+    assert len(lsh) == 2
+    for k in lsh:
+        for g in (g2[k], g1[k], compiled[k]):
+            np.testing.assert_array_equal(g.astype(ml_dtypes.bfloat16).astype(np.float32), g, err_msg=k)
+        assert (g2[k] != g1[k]).any(), k
+        np.testing.assert_allclose(g2[k], g1[k], rtol=BF16_GRAD_RTOL, atol=GRAD_TOL, err_msg=k)
+    for k in g2:
+        if k not in lsh:
+            np.testing.assert_allclose(g2[k], g1[k], rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=k)
+    assert abs(losses2[0] - losses1[0]) <= LOSS_TOL
+    np.testing.assert_allclose(losses2[1:], losses1[1:], rtol=0, atol=LR_FLIP_LOSS)
+    for i in range(2):
+        # the partial product of the table's gradient, rounded to bf16 on each device
+        assert re.search(rf"convert\.\d+ = bf16\[[0-9,]+\]\S* convert\([^)]*\), metadata=\{{op_name=\"[^\"]*"
+                         rf"transpose\(jvp\(LTHMEncoder\)\)/product_tower/direction_emb_{i}/[^\"]*dot_general", hlo), i
+    assert "all-reduce(" in hlo
 
 
 def test_chunks_within_the_ranks_match_one_process(runs):

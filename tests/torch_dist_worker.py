@@ -189,11 +189,12 @@ def moe_lthm(config, batch, offsets):
 @case
 def train(args, variables=None, offsets=None, env=None, copy_checkpoints=None):
     """``main_training`` on this rank, from JAX's initial ``variables``
-    with JAX's lookahead ``offsets`` step by step: its final metrics and
-    parameters (one device's, after the run)."""
+    (of an LTHM or a ranker) with JAX's lookahead ``offsets`` step by step:
+    its final metrics and parameters (one device's, after the run)."""
     from recommendations_tpu_torch import main_training
     from recommendations_tpu_torch.models.lthm import loss as port_loss
     from recommendations_tpu_torch.models.lthm.builder import LTHMModelBuilder
+    from recommendations_tpu_torch.models.ranker.builder import RankerModelBuilder
 
     old_env = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
@@ -205,7 +206,8 @@ def train(args, variables=None, offsets=None, env=None, copy_checkpoints=None):
     from recommendations_tpu_torch.train.optimizers import TrainOptimizer
 
     pending = [np.asarray(o) for o in (offsets or [])]
-    original_offsets, original_build = port_loss.sample_offsets, LTHMModelBuilder.build
+    original_offsets = port_loss.sample_offsets
+    builders = {cls: cls.build for cls in (LTHMModelBuilder, RankerModelBuilder)}
     original_step = TrainOptimizer.step
     first = []  # the first step's gradients, summed over the mesh, before the optimizer
 
@@ -219,18 +221,23 @@ def train(args, variables=None, offsets=None, env=None, copy_checkpoints=None):
         drawn = original_offsets(generator, lookahead)
         return torch.from_numpy(pending.pop(0).copy()) if pending else drawn
 
-    def build(self):
-        wrapper = original_build(self)
-        if variables is not None:
-            wrapper.load_jax_variables(variables)
-        return wrapper
+    def loading(original_build):
+        def build(self):
+            wrapper = original_build(self)
+            if variables is not None:
+                wrapper.load_jax_variables(variables)
+            return wrapper
+        return build
 
-    port_loss.sample_offsets, LTHMModelBuilder.build, TrainOptimizer.step = jax_offsets, build, step
+    port_loss.sample_offsets, TrainOptimizer.step = jax_offsets, step
+    for cls, original_build in builders.items():
+        cls.build = loading(original_build)
     try:
         pipeline, metrics = main_training.main(["--device", "cpu", *args], return_pipeline=True)
     finally:
-        port_loss.sample_offsets, LTHMModelBuilder.build = original_offsets, original_build
-        TrainOptimizer.step = original_step
+        port_loss.sample_offsets, TrainOptimizer.step = original_offsets, original_step
+        for cls, original_build in builders.items():
+            cls.build = original_build
         for k, v in old_env.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -241,6 +248,33 @@ def train(args, variables=None, offsets=None, env=None, copy_checkpoints=None):
     return {"metrics": {k: v for k, v in metrics.items() if isinstance(v, (int, float))},
             "params": {k: _np(v) for k, v in wrapper.module.state_dict().items()},
             "first_grads": dict(zip(names, first[0])) if first else {}}
+
+
+@case
+def ranker_steps(config, variables, batches):
+    """The ranker's ``train_step`` on this rank's rows of each global batch
+    (``data`` over every rank), from JAX's ``variables``: each step's loss
+    and metrics, the validation metrics of the last batch after the steps,
+    and the parameters."""
+    from recommendations_tpu_torch.config.trainer_config import ModelTrainConfig
+    from recommendations_tpu_torch.models.ranker.config import RankerModelConfig
+    from recommendations_tpu_torch.models.ranker.wrapper import RankerModelWrapper
+    from recommendations_tpu_torch.train.step import train_step
+    from recommendations_tpu_torch.train.train_state import TrainState
+
+    mesh = _mesh(dist.get_world_size())
+    w = RankerModelWrapper(RankerModelConfig.from_dict(config), device="cpu")
+    w.load_jax_variables(variables)
+    w.bind_mesh(mesh)
+    state = TrainState.create(w, ModelTrainConfig())
+    steps = []
+    for batch in batches:
+        loss, metrics = train_step(state, {k: _rows(v, mesh) for k, v in batch.items()})
+        steps.append(dict({k: float(v) for k, v in metrics.items()}, loss=float(loss)))
+    with torch.no_grad():
+        _, val, _ = w.loss_and_metrics({k: _rows(v, mesh) for k, v in batches[-1].items()}, None, False)
+    return {"steps": steps, "val": {k: float(v) for k, v in val.items()},
+            "params": {k: _np(v) for k, v in w.module.state_dict().items()}}
 
 
 def main() -> int:
