@@ -108,8 +108,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      imports only recommendations_tpu_torch.ops (16 bias forwards a call, the
      eager bits), the compression job on 200000 128-wide vectors and
      lthm_train.yaml on its artifact serving and training a step with the
-     frozen buffers untouched, and main_training --config-name joint_train,
-     cut, running both ranking arms;
+     frozen buffers untouched (main_training --config-name joint_train runs
+     uncut in phase [7]);
   5. timing with CUDA events: each kernel, its plain version, its bound
      (and, as a note, the exponential floor of the bias and CE plane
      kernels), one PyTorch library call for the same function as a
@@ -144,6 +144,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (a)'s step through a one-rank NCCL group in this process. Each group
      has a 60 s timeout and the ranks a time limit.
 
+  7. the runs QUALITY.md records, at their full length, through
+     main_training, each metric's mean over seeds printed beside the JAX
+     package's figure on the CPU (tools/quality_reference.py: mean and seed
+     spread) and its band, the wider of twice that spread and a floor (0.02
+     for a hit rate or an AUC, 2 positions, 0.2 for a loss); a miss fails
+     the run: (a) lthm_tiny for 600 steps at seeds 0-2 (the port's weights
+     from torch seed s, synth_data's click log from seed 100 s, 2 x 800
+     users a date), the YAML as it stands (no kernel) and with flash
+     attention and the fused CE (2 flash_fwd, 2 flash_bwd and 3 of each CE
+     kernel a step, 2 flash_fwd, 3 ce_row_diag and 3 ce_fwd a validation
+     batch, each run's totals checked, and one more train_step and one
+     validation batch of each trained model counted alone; phase [2] holds
+     each kernel to its plain version at these shapes), the kernel arm also
+     held to the plain arm; (b) ranker_train
+     at 400 steps (its 10 epochs end it at 320) at seeds 0-2; (c)
+     joint_train uncut (4096 users, 6000 lthm_tiny steps, 10000 ranker
+     steps an arm) at seed 0, the held-out-user AUC with the embeddings and
+     the uplift over the ablated arm held to JAX's band, the uplift also
+     within QUALITY.md's [0.08, 0.12].
+
+Phase [7] runs right after [2], before the others: its loops are host-bound,
+and in a process that had run phases [3]-[6] they took about 30% longer.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 card, and without the repo beside it.
@@ -151,11 +174,13 @@ card, and without the repo beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1425,7 +1450,6 @@ def trainer_path(fa, kernels, smi):
     turns of both runs and the save's host copy are printed. The export
     loads into a fresh wrapper that serves the same user vectors. Returns
     the numbers for phase [5]."""
-    import shutil
     import tempfile
 
     from recommendations_tpu_torch import main_training
@@ -1662,7 +1686,6 @@ def trainer_knobs(fa, fc, kernels, ce_per_step):
     NaN in a kernel's input raising with the kernel's name. Returns the
     numbers for phase [5]."""
     import logging
-    import shutil
     import tempfile
 
     from recommendations_tpu_torch import main_training
@@ -2207,7 +2230,6 @@ def ranker_path(kernels):
     tests/test_ranker.py::test_ranker_learns_signal (Adam 3e-3, 120 steps over
     4 cycled batches of 256) reaches train AUC > 0.6. Returns numbers for
     phase [5]."""
-    import shutil
     import tempfile
 
     from recommendations_tpu_torch import main_training
@@ -2443,9 +2465,8 @@ def pipeline_extras(fa, kernels, smi):
     recommendations_tpu_torch.ops, against the eager wrapper bit for bit,
     each call 16 bias forwards; the compression job on PIPE_PRODUCTS
     128-wide vectors, and lthm_train.yaml on its artifact serving and
-    training a step with the buffers untouched; main_training --config-name
-    joint_train, cut. Returns numbers for phase [5]."""
-    import shutil
+    training a step with the buffers untouched. Returns numbers for phase
+    [5]."""
     import tempfile
 
     import pyarrow as pa
@@ -2710,34 +2731,6 @@ def pipeline_extras(fa, kernels, smi):
         del pw, pstate, emb_mod, before
         torch.cuda.empty_cache()
 
-        # -- the joint pipeline, cut
-        jroot = f"{tmp}/joint"
-        jargs = ["--config-name", "joint_train", f"enriched_dir={jroot}/enriched", f"synth.root={jroot}/data",
-                 "synth.users=512", "synth.files_per_date=2", "synth.train_rows=8192", "synth.val_rows=2048"]
-        for stage, src, test, steps, batch_size, val in (
-                ("retrieval", "clicks/*/*.parquet", "clicks/*/part-00000.parquet", 40, 64, 0),
-                ("ranking", "impressions/*/*.parquet", "impressions_val/*/*.parquet", 60, 256, 4)):
-            o = f"{stage}.overrides"
-            jargs += [f"{o}.dataset.filesystem_config.local_dir_prefix={jroot}/data",
-                      f"{o}.dataset.path_glob_train={jroot}/data/{src}", f"{o}.dataset.path_glob_test={jroot}/data/{test}",
-                      f"{o}.train.train_steps={steps}", f"{o}.train.batch_size={batch_size}",
-                      f"{o}.train.validation_steps={val}", f"{o}.train.train_metrics_every_n_steps={steps}",
-                      f"{o}.train.val_metrics_every_n_steps={steps if val else 0}"]
-        for kern in kernels:
-            kern.launches = 0
-        t1 = time.perf_counter()
-        _, jm = main_training.main(jargs, return_pipeline=True)
-        torch.cuda.synchronize()
-        out["joint_s"] = time.perf_counter() - t1
-        jcounts = {kern.name: kern.launches for kern in kernels}
-        out["auc_uplift_click"] = jm.get("auc_uplift_click")
-        print(f"[4] {smi}: main_training --config-name joint_train (512 users, lthm_tiny 40 steps of 64, the ranker "
-              f"60 of 256 a arm; cut from 6000 and 10000): {out['joint_s']:.1f} s; launches {jcounts} (lthm_tiny: 4 "
-              f"heads, no flash attention in its YAML); val AUC with the embeddings "
-              f"{jm['ranking'].get('val_auc_click')}, ablated {jm['ranking_ablated'].get('val_auc_click')}, "
-              f"auc_uplift_click {out['auc_uplift_click']} (not gated at this length)", flush=True)
-        if out["auc_uplift_click"] is None or not np.isfinite(out["auc_uplift_click"]):
-            raise AssertionError("the joint pipeline did not run both ranking arms")
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2746,6 +2739,12 @@ def pipeline_extras(fa, kernels, smi):
 
 def cfg_batch(pipeline) -> int:
     return pipeline.pipeline_config.train.batch_size
+
+
+def cfg_val_batches(pipeline) -> int:
+    """The batches of one validation (the eval cache: the first
+    ``validation_steps`` batches of the validation files)."""
+    return pipeline.pipeline_config.train.validation_steps
 
 
 def bias_sweep(fa):
@@ -3340,6 +3339,326 @@ def distributed_phase(kernels, smi):
             "ranker_step_ms": f_step, "ranker_reduce_share": f_share, "ranker_nccl_step_ms": nr["step_ms"][1:]}
 
 
+# -- phase [7]: the recorded runs at full length ---------------------------------
+QUALITY_SEEDS = (0, 1, 2)  # seed s: the port's initial weights from torch seed s, the data from seed 100 s
+QUALITY_DATES = ["20240101", "20240102"]  # train on the first, validate on the second
+LTHM_TINY_STEPS, LTHM_TINY_EPOCHS = 600, 20  # QUALITY.md's config 1
+LTHM_TINY_FILES, LTHM_TINY_USERS, LTHM_TINY_HISTORY = 2, 800, 64
+# the kernels' shapes on the kernel arm (configs/lthm_tiny.yaml: batch 32, context 48 and the CLS column, MQA
+# 4 heads of 16, bf16; one CE call a lookahead head over the whole batch: N = 32 x 48, D = out_emb_dim 64)
+LTHM_TINY_FLASH = (32, 49, 4, 16, 1, torch.bfloat16, True)
+LTHM_TINY_CE = (32 * 48, 48, 64, 0.0, "roll")
+LTHM_TINY_KERNEL_ARGS = ("model.transformer_config.use_flash_attention=true", "model.fused_ce=true")
+RANKER_QUALITY_STEPS = 400  # QUALITY.md's "400 steps x 10 epochs": the YAML's 10 epochs end the run at 320
+# The JAX package's figures on the CPU, the same configs, data and seeds (seed s: PRNGKey(s), data seed 100 s):
+# tools/quality_reference.py, mean and sample standard deviation (ddof 1) over seeds 0-2.
+JAX_LTHM_TINY = {
+    "val_hit_rate_at_1_lookahead_0": (0.21157394846280417, 0.013953419760621633),
+    "val_hit_rate_at_5_lookahead_0": (0.38086913526058197, 0.020845805414145584),
+    "val_hit_rate_at_20_lookahead_0": (0.5722941209872564, 0.021022301419160176),
+    "val_median_hit_position_lookahead_0": (11.916666666666666, 1.9094065395649333),
+    "val_loss": (18.09446907043457, 0.10645487337101217),
+}
+JAX_RANKER = {
+    "val_auc_click": (0.674214780330658, 0.013090268865719077),
+    "val_auc_conversion": (0.7400488456090292, 0.04296940372903223),
+    "val_loss": (0.6599675019582113, 0.02042106561867835),
+}
+# joint_train uncut (synth.seed = 100 s): the held-out-user AUC with the embeddings and the uplift over the
+# ablated arm. The port runs seed 0 (the config's own) only: one uncut run takes most of the phase.
+JAX_JOINT = {
+    "val_auc_click_with_embeddings": (0.6945308413770465, 0.013404353332213511),
+    "auc_uplift_click": (0.08736265947421391, 0.021447882248827738),
+}
+JOINT_UPLIFT_RANGE = (0.08, 0.12)  # QUALITY.md's +0.1008 (a TPU v5e) and the harness's +0.095, +-0.02
+
+
+def band_floor(metric: str) -> float:
+    """The least half-width of a band: 0.02 for a hit rate or an AUC, 2
+    positions for the median hit position, 0.2 for a loss."""
+    if "median_hit_position" in metric:
+        return 2.0
+    if metric.endswith("loss"):
+        return 0.2
+    return 0.02
+
+
+def quality_band(metric: str, std: float) -> float:
+    """The wider of twice JAX's seed spread and the metric's floor."""
+    return max(2.0 * std, band_floor(metric))
+
+
+def held_in_band(label: str, got: dict, ref: dict) -> list:
+    """One line a metric: the mean over seeds beside the reference (mean,
+    spread) and its band, ``-> ok`` or ``-> MISS``; returns the misses."""
+    misses = []
+    for metric, (mean, std) in ref.items():
+        vals = got[metric]
+        value = float(np.mean(vals))
+        width = quality_band(metric, std)
+        ok = abs(value - mean) <= width
+        print(f"[7] {label} {metric}: {value:.4f} (seeds {[round(v, 4) for v in vals]}) against {mean:.4f} "
+              f"(spread {std:.4f}), band +-{width:.4f} -> {'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            misses.append(f"{label} {metric}")
+    return misses
+
+
+@contextlib.contextmanager
+def seeded_builder(builder_cls, seed: int):
+    """The builder's weights drawn from ``seed`` for the length of the block
+    (main_training's builders draw them from seed 0)."""
+    real = builder_cls.build
+
+    def build(builder):
+        builder.seed = seed
+        return real(builder)
+
+    builder_cls.build = build
+    try:
+        yield
+    finally:
+        builder_cls.build = real
+
+
+def quality_lthm_tiny(kernels, smi, tmp):
+    """(a): main_training --config-name lthm_tiny for 600 steps at every seed,
+    the plain arm (the YAML as it stands: no kernel) and the kernel arm (flash
+    attention and the fused CE: every step launches flash_fwd, flash_bwd and
+    the four CE kernels, every validation batch flash_fwd, ce_row_diag and
+    ce_fwd), on the port's synth click log in the in-memory store."""
+    from recommendations_tpu_torch import main_training
+    from recommendations_tpu_torch.data.data_store import FakeDataStore
+    from recommendations_tpu_torch.models.lthm.builder import LTHMModelBuilder
+    from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
+
+    arms = {"plain": {m: [] for m in JAX_LTHM_TINY}, "kernels": {m: [] for m in JAX_LTHM_TINY}}
+    out = {"seconds": {}, "turn_ms": {}, "counts": {}, "per_step": None, "per_val_batch": None}
+    for arm in arms:
+        for seed in QUALITY_SEEDS:
+            FakeDataStore.reset()
+            write_synthetic_dataset(None, QUALITY_DATES, files_per_date=LTHM_TINY_FILES,
+                                    users_per_file=LTHM_TINY_USERS, history_len=LTHM_TINY_HISTORY, seed=100 * seed,
+                                    fake_store=True)
+            tag = f"{arm}_{seed}"
+            argv = ["--config-name", "lthm_tiny", "dataset.filesystem_config.kind=fake",
+                    f"train.train_steps={LTHM_TINY_STEPS}", f"train.epochs={LTHM_TINY_EPOCHS}",
+                    f"export.filesystem_config.local_dir_prefix={tmp}/export_{tag}",
+                    f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]", f"model_version={tag}",
+                    f"run_id=chip_smoke_{tag}", *(LTHM_TINY_KERNEL_ARGS if arm == "kernels" else ())]
+            for kern in kernels:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            with seeded_builder(LTHMModelBuilder, seed):
+                pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {kern.name: kern.launches for kern in kernels}
+            wrapper, state = pipeline._trained
+            cfg = wrapper.config
+            with open(f"{tmp}/{tag}.jsonl") as f:
+                val_runs = sum(1 for line in f if '"val_loss"' in line)
+            val_batches = val_runs * cfg_val_batches(pipeline)
+            layers, heads = cfg.transformer_config.num_layers, len(cfg.lookahead)
+            want = {kern.name: 0 for kern in kernels}
+            if arm == "kernels":
+                shapes = ((cfg_batch(pipeline), cfg.context_width + 1, cfg.transformer_config.attn_config.n_head,
+                           cfg.transformer_config.attn_config.n_embd // cfg.transformer_config.attn_config.n_head),
+                          (cfg_batch(pipeline) * cfg.context_width, cfg.context_width, cfg.product_tower.out_emb_dim))
+                if shapes != (LTHM_TINY_FLASH[:4], LTHM_TINY_CE[:3]):
+                    raise AssertionError(f"phase [2] held the kernels at {LTHM_TINY_FLASH}, {LTHM_TINY_CE}, not at "
+                                         f"this arm's shapes {shapes}")
+                per_step = {kern.name: 0 for kern in kernels}
+                per_step.update({"flash_fwd": layers, "flash_bwd": layers, "ce_row_diag": heads, "ce_fwd": heads,
+                                 "ce_dq": heads, "ce_dc": heads})
+                per_val = {kern.name: 0 for kern in kernels}
+                per_val.update({"flash_fwd": layers, "ce_row_diag": heads, "ce_fwd": heads})
+                for name, n in per_step.items():
+                    want[name] = n * state.step + per_val[name] * val_batches
+            turns = np.asarray(metrics["step_times_s"][1:]) * 1e3
+            out["seconds"][tag], out["turn_ms"][tag], out["counts"][tag] = seconds, float(np.median(turns)), counts
+            print(f"[7] (a) lthm_tiny, {arm} arm, seed {seed}: {state.step} steps of {cfg_batch(pipeline)} users, "
+                  f"{val_runs} validations of {cfg_val_batches(pipeline)} batches, {seconds:.1f} s (the loop's "
+                  f"median turn {np.median(turns):.3f} ms); launches {counts} (expected {want}); val "
+                  f"hit_rate@1/5/20 {metrics['val_hit_rate_at_1_lookahead_0']:.4f} / "
+                  f"{metrics['val_hit_rate_at_5_lookahead_0']:.4f} / {metrics['val_hit_rate_at_20_lookahead_0']:.4f}, "
+                  f"median hit position {metrics['val_median_hit_position_lookahead_0']}, val loss "
+                  f"{metrics['val_loss']:.4f}, train loss {metrics['train_loss']:.4f}", flush=True)
+            if counts != want:
+                raise AssertionError(f"the lthm_tiny {arm} arm did not launch the kernels it should")
+            if state.step != LTHM_TINY_STEPS:
+                raise AssertionError(f"the lthm_tiny run stopped at step {state.step}")
+            if arm == "kernels":
+                step_counts, val_counts = step_and_val_launches(pipeline, kernels)
+                print(f"[7] (a) lthm_tiny, kernels arm, seed {seed}: one more train_step of the trained model "
+                      f"launches {step_counts} (expected {per_step}), one validation batch {val_counts} (expected "
+                      f"{per_val})", flush=True)
+                if (step_counts, val_counts) != (per_step, per_val):
+                    raise AssertionError("a lthm_tiny step or validation batch did not launch the kernels it should")
+                out["per_step"], out["per_val_batch"] = step_counts, val_counts
+            for m in JAX_LTHM_TINY:
+                arms[arm][m].append(float(metrics[m]))
+            del pipeline, wrapper, state
+            torch.cuda.empty_cache()
+    FakeDataStore.reset()
+    misses = []
+    for arm, got in arms.items():
+        misses += held_in_band(f"(a) {smi}: lthm_tiny {LTHM_TINY_STEPS} steps, {arm} arm vs JAX", got, JAX_LTHM_TINY)
+    plain_ref = {m: (float(np.mean(v)), JAX_LTHM_TINY[m][1]) for m, v in arms["plain"].items()}
+    misses += held_in_band(f"(a) {smi}: lthm_tiny, kernel arm vs the plain arm", arms["kernels"], plain_ref)
+    out["arms"] = arms
+    return out, misses
+
+
+def step_and_val_launches(pipeline, kernels):
+    """The launches of one validation batch and of one train_step on the
+    trained model of ``pipeline``, each counted from 0, on the first batch
+    of its validation files: ({kernel: step launches}, {kernel: validation
+    launches})."""
+    from recommendations_tpu_torch.data.generator import get_data_loader_strategy
+    from recommendations_tpu_torch.data.loader import get_host_dataloader, to_device
+    from recommendations_tpu_torch.data.paths import get_val_data_paths
+    from recommendations_tpu_torch.train.step import train_step
+
+    wrapper, state = pipeline._trained
+    cfg = pipeline.pipeline_config
+    feats = cfg.model.features
+    strategy = get_data_loader_strategy(cfg.data_loader, feats.get_input_columns(),
+                                        lambda kind: feats.default_data_mapper)
+    host = next(iter(get_host_dataloader("val", 0, get_val_data_paths(cfg.dataset), cfg.train.batch_size, 1,
+                                         strategy, feats, cfg.dataset.filesystem_config)))
+    counted = []
+    for run in (lambda: train_step(state, to_device(host, wrapper.device)),
+                lambda: pipeline.training_strategy._run_val(state, [host], cfg.train)):
+        for kern in kernels:
+            kern.launches = 0
+        run()
+        torch.cuda.synchronize()
+        counted.append({kern.name: kern.launches for kern in kernels})
+    return counted[0], counted[1]
+
+
+def quality_ranker(kernels, smi, tmp):
+    """(b): main_training --config-name ranker_train at 400 steps (10 epochs
+    end it at 320) at every seed on the port's synth impressions in the
+    in-memory store; no kernel."""
+    from recommendations_tpu_torch import main_training
+    from recommendations_tpu_torch.data.data_store import FakeDataStore
+    from recommendations_tpu_torch.models.ranker.builder import RankerModelBuilder
+    from recommendations_tpu_torch.tools.synth_data import write_ranking_dataset
+
+    got = {m: [] for m in JAX_RANKER}
+    out = {"seconds": [], "turn_ms": [], "steps": []}
+    try:
+        for seed in QUALITY_SEEDS:
+            FakeDataStore.reset()
+            write_ranking_dataset(None, QUALITY_DATES, seed=100 * seed, fake_store=True)
+            argv = ["--config-name", "ranker_train", "dataset.filesystem_config.kind=fake",
+                    f"train.train_steps={RANKER_QUALITY_STEPS}", f"export.filesystem_config.local_dir_prefix={tmp}/ranker_export_{seed}",
+                    f"trackers.trackers=[{{kind: jsonl, path: {tmp}/ranker_{seed}.jsonl}}]", f"model_version=r{seed}",
+                    f"run_id=chip_smoke_ranker_{seed}"]
+            for kern in kernels:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            with seeded_builder(RankerModelBuilder, seed):
+                pipeline, metrics = main_training.main(argv, return_pipeline=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {kern.name: kern.launches for kern in kernels}
+            steps = pipeline._trained[1].step
+            turns = np.asarray(metrics["step_times_s"][1:]) * 1e3
+            out["seconds"].append(seconds)
+            out["turn_ms"].append(float(np.median(turns)))
+            out["steps"].append(steps)
+            print(f"[7] (b) ranker_train, seed {seed}: {steps} steps of {cfg_batch(pipeline)}, {seconds:.1f} s (the "
+                  f"loop's median turn {np.median(turns):.3f} ms); launches {counts}; val AUC click "
+                  f"{metrics['val_auc_click']:.4f}, conversion {metrics['val_auc_conversion']:.4f}, val loss "
+                  f"{metrics['val_loss']:.4f}", flush=True)
+            if any(counts.values()):
+                raise AssertionError("the ranker launched a kernel")
+            for m in JAX_RANKER:
+                got[m].append(float(metrics[m]))
+    finally:
+        FakeDataStore.reset()
+    out["values"] = got
+    return out, held_in_band(f"(b) {smi}: ranker_train {out['steps'][0]} steps vs JAX", got, JAX_RANKER)
+
+
+def quality_joint(kernels, smi, tmp):
+    """(c): main_training --config-name joint_train uncut: 4096 users, 6000
+    lthm_tiny steps, then 10000 ranker steps in each of the two arms, its
+    synthetic parquet and the enriched copies under ``tmp``."""
+    from recommendations_tpu_torch import main_training
+
+    jargs = ["--config-name", "joint_train", f"enriched_dir={tmp}/enriched", f"synth.root={tmp}/data"]
+    for stage, src, test in (("retrieval", "clicks/*/*.parquet", "clicks/*/part-00000.parquet"),
+                             ("ranking", "impressions/*/*.parquet", "impressions_val/*/*.parquet")):
+        o = f"{stage}.overrides"
+        jargs += [f"{o}.dataset.filesystem_config.local_dir_prefix={tmp}/data",
+                  f"{o}.dataset.path_glob_train={tmp}/data/{src}", f"{o}.dataset.path_glob_test={tmp}/data/{test}"]
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    _, jm = main_training.main(jargs, return_pipeline=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {kern.name: kern.launches for kern in kernels}
+    stages = {name: jm[key] for name, key in (("retrieval", "retrieval"), ("ranking", "ranking"),
+                                               ("ablated", "ranking_ablated"))}
+    turn_ms = {name: float(np.median(np.asarray(m["step_times_s"][1:]) * 1e3)) for name, m in stages.items()}
+    steps = {name: int(m["train_steps_total"]) for name, m in stages.items()}
+    with_emb, ablated = stages["ranking"]["val_auc_click"], stages["ablated"]["val_auc_click"]
+    uplift = jm["auc_uplift_click"]
+    print(f"[7] (c) {smi}: main_training --config-name joint_train uncut: {seconds:.1f} s; steps {steps}, the loops' "
+          f"median turns {json.dumps({k: round(v, 3) for k, v in turn_ms.items()})} ms; launches {counts} (the "
+          f"config's lthm_tiny takes no kernel); retrieval train loss {stages['retrieval']['train_loss']:.4f}; "
+          f"held-out-user val AUC (click) with the embeddings {with_emb:.4f}, ablated {ablated:.4f}", flush=True)
+    if any(counts.values()):
+        raise AssertionError("joint_train's lthm_tiny launched a kernel its YAML does not ask for")
+    misses = held_in_band(f"(c) {smi}: joint_train seed 0 vs JAX",
+                          {"val_auc_click_with_embeddings": [with_emb], "auc_uplift_click": [uplift]}, JAX_JOINT)
+    lo, hi = JOINT_UPLIFT_RANGE
+    ok = lo <= uplift <= hi
+    print(f"[7] (c) {smi}: joint auc_uplift_click {uplift:.4f} in QUALITY.md's range [{lo}, {hi}] -> "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        misses.append("(c) auc_uplift_click outside QUALITY.md's range")
+    return {"seconds": seconds, "turn_ms": turn_ms, "steps": steps, "with_embeddings": with_emb,
+            "ablated": ablated, "uplift": uplift}, misses
+
+
+def quality_phase(kernels, smi):
+    """Phase [7]: the runs QUALITY.md records, at their full length, through
+    main_training, each metric held to the JAX package's figure on the CPU
+    (tools/quality_reference.py) within its band; any miss fails the run."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        tiny, misses = quality_lthm_tiny(kernels, smi, tmp)
+        ranker, m_ranker = quality_ranker(kernels, smi, tmp)
+        misses += m_ranker
+        joint, m_joint = quality_joint(kernels, smi, f"{tmp}/joint")
+        misses += m_joint
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"[7] the phase took {seconds:.1f} s: (a) {sum(tiny['seconds'].values()):.1f} s, (b) "
+          f"{sum(ranker['seconds']):.1f} s, (c) {joint['seconds']:.1f} s", flush=True)
+    if misses:
+        raise AssertionError(f"[7] outside the band: {misses}")
+    return {"lthm_tiny": tiny, "ranker": ranker, "joint": joint, "seconds": seconds}
+
+
+
+def phase_took(phase: int, t0: float) -> float:
+    """Prints the phase's seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"[{phase}] the phase took {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3382,6 +3701,7 @@ def main() -> int:
                 print(f"    {src.name} {entry}: " + line.split(":", 1)[-1].strip(), flush=True)
 
     # -- 2. kernel against its plain version -----------------------------------
+    t_phase = time.perf_counter()
     print("[2] flash_fwd against its plain version:", flush=True)
     slice_shape = (BATCH, CONTEXT + 1, 32, 16, 1, torch.bfloat16, True)
     slice_err, slice_lerr, slice_tol = compare_flash(fa, *slice_shape)
@@ -3402,6 +3722,8 @@ def main() -> int:
         (2, 1, 32, 16, 1, torch.bfloat16, True),       # one row
     ):
         compare_flash(fa, *shape)
+    print(f"[2] flash_fwd at lthm_tiny's kernel arm (phase [7]): {LTHM_TINY_FLASH}:", flush=True)
+    tiny_fwd_err, _, tiny_fwd_tol = compare_flash(fa, *LTHM_TINY_FLASH)
     print("[2] flash_bwd against its plain version:", flush=True)
     bwd_err, bwd_tol = compare_flash_bwd(fa, *slice_shape)
     for shape in (
@@ -3421,6 +3743,8 @@ def main() -> int:
         (2, 1, 32, 16, 1, torch.bfloat16, True),       # one row
     ):
         compare_flash_bwd(fa, *shape)
+    print(f"[2] flash_bwd at lthm_tiny's kernel arm: {LTHM_TINY_FLASH}:", flush=True)
+    tiny_bwd_err, tiny_bwd_tol = compare_flash_bwd(fa, *LTHM_TINY_FLASH)
     print("[2] flash attention with the position bias (forward, dQ, dK/dV and the table gradient) "
           "against the plain versions:", flush=True)
     prod_t = PROD_CONTEXT + 1
@@ -3458,7 +3782,16 @@ def main() -> int:
         (17000, 1000, 64, 1.0, "random"),        # 128-row blocks (no split), ragged last stage
     ):
         compare_ce(fc, *shape)
+    print(f"[2] the CE kernels at lthm_tiny's kernel arm: {LTHM_TINY_CE}:", flush=True)
+    tiny_ce_errs, tiny_ce_tols = compare_ce(fc, *LTHM_TINY_CE)
+    tiny_errs = {"flash_fwd": (tiny_fwd_err, tiny_fwd_tol), "flash_bwd": (tiny_bwd_err, tiny_bwd_tol),
+                 **{name: (tiny_ce_errs[name], tiny_ce_tols[name]) for name in tiny_ce_errs}}
     torch.cuda.empty_cache()
+    t_phase = phase_took(2, t_phase)
+    # phase [7] runs here, in a process that has not yet run phases [3]-[6]: its loops are host-bound (a
+    # lthm_tiny step is about 30 ms of host time), and after those phases they ran about 30% slower
+    quality = quality_phase(kernels, smi)
+    t_phase = time.perf_counter()
 
     # -- 3. the serving path ---------------------------------------------------
     cfg = LTHMModelConfig.from_dict(bench_config())
@@ -3547,6 +3880,7 @@ def main() -> int:
     if small_err > 1e-4:
         raise AssertionError("the card and the CPU disagree on the small model")
     prod, prod_serving = serve_production(fa, kernels)
+    t_phase = phase_took(3, t_phase)
 
     # -- 4. the training path -------------------------------------------------
     del models, outs, seq, seq_plain
@@ -3703,6 +4037,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     extras = pipeline_extras(fa, kernels, smi)
     torch.cuda.empty_cache()
+    t_phase = phase_took(4, t_phase)
 
     # -- 5. timing ---------------------------------------------------------------
     b, t, h, hd, kvh, dt, causal = slice_shape
@@ -3934,8 +4269,7 @@ def main() -> int:
           f"{json.dumps({k: round(v, 3) for k, v in extras['program_ms'].items()})} ms against the eager "
           f"{json.dumps({k: round(v, 3) for k, v in extras['eager_ms'].items()})} ms; the compression job "
           f"{job['reconstruction_s'] / PIPE_RECON_EPOCHS:.3f} s a reconstruction epoch, "
-          f"{job['mask_s'] / PIPE_MASK_EPOCHS:.3f} s a mask epoch; joint_train (cut) {extras['joint_s']:.1f} s, "
-          f"auc_uplift_click {extras['auc_uplift_click']}", flush=True)
+          f"{job['mask_s'] / PIPE_MASK_EPOCHS:.3f} s a mask epoch", flush=True)
     paths = {
         **{f"base_{opt}": res["per_step"] for opt, res in base_tables.items()},
         **{f"prod1024_{opt}": res["per_step"] for opt, res in prod_tables.items()},
@@ -4005,7 +4339,19 @@ def main() -> int:
         "knobs_max_abs_err": knobs["ce_errs"][name],
         "knobs_tolerance": knobs["ce_tols"][name],
     } for name, line in ce_replaces.items()]
+    phase_took(5, t_phase)
     multi = distributed_phase(kernels, smi)
+    tiny = quality["lthm_tiny"]
+
+    def tiny_entry(name):
+        """Kernel ``name`` at lthm_tiny's kernel arm: held to its plain version
+        at the arm's shapes in phase [2], its launches in phase [7]."""
+        return {"max_abs_err": tiny_errs[name][0], "tolerance": tiny_errs[name][1],
+                "launches": sum(c[name] for tag, c in tiny["counts"].items() if tag.startswith("kernels")),
+                "launches_per_step": tiny["per_step"][name],
+                "launches_per_val_batch": tiny["per_val_batch"].get(name, 0)}
+    for entry in ce_entries:
+        entry["lthm_tiny"] = tiny_entry(entry["name"])
     for entry in (*bias_entries, *ce_entries):
         entry["launches_per_rank_step_data_parallel"] = multi["per_rank_step"][entry["name"]]
     print(json.dumps({"kernels": [{
@@ -4033,6 +4379,7 @@ def main() -> int:
         "t512_sparse": {**s512, "launches_per_request": sparse["serve_counts"]["flash_fwd"] // LONG_REQUESTS,
                         "launches_per_step": sparse["train"]["per_step"]["flash_fwd"]},
         "launches_per_step_new_paths": new_paths("flash_fwd"),
+        "lthm_tiny": tiny_entry("flash_fwd"),
     }, {
         "name": "flash_bwd",
         "route": "cuda",
@@ -4047,6 +4394,7 @@ def main() -> int:
         "t1025": {**bwd_t1025, "launches_per_step": long_json["launches_per_step"]["flash_bwd"]},
         "t512_sparse": {**bwd_t512, "launches_per_step": sparse["train"]["per_step"]["flash_bwd"]},
         "launches_per_step_new_paths": new_paths("flash_bwd"),
+        "lthm_tiny": tiny_entry("flash_bwd"),
     }, *bias_entries, *ce_entries]}))
     print(f"[5] chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)

@@ -4,8 +4,8 @@ excluded dates and block chunks.
 Port of ``recommendations_tpu/data/paths.py`` (reference
 ``commons/data/dataset_generator_utils.py``): the per-node split of the
 files (``get_paths_for_worker``; a node is a JAX host, each reading its
-own files), the date ranges and the chunks. The extra-day validation set,
-which nothing reads in the JAX package, is left out.
+own files), the date ranges, the chunks, and the extra-day validation set
+(``get_val_data_paths(..., for_extra_day=True)``).
 """
 
 from __future__ import annotations
@@ -67,14 +67,19 @@ def get_train_data_paths(dataset_config: TrainDatasetConfig) -> List[str]:
     return store.get_training_data_paths_for_dates(dates, dataset_config.train_data_ratio)
 
 
-def get_val_data_paths(dataset_config: TrainDatasetConfig) -> List[str]:
+def get_val_data_paths(dataset_config: TrainDatasetConfig, for_extra_day: bool = False) -> List[str]:
+    """The validation files; with ``for_extra_day``, the extra-day set's
+    (``extra_day_val_*``), none where it has no start date or no days."""
     if dataset_config.path_glob_test:
         return sorted(glob.glob(dataset_config.path_glob_test))
-    dates = _resolve_dates(
-        dataset_config.val_data_start_date,
-        dataset_config.val_period_in_days,
-        backward=False,
-        exclude=dataset_config.exclude_dates,
-    )
+    if for_extra_day:
+        if dataset_config.extra_day_val_data_start_date is None or dataset_config.extra_day_val_period_in_days <= 0:
+            return []
+        start, days = dataset_config.extra_day_val_data_start_date, dataset_config.extra_day_val_period_in_days
+        ratio = dataset_config.extra_day_val_data_ratio
+    else:
+        start, days = dataset_config.val_data_start_date, dataset_config.val_period_in_days
+        ratio = dataset_config.val_data_ratio
+    dates = _resolve_dates(start, days, backward=False, exclude=dataset_config.exclude_dates)
     store = DataStoreAccessor.get_instance(dataset_config.filesystem_config)
-    return store.get_training_data_paths_for_dates(dates, dataset_config.val_data_ratio)
+    return store.get_training_data_paths_for_dates(dates, ratio)

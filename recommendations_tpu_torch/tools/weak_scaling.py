@@ -27,6 +27,8 @@ import time
 import numpy as np
 import torch
 
+from recommendations_tpu_torch import resolve_device
+
 
 def _tiny_config(seq: int) -> dict:
     """The JAX tool's model: 2 layers, d=64, MQA 4 heads, a 65536-row table."""
@@ -98,11 +100,14 @@ def _rank(rank: int, n: int, port: int, device: str, per_rank_batch: int, seq: i
         dist.destroy_process_group()
 
 
-def measure(n: int, per_rank_batch: int, seq: int, steps: int, device: str = "cpu") -> dict:
-    """One rank count's throughput, ``n`` processes trained together."""
+def measure(n: int, per_rank_batch: int, seq: int, steps: int, device: str = "cuda") -> dict:
+    """One rank count's throughput, ``n`` processes trained together: on the
+    cards unless ``device="cpu"``; without a card it raises."""
     import socket
 
     import torch.multiprocessing as mp
+
+    device = resolve_device(device).type
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rank0.json")
@@ -132,12 +137,13 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--device", default="cuda", help="cuda (one card a rank, NCCL) or cpu (gloo)")
     args = parser.parse_args(argv)
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    sizes = list(args.ranks)
+    if resolve_device(args.device).type == "cuda":
         sizes = [n for n in args.ranks if n <= torch.cuda.device_count()]
-    else:
-        sizes = list(args.ranks)
+        dropped = [n for n in args.ranks if n not in sizes]
+        if dropped:
+            print(f"weak_scaling: skipping rank counts {dropped}: more than the {torch.cuda.device_count()} "
+                  f"card(s) here", file=sys.stderr, flush=True)
     results = []
     for n in sizes:
         r = measure(n, args.per_rank_batch, args.seq, args.steps, args.device)

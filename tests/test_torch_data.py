@@ -163,3 +163,40 @@ def test_reader_without_pyarrow_names_it(monkeypatch, tmp_path):
     monkeypatch.setattr(builtins, "__import__", no_pyarrow)
     with pytest.raises(ImportError, match="pyarrow"):
         read_parquet_table(str(tmp_path / "missing.parquet"))
+
+
+@pytest.mark.parametrize("extra", [
+    ["dataset.extra_day_val_data_start_date='20240103'"],  # one day after validation
+    ["dataset.extra_day_val_data_start_date='20240102'", "dataset.extra_day_val_period_in_days=3",
+     "dataset.extra_day_val_data_ratio=0.5"],  # three days, half the files
+    ["dataset.extra_day_val_data_start_date='20240102'", "dataset.extra_day_val_period_in_days=3",
+     "dataset.exclude_dates=['20240103']"],
+    ["dataset.extra_day_val_data_start_date='20240103'", "dataset.extra_day_val_period_in_days=0"],  # no days
+    [],  # no start date
+])
+def test_extra_day_val_paths_equal_jax(extra):
+    """get_val_data_paths(..., for_extra_day=True) on the in-memory stores:
+    JAX's files for the extra-day set, and the plain validation set unchanged."""
+    from recommendations_tpu.data.data_store import FakeDataStore as JaxFakeDataStore
+
+    dates = ["20240101", "20240102", "20240103", "20240104"]
+    FakeDataStore.reset()
+    JaxFakeDataStore.reset()
+    try:
+        for date in dates:
+            for p in range(3):
+                FakeDataStore.put_table(f"date={date}/part-{p:05d}.parquet", {"x": np.arange(2)})
+                JaxFakeDataStore.put_table(f"date={date}/part-{p:05d}.parquet", pd.DataFrame({"x": np.arange(2)}))
+        args = ["model_version=v1", "run_id=r1", "dataset.filesystem_config={kind: fake, path_template: 'date={date}'}",
+                *extra]
+        jcfg = jax_load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=jax_parse(args), search_paths=[str(CONFIG_ROOT)])
+        tcfg = load_config(CONFIG_ROOT / "lthm_tiny.yaml", overrides=parse_cli_overrides(args),
+                           search_paths=[str(CONFIG_ROOT)])
+        for_extra = get_val_data_paths(tcfg.dataset, for_extra_day=True)
+        assert for_extra == jax_val_paths(jcfg.dataset, for_extra_day=True)
+        assert get_val_data_paths(tcfg.dataset) == jax_val_paths(jcfg.dataset) == [
+            f"date=20240102/part-{p:05d}.parquet" for p in range(3)]
+        assert bool(for_extra) == bool(extra and "period_in_days=0" not in extra[-1])
+    finally:
+        FakeDataStore.reset()
+        JaxFakeDataStore.reset()

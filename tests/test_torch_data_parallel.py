@@ -391,3 +391,19 @@ def test_weak_scaling_tool_runs_ranks_and_names_its_regime():
     assert all(x["regime"] == "gloo_on_host_cores" for x in lines[:2])
     assert lines[2]["metric"] == "weak_scaling_efficiency" and set(lines[2]["series"]) == {"1", "2"}
     assert "not a network" in lines[2]["note"]
+
+
+def test_weak_scaling_measures_on_the_card_unless_told_the_cpu(monkeypatch, capsys):
+    """``measure`` runs on the card by default and raises without one; the
+    CLI names the rank counts it drops for want of cards."""
+    from recommendations_tpu_torch.tools import weak_scaling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weak_scaling.measure(1, 2, 8, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(weak_scaling, "measure", lambda n, *a: pytest.fail("no count fits one card but 1"))
+    assert weak_scaling.main(["--ranks", "2", "4"]) == 0
+    err = capsys.readouterr().err
+    assert "skipping rank counts [2, 4]" in err and "1 card(s)" in err
