@@ -1,0 +1,19 @@
+"""Device time of the kernels launched in the ``lthm/forward`` range, per
+step of the profiled sub-window."""
+
+from __future__ import annotations
+
+UNIT = "ms"
+BETTER = "lower"
+LAYER = "towers: models/lthm/model.py, nn/"
+MOVES = "train_examples_per_s"
+SOURCE = "device_trace"
+
+
+PHASES = ('lthm/forward',)
+
+
+def read(run):
+    if run.trace is None or not run.trace.device_us(PHASES):
+        return None
+    return run.trace.device_us(PHASES) / run.trace.units / 1e3
