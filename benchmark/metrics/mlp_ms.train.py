@@ -1,0 +1,21 @@
+"""Device time of the kernels launched in ``lthm/mlp`` (a block's ``c_fc``,
+GELU and ``c_proj``, or the MoE pair; opened again in remat's rerun), per
+step. The MLP's backward is ``lthm/backward``'s. None when the range is
+absent."""
+
+from __future__ import annotations
+
+UNIT = "ms"
+BETTER = "lower"
+LAYER = "towers: models/lthm/model.py, nn/"
+MOVES = "train_examples_per_s"
+SOURCE = "device_trace"
+
+
+PHASES = ('lthm/mlp',)
+
+
+def read(run):
+    if run.trace is None or not run.trace.device_us(PHASES):
+        return None
+    return run.trace.device_us(PHASES) / run.trace.units / 1e3

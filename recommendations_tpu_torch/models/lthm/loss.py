@@ -40,9 +40,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from recommendations_tpu_torch.core.debug import unchecked
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.nn.functional import l2_normalize_f32acc
 from recommendations_tpu_torch.nn.logq import LogQState, logq_correction, logq_update
 from recommendations_tpu_torch.ops.fused_ce import fused_contrastive_ce
@@ -109,21 +109,21 @@ class CECore(torch.autograd.Function):
         return ce, rank
 
     @staticmethod
-    @record_function("lthm/ce_backward")
     def backward(ctx, dce, _drank):
-        q, c, vv, lqv, ce = ctx.saved_tensors
-        s, inv_t, beta = ctx.consts
-        _, adj, eye = _masked_adj(q, c, vv, lqv, s, inv_t, beta)
-        diag = adj.diagonal()
-        # a fully masked row (ce = -inf) gets lse 0, so its p underflows to
-        # exactly 0 instead of inf (inf * 0 would NaN the chunk's dc)
-        lse = torch.where(torch.isfinite(ce), ce + diag, 0.0)
-        a = dce.float() * inv_t
-        p = torch.exp(adj - lse[:, None])
-        g16 = ((p - eye.float()) * a[:, None]).to(torch.bfloat16)
-        dq = torch.matmul(g16, c.to(torch.bfloat16)).to(q.dtype)
-        dc = torch.matmul(g16.t(), q.to(torch.bfloat16)).to(c.dtype)
-        return dq, dc, None, None, None, None, None
+        with span("lthm/ce_backward"):
+            q, c, vv, lqv, ce = ctx.saved_tensors
+            s, inv_t, beta = ctx.consts
+            _, adj, eye = _masked_adj(q, c, vv, lqv, s, inv_t, beta)
+            diag = adj.diagonal()
+            # a fully masked row (ce = -inf) gets lse 0, so its p underflows to
+            # exactly 0 instead of inf (inf * 0 would NaN the chunk's dc)
+            lse = torch.where(torch.isfinite(ce), ce + diag, 0.0)
+            a = dce.float() * inv_t
+            p = torch.exp(adj - lse[:, None])
+            g16 = ((p - eye.float()) * a[:, None]).to(torch.bfloat16)
+            dq = torch.matmul(g16, c.to(torch.bfloat16)).to(q.dtype)
+            dc = torch.matmul(g16.t(), q.to(torch.bfloat16)).to(c.dtype)
+            return dq, dc, None, None, None, None, None
 
 
 def _ce_rows(q16, c16, v, lq, s: int, temperature: float, beta: float, fused_ce: bool = False):
@@ -248,10 +248,11 @@ def contrastive_step(
 
     dev = out_emb.device
     total_loss = torch.zeros((), dtype=torch.float32, device=dev)
-    metrics: Metrics = {
-        f"{prefix}_batch_size": torch.tensor(float(b), device=dev),
-        f"{prefix}_seq_len": torch.tensor(float(s), device=dev),
-    }
+    with span("lthm/loss_metrics"):
+        metrics: Metrics = {
+            f"{prefix}_batch_size": torch.tensor(float(b), device=dev),
+            f"{prefix}_seq_len": torch.tensor(float(s), device=dev),
+        }
     pos = torch.arange(s, device=dev)[None, :]
     heads = []
     for i, off in enumerate(offsets):
@@ -281,7 +282,7 @@ def contrastive_step(
         heads.append((off, reported, torch.cat(ranks), torch.cat(weights), torch.stack(min_negs).min()))
 
     # the whole batch's metrics: chunk means, the hit rates over every row
-    with torch.no_grad(), unchecked():
+    with span("lthm/loss_metrics"), torch.no_grad(), unchecked():
         keys = ["effective_batch_size", "average_negatives_per_token", "used_tokens", "loss_all_tokens",
                 "average_hit_position", "median_hit_position"]
         min_neg = torch.stack([h[4] for h in heads])

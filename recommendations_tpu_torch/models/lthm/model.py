@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.pretrained import PretrainedProductEmbedding
 from recommendations_tpu_torch.nn.attention import Dense
@@ -265,8 +266,9 @@ class LTHMEncoder(nn.Module):
         ``batch_shard``: (first row, rows) of this rank's rows in the whole
         batch, for the dropout draws."""
         ids = batch[self.ids_key]
-        embs = self.product_emb_module(ids, tap=(taps or {}).get("product_emb_rows"))
-        inp, target, mask = self.product_tower(ids, embs)
+        with span("lthm/product_tower"):
+            embs = self.product_emb_module(ids, tap=(taps or {}).get("product_emb_rows"))
+            inp, target, mask = self.product_tower(ids, embs)
         # float timestamps and labels truncate to int64, as astype does
         labels = batch[self.labels_key].to(torch.int64)
         timestamp = batch[self.timestamp_key].to(torch.int64)

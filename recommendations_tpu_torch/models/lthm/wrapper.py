@@ -35,10 +35,10 @@ import logging
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from recommendations_tpu_torch import resolve_device
 from recommendations_tpu_torch.core.partitioning import P, PartitionRules
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.models.base import BaseModelWrapper
 from recommendations_tpu_torch.models.lthm.config import (
     TABLE_OPT_SPARSE_FUSED_MIN_ROWS,
@@ -178,17 +178,20 @@ class LTHMModelWrapper(BaseModelWrapper):
 
     def format_inputs(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Tensors on the wrapper's device; the id key must hold integers."""
-        out = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-        key = self.module.ids_key
-        ids = out[key]
-        if ids.dtype.is_floating_point or ids.dtype.is_complex or ids.dtype == torch.bool:
-            raise TypeError(f"{key} expected int64, got {ids.dtype}")
-        out[key] = ids.to(torch.int64)
-        return out
+        with span("lthm/inputs"):
+            out = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+            key = self.module.ids_key
+            ids = out[key]
+            if ids.dtype.is_floating_point or ids.dtype.is_complex or ids.dtype == torch.bool:
+                raise TypeError(f"{key} expected int64, got {ids.dtype}")
+            out[key] = ids.to(torch.int64)
+            return out
 
     @torch.no_grad()
     def forward(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        return self.module(self.format_inputs(batch))
+        inputs = self.format_inputs(batch)
+        with span("lthm/forward"):
+            return self.module(inputs)
 
     # ----- training ----------------------------------------------------------
 
@@ -223,10 +226,10 @@ class LTHMModelWrapper(BaseModelWrapper):
         batch_shard = None
         if data_group is not None:
             batch_shard = (col.group_rank(data_group) * rows, col.group_size(data_group) * rows)
-        with record_function("lthm/forward"):
+        with span("lthm/forward"):
             output = self.module(inputs, training=training, taps=taps,
                                  dropout_seed=dropout_seed if training else None, batch_shard=batch_shard)
-        with record_function("lthm/loss"):
+        with span("lthm/loss"):
             loss, metrics, new_logq = contrastive_step(
                 output,
                 aux_state.logq,
@@ -388,8 +391,9 @@ class LTHMModelWrapper(BaseModelWrapper):
         - 'sequence_encoder': the full forward."""
 
         def user_encoder(batch):
-            out = self.forward(batch)
-            return {"user_emb": l2_normalize(out["next_token_emb"][:, -1, 0, :])}
+            with span("lthm/serve"):
+                out = self.forward(batch)
+                return {"user_emb": l2_normalize(out["next_token_emb"][:, -1, 0, :])}
 
         def sequence_encoder(batch):
             return self.forward(batch)

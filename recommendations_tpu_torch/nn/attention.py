@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.nn.dropout import dropout, qkv_dropout
 from recommendations_tpu_torch.nn.functional import cast_param
 from recommendations_tpu_torch.ops import fused_attention as fa
@@ -300,11 +301,12 @@ class MultiQueryAttention(_AttentionBase):
         generator: Optional[torch.Generator] = None,
         shard=None,
     ) -> torch.Tensor:
-        gen = self._dropout_generator(training, generator)
-        q = self.q_proj(x)
-        k, v = self.kv_proj(x).split(self.head_dim, dim=-1)
-        y = self.out_proj(self._attend(x, q, k, v, 1, mask, causal, gen, shard))
-        return y if gen is None else dropout(y, self.dropout, gen, shard)
+        with span("lthm/attention"):
+            gen = self._dropout_generator(training, generator)
+            q = self.q_proj(x)
+            k, v = self.kv_proj(x).split(self.head_dim, dim=-1)
+            y = self.out_proj(self._attend(x, q, k, v, 1, mask, causal, gen, shard))
+            return y if gen is None else dropout(y, self.dropout, gen, shard)
 
 
 class MultiHeadAttention(_AttentionBase):
@@ -325,7 +327,8 @@ class MultiHeadAttention(_AttentionBase):
         generator: Optional[torch.Generator] = None,
         shard=None,
     ) -> torch.Tensor:
-        gen = self._dropout_generator(training, generator)
-        q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
-        y = self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, gen, shard))
-        return y if gen is None else dropout(y, self.dropout, gen, shard)
+        with span("lthm/attention"):
+            gen = self._dropout_generator(training, generator)
+            q, k, v = self.c_attn(x).split(self.n_embd, dim=-1)
+            y = self.c_proj(self._attend(x, q, k, v, self.n_head, mask, causal, gen, shard))
+            return y if gen is None else dropout(y, self.dropout, gen, shard)

@@ -20,6 +20,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from recommendations_tpu_torch.core.spans import span
+
 
 class LogQState(NamedTuple):
     b: torch.Tensor             # (n_offsets, num_buckets) f32, EMA of batch-index gaps
@@ -64,18 +66,19 @@ def logq_update(
 ) -> LogQState:
     """One streaming step over the ids of this batch; ``valid`` (ids' shape)
     marks the real tokens. Returns the new state."""
-    h = _buckets(state, ids)
-    v = valid.reshape(-1)
-    bi = torch.as_tensor(batch_idx, dtype=torch.float32, device=state.b.device)
-    b_new, a_new = state.b.clone(), state.a.clone()
-    for row in range(h.shape[0]):
-        keep = _last_occurrence(h[row])
-        hk, vk = h[row, keep], v[keep]
-        b_old, a_old = state.b[row, hk], state.a[row, hk]
-        gap = bi - a_old
-        b_new[row, hk] = torch.where(vk, (1.0 - alpha) * b_old + alpha * gap, b_old)
-        a_new[row, hk] = torch.where(vk, bi, a_old)
-    return LogQState(b=b_new, a=a_new, hash_offsets=state.hash_offsets)
+    with span("lthm/logq"):
+        h = _buckets(state, ids)
+        v = valid.reshape(-1)
+        bi = torch.as_tensor(batch_idx, dtype=torch.float32, device=state.b.device)
+        b_new, a_new = state.b.clone(), state.a.clone()
+        for row in range(h.shape[0]):
+            keep = _last_occurrence(h[row])
+            hk, vk = h[row, keep], v[keep]
+            b_old, a_old = state.b[row, hk], state.a[row, hk]
+            gap = bi - a_old
+            b_new[row, hk] = torch.where(vk, (1.0 - alpha) * b_old + alpha * gap, b_old)
+            a_new[row, hk] = torch.where(vk, bi, a_old)
+        return LogQState(b=b_new, a=a_new, hash_offsets=state.hash_offsets)
 
 
 def logq_correction(state: LogQState, ids: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.nn.attention import (
     Dense,
     MultiHeadAttention,
@@ -271,9 +272,10 @@ class TransformerBlock(nn.Module):
             self.null_connector = Dense(n_embd, n_embd, generator, use_bias, dtype)
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        if self.moe:
-            return self.moe_proj(gelu_tanh(self.moe_fc(x)))
-        return self.c_proj(gelu_tanh(self.c_fc(x)))
+        with span("lthm/mlp"):
+            if self.moe:
+                return self.moe_proj(gelu_tanh(self.moe_fc(x)))
+            return self.c_proj(gelu_tanh(self.c_fc(x)))
 
     def forward(
         self,

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from recommendations_tpu_torch.core.debug import check_kernel_outputs
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.ops.cuda_build import CudaKernel
 
 NEG_INF = -1e30
@@ -334,7 +335,8 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = fused_flash_attention_bwd(q, k, v, o, lse, do, ctx.n_head, ctx.causal)
+    with span("lthm/attention_backward"):
+        dq, dk, dv = fused_flash_attention_bwd(q, k, v, o, lse, do, ctx.n_head, ctx.causal)
     return dq, dk, dv, None, None
 
 
@@ -608,9 +610,10 @@ def _bias_setup_context(ctx, inputs, output):
 
 def _bias_backward(ctx, do, _dlse):
     q, k, v, table, o, lse = ctx.saved_tensors
-    dq, dk, dv, dtable = fused_flash_attention_bias_bwd(
-        q, k, v, table, o, lse, do, ctx.n_head, ctx.nk, ctx.causal
-    )
+    with span("lthm/attention_backward"):
+        dq, dk, dv, dtable = fused_flash_attention_bias_bwd(
+            q, k, v, table, o, lse, do, ctx.n_head, ctx.nk, ctx.causal
+        )
     return dq, dk, dv, dtable, None, None, None
 
 

@@ -42,9 +42,9 @@ import ctypes
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
 from recommendations_tpu_torch.core.debug import check_kernel_outputs
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.ops.cuda_build import CudaKernel
 
 BIG_NEG = -1e9
@@ -224,11 +224,11 @@ class FusedContrastiveCE(torch.autograd.Function):
         return ce, rank
 
     @staticmethod
-    @record_function("lthm/ce_backward")
     def backward(ctx, dce, _drank):
-        q16, c16, v, lq, lse = ctx.saved_tensors
-        dq, dc = ce_backward(q16, c16, v, lq, lse, dce, *ctx.consts)
-        return dq, dc, None, None, None, None, None
+        with span("lthm/ce_backward"):
+            q16, c16, v, lq, lse = ctx.saved_tensors
+            dq, dc = ce_backward(q16, c16, v, lq, lse, dce, *ctx.consts)
+            return dq, dc, None, None, None, None, None
 
 
 def fused_contrastive_ce(

@@ -39,10 +39,11 @@ the lazy table update, the norm and the clipping; the fused record's
 norm counts each sharded parameter's blocks once
 (``optimizers.global_norm``), and ``params_nan`` is any rank's.
 
-The phases run inside ``torch.profiler.record_function`` ranges named
-``lthm/...`` (forward and loss in the wrapper, the CE backward in the loss),
-which ``tools/profile_torch_training.py`` reads; outside a profiler a range
-costs a few microseconds.
+The step runs inside the range ``lthm/step`` and its phases inside
+``lthm/...`` ranges (``core/spans.py``: forward and loss in the wrapper, the
+layers inside them in the modules, the CE backward in the loss), which
+``python3 benchmark/run.py --trace 1`` and the trainer's ``profile_dir``
+trace; outside a profiler a range costs one check.
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Tuple
 
 import torch
-from torch.profiler import record_function
 
+from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.parallel import collectives as col
 from recommendations_tpu_torch.train.optimizers import global_norm
 from recommendations_tpu_torch.train.train_state import TrainState
@@ -90,6 +91,11 @@ def train_step(
 ) -> Tuple[torch.Tensor, Metrics]:
     """One step in place on ``state``; returns (loss, metrics) as device
     tensors. ``offsets`` overrides the draw from ``state.generator``."""
+    with span("lthm/step"):
+        return _train_step(state, batch, offsets)
+
+
+def _train_step(state: TrainState, batch: Mapping[str, Any], offsets) -> Tuple[torch.Tensor, Metrics]:
     wrapper = state.wrapper
     use_taps = wrapper.uses_sparse_taps()
     state.optimizer.zero_grad()
@@ -98,11 +104,11 @@ def train_step(
         batch, state.aux, True, offsets=offsets, generator=state.generator, taps=taps,
         dropout_seed=state.next_dropout_seed(),
     )
-    with record_function("lthm/backward"):
+    with span("lthm/backward"):
         loss.backward()
     params = list(wrapper.module.parameters())
     mesh = getattr(wrapper, "mesh", None)
-    with record_function("lthm/optimizer"), torch.no_grad():
+    with span("lthm/optimizer"), torch.no_grad():
         if mesh is not None:
             reduce_gradients(wrapper)
         grads = [p.grad for p in params if p.grad is not None]
