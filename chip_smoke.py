@@ -36,7 +36,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      falls; one step's gradients on the kernel path agree with the
      plain-attention path, with the plain CE path, and with the eager
      (fused_ce off) CE; the eager step then takes a warm-up and 4 timed
-     steps (6 flash_fwd and 6 flash_bwd, no CE kernel); a small float32
+     steps (6 flash_fwd, 6 flash_bwd and 12 of each of the CE kernels'
+     rounded case a step, none of the unrounded); a small float32
      model's step on the card agrees with the CPU's, with either CE; then the
      production model trains a warm-up and 3 timed steps of 64 users (16 of
      each bias kernel and 12 of each CE kernel a step, remat keeping the bias
@@ -538,16 +539,22 @@ CE_TOL = 2e-5    # ce, lse and diag: f32, absolute plus relative (the JAX kernel
 TIE_EPS = 1e-4   # logits this close to the positive's may rank either way
 
 
-def ce_inputs(n, s, d, pattern, seed=0):
+def ce_inputs(n, s, d, pattern, seed=0, grid=False):
     """Unit bf16 rows, validity and logQ as the loss makes them. pattern:
     'roll' the last 4 slots of every user invalid (the padding of a request,
     rolled by offset 0); 'random' 10% invalid; 'invalid_user' as random with
     user 2 all invalid; 'one_user' only user 1 valid but for one slot, so
     every other row has no valid column and that slot's row is fully masked
-    (ce = -inf)."""
+    (ce = -inf). grid: every element of a row also a multiple of 2**-10, so
+    every partial sum of a product q_i.c_j is exact in float32 and S, and
+    its bf16 rounding, is the same in any order of summation (the rounded
+    case's inputs)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    unit = lambda: torch.nn.functional.normalize(  # noqa: E731
-        torch.randn(n, d, generator=g, device="cuda"), dim=-1).bfloat16()
+
+    def unit():
+        x = torch.nn.functional.normalize(torch.randn(n, d, generator=g, device="cuda"), dim=-1).bfloat16()
+        return (torch.round(x.float() * 1024.0) / 1024.0).bfloat16() if grid else x
+
     q, c = unit(), unit()
     slot = torch.arange(n, device="cuda") % s
     if pattern == "roll":
@@ -564,31 +571,35 @@ def ce_inputs(n, s, d, pattern, seed=0):
     return q, c, v, lq, dce
 
 
-def compare_ce(fc, n, s, d, beta, pattern, inputs=None):
+def compare_ce(fc, n, s, d, beta, pattern, inputs=None, rounded=False):
     """Each CE kernel against its plain version on one input (random, or
     ``inputs``: (q, c, v, lq), with a random cotangent); returns the errors
-    of the four kernels and their tolerances."""
-    q, c, v, lq, dce = ce_inputs(n, s, d, pattern, seed=n + d)
+    of the four kernels and their tolerances. ``rounded``: the rounded case's
+    kernels against the rounded plain versions, on grid rows (``ce_inputs``)
+    unless ``inputs`` are given."""
+    q, c, v, lq, dce = ce_inputs(n, s, d, pattern, seed=n + d, grid=rounded)
     if inputs is not None:
         q, c, v, lq = inputs
-    ce, rank, lse = fc.ce_forward(q, c, v, lq, s, INV_T, beta)
-    dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
+    row_diag_kernel = fc.CE_ROW_DIAG_ROUNDED if rounded else fc.CE_ROW_DIAG
+    ce, rank, lse = fc.ce_forward(q, c, v, lq, s, INV_T, beta, rounded)
+    dq, dc = fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta, rounded)
     torch.cuda.synchronize()
-    again = fc.ce_forward(q, c, v, lq, s, INV_T, beta) + fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta)
+    again = (fc.ce_forward(q, c, v, lq, s, INV_T, beta, rounded)
+             + fc.ce_backward(q, c, v, lq, lse, dce, s, INV_T, beta, rounded))
     # ce_row_diag alone, twice: diag and the shift m
     pair = []
     for _ in range(2):
         diag_k, m_k = torch.empty_like(ce), torch.empty((), device="cuda")
-        fc.CE_ROW_DIAG.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr(), diag_k.data_ptr(),
-                              m_k.data_ptr(), n, d, INV_T, beta, torch.cuda.current_stream().cuda_stream)
+        row_diag_kernel.launch(q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr(), diag_k.data_ptr(),
+                               m_k.data_ptr(), n, d, INV_T, beta, torch.cuda.current_stream().cuda_stream)
         pair.append((diag_k, m_k))
     torch.cuda.synchronize()
     same_bits = all(torch.equal(a, b) for a, b in zip((ce, rank, lse, dq, dc, *pair[0]), again + pair[1]))
-    diag, m = fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta)
+    diag, m = fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta, rounded)
     m_bits = torch.equal(m_k.view(torch.int32), m.view(torch.int32))
-    rce, rrank, rlse = fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta)
-    rdq = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "q")
-    rdc = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "c")
+    rce, rrank, rlse = fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta, rounded)
+    rdq = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "q", rounded)
+    rdc = fc.ce_grad_reference(q, c, v, lq, rlse, dce, s, INV_T, beta, "c", rounded)
 
     def f32_err(got, want):
         fin = torch.isfinite(want)
@@ -598,7 +609,7 @@ def compare_ce(fc, n, s, d, beta, pattern, inputs=None):
 
     errs = {"ce_row_diag": f32_err(diag_k, diag), "ce_fwd": max(f32_err(ce, rce), f32_err(lse, rlse))}
     # rank: equal but where an off-diagonal live logit lies within TIE_EPS of diag
-    logits, _, eye = fc._masked_plane(q, c, v, lq, s, INV_T, beta)
+    logits, _, eye = fc._masked_plane(q, c, v, lq, s, INV_T, beta, rounded)
     near = (((logits - diag[:, None]).abs() <= TIE_EPS) & ~eye & (logits > -1e8)).any(-1)
     differ = rank != rrank
     unexplained = int((differ & ~near).sum())
@@ -615,7 +626,8 @@ def compare_ce(fc, n, s, d, beta, pattern, inputs=None):
         ok &= bool(torch.isfinite(got.float()).all()) and err <= tols[name]
     ok &= same_bits
     print(
-        f"  fused CE N={n} s={s} D={d} beta={beta} {pattern}: diag {errs['ce_row_diag']:.2e}, "
+        f"  fused CE{' rounded' if rounded else ''} N={n} s={s} D={d} beta={beta} {pattern}: "
+        f"diag {errs['ce_row_diag']:.2e}, "
         f"m {m_k.item()!r} (plain {m.item()!r}, bit-equal {m_bits}), "
         f"ce/lse {errs['ce_fwd']:.2e} (tol {CE_TOL:.0e} abs + rel); rank differs on "
         f"{int(differ.sum())} rows, {int(near.sum())} rows have a logit within {TIE_EPS:.0e} of "
@@ -645,36 +657,39 @@ def ce_bound(kernel, n, d):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ce(fc, n, s, d, beta, plain_iters=5):
+def time_ce(fc, n, s, d, beta, plain_iters=5, rounded=False):
     """Each CE kernel alone at (N, D) with s tokens a user, its inputs ready,
     its plain version, its bound and the nearest single PyTorch call: for
     ``ce_row_diag`` ``torch.linalg.vecdot`` of the bf16 rows, which returns
     bf16 and forms no shift (a yardstick, not the same function); none
     computes the plane kernels' function. ``ce_row_diag``'s and its library
-    call's ms are device time under the profiler. Returns {kernel: numbers}."""
+    call's ms are device time under the profiler. ``rounded``: the rounded
+    case's kernels and plain versions (the same bounds). Returns {kernel:
+    numbers}."""
     q, c, v, lq, dce = ce_inputs(n, s, d, "roll", seed=12)
     stream = torch.cuda.current_stream().cuda_stream
-    diag, m = fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta)
+    row_diag_k, fwd_k, dq_k, dc_k = fc.ROUNDED_KERNELS if rounded else fc.KERNELS
+    diag, m = fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta, rounded)
     ce, rank, lse = (torch.empty_like(diag), torch.empty(n, dtype=torch.int32, device="cuda"),
                      torch.empty_like(diag))
     grad = torch.empty_like(q)
     ptrs = (q.data_ptr(), c.data_ptr(), v.data_ptr(), lq.data_ptr())
     launch = {
-        "ce_row_diag": lambda: fc.CE_ROW_DIAG.launch(
+        "ce_row_diag": lambda: row_diag_k.launch(
             *ptrs, diag.data_ptr(), m.data_ptr(), n, d, INV_T, beta, stream),
-        "ce_fwd": lambda: fc.CE_FWD.launch(
+        "ce_fwd": lambda: fwd_k.launch(
             *ptrs, m.data_ptr(), diag.data_ptr(), ce.data_ptr(), lse.data_ptr(), rank.data_ptr(),
             n, d, s, INV_T, beta, stream),
-        "ce_dq": lambda: fc.CE_DQ.launch(
+        "ce_dq": lambda: dq_k.launch(
             *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n, d, s, INV_T, beta, stream),
-        "ce_dc": lambda: fc.CE_DC.launch(
+        "ce_dc": lambda: dc_k.launch(
             *ptrs, lse.data_ptr(), dce.data_ptr(), grad.data_ptr(), n, d, s, INV_T, beta, stream),
     }
     plain = {
-        "ce_row_diag": lambda: fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta),
-        "ce_fwd": lambda: fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta),
-        "ce_dq": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "q"),
-        "ce_dc": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "c"),
+        "ce_row_diag": lambda: fc.row_diag_and_shift_reference(q, c, v, lq, INV_T, beta, rounded),
+        "ce_fwd": lambda: fc.ce_fwd_reference(q, c, v, lq, diag, s, INV_T, beta, rounded),
+        "ce_dq": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "q", rounded),
+        "ce_dc": lambda: fc.ce_grad_reference(q, c, v, lq, lse, dce, s, INV_T, beta, "c", rounded),
     }
     launch["ce_row_diag"]()
     launch["ce_fwd"]()
@@ -698,7 +713,8 @@ def time_ce(fc, n, s, d, beta, plain_iters=5):
         else:  # a note beside the bound, printed only: one exponential per logit
             floor = f", exponential floor {n * n / EXP_PER_S * 1e3:.4f} ms (a note: one ex2 per logit)"
         torch.cuda.empty_cache()
-        print(f"[5] {name} at N={n} D={d} s={s} beta={beta}: kernel {times[name]['ms']:.4f} ms{how}, plain "
+        print(f"[5] {name}{' rounded' if rounded else ''} at N={n} D={d} s={s} beta={beta}: kernel "
+              f"{times[name]['ms']:.4f} ms{how}, plain "
               f"{times[name]['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}){floor}; library {library}",
               flush=True)
     return times
@@ -1443,7 +1459,9 @@ def trainer_path(fa, kernels, smi):
     an export every 4 steps, metrics every 4 steps to a jsonl tracker. The
     launch counts are set to 0 just before the run and read just after: 16
     of each bias kernel a trained step, and 16 bias forwards a validation
-    batch. Then the step-4 checkpoint (written by the checkpoint manager's
+    batch; the eager CE's rounded kernels, one of each a lookahead head and
+    loss chunk a step, and one ce_row_diag_rounded and ce_fwd_rounded a head
+    a validation batch (one chunk). Then the step-4 checkpoint (written by the checkpoint manager's
     background thread) resumes in a second run, whose steps 5-8 must give
     the same bits as the first run's, and whose checkpoint is on disk
     before its turn ends (``wait()`` right after ``save``): the checkpoint
@@ -1454,6 +1472,7 @@ def trainer_path(fa, kernels, smi):
 
     from recommendations_tpu_torch import main_training
     from recommendations_tpu_torch.data.data_store import FakeDataStore
+    from recommendations_tpu_torch.ops import fused_ce as fc
     from recommendations_tpu_torch.pipeline.export import load_exported_wrapper
     from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
     from recommendations_tpu_torch.train import checkpoint as ckpt_mod
@@ -1467,6 +1486,7 @@ def trainer_path(fa, kernels, smi):
     bias = (fa.FLASH_BIAS_FWD, fa.FLASH_BIAS_DQ, fa.FLASH_BIAS_DKV)
     save_ms = {"a": [], "b": []}  # each CheckpointManager.save call's host time, by run
     real_save = ckpt_mod.CheckpointManager.save
+    counted = (*kernels, *fc.ROUNDED_KERNELS)  # the YAML leaves fused_ce unset: the rounded case
     try:
         def run(tag, ckpt_dir, sync=False):
             """One main_training run; with ``sync`` each checkpoint is on
@@ -1488,7 +1508,7 @@ def trainer_path(fa, kernels, smi):
                     f"model_version={tag}", f"run_id=chip_smoke_{tag}"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            for kern in kernels:
+            for kern in counted:
                 kern.launches = 0
             t1 = time.perf_counter()
             try:
@@ -1497,7 +1517,7 @@ def trainer_path(fa, kernels, smi):
                 ckpt_mod.CheckpointManager.save = real_save
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t1
-            counts = {kern.name: kern.launches for kern in kernels}
+            counts = {kern.name: kern.launches for kern in counted}
             return pipeline, metrics, counts, torch.cuda.max_memory_allocated() / 2**20, seconds
 
         pipe_a, met_a, counts_a, peak_a, secs_a = run("a", f"{tmp}/ckpt_a")
@@ -1505,15 +1525,27 @@ def trainer_path(fa, kernels, smi):
         cfg = wrapper.config
         layers = cfg.transformer_config.num_layers
         val_runs = TRAINER_STEPS // 4
-        want = {kern.name: 0 for kern in kernels}
-        want.update({"flash_bias_fwd": layers * (TRAINER_STEPS + val_runs * TRAINER_VAL_BATCHES),
-                     "flash_bias_dq": layers * TRAINER_STEPS, "flash_bias_dkv": layers * TRAINER_STEPS})
-        print(f"[4] main_training on lthm_train.yaml ({TRAINER_STEPS} steps of {cfg_batch(pipe_a)} users, "
+        heads, batch_size, mini = len(cfg.lookahead), cfg_batch(pipe_a), cfg.train_mini_batch_size
+        chunks = -(-batch_size // mini) if 0 < mini < batch_size else 1
+        rounded_step = {kern.name: heads * chunks for kern in fc.ROUNDED_KERNELS}
+        rounded_val = {kern.name: heads if kern in (fc.CE_ROW_DIAG_ROUNDED, fc.CE_FWD_ROUNDED) else 0
+                       for kern in fc.ROUNDED_KERNELS}
+
+        def expected(steps, val_batches):
+            want = {kern.name: 0 for kern in counted}
+            want.update({"flash_bias_fwd": layers * (steps + val_batches), "flash_bias_dq": layers * steps,
+                         "flash_bias_dkv": layers * steps})
+            want.update({name: n * steps + rounded_val[name] * val_batches for name, n in rounded_step.items()})
+            return want
+
+        want = expected(TRAINER_STEPS, val_runs * TRAINER_VAL_BATCHES)
+        print(f"[4] main_training on lthm_train.yaml ({TRAINER_STEPS} steps of {batch_size} users, "
               f"{TRAINER_VAL_BATCHES} validation batches every 4 steps, synth data {synth_s:.1f} s): launches "
               f"{counts_a} (expected {want}: {layers} of each bias kernel a step, {layers} bias forwards a "
-              f"validation batch)", flush=True)
+              f"validation batch, {heads * chunks} of each rounded CE kernel a step, {heads} of the rounded "
+              f"forward pair a validation batch)", flush=True)
         if counts_a != want:
-            raise AssertionError("the trainer's steps did not launch each bias kernel once a layer")
+            raise AssertionError("the trainer's steps did not launch each bias and rounded CE kernel as expected")
         if state_a.step != TRAINER_STEPS:
             raise AssertionError(f"the trainer stopped at step {state_a.step}, not {TRAINER_STEPS}")
 
@@ -1545,9 +1577,7 @@ def trainer_path(fa, kernels, smi):
         pipe_b, met_b, counts_b, _, secs_b = run("b", f"{tmp}/ckpt_b", sync=True)
         state_b = pipe_b._trained[1]
         resumed = TRAINER_STEPS - 4
-        want_b = {kern.name: 0 for kern in kernels}
-        want_b.update({"flash_bias_fwd": layers * (resumed + TRAINER_VAL_BATCHES),
-                       "flash_bias_dq": layers * resumed, "flash_bias_dkv": layers * resumed})
+        want_b = expected(resumed, TRAINER_VAL_BATCHES)
         if counts_b != want_b:
             raise AssertionError(f"the resumed run's launches {counts_b}, expected {want_b}")
         sd_a, sd_b = state_a.state_dict(), state_b.state_dict()
@@ -1600,8 +1630,9 @@ def trainer_path(fa, kernels, smi):
         # the trained state: the loop's own cost is the difference
         direct = timed_train("lthm_train.yaml's model, train_step called directly (fused_ce off, as the YAML)",
                              state_a, request_batch(4343, cfg_batch(pipe_a), TRAINER_HISTORY),
-                             [0, 5, 6, 12, 24, 30], PROD_STEPS, kernels,
-                             {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers})
+                             [0, 5, 6, 12, 24, 30], PROD_STEPS, counted,
+                             {"flash_bias_fwd": layers, "flash_bias_dq": layers, "flash_bias_dkv": layers,
+                              **rounded_step})
 
         stages = met_a["feed_path_stages"]
         turns = met_a["step_times_s"]
@@ -1801,9 +1832,9 @@ def trainer_knobs(fa, fc, kernels, ce_per_step):
                                          table.detach().clone(), n_head, nk, causal))
             return real_bias(q, k, v, table, n_head, nk, causal)
 
-        def ce_fwd(q16, c16, v, lq, s, inv_t, beta):
+        def ce_fwd(q16, c16, v, lq, s, inv_t, beta, round_logits=False):
             captured.setdefault("ce", (q16.detach().clone(), c16.detach().clone(), v.clone(), lq.clone(), s, beta))
-            return real_ce(q16, c16, v, lq, s, inv_t, beta)
+            return real_ce(q16, c16, v, lq, s, inv_t, beta, round_logits)
 
         def keep(generator, keep_prob, shape, device):
             mask = real_keep(generator, keep_prob, shape, device)
@@ -2655,7 +2686,7 @@ def pipeline_extras(fa, kernels, smi):
         prog_out = torch.load(f"{tmp}/program_out.pt")
         allowed = {"recommendations_tpu_torch", "recommendations_tpu_torch.ops", "recommendations_tpu_torch.ops.cuda_build",
                    "recommendations_tpu_torch.ops.fused_attention", "recommendations_tpu_torch.core",
-                   "recommendations_tpu_torch.core.debug"}
+                   "recommendations_tpu_torch.core.debug", "recommendations_tpu_torch.core.spans"}
         eager_ms, bits = {}, {}
         for name in ("user_encoder", "sequence_encoder"):
             fn = wrapper.inference_models()[name]
@@ -3345,9 +3376,10 @@ QUALITY_DATES = ["20240101", "20240102"]  # train on the first, validate on the 
 LTHM_TINY_STEPS, LTHM_TINY_EPOCHS = 600, 20  # QUALITY.md's config 1
 LTHM_TINY_FILES, LTHM_TINY_USERS, LTHM_TINY_HISTORY = 2, 800, 64
 # the kernels' shapes on the kernel arm (configs/lthm_tiny.yaml: batch 32, context 48 and the CLS column, MQA
-# 4 heads of 16, bf16; one CE call a lookahead head over the whole batch: N = 32 x 48, D = out_emb_dim 64)
+# 4 heads of 16, bf16; one CE call a lookahead head over the whole batch: N = 32 x 48, D = the heads'
+# product_emb_dim 32)
 LTHM_TINY_FLASH = (32, 49, 4, 16, 1, torch.bfloat16, True)
-LTHM_TINY_CE = (32 * 48, 48, 64, 0.0, "roll")
+LTHM_TINY_CE = (32 * 48, 48, 32, 0.0, "roll")
 LTHM_TINY_KERNEL_ARGS = ("model.transformer_config.use_flash_attention=true", "model.fused_ce=true")
 RANKER_QUALITY_STEPS = 400  # QUALITY.md's "400 steps x 10 epochs": the YAML's 10 epochs end the run at 320
 # The JAX package's figures on the CPU, the same configs, data and seeds (seed s: PRNGKey(s), data seed 100 s):
@@ -3423,13 +3455,17 @@ def seeded_builder(builder_cls, seed: int):
 
 def quality_lthm_tiny(kernels, smi, tmp):
     """(a): main_training --config-name lthm_tiny for 600 steps at every seed,
-    the plain arm (the YAML as it stands: no kernel) and the kernel arm (flash
-    attention and the fused CE: every step launches flash_fwd, flash_bwd and
-    the four CE kernels, every validation batch flash_fwd, ce_row_diag and
-    ce_fwd), on the port's synth click log in the in-memory store."""
+    the plain arm (the YAML as it stands: plain attention and the eager CE,
+    whose every step launches the four CE kernels' rounded case and every
+    validation batch ce_row_diag_rounded and ce_fwd_rounded) and the kernel
+    arm (flash attention and the fused CE: every step launches flash_fwd,
+    flash_bwd and the four CE kernels, every validation batch flash_fwd,
+    ce_row_diag and ce_fwd), on the port's synth click log in the in-memory
+    store."""
     from recommendations_tpu_torch import main_training
     from recommendations_tpu_torch.data.data_store import FakeDataStore
     from recommendations_tpu_torch.models.lthm.builder import LTHMModelBuilder
+    from recommendations_tpu_torch.ops import fused_ce as fc
     from recommendations_tpu_torch.tools.synth_data import write_synthetic_dataset
 
     arms = {"plain": {m: [] for m in JAX_LTHM_TINY}, "kernels": {m: [] for m in JAX_LTHM_TINY}}
@@ -3446,28 +3482,39 @@ def quality_lthm_tiny(kernels, smi, tmp):
                     f"export.filesystem_config.local_dir_prefix={tmp}/export_{tag}",
                     f"trackers.trackers=[{{kind: jsonl, path: {tmp}/{tag}.jsonl}}]", f"model_version={tag}",
                     f"run_id=chip_smoke_{tag}", *(LTHM_TINY_KERNEL_ARGS if arm == "kernels" else ())]
-            for kern in kernels:
+            counted = (*kernels, *fc.ROUNDED_KERNELS)
+            for kern in counted:
                 kern.launches = 0
             t0 = time.perf_counter()
             with seeded_builder(LTHMModelBuilder, seed):
                 pipeline, metrics = main_training.main(argv, return_pipeline=True)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = {kern.name: kern.launches for kern in kernels}
+            counts = {kern.name: kern.launches for kern in counted}
             wrapper, state = pipeline._trained
             cfg = wrapper.config
             with open(f"{tmp}/{tag}.jsonl") as f:
                 val_runs = sum(1 for line in f if '"val_loss"' in line)
             val_batches = val_runs * cfg_val_batches(pipeline)
             layers, heads = cfg.transformer_config.num_layers, len(cfg.lookahead)
-            want = {kern.name: 0 for kern in kernels}
+            want = {kern.name: 0 for kern in counted}
+            # the CE's rows, tokens per user and width (the heads' product_emb_dim), held by phase [2] in
+            # both cases
+            ce_shape = (cfg_batch(pipeline) * cfg.context_width, cfg.context_width,
+                        cfg.product_tower.product_emb_dim)
+            if ce_shape != LTHM_TINY_CE[:3]:
+                raise AssertionError(f"phase [2] held the CE kernels at {LTHM_TINY_CE}, not at this arm's "
+                                     f"shape {ce_shape}")
+            if arm == "plain":  # the eager CE: one call a head over the batch, on the rounded case
+                for kern in fc.ROUNDED_KERNELS:
+                    per_val = heads if kern in (fc.CE_ROW_DIAG_ROUNDED, fc.CE_FWD_ROUNDED) else 0
+                    want[kern.name] = heads * state.step + per_val * val_batches
             if arm == "kernels":
-                shapes = ((cfg_batch(pipeline), cfg.context_width + 1, cfg.transformer_config.attn_config.n_head,
-                           cfg.transformer_config.attn_config.n_embd // cfg.transformer_config.attn_config.n_head),
-                          (cfg_batch(pipeline) * cfg.context_width, cfg.context_width, cfg.product_tower.out_emb_dim))
-                if shapes != (LTHM_TINY_FLASH[:4], LTHM_TINY_CE[:3]):
-                    raise AssertionError(f"phase [2] held the kernels at {LTHM_TINY_FLASH}, {LTHM_TINY_CE}, not at "
-                                         f"this arm's shapes {shapes}")
+                shape = (cfg_batch(pipeline), cfg.context_width + 1, cfg.transformer_config.attn_config.n_head,
+                         cfg.transformer_config.attn_config.n_embd // cfg.transformer_config.attn_config.n_head)
+                if shape != LTHM_TINY_FLASH[:4]:
+                    raise AssertionError(f"phase [2] held the kernels at {LTHM_TINY_FLASH}, not at this arm's "
+                                         f"shape {shape}")
                 per_step = {kern.name: 0 for kern in kernels}
                 per_step.update({"flash_fwd": layers, "flash_bwd": layers, "ce_row_diag": heads, "ce_fwd": heads,
                                  "ce_dq": heads, "ce_dc": heads})
@@ -3685,9 +3732,10 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
     kernels = (*fa.KERNELS, *fc.KERNELS)
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, all at once
-        list(pool.map(lambda kern: kern.build(), kernels))
-    sources = {kern.source: kern for kern in kernels}
+    built = (*kernels, *fc.ROUNDED_KERNELS)  # the rounded case: a library of its own
+    with ThreadPoolExecutor(len(built)) as pool:  # one nvcc per source, all at once
+        list(pool.map(lambda kern: kern.build(), built))
+    sources = {kern.source: kern for kern in built}
     print(f"[1] built {', '.join(src.name for src in sources)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for src, kern in sources.items():
@@ -3782,6 +3830,17 @@ def main() -> int:
         (17000, 1000, 64, 1.0, "random"),        # 128-row blocks (no split), ragged last stage
     ):
         compare_ce(fc, *shape)
+    print("[2] the CE kernels' rounded case (the eager CE's function) against the rounded plain versions:",
+          flush=True)
+    for shape in (
+        (32 * CTX512, CTX512, 128, 0.0, "roll"),  # lthm_train.yaml's chunk at context 512
+        (17000, 1000, 64, 1.0, "random"),         # 128-row blocks, ragged last block and stage
+        (8448, 264, 32, 0.5, "invalid_user"),     # the stream split, a user with every slot invalid
+        (512, 32, 16, 1.0, "one_user"),           # fully masked rows: ce = -inf
+        (n_ce, CONTEXT, d_ce, 0.0, "roll"),       # phase [4]'s eager step: a 32-user chunk
+        LTHM_TINY_CE,                             # phase [7]'s plain arm
+    ):
+        compare_ce(fc, *shape, rounded=True)
     print(f"[2] the CE kernels at lthm_tiny's kernel arm: {LTHM_TINY_CE}:", flush=True)
     tiny_ce_errs, tiny_ce_tols = compare_ce(fc, *LTHM_TINY_CE)
     tiny_errs = {"flash_fwd": (tiny_fwd_err, tiny_fwd_tol), "flash_bwd": (tiny_bwd_err, tiny_bwd_tol),
@@ -3892,13 +3951,13 @@ def main() -> int:
     offsets = sample_offsets(torch.Generator().manual_seed(5), cfg.lookahead)
     heads, chunks = len(cfg.lookahead), BATCH // cfg.train_mini_batch_size
 
-    def timed_steps(steps):
-        """Steps on the training batch with every launch count set to 0 just
-        before and read just after: (ms, losses, grad norms, NaN flags,
-        {kernel: launches}, peak MiB)."""
+    def timed_steps(steps, counted=kernels):
+        """Steps on the training batch with the launch count of every kernel
+        of ``counted`` set to 0 just before and read just after: (ms, losses,
+        grad norms, NaN flags, {kernel: launches}, peak MiB)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for kern in kernels:
+        for kern in counted:
             kern.launches = 0
         ms, ls, gn, nan = [], [], [], []
         for _ in range(steps):
@@ -3909,7 +3968,7 @@ def main() -> int:
             ls.append(loss.item())
             gn.append(metrics["grad_norm"].item())
             nan.append(metrics["params_nan"].item())
-        counts = {kern.name: kern.launches for kern in kernels}
+        counts = {kern.name: kern.launches for kern in counted}
         return ms, ls, gn, nan, counts, torch.cuda.max_memory_allocated() / 2**20
 
     first_loss, _ = train_step(state, train_batch, offsets=offsets)  # warm-up, step 1
@@ -3963,12 +4022,15 @@ def main() -> int:
             "2**-4 a head) and each p by at most 6.5%")
     del grads_k, eager
 
-    # the eager CE's step (fused_ce off) on the same state
+    # the eager CE's step (fused_ce off) on the same state: the CE kernels' rounded case
     wrapper.config = eager_cfg
     train_step(state, train_batch, offsets=offsets)  # warm-up
-    eager_ms, eager_losses, eager_gn, eager_nans, eager_counts, eager_peak_mib = timed_steps(EAGER_STEPS)
+    with_rounded = (*kernels, *fc.ROUNDED_KERNELS)
+    eager_ms, eager_losses, eager_gn, eager_nans, eager_counts, eager_peak_mib = timed_steps(EAGER_STEPS,
+                                                                                           with_rounded)
     wrapper.config = cfg
-    want_eager = {k.name: (layers if k in (fa.FLASH_FWD, fa.FLASH_BWD) else 0) for k in kernels}
+    want_eager = {k.name: (layers if k in (fa.FLASH_FWD, fa.FLASH_BWD) else
+                           heads * chunks if k in fc.ROUNDED_KERNELS else 0) for k in with_rounded}
     print(f"[4] {EAGER_STEPS} training steps, fused_ce off: launches {eager_counts} (expected per "
           f"step {want_eager}); loss {[round(x, 5) for x in eager_losses]}", flush=True)
     if eager_counts != {k: n * EAGER_STEPS for k, n in want_eager.items()}:
@@ -4138,14 +4200,17 @@ def main() -> int:
 
     # the CE kernels at the path's shape (one 32-user chunk, beta as
     # LTHM-base's), each alone with its inputs ready, and its plain version
-    # (ce_row_diag also beside torch.linalg.vecdot, a yardstick). The eager
-    # CECore on the same problem is the comparison users choose between.
+    # (ce_row_diag also beside torch.linalg.vecdot, a yardstick). The
+    # rounded case (the eager setting's route on the card) and CECore (its
+    # plain (N, N) products) on the same problem beside them.
     beta = cfg.log_q_config.beta
     ce_times = time_ce(fc, n_ce, CONTEXT, d_ce, beta)
     q, c, v, lq, dce = ce_inputs(n_ce, CONTEXT, d_ce, "roll", seed=12)
     _, _, lse = fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta)
     fused_fwd_ms = cuda_ms(lambda: fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta), 30)
     fused_bwd_ms = cuda_ms(lambda: fc.ce_backward(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta), 30)
+    rounded_fwd_ms = cuda_ms(lambda: fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta, True), 30)
+    rounded_bwd_ms = cuda_ms(lambda: fc.ce_backward(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta, True), 30)
     qg, cg = q.detach().requires_grad_(), c.detach().requires_grad_()
 
     def eager_fwd():
@@ -4159,8 +4224,9 @@ def main() -> int:
     eager_fwd_ms = cuda_ms(eager_fwd, 10)
     eager_bwd_ms = cuda_ms(eager_fwd_bwd, 10) - eager_fwd_ms
     print(f"[5] the CE on one (N={n_ce}, D={d_ce}) chunk: fused forward {fused_fwd_ms:.4f} ms "
-          f"(ce_row_diag with the shift, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); eager "
-          f"CECore forward {eager_fwd_ms:.4f} ms, backward {eager_bwd_ms:.4f} ms", flush=True)
+          f"(ce_row_diag with the shift, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); rounded "
+          f"case forward {rounded_fwd_ms:.4f} ms, backward {rounded_bwd_ms:.4f} ms; CECore forward "
+          f"{eager_fwd_ms:.4f} ms, backward {eager_bwd_ms:.4f} ms", flush=True)
     del q, c, v, lq, dce, qg, cg, lse
     torch.cuda.empty_cache()
     # the production chunk (32 users of 1024 tokens): the CE kernels' shape
@@ -4168,6 +4234,8 @@ def main() -> int:
     prod_beta = LTHMModelConfig.from_dict(production_config()).log_q_config.beta
     ce_times_prod = time_ce(fc, 32 * PROD_CONTEXT, PROD_CONTEXT, d_ce, prod_beta, plain_iters=1)
     ce_times_512 = time_ce(fc, 32 * CTX512, CTX512, d_ce, prod_beta, plain_iters=1)
+    # and the rounded case there: lthm_train.yaml's eager CE on the card
+    ce_times_512_rounded = time_ce(fc, 32 * CTX512, CTX512, d_ce, prod_beta, plain_iters=1, rounded=True)
 
     print(f"[5] user_encoder request ({BATCH} users): median {med:.3f} ms, "
           f"min {min(request_ms):.3f} ms, max {max(request_ms):.3f} ms; "
@@ -4335,6 +4403,7 @@ def main() -> int:
            if name == "ce_row_diag" else {}),
         "n32768": {**ce_times_prod[name], "launches_per_step": prod_training["counts"][name] // PROD_STEPS},
         "n16384": {**ce_times_512[name], "launches_per_step": ctx512["fused"]["per_step"][name]},
+        "n16384_rounded": ce_times_512_rounded[name],
         "launches_per_step_new_paths": new_paths(name),
         "knobs_max_abs_err": knobs["ce_errs"][name],
         "knobs_tolerance": knobs["ce_tols"][name],

@@ -1,12 +1,20 @@
 """Multi-horizon in-batch contrastive loss with streaming logQ correction.
 
-Port of ``recommendations_tpu/models/lthm/loss.py``, with both of its CEs:
-``fused_ce=False`` runs ``_ce_core`` and its hand-written backward, plain
-(N, N) products that the JAX package leaves to XLA outside any Pallas kernel
-(``CECore`` here); ``fused_ce=True`` runs the fused CE kernels of
-``ops/fused_ce.py``, which never store the (N, N) plane. The two agree on ce
-up to the bf16 storage of ``_ce_core``'s logits, and on rank semantics: the
-positive's own column is never counted.
+Port of ``recommendations_tpu/models/lthm/loss.py``, with both of its CEs.
+``fused_ce`` names the function: ``fused_ce=False`` is ``_ce_core``, whose
+logits are the GEMM output stored in bf16 before the float32 scale by the
+temperature; ``fused_ce=True`` is the fused CE, whose logits stay float32.
+On the card both run the CE kernels of ``ops/fused_ce.py``, which never
+store the (N, N) plane, the former their bf16-rounding case
+(``round_logits``). On the CPU ``fused_ce=False`` runs ``CECore``, the JAX
+package's ``_ce_core`` and its hand-written backward as plain (N, N)
+products; it is also the card tests' yardstick for the rounded case. The
+settings agree on ce up to that rounding, and on rank semantics: the
+positive's own column is never counted. So on a CUDA device either setting
+takes only the kernels' widths (``product_emb_dim`` in ``SUPPORTED_DIMS``,
+16, 32, 64 or 128): ``check_ce_width`` refuses another when the loss's
+state is made (``LTHMModelWrapper.init_aux_state``), before the first step.
+On the CPU any width runs.
 
 One fixed (N, N) logits tile per head and mini-batch chunk, N = chunk * S:
 the candidate of flattened slot (b, j) is input token (b, j + offset) and
@@ -45,7 +53,7 @@ from recommendations_tpu_torch.core.debug import unchecked
 from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.nn.functional import l2_normalize_f32acc
 from recommendations_tpu_torch.nn.logq import LogQState, logq_correction, logq_update
-from recommendations_tpu_torch.ops.fused_ce import fused_contrastive_ce
+from recommendations_tpu_torch.ops.fused_ce import SUPPORTED_DIMS, fused_contrastive_ce
 from recommendations_tpu_torch.parallel import collectives as col
 
 Metrics = Dict[str, torch.Tensor]
@@ -126,12 +134,25 @@ class CECore(torch.autograd.Function):
             return dq, dc, None, None, None, None, None
 
 
+def check_ce_width(width: int, device) -> None:
+    """Raises ValueError where ``device`` is a CUDA device and ``width`` (the
+    heads' ``product_emb_dim``) is not one the CE kernels take; the CPU's
+    plain versions take any."""
+    if torch.device(device).type == "cuda" and width not in SUPPORTED_DIMS:
+        raise ValueError(
+            f"product_emb_dim {width}: on a CUDA device the contrastive CE runs the CE kernels "
+            f"(either fused_ce setting), which take the widths {SUPPORTED_DIMS}"
+        )
+
+
 def _ce_rows(q16, c16, v, lq, s: int, temperature: float, beta: float, fused_ce: bool = False):
-    """Per-row (ce, rank): the fused CE kernels, or ``CECore``'s plain
-    products with bf16-stored logits."""
-    if fused_ce:
-        return fused_contrastive_ce(q16, c16, v, lq, s, float(1.0 / temperature), float(beta))
-    return CECore.apply(q16, c16, v, lq, s, float(1.0 / temperature), float(beta))
+    """Per-row (ce, rank). ``fused_ce=False`` (bf16-stored logits): the CE
+    kernels' rounded case on a CUDA tensor, ``CECore``'s plain products
+    elsewhere; ``fused_ce=True``: the fused CE, float32 logits."""
+    inv_t = float(1.0 / temperature)
+    if fused_ce or q16.is_cuda:
+        return fused_contrastive_ce(q16, c16, v, lq, s, inv_t, float(beta), round_logits=not fused_ce)
+    return CECore.apply(q16, c16, v, lq, s, inv_t, float(beta))
 
 
 def _head_loss(
@@ -145,8 +166,9 @@ def _head_loss(
 ) -> Tuple[torch.Tensor, Metrics]:
     bc, s, d = query.shape
     n = bc * s
-    q16 = query.reshape(n, d).to(torch.bfloat16)
-    c16 = cand.reshape(n, d).to(torch.bfloat16)
+    # contiguous for the kernels: a one-user chunk of bf16 heads is a strided view
+    q16 = query.reshape(n, d).to(torch.bfloat16).contiguous()
+    c16 = cand.reshape(n, d).to(torch.bfloat16).contiguous()
     v = valid.reshape(n)
     lq = cand_logq.reshape(n).float().detach()
     ce, rank = _ce_rows(q16, c16, v, lq, s, float(temperature), float(beta), fused_ce)

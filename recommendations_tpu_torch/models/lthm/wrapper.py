@@ -45,7 +45,7 @@ from recommendations_tpu_torch.models.lthm.config import (
     LTHMModelConfig,
 )
 from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
-from recommendations_tpu_torch.models.lthm.loss import Metrics, contrastive_step
+from recommendations_tpu_torch.models.lthm.loss import Metrics, check_ce_width, contrastive_step
 from recommendations_tpu_torch.models.lthm.model import LTHMEncoder
 from recommendations_tpu_torch.models.lthm.pretrained import load_pretrained_constants
 from recommendations_tpu_torch.nn.embeddings import kshift_row_indices
@@ -196,6 +196,9 @@ class LTHMModelWrapper(BaseModelWrapper):
     # ----- training ----------------------------------------------------------
 
     def init_aux_state(self) -> LTHMAuxState:
+        """The loss's state (logQ and the batch counter); refuses a CE width
+        the device's CE cannot take (``loss.check_ce_width``)."""
+        check_ce_width(self.config.product_tower.product_emb_dim, self.device)
         lq = self.config.log_q_config
         return LTHMAuxState(
             logq=init_logq_state(lq.num_buckets, lq.hash_offsets, lq.p_init, self.device),

@@ -19,6 +19,19 @@
 // ce_row_diag forms m (and diag) in one launch; ce_fwd reads both from device
 // memory.
 //
+// The rounded case (ce_row_diag_rounded, ce_fwd_rounded, ce_dq_rounded,
+// ce_dc_rounded; the kernels' ROUND_S, built from fused_ce_rounded.cu, which
+// includes this file with CE_ROUNDED defined, as a library of its own, so a
+// process compiles only the case it launches): the same function with the product
+// q_i.c_j stored in bf16 before the float32 scale by inv_t, as the JAX
+// package's unfused _ce_core stores its GEMM output:
+//   logit        = masked ? -1e9 : f32(bf16(q_i.c_j)) * inv_t
+//   diag_i       = f32(bf16(q_i.c_i)) * inv_t where v[i], else -1e9
+// Every use of a tile's S (the sums, the rank compares, the diagonal's own
+// term, p in both gradients) rounds the f32 accumulator to bf16 (to nearest
+// even) and widens it first, a pair of logits at a time (one cvt.rn.bf16x2.f32
+// and two integer operations); everything after it is the unrounded case's.
+//
 // The rank counts only j != i, as the JAX package's unfused _ce_core does. The
 // TPU kernel counts column i too, comparing the tile's product q_i.c_i with
 // the separately summed diag_i; where the two sums round apart, its rank is
@@ -79,6 +92,14 @@ struct CeArgs {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S of the rounded case: each of two f32 values rounded to bf16 (to nearest
+// even) and widened back to f32
+__device__ __forceinline__ void round_bf16x2(float& lo, float& hi) {
+  const uint32_t u = pack_bf16(lo, hi);
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
 }
 
 // ---- ce_dq and ce_dc on Hopper: wgmma, a TMA ring, two consumer warpgroups --
@@ -292,8 +313,9 @@ __device__ __forceinline__ void wg_bar(int id) {  // the 128 threads of one warp
 // KIND: DC (own = candidates, stream = queries) or DQ (own = queries, stream
 // = candidates). SPLIT: the two warpgroups share 64 own rows and take 64
 // stream rows of each stage each; otherwise each owns 64 of the block's 128
-// rows and takes all 128 stream rows of every stage.
-template <int D, bool SPLIT, int KIND>
+// rows and takes all 128 stream rows of every stage. ROUND_S: S rounded to
+// bf16 before p is formed (the rounded case).
+template <int D, bool SPLIT, int KIND, bool ROUND_S>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     ce_grad_tc_kernel(const __grid_constant__ CUtensorMap own_map, const __grid_constant__ CUtensorMap stream_map,
                       const CeArgs A) {
@@ -436,11 +458,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 #pragma unroll
     for (int jj = 0; jj < SR / 8; ++jj) {
       const float2 t2 = *reinterpret_cast<const float2*>(tm + 8 * jj + 2 * c);
+      float x[4] = {s[4 * jj], s[4 * jj + 1], s[4 * jj + 2], s[4 * jj + 3]};
+      if constexpr (ROUND_S) {
+        round_bf16x2(x[0], x[1]);
+        round_bf16x2(x[2], x[3]);
+      }
       float gv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        gv[e] = ex2_approx(fmaf(s[4 * jj + e], k1, ((e & 1) ? t2.y : t2.x) + own_term[r]));
+        gv[e] = ex2_approx(fmaf(x[e], k1, ((e & 1) ? t2.y : t2.x) + own_term[r]));
       }
       if (neg) {
         const float2 sg = *reinterpret_cast<const float2*>(tm + TC_STREAM + 8 * jj + 2 * c);
@@ -454,7 +481,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, i = i0 + 8 * jj + 2 * c + (e & 1);
           if (i == own_j[r])
-            gv[e] = ex2_approx(fmaf(s[4 * jj + e], k1, eye_term[r])) * own_sign[r] - own_a[r];
+            gv[e] = ex2_approx(fmaf(x[e], k1, eye_term[r])) * own_sign[r] - own_a[r];
           else if (i / A.s == own_u[r])
             gv[e] = 0.f;
         }
@@ -600,8 +627,9 @@ struct FwdRows {
 // One stage's row sums and ranks from its S accumulator (own row g + 8 (e >>
 // 1) of the warp's 16, stream column j = jc + 8 jj + (e & 1), jc = the
 // stage's first column + 2 c), with the stream terms tm[16 jj + 0..3] =
-// {t_j, t_j+1, r_j, r_j+1}. DIAG: the tile meets a user's block.
-template <bool DIAG, int SR>
+// {t_j, t_j+1, r_j, r_j+1}. DIAG: the tile meets a user's block. ROUND_S: S
+// rounded to bf16 before any use (the rounded case).
+template <bool DIAG, int SR, bool ROUND_S>
 __device__ __forceinline__ void fwd_stage_sums(const float (&s)[SR / 2], const float* tm, const FwdRows& rows,
                                                int jc, int per_user, float k1, float inv_t, float (&se)[2],
                                                int (&rk)[2]) {
@@ -609,10 +637,15 @@ __device__ __forceinline__ void fwd_stage_sums(const float (&s)[SR / 2], const f
 #pragma unroll
   for (int jj = 0; jj < SR / 8; ++jj) {
     const float4 tt = *reinterpret_cast<const float4*>(tm + 16 * jj);
+    float xs[4] = {s[4 * jj], s[4 * jj + 1], s[4 * jj + 2], s[4 * jj + 3]};
+    if constexpr (ROUND_S) {
+      round_bf16x2(xs[0], xs[1]);
+      round_bf16x2(xs[2], xs[3]);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
-      const float x = s[4 * jj + e];
+      const float x = xs[e];
       float ev = ex2_approx(fmaf(x, k1, (e & 1) ? tt.y : tt.x));
       bool gt = fmaf(x, inv_t, (e & 1) ? tt.w : tt.z) > rows.x[r];
       if constexpr (DIAG) {
@@ -633,7 +666,7 @@ __device__ __forceinline__ void fwd_stage_sums(const float (&s)[SR / 2], const f
   se[1] += part[1][0] + part[1][1];
 }
 
-template <int D, bool SPLIT>
+template <int D, bool SPLIT, bool ROUND_S>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     ce_fwd_tc_kernel(const __grid_constant__ CUtensorMap own_map, const __grid_constant__ CUtensorMap stream_map,
                      const CeArgs A) {
@@ -752,9 +785,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     const int j0 = st * TC_STREAM + row0;
     const float* tm = terms + buf * SM::TERM_FLOATS + 4 * c;
     if (j0 / A.s <= (own0 + WG_ROWS - 1) / A.s && own0 / A.s <= (j0 + SR - 1) / A.s)
-      fwd_stage_sums<true, SR>(s, tm, rows, j0 + 2 * c, A.s, k1, inv_t, se, rk);
+      fwd_stage_sums<true, SR, ROUND_S>(s, tm, rows, j0 + 2 * c, A.s, k1, inv_t, se, rk);
     else
-      fwd_stage_sums<false, SR>(s, tm, rows, j0 + 2 * c, A.s, k1, inv_t, se, rk);
+      fwd_stage_sums<false, SR, ROUND_S>(s, tm, rows, j0 + 2 * c, A.s, k1, inv_t, se, rk);
   };
 
   // The pipeline, FWD_TURN stages a turn: S of the turn's first stage, then
@@ -876,9 +909,9 @@ int row_map(CUtensorMap* map, const bf16* base, int n) {
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-// ce_fwd, ce_dq or ce_dc: the own-row split where the 128-row tiles fill the
-// SMs, else the stream split.
-template <int D, int KIND>
+// ce_fwd, ce_dq or ce_dc, or their rounded case: the own-row split where the
+// 128-row tiles fill the SMs, else the stream split.
+template <int D, int KIND, bool ROUND_S>
 int launch_plane(const CeArgs& A, cudaStream_t stream) {
   CUtensorMap own_map, stream_map;
   int rc = row_map<D>(&own_map, A.own, A.n);
@@ -891,8 +924,8 @@ int launch_plane(const CeArgs& A, cudaStream_t stream) {
   const int own_rows = split ? WG_ROWS : TC_CONSUMERS * WG_ROWS;
   constexpr int smem = GradSmem<D>::ALLOC;
   void (*kern)(const CUtensorMap, const CUtensorMap, const CeArgs);
-  if constexpr (KIND == FWD) kern = split ? ce_fwd_tc_kernel<D, true> : ce_fwd_tc_kernel<D, false>;
-  else kern = split ? ce_grad_tc_kernel<D, true, KIND> : ce_grad_tc_kernel<D, false, KIND>;
+  if constexpr (KIND == FWD) kern = split ? ce_fwd_tc_kernel<D, true, ROUND_S> : ce_fwd_tc_kernel<D, false, ROUND_S>;
+  else kern = split ? ce_grad_tc_kernel<D, true, KIND, ROUND_S> : ce_grad_tc_kernel<D, false, KIND, ROUND_S>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<(A.n + own_rows - 1) / own_rows, TC_THREADS, smem, stream>>>(own_map, stream_map, A);
@@ -912,7 +945,8 @@ int launch_plane(const CeArgs& A, cudaStream_t stream) {
 // RD_LQ 16-byte loads a thread in flight (on an H100 it ends before the rows
 // do, at N = 8192 and 32768). A thread sums its 8 products in
 // order, then the row's threads add by xor shuffles (both partners form the
-// same sum), so two runs give the same bits.
+// same sum), so two runs give the same bits. ROUND_S (the rounded case)
+// rounds the row's f32 dot to bf16 before the scale by inv_t.
 constexpr int RD_THREADS = 256;
 constexpr int RD_ROWS = 4;
 constexpr int RD_LQ = 8;
@@ -970,7 +1004,7 @@ __device__ __forceinline__ void lq_shift(const float* __restrict__ lq, float* __
   }
 }
 
-template <int D>
+template <int D, bool ROUND_S>
 __global__ void __launch_bounds__(RD_THREADS)
     row_diag_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cm, const uint8_t* __restrict__ v,
                     const float* __restrict__ lq, float* __restrict__ diag, float* __restrict__ m, int n,
@@ -1004,18 +1038,19 @@ __global__ void __launch_bounds__(RD_THREADS)
       float acc = dot8(a[k], b[k]);
 #pragma unroll
       for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if constexpr (ROUND_S) acc = __bfloat162float(__float2bfloat16_rn(acc));
       const int row = slot + base + k * slots;
       if (part == 0 && row < n) diag[row] = ok[k] ? acc * inv_t : BIG_NEG;
     }
   }
 }
 
-template <int D>
+template <int D, bool ROUND_S>
 int launch_row_diag(const void* q, const void* c, const void* v, const void* lq, void* diag, void* m, int n,
                     float inv_t, float beta, cudaStream_t stream) {
   static const int per_sm = [] {
     int blocks = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, row_diag_kernel<D>, RD_THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, row_diag_kernel<D, ROUND_S>, RD_THREADS, 0);
     return blocks;
   }();
   int device = 0, sms = 0;
@@ -1023,19 +1058,19 @@ int launch_row_diag(const void* q, const void* c, const void* v, const void* lq,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   constexpr int rows_per_block = RD_THREADS / (D / 8) * RD_ROWS;
   const int row_blocks = max(1, min(per_sm * sms - 1, (n + rows_per_block - 1) / rows_per_block));
-  row_diag_kernel<D><<<row_blocks + 1, RD_THREADS, 0, stream>>>(
+  row_diag_kernel<D, ROUND_S><<<row_blocks + 1, RD_THREADS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(c), static_cast<const uint8_t*>(v),
       static_cast<const float*>(lq), static_cast<float*>(diag), static_cast<float*>(m), n, inv_t, beta);
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
+template <int KIND, bool ROUND_S>
 int dispatch(const CeArgs& A, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_plane<16, KIND>(A, stream);
-    case 32: return launch_plane<32, KIND>(A, stream);
-    case 64: return launch_plane<64, KIND>(A, stream);
-    case 128: return launch_plane<128, KIND>(A, stream);
+    case 16: return launch_plane<16, KIND, ROUND_S>(A, stream);
+    case 32: return launch_plane<32, KIND, ROUND_S>(A, stream);
+    case 64: return launch_plane<64, KIND, ROUND_S>(A, stream);
+    case 128: return launch_plane<128, KIND, ROUND_S>(A, stream);
     default: return -1;
   }
 }
@@ -1044,30 +1079,22 @@ bool bad_shape(int n, int d, int s) {
   return n < 1 || s < 1 || !(d == 16 || d == 32 || d == 64 || d == 128);
 }
 
-}  // namespace
-
-// Each entry returns 0 on success, cudaGetLastError() after a refused launch,
-// or -1 for a shape the kernels do not take (n < 1, s < 1, d not in
-// {16, 32, 64, 128}). All pointers are device pointers; q, c (and dq, dc) are
-// (n, d) bf16 row-major and 16-byte aligned; v is (n,) bool as bytes; lq,
-// diag, lse, dce, ce are (n,) float32, 4-byte aligned; rank is (n,) int32; m is
-// one float32.
-
-extern "C" int ce_row_diag(const void* q, const void* c, const void* v, const void* lq, void* diag, void* m,
-                           int n, int d, float inv_t, float beta, void* stream) {
+template <bool ROUND_S>
+int row_diag(const void* q, const void* c, const void* v, const void* lq, void* diag, void* m, int n, int d,
+             float inv_t, float beta, void* stream) {
   if (bad_shape(n, d, 1)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch_row_diag<16>(q, c, v, lq, diag, m, n, inv_t, beta, st);
-    case 32: return launch_row_diag<32>(q, c, v, lq, diag, m, n, inv_t, beta, st);
-    case 64: return launch_row_diag<64>(q, c, v, lq, diag, m, n, inv_t, beta, st);
-    default: return launch_row_diag<128>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    case 16: return launch_row_diag<16, ROUND_S>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    case 32: return launch_row_diag<32, ROUND_S>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    case 64: return launch_row_diag<64, ROUND_S>(q, c, v, lq, diag, m, n, inv_t, beta, st);
+    default: return launch_row_diag<128, ROUND_S>(q, c, v, lq, diag, m, n, inv_t, beta, st);
   }
 }
 
-extern "C" int ce_fwd(const void* q, const void* c, const void* v, const void* lq, const void* m,
-                      const void* diag, void* ce, void* lse_out, void* rank, int n, int d, int s,
-                      float inv_t, float beta, void* stream) {
+template <bool ROUND_S>
+int fwd(const void* q, const void* c, const void* v, const void* lq, const void* m, const void* diag, void* ce,
+        void* lse_out, void* rank, int n, int d, int s, float inv_t, float beta, void* stream) {
   if (bad_shape(n, d, s)) return -1;
   CeArgs A = {};
   A.own = static_cast<const bf16*>(q);
@@ -1080,34 +1107,84 @@ extern "C" int ce_fwd(const void* q, const void* c, const void* v, const void* l
   A.lse_out = static_cast<float*>(lse_out);
   A.rank = static_cast<int*>(rank);
   A.n = n, A.s = s, A.inv_t = inv_t, A.beta = beta;
-  return dispatch<FWD>(A, d, static_cast<cudaStream_t>(stream));
+  return dispatch<FWD, ROUND_S>(A, d, static_cast<cudaStream_t>(stream));
 }
 
-static int ce_grad(int kind, const void* q, const void* c, const void* v, const void* lq,
-                   const void* lse, const void* dce, void* grad, int n, int d, int s, float inv_t,
-                   float beta, void* stream) {
+template <int KIND, bool ROUND_S>
+int grad(const void* q, const void* c, const void* v, const void* lq, const void* lse, const void* dce, void* out,
+         int n, int d, int s, float inv_t, float beta, void* stream) {
   if (bad_shape(n, d, s)) return -1;
   CeArgs A = {};
-  A.own = static_cast<const bf16*>(kind == DQ ? q : c);
-  A.strm = static_cast<const bf16*>(kind == DQ ? c : q);
+  A.own = static_cast<const bf16*>(KIND == DQ ? q : c);
+  A.strm = static_cast<const bf16*>(KIND == DQ ? c : q);
   A.v = static_cast<const uint8_t*>(v);
   A.lq = static_cast<const float*>(lq);
   A.lse = static_cast<const float*>(lse);
   A.dce = static_cast<const float*>(dce);
-  A.grad = static_cast<bf16*>(grad);
+  A.grad = static_cast<bf16*>(out);
   A.n = n, A.s = s, A.inv_t = inv_t, A.beta = beta;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kind == DQ ? dispatch<DQ>(A, d, st) : dispatch<DC>(A, d, st);
+  return dispatch<KIND, ROUND_S>(A, d, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Each entry returns 0 on success, cudaGetLastError() after a refused launch,
+// or -1 for a shape the kernels do not take (n < 1, s < 1, d not in
+// {16, 32, 64, 128}). All pointers are device pointers; q, c (and dq, dc) are
+// (n, d) bf16 row-major and 16-byte aligned; v is (n,) bool as bytes; lq,
+// diag, lse, dce, ce are (n,) float32, 4-byte aligned; rank is (n,) int32; m is
+// one float32. With CE_ROUNDED defined (fused_ce_rounded.cu) the file gives
+// the *_rounded entries instead: each takes its unrounded entry's arguments
+// and launches the rounded case.
+
+#ifndef CE_ROUNDED
+
+extern "C" int ce_row_diag(const void* q, const void* c, const void* v, const void* lq, void* diag, void* m,
+                           int n, int d, float inv_t, float beta, void* stream) {
+  return row_diag<false>(q, c, v, lq, diag, m, n, d, inv_t, beta, stream);
+}
+
+extern "C" int ce_fwd(const void* q, const void* c, const void* v, const void* lq, const void* m,
+                      const void* diag, void* ce, void* lse_out, void* rank, int n, int d, int s,
+                      float inv_t, float beta, void* stream) {
+  return fwd<false>(q, c, v, lq, m, diag, ce, lse_out, rank, n, d, s, inv_t, beta, stream);
 }
 
 extern "C" int ce_dq(const void* q, const void* c, const void* v, const void* lq, const void* lse,
                      const void* dce, void* dq, int n, int d, int s, float inv_t, float beta,
                      void* stream) {
-  return ce_grad(DQ, q, c, v, lq, lse, dce, dq, n, d, s, inv_t, beta, stream);
+  return grad<DQ, false>(q, c, v, lq, lse, dce, dq, n, d, s, inv_t, beta, stream);
 }
 
 extern "C" int ce_dc(const void* q, const void* c, const void* v, const void* lq, const void* lse,
                      const void* dce, void* dc, int n, int d, int s, float inv_t, float beta,
                      void* stream) {
-  return ce_grad(DC, q, c, v, lq, lse, dce, dc, n, d, s, inv_t, beta, stream);
+  return grad<DC, false>(q, c, v, lq, lse, dce, dc, n, d, s, inv_t, beta, stream);
 }
+
+#else
+
+extern "C" int ce_row_diag_rounded(const void* q, const void* c, const void* v, const void* lq, void* diag,
+                                   void* m, int n, int d, float inv_t, float beta, void* stream) {
+  return row_diag<true>(q, c, v, lq, diag, m, n, d, inv_t, beta, stream);
+}
+
+extern "C" int ce_fwd_rounded(const void* q, const void* c, const void* v, const void* lq, const void* m,
+                              const void* diag, void* ce, void* lse_out, void* rank, int n, int d, int s,
+                              float inv_t, float beta, void* stream) {
+  return fwd<true>(q, c, v, lq, m, diag, ce, lse_out, rank, n, d, s, inv_t, beta, stream);
+}
+
+extern "C" int ce_dq_rounded(const void* q, const void* c, const void* v, const void* lq, const void* lse,
+                             const void* dce, void* dq, int n, int d, int s, float inv_t, float beta,
+                             void* stream) {
+  return grad<DQ, true>(q, c, v, lq, lse, dce, dq, n, d, s, inv_t, beta, stream);
+}
+
+extern "C" int ce_dc_rounded(const void* q, const void* c, const void* v, const void* lq, const void* lse,
+                             const void* dce, void* dc, int n, int d, int s, float inv_t, float beta,
+                             void* stream) {
+  return grad<DC, true>(q, c, v, lq, lse, dce, dc, n, d, s, inv_t, beta, stream);
+}
+
+#endif  // CE_ROUNDED

@@ -2,8 +2,9 @@
 
 Each source has a plain C entry point (no PyTorch headers), so ``nvcc``
 builds it in seconds. The library lands in ``ops/_build/`` inside the
-package, named by a hash of the source and of the headers beside it, so an
-edited source or header is never served by a stale library. Kernels that
+package, named by a hash of the source, of the sources it includes and of
+the headers beside it, so an edited source or header is never served by a
+stale library. Kernels that
 share a source share its one build. Nothing is built when a module is
 imported: the CPU tests import every module on machines without ``nvcc``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,9 +47,14 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """The library of ``source``, named by a hash of the source, the headers
-    of ``csrc/`` (which any source may include) and the flags."""
-    key = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    """The library of ``source``, named by a hash of the source, the ``.cu``
+    sources it includes (``fused_ce_rounded.cu`` is ``fused_ce.cu`` built
+    once more with a macro defined), the headers of ``csrc/`` (which any
+    source may include) and the flags."""
+    text = source.read_bytes()
+    included = re.findall(rb'^#include "([^"/]+\.cu)"', text, flags=re.M)
+    key = text + b"".join((source.parent / name.decode()).read_bytes() for name in included)
+    key += b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 

@@ -25,6 +25,16 @@ fully masked one gives -inf, as the JAX package's do). The backward forms
 g = (p - I) * dce * inv_t with p = 0 on rows whose lse <= -1e8, rounds g to
 bf16, and sums dq = g.C and dc = g^T.Q in f32, each rounded to bf16 once.
 
+The rounded case (``round_logits=True``): the same function with each
+product q_i.c_j, and the row dot q_i.c_i, rounded to bf16 before the scale
+by ``inv_t``, as the JAX package's unfused ``_ce_core`` stores its GEMM
+output (``CECore`` in ``models/lthm/loss.py``). Its kernels are the same four
+with that rounding compiled in (``ROUNDED_KERNELS``: ``ce_row_diag_rounded``,
+``ce_fwd_rounded``, ``ce_dq_rounded``, ``ce_dc_rounded``), each with a launch
+count of its own, built from ``csrc/fused_ce_rounded.cu`` as a library of
+their own, so a process builds only the case it launches; the plain versions
+round where the kernels do.
+
 One difference from the TPU kernel, on purpose: rank counts the columns
 j != i whose logit exceeds diag_i, as the unfused ``_ce_core`` does. The TPU
 kernel compares column i too, its tile product against the separately summed
@@ -57,6 +67,17 @@ CE_FWD = CudaKernel("fused_ce.cu", "ce_fwd", [_P] * 9 + [_I] * 3 + [_F] * 2 + [_
 CE_DQ = CudaKernel("fused_ce.cu", "ce_dq", [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P])
 CE_DC = CudaKernel("fused_ce.cu", "ce_dc", [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P])
 KERNELS = (CE_ROW_DIAG, CE_FWD, CE_DQ, CE_DC)
+# the rounded case: the same arguments, S rounded to bf16 (see above)
+CE_ROW_DIAG_ROUNDED = CudaKernel("fused_ce_rounded.cu", "ce_row_diag_rounded", CE_ROW_DIAG.argtypes)
+CE_FWD_ROUNDED = CudaKernel("fused_ce_rounded.cu", "ce_fwd_rounded", CE_FWD.argtypes)
+CE_DQ_ROUNDED = CudaKernel("fused_ce_rounded.cu", "ce_dq_rounded", CE_DQ.argtypes)
+CE_DC_ROUNDED = CudaKernel("fused_ce_rounded.cu", "ce_dc_rounded", CE_DC.argtypes)
+ROUNDED_KERNELS = (CE_ROW_DIAG_ROUNDED, CE_FWD_ROUNDED, CE_DQ_ROUNDED, CE_DC_ROUNDED)
+
+
+def _kernels(round_logits: bool):
+    """(ce_row_diag, ce_fwd, ce_dq, ce_dc) of the case."""
+    return ROUNDED_KERNELS if round_logits else KERNELS
 
 
 def _check(q16: torch.Tensor, c16: torch.Tensor, v: torch.Tensor, lq: torch.Tensor) -> None:
@@ -96,10 +117,15 @@ def logsumexp_shift(lq: torch.Tensor, inv_t: float, beta: float) -> torch.Tensor
     return lq.abs().amax().mul(beta).add(inv_t).add(1.0)
 
 
-def _masked_plane(q16, c16, v, lq, s: int, inv_t: float, beta: float):
+def _round_bf16(x: torch.Tensor, round_logits: bool) -> torch.Tensor:
+    """x rounded to bf16 and widened back (the rounded case), else x."""
+    return x.bfloat16().float() if round_logits else x
+
+
+def _masked_plane(q16, c16, v, lq, s: int, inv_t: float, beta: float, round_logits: bool = False):
     """(logits, adj, eye) of the whole (N, N) plane, in float32."""
     n = q16.shape[0]
-    raw = (q16.float() @ c16.float().t()) * inv_t
+    raw = _round_bf16(q16.float() @ c16.float().t(), round_logits) * inv_t
     idx = torch.arange(n, device=q16.device)
     user = idx // s
     eye = idx[:, None] == idx[None, :]
@@ -109,39 +135,42 @@ def _masked_plane(q16, c16, v, lq, s: int, inv_t: float, beta: float):
     return logits, adj, eye
 
 
-def row_diag_reference(q16, c16, v, inv_t: float) -> torch.Tensor:
+def row_diag_reference(q16, c16, v, inv_t: float, round_logits: bool = False) -> torch.Tensor:
     """The diagonal of ``ce_row_diag``'s plain version: the f32 row dot
-    q_i.c_i times inv_t, -1e9 where the row's candidate is invalid."""
-    return torch.where(v, (q16.float() * c16.float()).sum(-1) * inv_t, BIG_NEG)
+    q_i.c_i (rounded to bf16 in the rounded case) times inv_t, -1e9 where
+    the row's candidate is invalid."""
+    dot = _round_bf16((q16.float() * c16.float()).sum(-1), round_logits)
+    return torch.where(v, dot * inv_t, BIG_NEG)
 
 
-def row_diag_and_shift_reference(q16, c16, v, lq, inv_t: float, beta: float):
+def row_diag_and_shift_reference(q16, c16, v, lq, inv_t: float, beta: float, round_logits: bool = False):
     """Plain PyTorch version of ``ce_row_diag``: (diag, m), the row diagonal
     and the logsumexp shift."""
-    return row_diag_reference(q16, c16, v, inv_t), logsumexp_shift(lq.float(), inv_t, beta)
+    return row_diag_reference(q16, c16, v, inv_t, round_logits), logsumexp_shift(lq.float(), inv_t, beta)
 
 
-def ce_fwd_reference(q16, c16, v, lq, diag, s: int, inv_t: float, beta: float):
+def ce_fwd_reference(q16, c16, v, lq, diag, s: int, inv_t: float, beta: float, round_logits: bool = False):
     """Plain PyTorch version of ``ce_fwd``: (ce float32, rank int32, lse
     float32) per row, lse = ce + diag being the backward's residual."""
-    logits, adj, eye = _masked_plane(q16, c16, v, lq, s, inv_t, beta)
+    logits, adj, eye = _masked_plane(q16, c16, v, lq, s, inv_t, beta, round_logits)
     m = logsumexp_shift(lq.float(), inv_t, beta)
     ce = m + torch.log(torch.exp(adj - m).sum(-1)) - diag
     rank = ((logits > diag[:, None]) & ~eye).sum(-1, dtype=torch.int32)
     return ce, rank, ce + diag
 
 
-def ce_forward_reference(q16, c16, v, lq, s: int, inv_t: float, beta: float):
+def ce_forward_reference(q16, c16, v, lq, s: int, inv_t: float, beta: float, round_logits: bool = False):
     """The plain versions of ``ce_row_diag`` and ``ce_fwd`` in turn."""
     _check(q16, c16, v, lq)
-    return ce_fwd_reference(q16, c16, v, lq, row_diag_reference(q16, c16, v, inv_t), s, inv_t, beta)
+    diag = row_diag_reference(q16, c16, v, inv_t, round_logits)
+    return ce_fwd_reference(q16, c16, v, lq, diag, s, inv_t, beta, round_logits)
 
 
-def ce_forward(q16, c16, v, lq, s: int, inv_t: float, beta: float):
+def ce_forward(q16, c16, v, lq, s: int, inv_t: float, beta: float, round_logits: bool = False):
     """(ce, rank, lse) per row. CPU tensors take the plain version; CUDA
-    tensors launch ``ce_row_diag`` and ``ce_fwd``."""
+    tensors launch ``ce_row_diag`` and ``ce_fwd`` (or their rounded case)."""
     if q16.device.type == "cpu":
-        return ce_forward_reference(q16, c16, v, lq, s, inv_t, beta)
+        return ce_forward_reference(q16, c16, v, lq, s, inv_t, beta, round_logits)
     _check(q16, c16, v, lq)
     if q16.device.type != "cuda":
         raise ValueError(f"no fused CE kernel for device {q16.device}")
@@ -152,24 +181,26 @@ def ce_forward(q16, c16, v, lq, s: int, inv_t: float, beta: float):
     ce, lse = torch.empty_like(diag), torch.empty_like(diag)
     rank = torch.empty(n, dtype=torch.int32, device=q16.device)
     stream = _stream(q16)
-    CE_ROW_DIAG.launch(
+    row_diag, fwd, _, _ = _kernels(round_logits)
+    row_diag.launch(
         q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), diag.data_ptr(), m.data_ptr(),
         n, d, inv_t, beta, stream,
     )
-    check_kernel_outputs(CE_ROW_DIAG.name, (diag, m))
-    CE_FWD.launch(
+    check_kernel_outputs(row_diag.name, (diag, m))
+    fwd.launch(
         q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), m.data_ptr(), diag.data_ptr(),
         ce.data_ptr(), lse.data_ptr(), rank.data_ptr(), n, d, s, inv_t, beta, stream,
     )
     # a row whose every candidate is masked has ce = lse = -inf by design
-    check_kernel_outputs(CE_FWD.name, (ce, lse), allow_neg_inf=True)
+    check_kernel_outputs(fwd.name, (ce, lse), allow_neg_inf=True)
     return ce, rank, lse
 
 
-def ce_grad_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, wrt: str):
+def ce_grad_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, wrt: str,
+                      round_logits: bool = False):
     """Plain PyTorch version of ``ce_dq`` (``wrt="q"``) or ``ce_dc``
     (``wrt="c"``), in the operands' type."""
-    _, adj, eye = _masked_plane(q16, c16, v, lq, s, inv_t, beta)
+    _, adj, eye = _masked_plane(q16, c16, v, lq, s, inv_t, beta, round_logits)
     a = dce.float() * inv_t
     lse = lse.float()[:, None]
     # padded and fully masked rows: exp(adj - lse) would overflow, and
@@ -181,17 +212,18 @@ def ce_grad_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: flo
     return (g.t() @ q16.float()).to(c16.dtype)
 
 
-def ce_backward_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float):
+def ce_backward_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float,
+                          round_logits: bool = False):
     """The plain versions of ``ce_dq`` and ``ce_dc``: (dq, dc)."""
     _check(q16, c16, v, lq)
-    return tuple(ce_grad_reference(q16, c16, v, lq, lse, dce, s, inv_t, beta, w) for w in "qc")
+    return tuple(ce_grad_reference(q16, c16, v, lq, lse, dce, s, inv_t, beta, w, round_logits) for w in "qc")
 
 
-def ce_backward(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float):
+def ce_backward(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, round_logits: bool = False):
     """(dq, dc). CPU tensors take the plain version; CUDA tensors launch
-    ``ce_dq`` and ``ce_dc``."""
+    ``ce_dq`` and ``ce_dc`` (or their rounded case)."""
     if q16.device.type == "cpu":
-        return ce_backward_reference(q16, c16, v, lq, lse, dce, s, inv_t, beta)
+        return ce_backward_reference(q16, c16, v, lq, lse, dce, s, inv_t, beta, round_logits)
     _check(q16, c16, v, lq)
     if q16.device.type != "cuda":
         raise ValueError(f"no fused CE kernel for device {q16.device}")
@@ -204,10 +236,11 @@ def ce_backward(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float):
     dq, dc = torch.empty_like(q16), torch.empty_like(c16)
     args = (q16.data_ptr(), c16.data_ptr(), v.data_ptr(), lq.data_ptr(), lse.data_ptr(), dce.data_ptr())
     stream = _stream(q16)
-    CE_DQ.launch(*args, dq.data_ptr(), n, d, s, inv_t, beta, stream)
-    check_kernel_outputs(CE_DQ.name, (dq,))
-    CE_DC.launch(*args, dc.data_ptr(), n, d, s, inv_t, beta, stream)
-    check_kernel_outputs(CE_DC.name, (dc,))
+    _, _, dq_kernel, dc_kernel = _kernels(round_logits)
+    dq_kernel.launch(*args, dq.data_ptr(), n, d, s, inv_t, beta, stream)
+    check_kernel_outputs(dq_kernel.name, (dq,))
+    dc_kernel.launch(*args, dc.data_ptr(), n, d, s, inv_t, beta, stream)
+    check_kernel_outputs(dc_kernel.name, (dc,))
     return dq, dc
 
 
@@ -216,10 +249,10 @@ class FusedContrastiveCE(torch.autograd.Function):
     and c16; the saved residual is lse, O(N)."""
 
     @staticmethod
-    def forward(ctx, q16, c16, v, lq, s: int, inv_t: float, beta: float):
-        ce, rank, lse = ce_forward(q16, c16, v, lq, s, inv_t, beta)
+    def forward(ctx, q16, c16, v, lq, s: int, inv_t: float, beta: float, round_logits: bool = False):
+        ce, rank, lse = ce_forward(q16, c16, v, lq, s, inv_t, beta, round_logits)
         ctx.save_for_backward(q16, c16, v, lq, lse)
-        ctx.consts = (s, inv_t, beta)
+        ctx.consts = (s, inv_t, beta, round_logits)
         ctx.mark_non_differentiable(rank)
         return ce, rank
 
@@ -228,17 +261,19 @@ class FusedContrastiveCE(torch.autograd.Function):
         with span("lthm/ce_backward"):
             q16, c16, v, lq, lse = ctx.saved_tensors
             dq, dc = ce_backward(q16, c16, v, lq, lse, dce, *ctx.consts)
-            return dq, dc, None, None, None, None, None
+            return dq, dc, None, None, None, None, None, None
 
 
 def fused_contrastive_ce(
     q16: torch.Tensor, c16: torch.Tensor, v: torch.Tensor, lq: torch.Tensor,
-    s: int, inv_t: float, beta: float,
+    s: int, inv_t: float, beta: float, round_logits: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ce float32, rank int32) per row; differentiable with respect to q16
     and c16.
 
     q16, c16: (N, D) L2-normalized queries and candidates (bf16 on the card);
     v: (N,) bool candidate validity; lq: (N,) float32 logQ per candidate;
-    s: tokens per user (the same-user block); inv_t = 1 / temperature."""
-    return FusedContrastiveCE.apply(q16, c16, v, lq, int(s), float(inv_t), float(beta))
+    s: tokens per user (the same-user block); inv_t = 1 / temperature;
+    round_logits: the rounded case (each product stored in bf16 before the
+    scale by inv_t)."""
+    return FusedContrastiveCE.apply(q16, c16, v, lq, int(s), float(inv_t), float(beta), bool(round_logits))

@@ -9,13 +9,16 @@ machine with the card do without.)
 """
 
 import math
+from unittest import mock
 
 import pytest
 import torch
 
-from chip_smoke import bias_reference, compare_ce
+from chip_smoke import bias_reference, ce_inputs, compare_ce
+from recommendations_tpu_torch.models.lthm import loss as tloss
 from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
+from recommendations_tpu_torch.nn import logq as tlogq
 from recommendations_tpu_torch.ops import fused_attention as fa
 from recommendations_tpu_torch.ops import fused_ce as fc
 from recommendations_tpu_torch.train.step import train_step
@@ -557,6 +560,94 @@ def test_fused_training_step_on_card_matches_cpu(cuda):
     for name in gc:
         tol = 2**-8 if ".direction_emb_" in name else 2e-4
         assert ((gg[name] - gc[name]).norm() / gc[name].norm().clamp_min(1e-30)).item() <= tol, name
+
+
+# -- the CE kernels' rounded case: the eager CE (fused_ce off) on the card -----
+
+ROUNDED_SHAPES = [
+    (16384, 512, 128, 0.0, "roll"),        # lthm_prod.train's chunk: 32 users of 512 tokens
+    (17000, 1000, 64, 1.0, "random"),      # 128-row blocks, a ragged last block and stage
+    (8448, 264, 32, 0.5, "invalid_user"),  # the stream split, a user with every slot invalid
+]
+
+
+@pytest.mark.parametrize("n,s,d,beta,pattern", [*ROUNDED_SHAPES, (512, 32, 16, 1.0, "one_user")])
+def test_rounded_ce_kernels_match_rounded_plain_versions(cuda, n, s, d, beta, pattern):
+    """Each kernel of the rounded case against its rounded plain version on
+    grid rows (every product exact in float32, so every implementation
+    rounds the same S to bf16), at chip_smoke.py's tolerances: ce, lse, diag
+    2e-5; rank equal; dq, dc one bf16 ulp; the same bits twice."""
+    before = [k.launches for k in fc.KERNELS]
+    compare_ce(fc, n, s, d, beta, pattern, rounded=True)
+    assert [k.launches for k in fc.KERNELS] == before
+
+
+@pytest.mark.parametrize("n,s,d,beta,pattern", ROUNDED_SHAPES)
+def test_rounded_route_matches_ce_core_on_card(cuda, n, s, d, beta, pattern):
+    """``fused_contrastive_ce(round_logits=True)`` against ``CECore`` on the
+    card, forward and backward, on grid rows (with cuBLAS's reduced-precision
+    reductions off, so its GEMM sums S exactly too): ce within 2e-5 (1 +
+    |ce|), the kernels' exp2 and sum order against torch's; rank equal; dq
+    and dc within one bf16 ulp of the largest element, with chip_smoke.py's
+    floor of 2**-16 * inv_t. One launch of each rounded kernel, none of the
+    unrounded ones."""
+    q, c, v, lq, dce = ce_inputs(n, s, d, pattern, seed=n + d, grid=True)
+
+    def run(ce_fn):
+        qg, cg = q.clone().requires_grad_(), c.clone().requires_grad_()
+        ce, rank = ce_fn(qg, cg)
+        (torch.where(torch.isfinite(ce), ce, 0.0) * dce).sum().backward()
+        torch.cuda.synchronize()
+        return ce.detach(), rank, qg.grad, cg.grad
+
+    counted = (*fc.KERNELS, *fc.ROUNDED_KERNELS)
+    before = [k.launches for k in counted]
+    ce, rank, dq, dc = run(lambda a, b: fc.fused_contrastive_ce(a, b, v, lq, s, 20.0, beta, round_logits=True))
+    assert [k.launches - n0 for k, n0 in zip(counted, before)] == [0] * 4 + [1] * 4
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        core_ce, core_rank, core_dq, core_dc = run(lambda a, b: tloss.CECore.apply(a, b, v, lq, s, 20.0, beta))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    fin = torch.isfinite(core_ce)
+    assert torch.equal(torch.isfinite(ce), fin)
+    assert ((ce - core_ce).abs()[fin] <= CE_TOL * (1 + core_ce.abs()[fin])).all()
+    assert torch.equal(rank, core_rank)
+    for g_, w_ in ((dq, core_dq), (dc, core_dc)):
+        assert g_.dtype == torch.bfloat16 and bool(torch.isfinite(g_.float()).all())
+        assert (g_.float() - w_.float()).abs().max().item() <= max(_bf16_ulp(w_), 2**-16 * 20.0)
+
+
+@pytest.mark.parametrize("chunk,dtype", [(2, torch.float32), (1, torch.bfloat16)])
+def test_eager_ce_setting_runs_the_rounded_kernels(cuda, chunk, dtype):
+    """One training ``contrastive_step`` at ``fused_ce=False`` on the card, 6
+    lookahead heads over 4 users in chunks of 2 (float32 heads) or 1 (bf16
+    heads, whose one-user slices are strided views): 6 launches of each
+    rounded kernel a chunk, none of the unrounded ones, and no call to
+    ``CECore`` (its (N, N) products); the loss finite, its gradient reaching
+    the heads where a chunk holds two users (a one-user chunk has no
+    negative: every other column is its own user's, so its rows weigh 0)."""
+    b, s, d, heads = 4, 40, 64, 6
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out_emb = torch.randn(b, s + 1, heads, d, generator=g, device="cuda").to(dtype).requires_grad_()
+    in_emb = torch.randn(b, s, d, generator=g, device="cuda").to(dtype).requires_grad_()
+    mask = torch.rand(b, s, generator=g, device="cuda") < 0.15
+    ids = torch.randint(1, 2**62, (b, s), generator=g, device="cuda").masked_fill(mask, 0)
+    output = {"next_token_emb": out_emb, "current_token_emb": in_emb, "current_token_mask": mask,
+              "current_token_ids": ids}
+    before = [k.launches for k in (*fc.KERNELS, *fc.ROUNDED_KERNELS)]
+    with mock.patch.object(tloss.CECore, "apply", side_effect=AssertionError("CECore ran on the card")):
+        loss, metrics, _ = tloss.contrastive_step(
+            output, tlogq.init_logq_state(64, [0, 7], 0.01, device="cuda"), torch.tensor(3.0, device="cuda"),
+            lookahead=[0, 1, 2, 3, 4, 5], temperature=0.05, beta=0.5, alpha=0.05, metrics_k_all=[1, 5],
+            train_mini_batch_size=chunk, training=True, fused_ce=False, offsets=[0, 1, 2, 3, 4, 5])
+        loss.backward()
+    torch.cuda.synchronize()
+    counted = (*fc.KERNELS, *fc.ROUNDED_KERNELS)
+    assert [k.launches - n0 for k, n0 in zip(counted, before)] == [0] * 4 + [heads * (b // chunk)] * 4
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(out_emb.grad.float()).all())
+    assert (out_emb.grad.float().abs().sum().item() > 0) == (chunk > 1)
 
 
 # -- flash attention with the relative-position bias --------------------------

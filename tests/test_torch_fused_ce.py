@@ -13,6 +13,8 @@ q_i.c_i exceeds its separately summed diagonal, so its rank is the port's or
 one more; the tests hold that one-sided difference and print how many rows
 it touches."""
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -275,3 +277,156 @@ def test_fused_and_unfused_ce_train_the_same_loss():
         losses.append(loss.item())
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) <= 1e-2
+
+
+# -- the rounded case: the eager CE's function on the CE kernels ----------------
+
+
+def grid_unit_rows(g: torch.Generator, n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) bf16 rows of unit norm up to the grid: every element a multiple
+    of 2**-10 and a bf16 value, so every product is a multiple of 2**-20 and
+    every partial sum of a row dot (at most about 1 in magnitude) is exact in
+    float32. S = q.c^T is then the same in any order of summation, and its
+    bf16 rounding the same in every implementation."""
+    x = torch.nn.functional.normalize(torch.randn(n, d, generator=g), dim=-1).bfloat16().float()
+    return (torch.round(x * 1024.0) / 1024.0).bfloat16().to(device)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("all_invalid_user", [False, True])
+@pytest.mark.parametrize("beta", [0.0, 0.5])
+def test_rounded_plain_versions_give_ce_core(beta, all_invalid_user, d):
+    """The rounded plain versions (``round_logits=True``) against the JAX
+    package's ``_ce_core`` (op by op, as ``tests/test_torch_loss.py`` runs
+    it) and against ``CECore``, the port's copy of it, on grid rows whose
+    products are exact in float32, so all three round the same S to bf16.
+    ce: 2e-6 (1 + |ce|), the same float32 operations on the same logits, a
+    reduction blocked otherwise at most; rank: equal; dq, dc: one bf16 ulp of
+    the largest element (the same bf16 g, its products summed in another
+    order). The unrounded plain version misses CECore's ce by more than
+    that, so the test sees the rounding."""
+    n_users, s = 4, 24
+    n = n_users * s
+    g = torch.Generator().manual_seed(d + int(all_invalid_user))
+    q, c = grid_unit_rows(g, n, d), grid_unit_rows(g, n, d)
+    v = torch.rand(n, generator=g) >= 0.15
+    if all_invalid_user:
+        v[s: 2 * s] = False
+    lq = -torch.log(torch.rand(n, generator=g) * 200.0 + 1.0)
+    dce = torch.rand(n, generator=g) * v
+
+    ce, rank, lse = tfc.ce_forward_reference(q, c, v, lq, s, INV_T, beta, round_logits=True)
+    dq, dc = tfc.ce_backward_reference(q, c, v, lq, lse, dce, s, INV_T, beta, round_logits=True)
+    tq, tc = q.clone().requires_grad_(), c.clone().requires_grad_()
+    core_ce, core_rank = tloss.CECore.apply(tq, tc, v, lq, s, INV_T, beta)
+    (torch.where(torch.isfinite(core_ce), core_ce, 0.0) * dce).sum().backward()
+
+    jv, jlq, jdce = jnp.asarray(v.numpy()), jnp.asarray(lq.numpy()), jnp.asarray(dce.numpy())
+
+    def jf(q16, c16):
+        jce, jrank = jloss._ce_core(q16, c16, jv, jlq, s, INV_T, beta)
+        return jnp.sum(jnp.where(jnp.isfinite(jce), jce, 0.0) * jdce), (jce, jrank)
+
+    jq, jc = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, c))
+    (_, (jce, jrank)), (jdq, jdc) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(jq, jc)
+    yardsticks = {
+        "_ce_core": tuple(torch.tensor(np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x))
+                          for x in (jce, jrank, jdq, jdc)),
+        "CECore": (core_ce.detach(), core_rank, tq.grad.float(), tc.grad.float()),
+    }
+    for name, (want_ce, want_rank, want_dq, want_dc) in yardsticks.items():
+        fin = torch.isfinite(want_ce)
+        assert torch.equal(torch.isfinite(ce), fin), name
+        err = ((ce - want_ce).abs() / (1.0 + want_ce.abs()))[fin].max().item()
+        assert err <= 2e-6, (name, err)
+        assert torch.equal(rank, want_rank.to(rank.dtype)), name
+        for got, want in ((dq, want_dq), (dc, want_dc)):
+            assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+            assert (got.float() - want).abs().max().item() <= 2**-8 * want.abs().max().item(), name
+    fin = torch.isfinite(core_ce)
+    unrounded = tfc.ce_forward_reference(q, c, v, lq, s, INV_T, beta)[0]
+    assert ((unrounded - core_ce.detach()).abs() / (1.0 + core_ce.detach().abs()))[fin].max().item() > 1e-4
+
+
+def test_rounded_route_on_cpu_runs_the_rounded_plain_versions():
+    """``fused_contrastive_ce(round_logits=True)`` on CPU tensors: the
+    rounded plain versions, bit for bit, and no kernel launched."""
+    g = torch.Generator().manual_seed(3)
+    q, c = grid_unit_rows(g, 64, 16), grid_unit_rows(g, 64, 16)
+    v, lq = torch.rand(64, generator=g) >= 0.2, -torch.rand(64, generator=g) * 5.0
+    before = [k.launches for k in (*tfc.KERNELS, *tfc.ROUNDED_KERNELS)]
+    ce, rank = tfc.fused_contrastive_ce(q, c, v, lq, 8, INV_T, 1.0, round_logits=True)
+    want_ce, want_rank, _ = tfc.ce_forward_reference(q, c, v, lq, 8, INV_T, 1.0, round_logits=True)
+    assert torch.equal(ce, want_ce) and torch.equal(rank, want_rank)
+    assert [k.launches for k in (*tfc.KERNELS, *tfc.ROUNDED_KERNELS)] == before
+
+
+@pytest.mark.parametrize("fused_ce", [False, True])
+def test_ce_rows_routes_each_setting(fused_ce):
+    """``_ce_rows`` on CPU tensors: ``fused_ce=False`` calls ``CECore`` (the
+    rounded kernels are the card's route), ``fused_ce=True`` the fused CE
+    with float32 logits (``round_logits`` false); each returns what it
+    returned."""
+    g = torch.Generator().manual_seed(4)
+    q, c = grid_unit_rows(g, 48, 32), grid_unit_rows(g, 48, 32)
+    v, lq = torch.rand(48, generator=g) >= 0.2, -torch.rand(48, generator=g) * 5.0
+    core = mock.Mock(wraps=tloss.CECore.apply)
+    fused = mock.Mock(wraps=tloss.fused_contrastive_ce)
+    with mock.patch.object(tloss.CECore, "apply", core), mock.patch.object(tloss, "fused_contrastive_ce", fused):
+        ce, rank = tloss._ce_rows(q, c, v, lq, 12, 0.05, 0.5, fused_ce)
+    assert (core.call_count, fused.call_count) == ((0, 1) if fused_ce else (1, 0))
+    if fused_ce:
+        assert fused.call_args.kwargs["round_logits"] is False
+        want = tfc.ce_forward_reference(q, c, v, lq, 12, 20.0, 0.5)[:2]
+    else:
+        want = tloss.CECore.apply(q, c, v, lq, 12, 20.0, 0.5)
+    assert torch.equal(ce, want[0]) and torch.equal(rank, want[1])
+
+
+@pytest.mark.parametrize("width, device, refused", [
+    (48, "cuda", True), (256, "cuda", True), (128, "cuda", False), (16, "cuda:0", False), (48, "cpu", False),
+])
+def test_check_ce_width(width, device, refused):
+    """On a CUDA device either CE setting runs the CE kernels, which take the
+    widths 16, 32, 64 and 128 only; the CPU's plain versions take any. (No
+    tensor is made, so the check runs without a card.)"""
+    if refused:
+        with pytest.raises(ValueError, match=f"product_emb_dim {width}"):
+            tloss.check_ce_width(width, torch.device(device))
+    else:
+        tloss.check_ce_width(width, torch.device(device))
+
+
+@pytest.mark.parametrize("fused_ce", [False, True])
+def test_init_aux_state_refuses_a_width_the_card_cannot_take(fused_ce):
+    """The wrapper's loss state is where the width is checked, before the
+    first step: a wrapper on a CUDA device (here a CPU wrapper told it is on
+    one; the check raises before any tensor is made) refuses a width the
+    kernels do not take, under either setting; on the CPU it runs."""
+    cfg = LTHMModelConfig.from_dict(small_config(
+        use_flash=False, fused_ce=fused_ce,
+        product_tower=dict(small_config()["product_tower"], product_emb_dim=48),
+    ))
+    wrapper = LTHMModelWrapper(cfg, device="cpu")
+    assert wrapper.init_aux_state().batch_idx.device.type == "cpu"
+    wrapper.device = torch.device("cuda")
+    with pytest.raises(ValueError, match="product_emb_dim 48"):
+        wrapper.init_aux_state()
+
+
+def test_rounded_library_is_named_by_the_source_it_includes(tmp_path):
+    """``fused_ce_rounded.cu`` is ``fused_ce.cu`` built with ``CE_ROUNDED``
+    defined: its library is its own, and its name follows an edit of the
+    source it includes, so an edited ``fused_ce.cu`` is never served by a
+    stale rounded library. (No build: the name alone.)"""
+    from recommendations_tpu_torch.ops.cuda_build import CSRC, library_path
+
+    for name in ("fused_ce.cu", "fused_ce_rounded.cu"):
+        (tmp_path / name).write_bytes((CSRC / name).read_bytes())
+    plain, rounded = library_path(tmp_path / "fused_ce.cu"), library_path(tmp_path / "fused_ce_rounded.cu")
+    assert plain != rounded
+    assert (tfc.CE_FWD.source.name, tfc.CE_FWD_ROUNDED.source.name) == ("fused_ce.cu", "fused_ce_rounded.cu")
+    with open(tmp_path / "fused_ce.cu", "a") as f:
+        f.write("\n// an edit\n")
+    assert library_path(tmp_path / "fused_ce_rounded.cu") != rounded
+    assert library_path(tmp_path / "fused_ce.cu") != plain

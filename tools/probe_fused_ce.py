@@ -108,13 +108,16 @@ def row_diag_and_shift(kern, q, c, v, lq, diag, m, n, d, inv_t, beta, stream):
     return m
 
 
-def ce_forward_shift_apart(q16, c16, v, lq, s, inv_t, beta):
+def ce_forward_shift_apart(q16, c16, v, lq, s, inv_t, beta, round_logits=False):
     """``fused_ce.ce_forward`` for a tree whose ce_row_diag takes no lq (bound
-    with ``SHIFT_APART``): the shift's four operations, then the two launches."""
+    with ``SHIFT_APART``): the shift's four operations, then the two launches.
+    Such a tree has no rounded case."""
     import torch
 
     from recommendations_tpu_torch.ops import fused_ce as f
 
+    if round_logits:
+        raise ValueError("a tree whose ce_row_diag takes no lq has no rounded case")
     f._check(q16, c16, v, lq)
     f._check_launch(q16, c16, v, lq, s)
     n, d = q16.shape

@@ -47,12 +47,14 @@ PAIRS = [
     for hd in HDS for ng in (1, 2)
 ] + [
     ("flash_bwd.cu", f"mqa_mma_dq_kernel<{hd},1>", f"mqa_mma_dq_kernel<{hd},1>") for hd in HDS
-] + [
-    ("fused_ce.cu", f"ce_grad_tc_kernel<{d},{s},{kind}>", f"ce_grad_tc_kernel<{d},{s},{kind}>")
+] + [  # the CE kernels against their unrounded case (ROUND_S, the last argument, 0)
+    ("fused_ce.cu", f"ce_grad_tc_kernel<{d},{s},{kind}>", f"ce_grad_tc_kernel<{d},{s},{kind},0>")
     for d in (16, 32, 64, 128) for s in (0, 1) for kind in (1, 2)
 ] + [
-    ("fused_ce.cu", f"ce_fwd_tc_kernel<{d},{s}>", f"ce_fwd_tc_kernel<{d},{s}>")
+    ("fused_ce.cu", f"ce_fwd_tc_kernel<{d},{s}>", f"ce_fwd_tc_kernel<{d},{s},0>")
     for d in (16, 32, 64, 128) for s in (0, 1)
+] + [
+    ("fused_ce.cu", f"row_diag_kernel<{d}>", f"row_diag_kernel<{d},0>") for d in (16, 32, 64, 128)
 ]
 
 
