@@ -20,25 +20,48 @@ ranges:
 - ``lthm/forward``: the module's forward (``loss_and_metrics`` and the
   serving ``forward``);
 - ``lthm/product_tower``: the KShift lookup and the product tower;
-- ``lthm/attention``: an attention layer's forward, opened again in remat's
-  rerun; ``lthm/attention_backward``: the flash kernels' backward;
-- ``lthm/mlp``: a block's MLP (or MoE pair), opened again in remat's rerun;
+- ``lthm/attention``: an attention layer's forward (the LFM2 stack's
+  grouped-query attention too), opened again in remat's rerun;
+  ``lthm/attention_backward``: the flash kernels' backward;
+- ``lthm/mlp``: a block's MLP (or MoE pair, or the LFM2 stack's dense
+  SwiGLU), opened again in remat's rerun;
+- the LFM2 stack (``nn/lfm2.py``), each opened again in remat's rerun:
+  ``lthm/short_conv``, the gated short convolution; ``lthm/moe_route``,
+  the router, its top-k, weights, counts and the rows' permutation;
+  ``lthm/moe_experts``, the grouped products and their SwiGLU;
+  ``lthm/moe_combine``, the rows back to their tokens and their weighted
+  sum; in the backward ``lthm/moe_backward``, the routed MoE's, and inside
+  it ``lthm/moe_experts_backward``, the grouped products' and SwiGLU's;
 - ``lthm/loss``: the contrastive loss; inside it ``lthm/logq`` (the logQ
   update) and ``lthm/loss_metrics`` (the metrics and their host reads);
   ``lthm/ce_backward``: the CE's backward;
 - ``lthm/backward``, ``lthm/optimizer``: the training step's phases.
 
 The backward's ranges open on the autograd engine's thread.
+
+Counters (``count(name, values)``): int64 device tensors that a layer adds
+to while a profiler records, never in the backward's rerun of a forward
+(remat) and never when no profiler records, where ``count`` returns after
+the same check as ``span``. They are read after the profiled steps
+(``counters()``), never inside one; ``reset_counters`` drops them. The
+port's counters:
+
+- ``lthm/moe_tokens/block_<i>``: the (token, slot) rows routed to each
+  expert of the LFM2 stack's MoE layer i, (E,).
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Dict
 
 import torch
 from torch.profiler import record_function
 
 _OFF = contextlib.nullcontext()
+# the profiler's counters, by name (module docstring); process-wide, as the
+# profiler itself is
+_COUNTERS: Dict[str, torch.Tensor] = {}
 
 
 def span(name: str):
@@ -47,3 +70,24 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return record_function(name)
     return _OFF
+
+
+def count(name: str, values: torch.Tensor) -> None:
+    """Add ``values`` to the counter ``name`` (made on first use, zeros of
+    their shape and device, int64) while a profiler records and outside a
+    backward; else do nothing."""
+    if not torch.autograd._profiler_enabled() or torch._C._current_graph_task_id() != -1:
+        return
+    c = _COUNTERS.get(name)
+    if c is None or c.shape != values.shape or c.device != values.device:
+        c = _COUNTERS[name] = torch.zeros(values.shape, dtype=torch.int64, device=values.device)
+    c.add_(values)
+
+
+def counters() -> Dict[str, torch.Tensor]:
+    """The counters so far, by name (the tensors themselves)."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -158,6 +158,10 @@ class TransformerConfig:
         d["attn_config"] = SelfAttentionConfig.from_dict(d["attn_config"])
         return _build(cls, d)
 
+    @property
+    def width(self) -> int:
+        return self.attn_config.n_embd
+
     def rotator(self):
         """``rotator_config`` as the block takes it: the MLP hidden
         multiplier (a float) or an ``MoESpec``, read as the JAX package
@@ -186,10 +190,74 @@ class TransformerConfig:
         return 4.0
 
 
+LFM2_BACKBONES = ("lfm2_moe",)
+LFM2_LAYER_TYPES = ("conv", "full_attention")
+
+
+@dataclass
+class LFM2MoEConfig:
+    """``transformer_config`` with ``backbone: lfm2_moe``: LFM2-8B-A1B's
+    hybrid stack (``nn/lfm2.py``) under the keys of its ``config.json``
+    (``model_type`` lfm2_moe). ``layer_types`` gives the depth (and
+    ``num_hidden_layers``, when given, must agree); the first
+    ``num_dense_layers`` layers take the dense SwiGLU of
+    ``intermediate_size``, the others ``num_experts`` routed experts of
+    ``moe_intermediate_size``, ``num_experts_per_tok`` a token. The routing
+    takes the published values only: it always uses the expert bias
+    (``use_expert_bias`` true) and weighs the chosen experts by their scores
+    over their sum (``norm_topk_prob`` true, ``routed_scaling_factor`` 1);
+    the convolution has no bias."""
+
+    backbone: str
+    hidden_size: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    intermediate_size: int
+    moe_intermediate_size: int
+    num_experts: int
+    num_experts_per_tok: int
+    num_dense_layers: int
+    layer_types: List[str]
+    num_hidden_layers: Optional[int] = None
+    conv_L_cache: int = 3
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-5
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    use_expert_bias: bool = True
+    enable_gradient_checkpointing: bool = False
+    remat_policy: str = "dots_no_batch"
+
+    sequence_parallel = False  # not a field: the stack has no ring
+
+    def __post_init__(self):
+        if self.backbone not in LFM2_BACKBONES:
+            raise ValueError(f"backbone {self.backbone!r} not in {LFM2_BACKBONES}")
+        bad = sorted(set(self.layer_types) - set(LFM2_LAYER_TYPES))
+        if bad:
+            raise ValueError(f"layer_types {bad} not in {LFM2_LAYER_TYPES}")
+        if self.num_hidden_layers is not None and self.num_hidden_layers != len(self.layer_types):
+            raise ValueError(f"num_hidden_layers {self.num_hidden_layers} != {len(self.layer_types)} layer_types")
+        if not self.use_expert_bias:
+            raise NotImplementedError("use_expert_bias false: the routed MoE always reads its expert bias")
+        if not self.norm_topk_prob or self.routed_scaling_factor != 1:
+            raise NotImplementedError(
+                f"norm_topk_prob {self.norm_topk_prob}, routed_scaling_factor {self.routed_scaling_factor}: "
+                "the routed MoE weighs the chosen experts by their scores over their sum, unscaled")
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LFM2MoEConfig":
+        return _build(cls, dict(d))
+
+    @property
+    def width(self) -> int:
+        return self.hidden_size
+
+
 @register_model_config
 @dataclass
 class LTHMModelConfig(ModelConfig):
-    transformer_config: TransformerConfig
+    transformer_config: Union[TransformerConfig, LFM2MoEConfig]
     features: FeaturesConfig = field(default_factory=FeaturesConfig)
     kind: str = "lthm"
     type: str = "lthm_seq"
@@ -239,7 +307,10 @@ class LTHMModelConfig(ModelConfig):
     @classmethod
     def from_dict(cls, d: dict) -> "LTHMModelConfig":
         d = dict(d)
-        d["transformer_config"] = TransformerConfig.from_dict(d["transformer_config"])
+        tc = d["transformer_config"]
+        # a ``backbone`` key selects LFM2's stack; without one, the LTHM stack
+        backbone = LFM2MoEConfig if isinstance(tc, dict) and "backbone" in tc else TransformerConfig
+        d["transformer_config"] = backbone.from_dict(tc)
         if "product_tower" in d:
             d["product_tower"] = ProductTowerConfig.from_dict(d["product_tower"])
         if "log_q_config" in d:
@@ -266,7 +337,7 @@ class LTHMModelConfig(ModelConfig):
 
     @property
     def emb_dim(self) -> int:
-        return self.transformer_config.attn_config.n_embd
+        return self.transformer_config.width
 
     @property
     def export_tokens(self) -> int:

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from recommendations_tpu_torch.core.spans import span
-from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
+from recommendations_tpu_torch.models.lthm.config import LFM2MoEConfig, LTHMModelConfig
 from recommendations_tpu_torch.models.lthm.pretrained import PretrainedProductEmbedding
 from recommendations_tpu_torch.nn.attention import Dense
 from recommendations_tpu_torch.nn.embeddings import (
@@ -40,6 +40,7 @@ from recommendations_tpu_torch.nn.embeddings import (
     init_param,
 )
 from recommendations_tpu_torch.nn.functional import cast_param, l2_normalize
+from recommendations_tpu_torch.nn.lfm2 import LFM2Stack
 from recommendations_tpu_torch.nn.lsh import CosineVectorEmbedding
 from recommendations_tpu_torch.nn.transformer import MoELinear, TransformerStack
 
@@ -107,11 +108,13 @@ class PositionEmbedding(nn.Module):
 
 class QueryTower(nn.Module):
     """Causal transformer over the left-padded interaction sequence, with one
-    linear head per lookahead horizon."""
+    linear head per lookahead horizon: the LTHM stack
+    (``nn/transformer.py``), or LFM2's hybrid stack (``nn/lfm2.py``) when
+    ``transformer_config`` names the ``lfm2_moe`` backbone."""
 
     def __init__(self, cfg: LTHMModelConfig, generator: torch.Generator):
         super().__init__()
-        tcfg, acfg = cfg.transformer_config, cfg.transformer_config.attn_config
+        tcfg = cfg.transformer_config
         self.cfg = cfg
         d = cfg.emb_dim
         dt = self.dtype = compute_dtype(cfg)
@@ -122,8 +125,21 @@ class QueryTower(nn.Module):
         self.inp_proj = Dense(cfg.product_tower.out_emb_dim, d, generator, dtype=dt)
         self.pad = init_param((1, 1, d), 1.0 / math.sqrt(d), generator)
         self.wpe = PositionEmbedding(cfg.context_width + 1, d, generator)
-        self.transformer = TransformerStack(
-            tcfg.num_layers, d, acfg.n_head, generator,
+        if isinstance(tcfg, LFM2MoEConfig):
+            self.transformer = LFM2Stack(tcfg, generator, dtype=dt)
+        else:
+            self.transformer = self._lthm_stack(tcfg, generator, dt)
+        self.outcome_conditioning = FlatEmbedding(4, d, generator, compute_dtype=dt)
+        self.emb_heads = Dense(
+            d, cfg.export_tokens * cfg.product_tower.product_emb_dim, generator,
+            use_bias=False, dtype=dt,
+        )
+
+    @staticmethod
+    def _lthm_stack(tcfg, generator: torch.Generator, dt: torch.dtype) -> TransformerStack:
+        acfg = tcfg.attn_config
+        return TransformerStack(
+            tcfg.num_layers, acfg.n_embd, acfg.n_head, generator,
             remat=tcfg.enable_gradient_checkpointing,
             remat_policy=tcfg.remat_policy,
             attn_type=acfg.attn_type,
@@ -139,11 +155,6 @@ class QueryTower(nn.Module):
             dtype=dt,
             dropout=acfg.dropout,
             attn_dropout=acfg.attn_dropout,
-        )
-        self.outcome_conditioning = FlatEmbedding(4, d, generator, compute_dtype=dt)
-        self.emb_heads = Dense(
-            d, cfg.export_tokens * cfg.product_tower.product_emb_dim, generator,
-            use_bias=False, dtype=dt,
         )
 
     def forward(

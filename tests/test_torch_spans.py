@@ -198,3 +198,74 @@ def test_bias_backward_kernels_launch_inside_attention_backward(tmp_path):
                 found[kernel] += 1
     assert found["mqa_tc_bias_dq_kernel"] == 2 and found["mqa_tc_bias_dkv_kernel"] == 2, found
     assert found["mqa_tc_bias_fwd_kernel"] >= 2, found
+
+
+# LFM2-8B-A1B's block as the backbone (nn/lfm2.py), tiny: a conv layer with
+# the dense SwiGLU, then an attention and a conv layer with routed experts
+LFM2_BACKBONE = dict(backbone="lfm2_moe", hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+                     intermediate_size=96, moe_intermediate_size=32, num_experts=8, num_experts_per_tok=2,
+                     num_dense_layers=1, layer_types=["conv", "full_attention", "conv"],
+                     enable_gradient_checkpointing=True)
+LFM2_MOE_BLOCKS = ("lthm/moe_tokens/block_1", "lthm/moe_tokens/block_2")
+
+
+def lfm2_wrapper():
+    cfg = tiny_config()
+    cfg["transformer_config"] = dict(LFM2_BACKBONE)
+    return LTHMModelWrapper(LTHMModelConfig.from_dict(cfg), device="cpu", seed=1)
+
+
+def test_lfm2_train_step_opens_its_ranges_and_counts_the_routed_rows_once():
+    """Each mixer, FFN and MoE phase in the forward and again in remat's
+    rerun, the MoE's backward ranges in ``lthm/backward``; the counter adds
+    each MoE layer's (token, slot) rows once a step, only under the
+    profiler."""
+    spans.reset_counters()
+    state = TrainState.create(lfm2_wrapper())
+    batch = tiny_batch()
+    train_step(state, batch, offsets=[0, 1])
+    assert spans.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_step(state, batch, offsets=[0, 1])
+    got = ranges(prof)
+    count = Counter(name for name, _, _ in got)
+    assert count["lthm/short_conv"] == 4 and count["lthm/attention"] == 2 and count["lthm/mlp"] == 2, count
+    for name in ("lthm/moe_route", "lthm/moe_experts", "lthm/moe_combine"):
+        assert count[name] == 4, (name, count)
+    (forward,) = [r for r in got if r[0] == "lthm/forward"]
+    (backward,) = [r for r in got if r[0] == "lthm/backward"]
+    moe_bwd = [r for r in got if r[0] == "lthm/moe_backward"]
+    experts_bwd = [r for r in got if r[0] == "lthm/moe_experts_backward"]
+    assert len(moe_bwd) == 2 and all(within(r, backward) for r in moe_bwd)
+    assert len(experts_bwd) == 2 and all(any(within(r, m) for m in moe_bwd) for r in experts_bwd)
+    for name in ("lthm/short_conv", "lthm/moe_route", "lthm/moe_experts", "lthm/moe_combine"):
+        assert sum(within(r, forward) for r in got if r[0] == name) == count[name] // 2, name
+    counters = spans.counters()
+    assert sorted(counters) == list(LFM2_MOE_BLOCKS)
+    # 4 users, the CLS column and 24 positions, 2 experts a position
+    assert all(c.dtype == torch.int64 and c.shape == (8,) and int(c.sum()) == 4 * 25 * 2
+               for c in counters.values())
+    spans.reset_counters()
+
+
+def test_lfm2_user_encoder_opens_each_layer_once_and_counts_without_a_gradient():
+    spans.reset_counters()
+    encode = lfm2_wrapper().inference_models()["user_encoder"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        encode(tiny_batch())
+    count = Counter(name for name, _, _ in ranges(prof))
+    assert count["lthm/short_conv"] == 2 and count["lthm/attention"] == 1 and count["lthm/moe_experts"] == 2
+    assert not {"lthm/backward", "lthm/moe_backward", "lthm/moe_experts_backward"} & set(count)
+    assert all(int(c.sum()) == 4 * 25 * 2 for c in spans.counters().values())
+    spans.reset_counters()
+
+
+def test_counter_does_nothing_outside_a_profiler(monkeypatch):
+    """Outside a profiler ``count`` returns after the profiler check: no
+    tensor is made or added to."""
+    made = []
+    monkeypatch.setattr(spans.torch, "zeros", lambda *a, **k: made.append(a))
+    spans.reset_counters()
+    for _ in range(3):
+        spans.count("lthm/moe_tokens/block_1", torch.ones(8, dtype=torch.int64))
+    assert spans.counters() == {} and made == []
