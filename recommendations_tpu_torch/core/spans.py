@@ -48,6 +48,15 @@ port's counters:
 
 - ``lthm/moe_tokens/block_<i>``: the (token, slot) rows routed to each
   expert of the LFM2 stack's MoE layer i, (E,).
+
+Host tallies (``tally(name)``): counts kept on the host, added to on every
+call whether or not a profiler records, doing no device work; ``counters()``
+returns them too, as 0-dim int64 CPU tensors, and ``reset_counters`` drops
+them with the rest. The port's tallies:
+
+- ``lthm/step_graph/replays``: training steps that replayed the captured
+  step (``train/step_graph.py``), its capture included;
+- ``lthm/step_graph/eager``: training steps that ran eager.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ _OFF = contextlib.nullcontext()
 # the profiler's counters, by name (module docstring); process-wide, as the
 # profiler itself is
 _COUNTERS: Dict[str, torch.Tensor] = {}
+_TALLIES: Dict[str, int] = {}
 
 
 def span(name: str):
@@ -84,10 +94,17 @@ def count(name: str, values: torch.Tensor) -> None:
     c.add_(values)
 
 
+def tally(name: str) -> None:
+    """Add one to the host tally ``name``, profiler or not."""
+    _TALLIES[name] = _TALLIES.get(name, 0) + 1
+
+
 def counters() -> Dict[str, torch.Tensor]:
-    """The counters so far, by name (the tensors themselves)."""
-    return dict(_COUNTERS)
+    """The counters so far, by name (the tensors themselves), and the host
+    tallies."""
+    return {**_COUNTERS, **{k: torch.tensor(v, dtype=torch.int64) for k, v in _TALLIES.items()}}
 
 
 def reset_counters() -> None:
     _COUNTERS.clear()
+    _TALLIES.clear()

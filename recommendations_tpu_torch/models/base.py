@@ -12,6 +12,9 @@ strategy falls back to where a wrapper lacks the hook
   keywords; a wrapper takes those it uses and ignores the rest;
 - ``init_aux_state``: the state threaded through the steps beside the
   parameters (None);
+- ``draw_offsets(generator)``: the step's draw of the loss's host inputs
+  from the state's ``generator``, passed back as ``offsets`` (None: the
+  loss draws nothing);
 - the table hooks: no sparse taps, no lazy table, no table state;
 - ``nan_check_params``: the parameters the step's ``params_nan`` covers
   (every one);
@@ -47,6 +50,9 @@ class BaseModelWrapper(abc.ABC):
         """(loss, metrics, new aux state)."""
 
     def init_aux_state(self) -> Any:
+        return None
+
+    def draw_offsets(self, generator: torch.Generator) -> Optional[torch.Tensor]:
         return None
 
     # ----- the table hooks of the training step ------------------------------

@@ -25,7 +25,13 @@ counts rank = #(masked logits > positive).
 Offsets: the JAX package draws them from ``jax.random``, whose bits a
 ``torch.Generator`` does not give, so ``contrastive_step`` takes them as an
 argument (``offsets=``) or draws them with the same distribution from a
-generator.
+generator. They go to the device as an int64 tensor, and every use of them
+there is a device op: head i's candidate of slot j is read by an index
+gather at (j + offset_i) mod S (``torch.roll``'s data movement), its
+validity cut at S - offset_i, and its ``offset`` metric cast from the
+tensor. So the loss reads no device value on the host and runs at fixed
+shapes, and a captured step (``train/step_graph.py``) takes each step's
+offsets from a buffer.
 
 Over a data-parallel group (``data_group``) the loss is JAX's over the
 whole batch, each rank holding its rows' part:
@@ -73,6 +79,24 @@ def sample_offsets(generator: torch.Generator, lookahead: Sequence[int]) -> torc
         dev = generator.device
         offsets.append(int(torch.randint(lo, int(hi) + 1, (), generator=generator, device=dev)))
     return torch.tensor(offsets, dtype=torch.int64)
+
+
+def device_offsets(offsets, device) -> torch.Tensor:
+    """``offsets`` (a sequence, array or tensor of ints) as int64 on
+    ``device``; from host memory to a CUDA device through pinned memory,
+    without a wait."""
+    if not isinstance(offsets, torch.Tensor):
+        offsets = torch.from_numpy(np.array(offsets, dtype=np.int64))
+    t = offsets.reshape(-1).to(torch.int64)
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def lookahead_index(offsets: torch.Tensor, s: int) -> torch.Tensor:
+    """(k, s) int64: row i is (j + offsets[i]) mod s, the position slot j
+    reads under ``torch.roll(x, -offsets[i], dims=1)``."""
+    return torch.remainder(torch.arange(s, device=offsets.device)[None, :] + offsets[:, None], s)
 
 
 def _masked_adj(q, c, vv, lqv, s: int, inv_t: float, beta: float):
@@ -177,7 +201,7 @@ def _head_loss(
     # the diagonal, minus the positive
     vf = v.float()
     per_user = vf.reshape(bc, s).sum(-1)
-    num_neg = (vf.sum() - per_user.repeat_interleave(s) + vf - 1.0).to(torch.int32)
+    num_neg = (vf.sum() - per_user[:, None].expand(bc, s).reshape(n) + vf - 1.0).to(torch.int32)
     w = (v & (num_neg > 0)).float()
 
     # NaN filter; also catches the -inf of a fully masked row (w = 0 there)
@@ -223,7 +247,8 @@ def contrastive_step(
     """Loss over the macro batch, the metrics under the JAX package's keys,
     and the new logQ state (updated in training only).
 
-    ``offsets`` (one int per head) overrides the draw from ``generator``.
+    ``offsets`` (one int per head, on the host or on the device)
+    overrides the draw from ``generator``.
     Chunks of ``train_mini_batch_size`` users (training only) each give an
     (N, N) tile; the loss and metrics are averaged over chunks, as the JAX
     package's scan does. ``data_group``: the ranks that hold the other rows
@@ -249,9 +274,9 @@ def contrastive_step(
         if generator is None:
             raise ValueError("contrastive_step needs offsets or a generator to draw them")
         offsets = sample_offsets(generator, lookahead)
-    offsets = [int(o) for o in np.asarray(offsets).reshape(-1)]
-    if len(offsets) != k_heads:
-        raise ValueError(f"{len(offsets)} offsets for {k_heads} heads")
+    offsets = device_offsets(offsets, out_emb.device)
+    if offsets.numel() != k_heads:
+        raise ValueError(f"{offsets.numel()} offsets for {k_heads} heads")
 
     prefix = "train" if training else "val"
     chunk = train_mini_batch_size if (training and train_mini_batch_size > 0) else b
@@ -272,17 +297,18 @@ def contrastive_step(
     total_loss = torch.zeros((), dtype=torch.float32, device=dev)
     with span("lthm/loss_metrics"):
         metrics: Metrics = {
-            f"{prefix}_batch_size": torch.tensor(float(b), device=dev),
-            f"{prefix}_seq_len": torch.tensor(float(s), device=dev),
+            f"{prefix}_batch_size": torch.full((), float(b), device=dev),
+            f"{prefix}_seq_len": torch.full((), float(s), device=dev),
         }
     pos = torch.arange(s, device=dev)[None, :]
+    index = lookahead_index(offsets, s)
     heads = []
-    for i, off in enumerate(offsets):
-        # roll the candidate stream so slot (b, j) pairs with token (b, j+off)
-        cand = torch.roll(in_emb, -off, dims=1)
-        cand_mask = torch.roll(mask, -off, dims=1)
-        cand_logq = torch.roll(logq, -off, dims=1)
-        valid = ~cand_mask & (pos < s - off)
+    for i in range(k_heads):
+        # slot (b, j) pairs with token (b, j + offset), as rolled by -offset
+        cand = in_emb.index_select(1, index[i])
+        cand_mask = mask.index_select(1, index[i])
+        cand_logq = logq.index_select(1, index[i])
+        valid = ~cand_mask & (pos < s - offsets[i])
         query = out_emb[:, :s, i, :]
 
         losses, reported, ranks, weights, min_negs = [], [], [], [], []
@@ -301,7 +327,7 @@ def contrastive_step(
                 reported.append(m)
         head_loss = torch.stack(losses).sum() / len(bounds)
         total_loss = total_loss + head_loss
-        heads.append((off, reported, torch.cat(ranks), torch.cat(weights), torch.stack(min_negs).min()))
+        heads.append((offsets[i], reported, torch.cat(ranks), torch.cat(weights), torch.stack(min_negs).min()))
 
     # the whole batch's metrics: chunk means, the hit rates over every row
     with span("lthm/loss_metrics"), torch.no_grad(), unchecked():
@@ -322,7 +348,7 @@ def contrastive_step(
             used = row[-1].clamp_min(1.0)
             for j, k in enumerate(metrics_k_all):
                 agg[f"hit_rate_at_{k}"] = row[len(keys) + j] / used
-            agg["offset"] = torch.tensor(float(off), device=dev)
+            agg["offset"] = off.float()
             for key, val in agg.items():
                 metrics[f"{prefix}_{key}_lookahead_{i}"] = val
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)

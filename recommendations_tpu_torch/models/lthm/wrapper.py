@@ -45,6 +45,7 @@ from recommendations_tpu_torch.models.lthm.config import (
     LTHMModelConfig,
 )
 from recommendations_tpu_torch.models.lthm.convert import state_dict_from_jax
+from recommendations_tpu_torch.models.lthm import loss as lthm_loss
 from recommendations_tpu_torch.models.lthm.loss import Metrics, check_ce_width, contrastive_step
 from recommendations_tpu_torch.models.lthm.model import LTHMEncoder
 from recommendations_tpu_torch.models.lthm.pretrained import load_pretrained_constants
@@ -204,6 +205,11 @@ class LTHMModelWrapper(BaseModelWrapper):
             logq=init_logq_state(lq.num_buckets, lq.hash_offsets, lq.p_init, self.device),
             batch_idx=torch.zeros((), dtype=torch.float32, device=self.device),
         )
+
+    def draw_offsets(self, generator: torch.Generator) -> torch.Tensor:
+        """The step's lookahead offsets from ``generator`` (the loss key),
+        int64 on the host."""
+        return lthm_loss.sample_offsets(generator, self.config.lookahead)
 
     def loss_and_metrics(
         self,

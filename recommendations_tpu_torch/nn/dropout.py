@@ -29,7 +29,7 @@ the masks of one process (JAX draws from one key for the global array).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -100,3 +100,18 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], 
     keep = _keep(generator, keep_prob, x.shape, x.device, 1, shard)
     scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout_rates(module: torch.nn.Module) -> List[float]:
+    """Every dropout rate ``module`` holds: the ``dropout`` and
+    ``attn_dropout`` numbers of its submodules (the layers here keep their
+    rates so) and each ``torch.nn.Dropout``'s ``p``."""
+    rates = []
+    for m in module.modules():
+        if isinstance(m, torch.nn.Dropout):
+            rates.append(float(m.p))
+        for name in ("dropout", "attn_dropout"):
+            rate = getattr(m, name, None)
+            if isinstance(rate, (int, float)) and not isinstance(rate, bool):
+                rates.append(float(rate))
+    return rates

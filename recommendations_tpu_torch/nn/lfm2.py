@@ -361,7 +361,10 @@ class LFM2Stack(nn.Module):
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")
             if remat:
-                x = checkpoint(block, x, cos, sin, use_reentrant=False, context_fn=context_fn)
+                # the blocks draw nothing from the default generators: no RNG
+                # state to stash, which a captured step could not read
+                x = checkpoint(block, x, cos, sin, use_reentrant=False, preserve_rng_state=False,
+                               context_fn=context_fn)
             else:
                 x = block(x, cos, sin)
         return self.embedding_norm(x)

@@ -9,14 +9,17 @@ update returns a new state and leaves its input alone.
 
 Repeated buckets in one batch: the JAX update is a scatter in which the last
 write in flattened order wins, and every id writes, a padding id writing back
-the value it read. A CUDA ``index_put_`` with repeated indices keeps no such
-order, so the update here first keeps, for each bucket, only its last
-occurrence, and then writes unique indices.
+the value it read. A CUDA ``scatter_`` with repeated indices keeps no such
+order, so here every occurrence of a bucket writes the value of the bucket's
+last occurrence: the repeated writes agree, in whatever order they land. The
+last occurrences are found by a stable sort, at fixed shapes and with no
+read of the device's values on the host, so the update can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -48,13 +51,19 @@ def _buckets(state: LogQState, ids: torch.Tensor) -> torch.Tensor:
     return torch.remainder(flat[None, :] + state.hash_offsets[:, None], state.b.shape[1])
 
 
-def _last_occurrence(h: torch.Tensor) -> torch.Tensor:
-    """Positions in the 1-D ``h`` of each value's last occurrence."""
-    order = torch.sort(h, stable=True).indices
-    sorted_h = h[order]
-    last = torch.ones_like(sorted_h, dtype=torch.bool)
-    last[:-1] = sorted_h[1:] != sorted_h[:-1]
-    return order[last]
+def _last_occurrence(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(buckets, last) of the (rows, n) ``h``, each row in sorted order:
+    ``buckets[r, j]`` is a bucket of row r and ``last[r, j]`` the position in
+    that row of the bucket's last occurrence, the same for every occurrence."""
+    order = torch.sort(h, dim=1, stable=True).indices
+    buckets = torch.gather(h, 1, order)
+    n = h.shape[1]
+    pos = torch.arange(n, device=h.device).expand_as(buckets)
+    run_end = torch.ones_like(buckets, dtype=torch.bool)
+    run_end[:, :-1] = buckets[:, 1:] != buckets[:, :-1]
+    # each sorted slot's run end: the first end at or after it
+    end = torch.where(run_end, pos, n).flip(1).cummin(1).values.flip(1)
+    return buckets, torch.gather(order, 1, end)
 
 
 def logq_update(
@@ -67,17 +76,13 @@ def logq_update(
     """One streaming step over the ids of this batch; ``valid`` (ids' shape)
     marks the real tokens. Returns the new state."""
     with span("lthm/logq"):
-        h = _buckets(state, ids)
-        v = valid.reshape(-1)
+        hk, last = _last_occurrence(_buckets(state, ids))
+        vk = valid.reshape(-1)[last]
         bi = torch.as_tensor(batch_idx, dtype=torch.float32, device=state.b.device)
-        b_new, a_new = state.b.clone(), state.a.clone()
-        for row in range(h.shape[0]):
-            keep = _last_occurrence(h[row])
-            hk, vk = h[row, keep], v[keep]
-            b_old, a_old = state.b[row, hk], state.a[row, hk]
-            gap = bi - a_old
-            b_new[row, hk] = torch.where(vk, (1.0 - alpha) * b_old + alpha * gap, b_old)
-            a_new[row, hk] = torch.where(vk, bi, a_old)
+        b_old, a_old = torch.gather(state.b, 1, hk), torch.gather(state.a, 1, hk)
+        gap = bi - a_old
+        b_new = state.b.clone().scatter_(1, hk, torch.where(vk, (1.0 - alpha) * b_old + alpha * gap, b_old))
+        a_new = state.a.clone().scatter_(1, hk, torch.where(vk, bi, a_old))
         return LogQState(b=b_new, a=a_new, hash_offsets=state.hash_offsets)
 
 

@@ -427,8 +427,11 @@ class TransformerStack(nn.Module):
         for depth in range(self.num_layers):
             block = getattr(self, f"block_{depth}")
             if remat:
+                # a block's dropout draws from its own seeded generator, never
+                # the default ones: no RNG state to stash, which a captured
+                # step could not read
                 x = checkpoint(block, x, attn_mask, training, seeds[depth], shard, use_reentrant=False,
-                               context_fn=context_fn)
+                               preserve_rng_state=False, context_fn=context_fn)
             else:
                 x = block(x, attn_mask, training, seeds[depth], shard)
         if group is not None:

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -86,12 +86,16 @@ def build_library(source: Path) -> Tuple[ctypes.CDLL, str]:
         return _LIBRARIES[source]
 
 
+ALL_KERNELS: List["CudaKernel"] = []
+
+
 class CudaKernel:
     """One kernel: its source, its C entry point, and a count of launches.
 
     ``launches`` is a plain integer that the wrapper raises by one for each
-    launch of the kernel, and nowhere else, so a run can show which kernels
-    its path went through.
+    launch of the kernel, and a replayed CUDA graph (``train/step_graph.py``)
+    by the launches its capture counted, so a run can show which kernels
+    its path went through. ``ALL_KERNELS`` lists every kernel made.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence[type]):
@@ -101,6 +105,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._fn = None
+        ALL_KERNELS.append(self)
 
     @property
     def name(self) -> str:

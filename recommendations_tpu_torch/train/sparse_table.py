@@ -67,7 +67,7 @@ def bias_corrections(count: torch.Tensor, b1: float, b2: float):
     """(1 - b1**count, 1 - b2**count) in float32, as the JAX package forms
     them (``jnp.float32(b) ** count``)."""
     c = count.to(torch.float32)
-    return tuple(1.0 - torch.tensor(b, dtype=torch.float32, device=c.device) ** c for b in (b1, b2))
+    return tuple(1.0 - torch.full((), b, dtype=torch.float32, device=c.device) ** c for b in (b1, b2))
 
 
 @torch.no_grad()

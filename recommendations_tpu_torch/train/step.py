@@ -21,7 +21,13 @@ package, where they sit outside ``optax.MultiSteps``.
 
 The forward's dropout masks come from ``state.next_dropout_seed()``, one
 draw a step (the JAX step's forward key); the offsets from
-``state.generator`` (its loss key).
+``state.generator`` (its loss key), drawn by the wrapper's
+``draw_offsets`` before the step runs.
+
+On a card the step is captured as one CUDA graph and replayed where
+``train/step_graph.py`` allows it (no profiler, no mesh, no dropout, a
+frozen or dense table, no accumulation, the captured shapes); elsewhere it
+runs eager. Both run ``step_body``, and give the same bits.
 
 Then the new aux state; the metrics ``grad_norm`` (of the raw gradients,
 with the taps' squares summed over every occurrence) and ``params_nan``
@@ -54,6 +60,7 @@ import torch
 
 from recommendations_tpu_torch.core.spans import span
 from recommendations_tpu_torch.parallel import collectives as col
+from recommendations_tpu_torch.train import step_graph
 from recommendations_tpu_torch.train.optimizers import global_norm
 from recommendations_tpu_torch.train.train_state import TrainState
 
@@ -90,19 +97,28 @@ def train_step(
     state: TrainState, batch: Mapping[str, Any], offsets=None
 ) -> Tuple[torch.Tensor, Metrics]:
     """One step in place on ``state``; returns (loss, metrics) as device
-    tensors. ``offsets`` overrides the draw from ``state.generator``."""
+    tensors of the caller's own. ``offsets`` overrides the draw from
+    ``state.generator``."""
     with span("lthm/step"):
-        return _train_step(state, batch, offsets)
+        if offsets is None:
+            offsets = state.wrapper.draw_offsets(state.generator)
+        out = step_graph.run(state, batch, offsets, state.next_dropout_seed(), step_body)
+        state.step += 1
+        return out
 
 
-def _train_step(state: TrainState, batch: Mapping[str, Any], offsets) -> Tuple[torch.Tensor, Metrics]:
+def step_body(state: TrainState, batch: Mapping[str, Any], offsets,
+              dropout_seed: int) -> Tuple[torch.Tensor, Metrics, Any]:
+    """The step's device work on ``state``'s parameters, optimizer and table
+    state: (loss, metrics, new aux state); ``state.aux`` and ``state.step``
+    are left to the caller."""
     wrapper = state.wrapper
     use_taps = wrapper.uses_sparse_taps()
     state.optimizer.zero_grad()
     taps = wrapper.make_taps(batch) if use_taps else None
     loss, metrics, new_aux = wrapper.loss_and_metrics(
         batch, state.aux, True, offsets=offsets, generator=state.generator, taps=taps,
-        dropout_seed=state.next_dropout_seed(),
+        dropout_seed=dropout_seed,
     )
     with span("lthm/backward"):
         loss.backward()
@@ -141,7 +157,5 @@ def _train_step(state: TrainState, batch: Mapping[str, Any], offsets) -> Tuple[t
         metrics["params_nan"] = params_nan.float()
         if mesh is not None:
             col.all_reduce_(metrics["params_nan"], mesh.group(*mesh.axis_names), op=torch.distributed.ReduceOp.MAX)
-    state.aux = new_aux
-    state.step += 1
     # the whole batch's loss (on a mesh, ``loss`` is this rank's part of it)
-    return (loss.detach() if mesh is None else metrics["train_loss"]), metrics
+    return (loss.detach() if mesh is None else metrics["train_loss"]), metrics, new_aux

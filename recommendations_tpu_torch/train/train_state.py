@@ -10,12 +10,14 @@ from which the step's masks are drawn on the device; both CPU generators:
 their draws are host integers) and the lazy or fused table's update state
 (``train/sparse_table.py``; None on the other table paths).
 ``state_dict`` and ``load_state_dict`` carry all of it, the optimizer's
-gradient accumulation included, for ``train/checkpoint.py``.
+gradient accumulation included, for ``train/checkpoint.py``. ``graph``
+holds the step captured on a card (``train/step_graph.py``); it is no part
+of the state, and ``load_state_dict`` drops it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
@@ -33,6 +35,7 @@ class TrainState:
     step: int = 0
     table_state: Any = None
     dropout_generator: Optional[torch.Generator] = None
+    graph: Any = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         if self.dropout_generator is None:
@@ -68,6 +71,7 @@ class TrainState:
         }
 
     def load_state_dict(self, sd: dict) -> None:
+        self.graph = None
         self.wrapper.module.load_state_dict(sd["module"])
         self.optimizer.load_state_dict({"optimizers": sd["optimizers"], **sd["accumulation"]})
         self.aux = sd["aux"]

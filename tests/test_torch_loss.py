@@ -59,23 +59,65 @@ def test_logq_buckets_and_correction_match_jax(offsets):
     np.testing.assert_array_max_ulp(got, np.asarray(jlogq.logq_correction(js, jnp.asarray(ids))), maxulp=1)
 
 
-def test_logq_update_matches_jax_with_colliding_buckets():
-    """64 buckets for 600 ids: real ids collide with each other and with the
-    pad id 0; the last write in flattened order wins, pad or not."""
+def _sort_and_index_update(state, ids, valid, batch_idx, alpha):
+    """The update as the port first wrote it: each bucket's last occurrence
+    picked out by a boolean index (a host read of the device's values),
+    then written at unique indices."""
+    h = tlogq._buckets(state, ids)
+    v = valid.reshape(-1)
+    bi = torch.as_tensor(batch_idx, dtype=torch.float32)
+    b_new, a_new = state.b.clone(), state.a.clone()
+    for row in range(h.shape[0]):
+        order = torch.sort(h[row], stable=True).indices
+        sorted_h = h[row][order]
+        last = torch.ones_like(sorted_h, dtype=torch.bool)
+        last[:-1] = sorted_h[1:] != sorted_h[:-1]
+        keep = order[last]
+        hk, vk = h[row, keep], v[keep]
+        b_old, a_old = state.b[row, hk], state.a[row, hk]
+        b_new[row, hk] = torch.where(vk, (1.0 - alpha) * b_old + alpha * (bi - a_old), b_old)
+        a_new[row, hk] = torch.where(vk, bi, a_old)
+    return tlogq.LogQState(b=b_new, a=a_new, hash_offsets=state.hash_offsets)
+
+
+@pytest.mark.parametrize("num_buckets,pad_frac", [(64, 0.3), (7, 0.3), (3, 0.6)])
+def test_logq_update_matches_jax_with_colliding_buckets(num_buckets, pad_frac):
+    """``num_buckets`` buckets for 600 ids: real ids collide with each other
+    and with the pad id 0; the last write in flattened order wins, pad or
+    not. Held to JAX and to the sort-and-index update bit for bit."""
     offsets = [0, 34144, 7465477]
-    ids = _ids((6, 100), seed=3, pad_frac=0.3)
+    ids = _ids((6, 100), seed=3, pad_frac=pad_frac)
     valid = ids != 0
-    js = jlogq.init_logq_state(64, offsets, 0.01)
-    ts = tlogq.init_logq_state(64, offsets, 0.01)
+    js = jlogq.init_logq_state(num_buckets, offsets, 0.01)
+    ts = tlogq.init_logq_state(num_buckets, offsets, 0.01)
+    old = ts
     for step in range(3):
         step_ids = np.roll(ids, step * 7, axis=1)
         step_valid = np.roll(valid, step * 7, axis=1)
         js = jlogq.logq_update(js, jnp.asarray(step_ids), jnp.asarray(step_valid), jnp.float32(step), 0.05)
         ts = tlogq.logq_update(ts, torch.from_numpy(step_ids), torch.from_numpy(step_valid), step, 0.05)
+        old = _sort_and_index_update(old, torch.from_numpy(step_ids), torch.from_numpy(step_valid), step, 0.05)
         np.testing.assert_array_equal(ts.b.numpy(), np.asarray(js.b), err_msg=f"b, step {step}")
         np.testing.assert_array_equal(ts.a.numpy(), np.asarray(js.a), err_msg=f"a, step {step}")
+        assert torch.equal(ts.b, old.b) and torch.equal(ts.a, old.a), f"step {step}"
     h = tlogq._buckets(ts, torch.from_numpy(ids))[0]
     assert len(set(h.tolist())) < h.numel()  # buckets did repeat
+    # some bucket's last occurrence is a pad id, another's a real id
+    last_valid = {}
+    for bucket, ok in zip(h.tolist(), valid.reshape(-1).tolist()):
+        last_valid[bucket] = ok
+    assert set(last_valid.values()) == {False, True}
+
+
+def test_lookahead_index_gathers_as_roll():
+    """Slot j of head i reads (j + offset_i) mod s: ``torch.roll`` by
+    -offset_i, for every offset from 0 to s."""
+    s = 9
+    x = torch.arange(2 * s * 3, dtype=torch.float32).reshape(2, s, 3)
+    offsets = torch.arange(s + 1)
+    index = tloss.lookahead_index(offsets, s)
+    for off in range(s + 1):
+        assert torch.equal(x.index_select(1, index[off]), torch.roll(x, -off, dims=1)), off
 
 
 def test_logq_update_does_not_touch_its_input():
@@ -146,6 +188,7 @@ def _output(b, s, k, d, seed):
     }
 
 
+@pytest.mark.parametrize("offsets_on", ["host", "device"])
 @pytest.mark.parametrize(
     "beta,mini_batch,training",
     [
@@ -156,11 +199,15 @@ def _output(b, s, k, d, seed):
         (0.5, 2, False),   # val: no logQ update, one chunk
     ],
 )
-def test_contrastive_step_matches_jax(beta, mini_batch, training):
+def test_contrastive_step_matches_jax(beta, mini_batch, training, offsets_on):
+    """``offsets_on``: the offsets as a numpy array, or as the int64 tensor
+    on the loss's device that a captured step passes."""
     b, s, lookahead, d = 4, 20, [0, 2, 5], 16
     out = _output(b, s, len(lookahead), d, seed=7)
     rng = jax.random.PRNGKey(5)
     offsets = np.asarray(jloss.sample_offsets(jax.random.split(rng)[1], lookahead))
+    if offsets_on == "device":
+        offsets = torch.from_numpy(offsets.astype(np.int64))
     kw = dict(
         lookahead=lookahead, temperature=0.05, beta=beta, alpha=0.05,
         metrics_k_all=[1, 5, 20], train_mini_batch_size=mini_batch, training=training,

@@ -219,12 +219,12 @@ def test_lfm2_train_step_opens_its_ranges_and_counts_the_routed_rows_once():
     """Each mixer, FFN and MoE phase in the forward and again in remat's
     rerun, the MoE's backward ranges in ``lthm/backward``; the counter adds
     each MoE layer's (token, slot) rows once a step, only under the
-    profiler."""
+    profiler; the host tally counts both steps."""
     spans.reset_counters()
     state = TrainState.create(lfm2_wrapper())
     batch = tiny_batch()
     train_step(state, batch, offsets=[0, 1])
-    assert spans.counters() == {}
+    assert spans.counters() == {"lthm/step_graph/eager": torch.tensor(1)}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         train_step(state, batch, offsets=[0, 1])
     got = ranges(prof)
@@ -241,6 +241,7 @@ def test_lfm2_train_step_opens_its_ranges_and_counts_the_routed_rows_once():
     for name in ("lthm/short_conv", "lthm/moe_route", "lthm/moe_experts", "lthm/moe_combine"):
         assert sum(within(r, forward) for r in got if r[0] == name) == count[name] // 2, name
     counters = spans.counters()
+    assert int(counters.pop("lthm/step_graph/eager")) == 2
     assert sorted(counters) == list(LFM2_MOE_BLOCKS)
     # 4 users, the CLS column and 24 positions, 2 experts a position
     assert all(c.dtype == torch.int64 and c.shape == (8,) and int(c.sum()) == 4 * 25 * 2
