@@ -3714,7 +3714,6 @@ def main() -> int:
     from recommendations_tpu_torch.models.lthm.config import LTHMModelConfig
     from recommendations_tpu_torch.models.lthm.loss import sample_offsets
     from recommendations_tpu_torch.models.lthm.wrapper import LTHMModelWrapper
-    from recommendations_tpu_torch.models.lthm import loss as lthm_loss
     from recommendations_tpu_torch.ops import fused_attention as fa
     from recommendations_tpu_torch.ops import fused_ce as fc
     from recommendations_tpu_torch.train.step import train_step
@@ -4201,8 +4200,8 @@ def main() -> int:
     # the CE kernels at the path's shape (one 32-user chunk, beta as
     # LTHM-base's), each alone with its inputs ready, and its plain version
     # (ce_row_diag also beside torch.linalg.vecdot, a yardstick). The
-    # rounded case (the eager setting's route on the card) and CECore (its
-    # plain (N, N) products) on the same problem beside them.
+    # rounded case (the eager setting's route on the card) on the same
+    # problem beside them.
     beta = cfg.log_q_config.beta
     ce_times = time_ce(fc, n_ce, CONTEXT, d_ce, beta)
     q, c, v, lq, dce = ce_inputs(n_ce, CONTEXT, d_ce, "roll", seed=12)
@@ -4211,23 +4210,10 @@ def main() -> int:
     fused_bwd_ms = cuda_ms(lambda: fc.ce_backward(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta), 30)
     rounded_fwd_ms = cuda_ms(lambda: fc.ce_forward(q, c, v, lq, CONTEXT, INV_T, beta, True), 30)
     rounded_bwd_ms = cuda_ms(lambda: fc.ce_backward(q, c, v, lq, lse, dce, CONTEXT, INV_T, beta, True), 30)
-    qg, cg = q.detach().requires_grad_(), c.detach().requires_grad_()
-
-    def eager_fwd():
-        with torch.no_grad():
-            lthm_loss.CECore.apply(q, c, v, lq, CONTEXT, INV_T, beta)
-
-    def eager_fwd_bwd():
-        ce_e, _ = lthm_loss.CECore.apply(qg, cg, v, lq, CONTEXT, INV_T, beta)
-        torch.autograd.grad(ce_e, (qg, cg), dce)
-
-    eager_fwd_ms = cuda_ms(eager_fwd, 10)
-    eager_bwd_ms = cuda_ms(eager_fwd_bwd, 10) - eager_fwd_ms
     print(f"[5] the CE on one (N={n_ce}, D={d_ce}) chunk: fused forward {fused_fwd_ms:.4f} ms "
           f"(ce_row_diag with the shift, ce_fwd), backward {fused_bwd_ms:.4f} ms (ce_dq, ce_dc); rounded "
-          f"case forward {rounded_fwd_ms:.4f} ms, backward {rounded_bwd_ms:.4f} ms; CECore forward "
-          f"{eager_fwd_ms:.4f} ms, backward {eager_bwd_ms:.4f} ms", flush=True)
-    del q, c, v, lq, dce, qg, cg, lse
+          f"case forward {rounded_fwd_ms:.4f} ms, backward {rounded_bwd_ms:.4f} ms", flush=True)
+    del q, c, v, lq, dce, lse
     torch.cuda.empty_cache()
     # the production chunk (32 users of 1024 tokens): the CE kernels' shape
     # on the production step

@@ -4,11 +4,9 @@ Port of ``recommendations_tpu/models/lthm/loss.py``, with both of its CEs.
 ``fused_ce`` names the function: ``fused_ce=False`` is ``_ce_core``, whose
 logits are the GEMM output stored in bf16 before the float32 scale by the
 temperature; ``fused_ce=True`` is the fused CE, whose logits stay float32.
-On the card both run the CE kernels of ``ops/fused_ce.py``, which never
-store the (N, N) plane, the former their bf16-rounding case
-(``round_logits``). On the CPU ``fused_ce=False`` runs ``CECore``, the JAX
-package's ``_ce_core`` and its hand-written backward as plain (N, N)
-products; it is also the card tests' yardstick for the rounded case. The
+Both run ``ops/fused_ce.py``'s ``fused_contrastive_ce``, the former its
+bf16-rounding case (``round_logits``): on the card its CE kernels, which
+never store the (N, N) plane, on the CPU their plain versions. The
 settings agree on ce up to that rounding, and on rank semantics: the
 positive's own column is never counted. So on a CUDA device either setting
 takes only the kernels' widths (``product_emb_dim`` in ``SUPPORTED_DIMS``,
@@ -64,8 +62,6 @@ from recommendations_tpu_torch.parallel import collectives as col
 
 Metrics = Dict[str, torch.Tensor]
 
-_BIG_NEG = -1e9
-
 
 def sample_offsets(generator: torch.Generator, lookahead: Sequence[int]) -> torch.Tensor:
     """offset_0 = lookahead[0]; offset_i ~ U(offset_{i-1} + 1, lookahead[i]),
@@ -99,65 +95,6 @@ def lookahead_index(offsets: torch.Tensor, s: int) -> torch.Tensor:
     return torch.remainder(torch.arange(s, device=offsets.device)[None, :] + offsets[:, None], s)
 
 
-def _masked_adj(q, c, vv, lqv, s: int, inv_t: float, beta: float):
-    """(logits, adj, eye): the masked logits, with logQ subtracted per
-    candidate column off the diagonal. The GEMM output is stored in the
-    operand dtype (bf16) before the f32 upcast, as in the JAX package."""
-    n = q.shape[0]
-    raw = torch.matmul(q, c.t()).float() * inv_t
-    idx = torch.arange(n, device=q.device)
-    user = idx // s
-    eye = idx[:, None] == idx[None, :]
-    masked = ((user[:, None] == user[None, :]) & ~eye) | ~vv[None, :]
-    logits = torch.where(masked, _BIG_NEG, raw)
-    adj = torch.where(eye, logits, logits - beta * lqv[None, :])
-    return logits, adj, eye
-
-
-def _ce_fwd_impl(q, c, vv, lqv, s, inv_t, beta):
-    logits, adj, eye = _masked_adj(q, c, vv, lqv, s, inv_t, beta)
-    # analytic logsumexp shift: inputs are L2-normalized, so raw logits are
-    # bounded by 1/temperature and the logQ term by beta * max|logQ|
-    m = inv_t + beta * lqv.abs().max() + 1.0
-    lse = m + torch.log(torch.exp(adj - m).sum(-1))
-    diag = adj.diagonal()
-    ce = lse - diag
-    rank = (logits > diag[:, None]).sum(-1, dtype=torch.int32)
-    return ce, rank
-
-
-class CECore(torch.autograd.Function):
-    """Per-row contrastive CE and positive rank, with the JAX package's
-    hand-written backward: the logits are recomputed, g = (softmax(adj) - I)
-    * dce / temperature is formed once in bf16, and dq = g.C, dc = g^T.Q are
-    bf16 products with f32 accumulation."""
-
-    @staticmethod
-    def forward(ctx, q, c, vv, lqv, s: int, inv_t: float, beta: float):
-        ce, rank = _ce_fwd_impl(q, c, vv, lqv, s, inv_t, beta)
-        ctx.save_for_backward(q, c, vv, lqv, ce)
-        ctx.consts = (s, inv_t, beta)
-        ctx.mark_non_differentiable(rank)
-        return ce, rank
-
-    @staticmethod
-    def backward(ctx, dce, _drank):
-        with span("lthm/ce_backward"):
-            q, c, vv, lqv, ce = ctx.saved_tensors
-            s, inv_t, beta = ctx.consts
-            _, adj, eye = _masked_adj(q, c, vv, lqv, s, inv_t, beta)
-            diag = adj.diagonal()
-            # a fully masked row (ce = -inf) gets lse 0, so its p underflows to
-            # exactly 0 instead of inf (inf * 0 would NaN the chunk's dc)
-            lse = torch.where(torch.isfinite(ce), ce + diag, 0.0)
-            a = dce.float() * inv_t
-            p = torch.exp(adj - lse[:, None])
-            g16 = ((p - eye.float()) * a[:, None]).to(torch.bfloat16)
-            dq = torch.matmul(g16, c.to(torch.bfloat16)).to(q.dtype)
-            dc = torch.matmul(g16.t(), q.to(torch.bfloat16)).to(c.dtype)
-            return dq, dc, None, None, None, None, None
-
-
 def check_ce_width(width: int, device) -> None:
     """Raises ValueError where ``device`` is a CUDA device and ``width`` (the
     heads' ``product_emb_dim``) is not one the CE kernels take; the CPU's
@@ -170,13 +107,9 @@ def check_ce_width(width: int, device) -> None:
 
 
 def _ce_rows(q16, c16, v, lq, s: int, temperature: float, beta: float, fused_ce: bool = False):
-    """Per-row (ce, rank). ``fused_ce=False`` (bf16-stored logits): the CE
-    kernels' rounded case on a CUDA tensor, ``CECore``'s plain products
-    elsewhere; ``fused_ce=True``: the fused CE, float32 logits."""
-    inv_t = float(1.0 / temperature)
-    if fused_ce or q16.is_cuda:
-        return fused_contrastive_ce(q16, c16, v, lq, s, inv_t, float(beta), round_logits=not fused_ce)
-    return CECore.apply(q16, c16, v, lq, s, inv_t, float(beta))
+    """Per-row (ce, rank): the fused CE, with bf16-stored logits
+    (``round_logits``) where ``fused_ce`` is unset."""
+    return fused_contrastive_ce(q16, c16, v, lq, s, float(1.0 / temperature), float(beta), round_logits=not fused_ce)
 
 
 def _head_loss(

@@ -28,12 +28,15 @@ bf16, and sums dq = g.C and dc = g^T.Q in f32, each rounded to bf16 once.
 The rounded case (``round_logits=True``): the same function with each
 product q_i.c_j, and the row dot q_i.c_i, rounded to bf16 before the scale
 by ``inv_t``, as the JAX package's unfused ``_ce_core`` stores its GEMM
-output (``CECore`` in ``models/lthm/loss.py``). Its kernels are the same four
-with that rounding compiled in (``ROUNDED_KERNELS``: ``ce_row_diag_rounded``,
-``ce_fwd_rounded``, ``ce_dq_rounded``, ``ce_dc_rounded``), each with a launch
-count of its own, built from ``csrc/fused_ce_rounded.cu`` as a library of
-their own, so a process builds only the case it launches; the plain versions
-round where the kernels do.
+output. Its kernels are the same four with that rounding compiled in
+(``ROUNDED_KERNELS``: ``ce_row_diag_rounded``, ``ce_fwd_rounded``,
+``ce_dq_rounded``, ``ce_dc_rounded``), each with a launch count of its own,
+built from ``csrc/fused_ce_rounded.cu`` as a library of their own, so a
+process builds only the case it launches. Its plain versions are the eager
+CE of the CPU (``fused_ce`` unset) and keep ``_ce_core``'s arithmetic: S is
+a bf16 GEMM's output (float32 accumulation, stored in bf16), and dq, dc are
+bf16 GEMMs of the bf16 g, so over many steps they sum as the JAX package
+does.
 
 One difference from the TPU kernel, on purpose: rank counts the columns
 j != i whose logit exceeds diag_i, as the unfused ``_ce_core`` does. The TPU
@@ -117,15 +120,28 @@ def logsumexp_shift(lq: torch.Tensor, inv_t: float, beta: float) -> torch.Tensor
     return lq.abs().amax().mul(beta).add(inv_t).add(1.0)
 
 
-def _round_bf16(x: torch.Tensor, round_logits: bool) -> torch.Tensor:
-    """x rounded to bf16 and widened back (the rounded case), else x."""
-    return x.bfloat16().float() if round_logits else x
+def _product(a: torch.Tensor, b: torch.Tensor, round_logits: bool) -> torch.Tensor:
+    """a @ b: float32 products, or in the rounded case a bf16 GEMM (float32
+    accumulation, the output stored in bf16; on a CUDA tensor with cuBLAS's
+    reduced-precision reductions off for the call)."""
+    if not round_logits:
+        return a.float() @ b.float()
+    a, b = a.bfloat16(), b.bfloat16()
+    if not a.is_cuda:
+        return a @ b
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return a @ b
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
 
 
 def _masked_plane(q16, c16, v, lq, s: int, inv_t: float, beta: float, round_logits: bool = False):
     """(logits, adj, eye) of the whole (N, N) plane, in float32."""
     n = q16.shape[0]
-    raw = _round_bf16(q16.float() @ c16.float().t(), round_logits) * inv_t
+    raw = _product(q16, c16.t(), round_logits).float() * inv_t
     idx = torch.arange(n, device=q16.device)
     user = idx // s
     eye = idx[:, None] == idx[None, :]
@@ -139,7 +155,9 @@ def row_diag_reference(q16, c16, v, inv_t: float, round_logits: bool = False) ->
     """The diagonal of ``ce_row_diag``'s plain version: the f32 row dot
     q_i.c_i (rounded to bf16 in the rounded case) times inv_t, -1e9 where
     the row's candidate is invalid."""
-    dot = _round_bf16((q16.float() * c16.float()).sum(-1), round_logits)
+    dot = (q16.float() * c16.float()).sum(-1)
+    if round_logits:
+        dot = dot.bfloat16().float()
     return torch.where(v, dot * inv_t, BIG_NEG)
 
 
@@ -196,27 +214,34 @@ def ce_forward(q16, c16, v, lq, s: int, inv_t: float, beta: float, round_logits:
     return ce, rank, lse
 
 
-def ce_grad_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, wrt: str,
-                      round_logits: bool = False):
-    """Plain PyTorch version of ``ce_dq`` (``wrt="q"``) or ``ce_dc``
-    (``wrt="c"``), in the operands' type."""
+def _grad_plane(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, round_logits: bool):
+    """g = (p - I) * dce * inv_t of the whole (N, N) plane, rounded to bf16."""
     _, adj, eye = _masked_plane(q16, c16, v, lq, s, inv_t, beta, round_logits)
     a = dce.float() * inv_t
     lse = lse.float()[:, None]
     # padded and fully masked rows: exp(adj - lse) would overflow, and
     # inf * (a = 0) would make the products NaN
     p = torch.where(lse > LSE_GUARD, torch.exp(adj - lse), 0.0)
-    g = ((p - eye.float()) * a[:, None]).to(torch.bfloat16).float()
+    return ((p - eye.float()) * a[:, None]).to(torch.bfloat16)
+
+
+def ce_grad_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, wrt: str,
+                      round_logits: bool = False):
+    """Plain PyTorch version of ``ce_dq`` (``wrt="q"``) or ``ce_dc``
+    (``wrt="c"``), in the operands' type."""
+    g16 = _grad_plane(q16, c16, v, lq, lse, dce, s, inv_t, beta, round_logits)
     if wrt == "q":
-        return (g @ c16.float()).to(q16.dtype)
-    return (g.t() @ q16.float()).to(c16.dtype)
+        return _product(g16, c16, round_logits).to(q16.dtype)
+    return _product(g16.t(), q16, round_logits).to(c16.dtype)
 
 
 def ce_backward_reference(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float,
                           round_logits: bool = False):
-    """The plain versions of ``ce_dq`` and ``ce_dc``: (dq, dc)."""
+    """The plain versions of ``ce_dq`` and ``ce_dc``: (dq, dc), from one
+    plane g."""
     _check(q16, c16, v, lq)
-    return tuple(ce_grad_reference(q16, c16, v, lq, lse, dce, s, inv_t, beta, w, round_logits) for w in "qc")
+    g16 = _grad_plane(q16, c16, v, lq, lse, dce, s, inv_t, beta, round_logits)
+    return _product(g16, c16, round_logits).to(q16.dtype), _product(g16.t(), q16, round_logits).to(c16.dtype)
 
 
 def ce_backward(q16, c16, v, lq, lse, dce, s: int, inv_t: float, beta: float, round_logits: bool = False):

@@ -584,37 +584,31 @@ def test_rounded_ce_kernels_match_rounded_plain_versions(cuda, n, s, d, beta, pa
 
 @pytest.mark.parametrize("n,s,d,beta,pattern", ROUNDED_SHAPES)
 def test_rounded_route_matches_ce_core_on_card(cuda, n, s, d, beta, pattern):
-    """``fused_contrastive_ce(round_logits=True)`` against ``CECore`` on the
-    card, forward and backward, on grid rows (with cuBLAS's reduced-precision
-    reductions off, so its GEMM sums S exactly too): ce within 2e-5 (1 +
-    |ce|), the kernels' exp2 and sum order against torch's; rank equal; dq
-    and dc within one bf16 ulp of the largest element, with chip_smoke.py's
-    floor of 2**-16 * inv_t. One launch of each rounded kernel, none of the
-    unrounded ones."""
-    q, c, v, lq, dce = ce_inputs(n, s, d, pattern, seed=n + d, grid=True)
+    """``fused_contrastive_ce(round_logits=True)`` on the card against the
+    same call on CPU copies of its inputs (the rounded plain versions,
+    ``_ce_core``'s arithmetic), forward and backward, on grid rows: ce
+    within 2e-5 (1 + |ce|), the kernels' exp2 and sum order against
+    torch's; rank equal; dq and dc within one bf16 ulp of the largest
+    element, with chip_smoke.py's floor of 2**-16 * inv_t. One launch of
+    each rounded kernel on the card, none of the unrounded ones."""
+    inputs = ce_inputs(n, s, d, pattern, seed=n + d, grid=True)
 
-    def run(ce_fn):
+    def run(q, c, v, lq, dce):
         qg, cg = q.clone().requires_grad_(), c.clone().requires_grad_()
-        ce, rank = ce_fn(qg, cg)
+        ce, rank = fc.fused_contrastive_ce(qg, cg, v, lq, s, 20.0, beta, round_logits=True)
         (torch.where(torch.isfinite(ce), ce, 0.0) * dce).sum().backward()
-        torch.cuda.synchronize()
         return ce.detach(), rank, qg.grad, cg.grad
 
     counted = (*fc.KERNELS, *fc.ROUNDED_KERNELS)
     before = [k.launches for k in counted]
-    ce, rank, dq, dc = run(lambda a, b: fc.fused_contrastive_ce(a, b, v, lq, s, 20.0, beta, round_logits=True))
+    ce, rank, dq, dc = (x.cpu() for x in run(*inputs))
     assert [k.launches - n0 for k, n0 in zip(counted, before)] == [0] * 4 + [1] * 4
-    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        core_ce, core_rank, core_dq, core_dc = run(lambda a, b: tloss.CECore.apply(a, b, v, lq, s, 20.0, beta))
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
-    fin = torch.isfinite(core_ce)
+    plain_ce, plain_rank, plain_dq, plain_dc = run(*(x.cpu() for x in inputs))
+    fin = torch.isfinite(plain_ce)
     assert torch.equal(torch.isfinite(ce), fin)
-    assert ((ce - core_ce).abs()[fin] <= CE_TOL * (1 + core_ce.abs()[fin])).all()
-    assert torch.equal(rank, core_rank)
-    for g_, w_ in ((dq, core_dq), (dc, core_dc)):
+    assert ((ce - plain_ce).abs()[fin] <= CE_TOL * (1 + plain_ce.abs()[fin])).all()
+    assert torch.equal(rank, plain_rank)
+    for g_, w_ in ((dq, plain_dq), (dc, plain_dc)):
         assert g_.dtype == torch.bfloat16 and bool(torch.isfinite(g_.float()).all())
         assert (g_.float() - w_.float()).abs().max().item() <= max(_bf16_ulp(w_), 2**-16 * 20.0)
 
@@ -624,8 +618,8 @@ def test_eager_ce_setting_runs_the_rounded_kernels(cuda, chunk, dtype):
     """One training ``contrastive_step`` at ``fused_ce=False`` on the card, 6
     lookahead heads over 4 users in chunks of 2 (float32 heads) or 1 (bf16
     heads, whose one-user slices are strided views): 6 launches of each
-    rounded kernel a chunk, none of the unrounded ones, and no call to
-    ``CECore`` (its (N, N) products); the loss finite, its gradient reaching
+    rounded kernel a chunk, none of the unrounded ones, and no call to a
+    plain version (its (N, N) products); the loss finite, its gradient reaching
     the heads where a chunk holds two users (a one-user chunk has no
     negative: every other column is its own user's, so its rows weigh 0)."""
     b, s, d, heads = 4, 40, 64, 6
@@ -637,7 +631,9 @@ def test_eager_ce_setting_runs_the_rounded_kernels(cuda, chunk, dtype):
     output = {"next_token_emb": out_emb, "current_token_emb": in_emb, "current_token_mask": mask,
               "current_token_ids": ids}
     before = [k.launches for k in (*fc.KERNELS, *fc.ROUNDED_KERNELS)]
-    with mock.patch.object(tloss.CECore, "apply", side_effect=AssertionError("CECore ran on the card")):
+    plain_ran = AssertionError("a plain version ran on the card")
+    with mock.patch.object(fc, "ce_forward_reference", side_effect=plain_ran), \
+            mock.patch.object(fc, "ce_backward_reference", side_effect=plain_ran):
         loss, metrics, _ = tloss.contrastive_step(
             output, tlogq.init_logq_state(64, [0, 7], 0.01, device="cuda"), torch.tensor(3.0, device="cuda"),
             lookahead=[0, 1, 2, 3, 4, 5], temperature=0.05, beta=0.5, alpha=0.05, metrics_k_all=[1, 5],

@@ -298,13 +298,12 @@ def grid_unit_rows(g: torch.Generator, n: int, d: int, device=None) -> torch.Ten
 def test_rounded_plain_versions_give_ce_core(beta, all_invalid_user, d):
     """The rounded plain versions (``round_logits=True``) against the JAX
     package's ``_ce_core`` (op by op, as ``tests/test_torch_loss.py`` runs
-    it) and against ``CECore``, the port's copy of it, on grid rows whose
-    products are exact in float32, so all three round the same S to bf16.
-    ce: 2e-6 (1 + |ce|), the same float32 operations on the same logits, a
-    reduction blocked otherwise at most; rank: equal; dq, dc: one bf16 ulp of
-    the largest element (the same bf16 g, its products summed in another
-    order). The unrounded plain version misses CECore's ce by more than
-    that, so the test sees the rounding."""
+    it), on grid rows whose products are exact in float32, so both round
+    the same S to bf16. ce: 2e-6 (1 + |ce|), the same float32 operations on
+    the same logits, a reduction blocked otherwise at most; rank: equal; dq,
+    dc: one bf16 ulp of the largest element (the same bf16 g, its products
+    summed in another order). The unrounded plain version misses
+    ``_ce_core``'s ce by more than that, so the test sees the rounding."""
     n_users, s = 4, 24
     n = n_users * s
     g = torch.Generator().manual_seed(d + int(all_invalid_user))
@@ -317,9 +316,6 @@ def test_rounded_plain_versions_give_ce_core(beta, all_invalid_user, d):
 
     ce, rank, lse = tfc.ce_forward_reference(q, c, v, lq, s, INV_T, beta, round_logits=True)
     dq, dc = tfc.ce_backward_reference(q, c, v, lq, lse, dce, s, INV_T, beta, round_logits=True)
-    tq, tc = q.clone().requires_grad_(), c.clone().requires_grad_()
-    core_ce, core_rank = tloss.CECore.apply(tq, tc, v, lq, s, INV_T, beta)
-    (torch.where(torch.isfinite(core_ce), core_ce, 0.0) * dce).sum().backward()
 
     jv, jlq, jdce = jnp.asarray(v.numpy()), jnp.asarray(lq.numpy()), jnp.asarray(dce.numpy())
 
@@ -329,23 +325,18 @@ def test_rounded_plain_versions_give_ce_core(beta, all_invalid_user, d):
 
     jq, jc = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, c))
     (_, (jce, jrank)), (jdq, jdc) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(jq, jc)
-    yardsticks = {
-        "_ce_core": tuple(torch.tensor(np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x))
-                          for x in (jce, jrank, jdq, jdc)),
-        "CECore": (core_ce.detach(), core_rank, tq.grad.float(), tc.grad.float()),
-    }
-    for name, (want_ce, want_rank, want_dq, want_dc) in yardsticks.items():
-        fin = torch.isfinite(want_ce)
-        assert torch.equal(torch.isfinite(ce), fin), name
-        err = ((ce - want_ce).abs() / (1.0 + want_ce.abs()))[fin].max().item()
-        assert err <= 2e-6, (name, err)
-        assert torch.equal(rank, want_rank.to(rank.dtype)), name
-        for got, want in ((dq, want_dq), (dc, want_dc)):
-            assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
-            assert (got.float() - want).abs().max().item() <= 2**-8 * want.abs().max().item(), name
-    fin = torch.isfinite(core_ce)
+    want_ce, want_dq, want_dc = (torch.tensor(np.asarray(x, np.float32)) for x in (jce, jdq, jdc))
+    want_rank = torch.tensor(np.asarray(jrank))
+    fin = torch.isfinite(want_ce)
+    assert torch.equal(torch.isfinite(ce), fin)
+    err = ((ce - want_ce).abs() / (1.0 + want_ce.abs()))[fin].max().item()
+    assert err <= 2e-6, err
+    assert torch.equal(rank, want_rank.to(rank.dtype))
+    for got, want in ((dq, want_dq), (dc, want_dc)):
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+        assert (got.float() - want).abs().max().item() <= 2**-8 * want.abs().max().item()
     unrounded = tfc.ce_forward_reference(q, c, v, lq, s, INV_T, beta)[0]
-    assert ((unrounded - core_ce.detach()).abs() / (1.0 + core_ce.detach().abs()))[fin].max().item() > 1e-4
+    assert ((unrounded - want_ce).abs() / (1.0 + want_ce.abs()))[fin].max().item() > 1e-4
 
 
 def test_rounded_route_on_cpu_runs_the_rounded_plain_versions():
@@ -363,23 +354,24 @@ def test_rounded_route_on_cpu_runs_the_rounded_plain_versions():
 
 @pytest.mark.parametrize("fused_ce", [False, True])
 def test_ce_rows_routes_each_setting(fused_ce):
-    """``_ce_rows`` on CPU tensors: ``fused_ce=False`` calls ``CECore`` (the
-    rounded kernels are the card's route), ``fused_ce=True`` the fused CE
-    with float32 logits (``round_logits`` false); each returns what it
-    returned."""
+    """``_ce_rows`` calls the fused CE once on any device, with bf16-stored
+    logits (``round_logits``) where ``fused_ce`` is unset, and returns what
+    it returned."""
     g = torch.Generator().manual_seed(4)
     q, c = grid_unit_rows(g, 48, 32), grid_unit_rows(g, 48, 32)
     v, lq = torch.rand(48, generator=g) >= 0.2, -torch.rand(48, generator=g) * 5.0
-    core = mock.Mock(wraps=tloss.CECore.apply)
-    fused = mock.Mock(wraps=tloss.fused_contrastive_ce)
-    with mock.patch.object(tloss.CECore, "apply", core), mock.patch.object(tloss, "fused_contrastive_ce", fused):
+    calls = []
+
+    def fused(*args, **kwargs):
+        calls.append((kwargs, tfc.fused_contrastive_ce(*args, **kwargs)))
+        return calls[-1][1]
+
+    with mock.patch.object(tloss, "fused_contrastive_ce", fused):
         ce, rank = tloss._ce_rows(q, c, v, lq, 12, 0.05, 0.5, fused_ce)
-    assert (core.call_count, fused.call_count) == ((0, 1) if fused_ce else (1, 0))
-    if fused_ce:
-        assert fused.call_args.kwargs["round_logits"] is False
-        want = tfc.ce_forward_reference(q, c, v, lq, 12, 20.0, 0.5)[:2]
-    else:
-        want = tloss.CECore.apply(q, c, v, lq, 12, 20.0, 0.5)
+    (kwargs, (got_ce, got_rank)), = calls
+    assert kwargs["round_logits"] is (not fused_ce)
+    assert torch.equal(ce, got_ce) and torch.equal(rank, got_rank)
+    want = tfc.ce_forward_reference(q, c, v, lq, 12, 20.0, 0.5, round_logits=not fused_ce)[:2]
     assert torch.equal(ce, want[0]) and torch.equal(rank, want[1])
 
 

@@ -159,7 +159,8 @@ def test_ce_core_forward_and_backward_match_jax(beta, all_invalid_user):
     (_, (jce, jrank)), (jdq, jdc) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(q16, c16)
     tq = torch.tensor(np.asarray(q16.astype(jnp.float32))).bfloat16().requires_grad_()
     tc = torch.tensor(np.asarray(c16.astype(jnp.float32))).bfloat16().requires_grad_()
-    tce, trank = tloss.CECore.apply(tq, tc, torch.from_numpy(v), torch.from_numpy(lq), s, inv_t, beta)
+    tce, trank = tloss._ce_rows(tq, tc, torch.from_numpy(v), torch.from_numpy(lq), s, 1.0 / inv_t, beta,
+                                fused_ce=False)
     (torch.where(torch.isfinite(tce), tce, 0.0) * torch.from_numpy(g)).sum().backward()
 
     np.testing.assert_array_equal(trank.numpy(), np.asarray(jrank))
